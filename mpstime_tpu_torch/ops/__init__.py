@@ -1,0 +1,7 @@
+from .env import boundary_env, build_left_envs, env_step_left, env_step_right
+from .bond_update import apply_update, kld_loss_grad, mse_loss_grad
+from .bond_kernels import bond_block_steps, bond_step
+
+__all__ = ["boundary_env", "build_left_envs", "env_step_left",
+           "env_step_right", "apply_update", "kld_loss_grad",
+           "mse_loss_grad", "bond_step", "bond_block_steps"]
