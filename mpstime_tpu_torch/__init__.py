@@ -4,9 +4,10 @@ Time-series classification with label-indexed Matrix Product States
 (MPSTime.jl's method), trained by DMRG-style two-site sweeps.  This package
 keeps the JAX package's module paths, public names and array layouts; the
 JAX package stays the reference each module is held against.  The training
-sweep's fused bond step runs as a hand-written CUDA kernel on an NVIDIA GPU
-(``fit_mps(..., device="cuda")``) and as its plain PyTorch version on the
-CPU.  Importing the package imports neither JAX nor a compiler.
+sweep's bond steps run as hand-written CUDA kernels on an NVIDIA GPU, where
+the entry points run unless the caller asks for the CPU (``device="cpu"``),
+and as their plain PyTorch versions on the CPU.  Importing the package
+imports neither JAX nor a compiler.
 """
 
 from .options import MPSOptions
@@ -15,7 +16,8 @@ from .encodings import (EncodingSpec, get_encoding, encoding_range,
 from .models.mps import (MPS, SingleMPS, random_mps, contract_batch,
                          contract_batch_scaled, expand_label_index)
 from .training.fit import fit_mps, TrainedMPS
-from .summary import classify, classify_encoded
+from .summary import (classify, classify_encoded, classify_overlap,
+                      get_training_summary, sweep_summary, KL_div)
 from .utils.preprocessing import (TransformNorms, transform_data,
                                   transform_train_data, transform_test_data,
                                   invert_test_transform)
@@ -29,6 +31,7 @@ __all__ = [
     "MPS", "SingleMPS", "random_mps", "contract_batch",
     "contract_batch_scaled", "expand_label_index",
     "fit_mps", "TrainedMPS", "classify", "classify_encoded",
+    "classify_overlap", "get_training_summary", "sweep_summary", "KL_div",
     "TransformNorms", "transform_data", "transform_train_data",
     "transform_test_data", "invert_test_transform",
 ]

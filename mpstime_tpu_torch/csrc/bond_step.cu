@@ -1,4 +1,5 @@
-// Fused DMRG bond step for NVIDIA Hopper (sm_90a): K12 and K12m.
+// Fused DMRG bond step for NVIDIA Hopper (sm_90a): K12 and K12m, and the
+// two halves K1 and K2 of the bond step around an outside QR.
 //
 // Replaces the Pallas TPU kernels _k12_kernel (mpstime_tpu/ops/pallas_bond.py,
 // one bond step per launch) and _k12m_kernel (same file, Bb consecutive bond
@@ -6,6 +7,16 @@
 // K12 is the launch at Bb = 1 (with the MSE operand), K12m the launch at a
 // runtime Bb, so the remainder block needs no second build and K12m equals
 // chained K12 launches exactly.
+//
+// K1 and K2 replace _k1_kernel and _k2_kernel of the same file: the
+// orth="qr" refresh bond runs K1 (bond tensor, gradient, step, q column-
+// normalised power steps; BT and Y to device memory), a thin QR of Y in
+// PyTorch, then K2 (projection, cutoff mask, emission, environment advance).
+// They are built from the same device functions as K12, phase for phase, so
+// the three cannot drift apart; K1 writes BT straight into its output.  At
+// the main-path shape K1 is a chain of ~8.6 M multiply-adds and K2 of
+// ~1.1 M, each over ~0.2 MB of operands: latency-bound like K12, and run the
+// same way, one thread block per launch.
 //
 // Per bond it computes: the bond tensor BT per class, yhat and the KLD or
 // MSE gradient, a TSGO or GD step with renormalisation, q warm power steps
@@ -51,7 +62,7 @@ int mpst_k12m_launch(const void* lhs, const void* center0, const void* envx,
                      void* ws, int Bb, int C, int chi, int d, int N,
                      int forward, int refresh, int q_iters, int mse, int gd,
                      float eta, float cutoff, float max_rank, void* stream) {
-  mpst::K12Args a;
+  mpst::K12Args a{};
   a.lhs = static_cast<const float*>(lhs);
   a.center0 = static_cast<const float*>(center0);
   a.envx = static_cast<const float*>(envx);
@@ -84,6 +95,74 @@ int mpst_k12m_launch(const void* lhs, const void* center0, const void* envx,
   a.max_rank = max_rank;
   mpst::k12m_kernel<<<1, mpst::kMaxThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K1.  gls: [N] total log-scales (MSE only, else null); emit_y = 0 passes
+// v0 through as Y (frozen bond).  Scratch: mpst_k12_workspace_floats.
+int mpst_k1_launch(const void* lhs, const void* center0, const void* le,
+                   const void* re, const void* gls, const void* phil,
+                   const void* phir, const void* y1h, const void* w,
+                   const void* v0, void* bt_out, void* y_out, void* ws, int C,
+                   int chi, int d, int N, int forward, int emit_y,
+                   int q_iters, int qr, int mse, int gd, float eta,
+                   void* stream) {
+  mpst::K12Args a{};
+  a.lhs = static_cast<const float*>(lhs);
+  a.center0 = static_cast<const float*>(center0);
+  a.ls0 = static_cast<const float*>(gls);
+  a.phil = static_cast<const float*>(phil);
+  a.phir = static_cast<const float*>(phir);
+  a.y1h = static_cast<const float*>(y1h);
+  a.w = static_cast<const float*>(w);
+  a.v0 = static_cast<const float*>(v0);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = 1;
+  a.C = C;
+  a.chi = chi;
+  a.d = d;
+  a.N = N;
+  a.forward = forward;
+  a.refresh = emit_y;
+  a.q_iters = q_iters;
+  a.qr = qr;
+  a.mse = mse;
+  a.gd = gd;
+  a.eta = eta;
+  mpst::k1_kernel<<<1, mpst::kMaxThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const float*>(le), static_cast<const float*>(re),
+      static_cast<float*>(bt_out), static_cast<float*>(y_out));
+  return (int)cudaGetLastError();
+}
+
+// K2.  env / env_ls / phi: the advancing side's environment, log-scales and
+// features.  Scratch: mpst_k12_workspace_floats.
+int mpst_k2_launch(const void* bt, const void* q, const void* env,
+                   const void* env_ls, const void* phi, void* center_out,
+                   void* core_out, void* env_out, void* ls_out, void* ws,
+                   int C, int chi, int d, int N, int forward, float cutoff,
+                   float max_rank, void* stream) {
+  mpst::K12Args a{};
+  a.env0 = static_cast<const float*>(env);
+  a.ls0 = static_cast<const float*>(env_ls);
+  a.phil = static_cast<const float*>(phi);
+  a.center_out = static_cast<float*>(center_out);
+  a.core_out = static_cast<float*>(core_out);
+  a.env_out = static_cast<float*>(env_out);
+  a.ls_out = static_cast<float*>(ls_out);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = 1;
+  a.C = C;
+  a.chi = chi;
+  a.d = d;
+  a.N = N;
+  a.forward = forward;
+  a.cutoff = cutoff;
+  a.max_rank = max_rank;
+  mpst::k2_kernel<<<1, mpst::kMaxThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const float*>(bt), static_cast<const float*>(q));
   return (int)cudaGetLastError();
 }
 

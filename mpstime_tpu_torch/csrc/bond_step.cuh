@@ -1,6 +1,7 @@
-// Device code of the fused DMRG bond step (K12) and its multi-bond block
-// (K12m).  See bond_step.cu for what the kernel replaces and how it is
-// bounded; this header holds the math, phase by phase.
+// Device code of the fused DMRG bond step (K12), its multi-bond block (K12m)
+// and its two halves around an outside QR (K1, K2).  See bond_step.cu for
+// what the kernels replace and how they are bounded; this header holds the
+// math, phase by phase.
 //
 // Layouts (all float32, row-major, contiguous):
 //   lhs      [Bb, chi, d, chi]  the static core of each bond
@@ -36,7 +37,8 @@ struct K12Args {
   const float* envx;
   const float* env0;
   const float* ls0;
-  const float* opp_ls;     // [N] opposite-side log-scales (MSE only)
+  const float* opp_ls;     // [N] opposite-side log-scales (MSE only; null
+                           // when ls0 already holds the total, as in K1)
   const float* phil;
   const float* phir;
   const float* y1h;
@@ -50,6 +52,8 @@ struct K12Args {
   float* ws;               // workspace_floats(C, chi, d, N)
   int Bb, C, chi, d, N;
   int forward, refresh, q_iters, mse, gd;
+  int qr;                  // power step for an outside QR: column
+                           // normalisation only, no revival, no polar
   float eta, cutoff, max_rank;
 };
 
@@ -191,7 +195,7 @@ __device__ inline void k1_update(const K12Args& a, const float* ls, Work w,
       const float u = a.w[n] / yt;
       for (int c = 0; c < C; ++c) w.wc[n * C + c] = -(y1[c] * u);
     } else {
-      const float s = expf(ls[n] + a.opp_ls[n]);
+      const float s = expf(a.opp_ls ? ls[n] + a.opp_ls[n] : ls[n]);
       const float ws = a.w[n] * s;
       for (int c = 0; c < C; ++c) w.wc[n * C + c] = (yh[c] * s - y1[c]) * ws;
     }
@@ -258,6 +262,8 @@ __device__ inline float* ns_polar(float* x, float* xn, Work w, int P, int K) {
 // q warm power steps from v0 (subspace iteration: per-column normalisation,
 // eps revival, NS polar each step).  Backward: Y <- sum_c BT_c^T BT_c Y;
 // forward: Y <- sum_c BT_c BT_c^T Y.  Returns the orthonormal Q (in w.Ya).
+// With a.qr set, each step only normalises the columns (no revival, no
+// polar) and the returned iterate is orthonormalised by the caller's QR.
 __device__ inline const float* power_tail(const K12Args& a, const float* v0,
                                           Work w, float* red) {
   const int C = a.C, K = a.chi;
@@ -293,6 +299,13 @@ __device__ inline const float* power_tail(const K12Args& a, const float* v0,
       w.nrm[j] = fmaxf(sqrtf(s), kTiny);
     }
     __syncthreads();
+    if (a.qr) {
+      for (int e = threadIdx.x; e < P * K; e += blockDim.x)
+        w.Ya[e] = w.Yb[e] / w.nrm[e % K];
+      __syncthreads();
+      yprev = w.Ya;
+      continue;
+    }
     // X = Ynew / ||col|| + eps * Yprev, then pre-scale by ||X||_F (1 + 1e-3)
     float part = 0.f;
     for (int e = threadIdx.x; e < P * K; e += blockDim.x) {
@@ -369,7 +382,8 @@ __device__ inline void project_mask(const K12Args& a, const float* Q, Work w) {
 }
 
 // Emit the masked split factors in their final core layouts, the unmasked
-// subspace cache, and the masked isometry Qm (into w.Yb).
+// subspace cache (unless q_out is null), and the masked isometry Qm (into
+// w.Yb).
 __device__ inline void emit(const K12Args& a, const float* Q, float* core_out,
                             float* q_out, Work w) {
   const int C = a.C, K = a.chi;
@@ -384,7 +398,7 @@ __device__ inline void emit(const K12Args& a, const float* Q, float* core_out,
     const int m = (int)(e % K);
     const float qm = Q[e] * w.mask[m];
     w.Yb[e] = qm;
-    q_out[e] = Q[e];
+    if (q_out != nullptr) q_out[e] = Q[e];
     if (a.forward) {
       core_out[e] = qm;                       // U[a, i, m]
     } else {
@@ -445,6 +459,46 @@ __global__ void __launch_bounds__(kMaxThreads) k12m_kernel(K12Args a) {
     ls = ls_out;
     center = a.center_out;
   }
+}
+
+// K1: one bond step up to its orthogonalisation.  The bond tensor is built,
+// stepped and emitted in place in bt_out ([C, P, P], i.e. [C, chi*d, d,
+// chi]); y_out [P, chi] gets the q-step power iterate (a.qr: column-
+// normalised only) or, for a frozen bond (a.refresh == 0), v0.  ls0 holds
+// the total log-scales le_ls + re_ls (MSE only; opp_ls is null).
+__global__ void __launch_bounds__(kMaxThreads) k1_kernel(K12Args a,
+                                                         const float* le,
+                                                         const float* re,
+                                                         float* bt_out,
+                                                         float* y_out) {
+  __shared__ float red[kMaxThreads];
+  Work w = carve(a.ws, a.C, a.chi, a.d, a.N);
+  w.BT = bt_out;
+  kron_factors(le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
+  bond_tensor(a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  __syncthreads();
+  k1_update(a, a.ls0, w, red);
+  const float* y = a.refresh ? power_tail(a, a.v0, w, red) : a.v0;
+  const long PK = (long)a.chi * a.d * a.chi;
+  for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
+}
+
+// K2: the split of a stepped bond tensor bt against the orthonormal basis
+// Q [P, chi]: projection, energies and cutoff mask, the center and core in
+// their final layouts, and the advance of the environment env0 / ls0
+// through the new isometry with its features phil (backward: re and phir;
+// forward: le and phil).
+__global__ void __launch_bounds__(kMaxThreads) k2_kernel(K12Args a,
+                                                         const float* bt,
+                                                         const float* Q) {
+  Work w = carve(a.ws, a.C, a.chi, a.d, a.N);
+  w.BT = const_cast<float*>(bt);            // read only
+  // one side's factor is all the advance needs: L (forward) or R (backward)
+  kron_factors(a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
+  __syncthreads();
+  project_mask(a, Q, w);
+  emit(a, Q, a.core_out, nullptr, w);
+  env_advance(a, a.ls0, a.env_out, a.ls_out, w);
 }
 
 }  // namespace mpst

@@ -53,7 +53,7 @@ def encode_dataset(X_orig: np.ndarray, X_scaled: np.ndarray, y: np.ndarray,
                    opts: MPSOptions, spec: Optional[EncodingSpec] = None,
                    labels: Optional[np.ndarray] = None,
                    training_enc_args: Any = None,
-                   dtype=None, device="cpu") -> EncodedDataset:
+                   dtype=None, device="cuda") -> EncodedDataset:
     """Encode a dataset of scaled series (rows) into product states on
     ``device``.  ``training_enc_args`` is passed for test sets of
     data-driven encodings (reference encodings.jl:130-138)."""

@@ -99,6 +99,10 @@ def load_library() -> ctypes.CDLL:
         lib.mpst_k12_workspace_floats.restype = ctypes.c_long
         lib.mpst_k12m_launch.argtypes = [p] * 17 + [i] * 10 + [f] * 3 + [p]
         lib.mpst_k12m_launch.restype = i
+        lib.mpst_k1_launch.argtypes = [p] * 13 + [i] * 10 + [f] + [p]
+        lib.mpst_k1_launch.restype = i
+        lib.mpst_k2_launch.argtypes = [p] * 10 + [i] * 5 + [f] * 2 + [p]
+        lib.mpst_k2_launch.restype = i
         lib.mpst_error_string.argtypes = [i]
         lib.mpst_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -59,7 +59,7 @@ class MPS:
 
     @classmethod
     def from_numpy(cls, cores: np.ndarray, center: np.ndarray,
-                   center_pos: int, device="cpu") -> "MPS":
+                   center_pos: int, device="cuda") -> "MPS":
         """Weight converter: an MPS from host arrays in the JAX package's
         layouts (``np.asarray(jax_mps.cores)``, ``np.asarray(jax_mps.center)``),
         so both packages compute on the same parameters."""
@@ -77,7 +77,7 @@ class MPS:
 
 
 def random_mps(seed: int, T: int, d: int, num_classes: int, chi_init: int,
-               chi_max: int, dtype=np.float32, device="cpu") -> MPS:
+               chi_max: int, dtype=np.float32, device="cuda") -> MPS:
     """Seeded random MPS, left-orthogonal up to the last site, which carries
     the label axis (reference RealRealHighDimension.jl:1-41).  Host numpy,
     line for line the JAX package's ``random_mps`` (mps.py:87), so both
@@ -180,6 +180,15 @@ class SingleMPS:
     cores: torch.Tensor       # [T, chi, d, chi]
     center: torch.Tensor      # [chi, d, chi]
     center_pos: int
+
+
+def single_contract_batch_scaled(m: SingleMPS, phis: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(yhat_scaled [N], logscale [N]) for an unlabeled MPS; the true
+    overlap is yhat_scaled * exp(logscale)."""
+    yhat, ls = _contract_batch(m.cores, m.center[..., None], m.center_pos,
+                               phis)
+    return yhat[:, 0], ls
 
 
 def expand_label_index(mps: MPS) -> List[SingleMPS]:

@@ -1,20 +1,23 @@
-"""The fused bond step, K12, and its multi-bond block, K12m (counterpart of
+"""The fused bond step, K12, its multi-bond block, K12m, and the two halves
+K1 and K2 of the bond step around an outside QR (counterpart of
 ``mpstime_tpu/ops/pallas_bond.py``).
 
 ``bond_step`` and ``bond_block_steps`` keep the signatures of the JAX
-package's (pallas_bond.py:1235, :1062).  Each dispatches on the device of
-the tensors it is given:
+package's (pallas_bond.py:1235, :1062).  A refresh bond under orth="qr" runs
+K1 -> ``torch.linalg.qr`` -> K2 (pallas_bond.py:1320-1372); every other bond
+runs K12.  Each kernel dispatches on the device of the tensors it is given:
 
   * CUDA tensors launch the hand-written kernel (csrc/bond_step.cu), built
     at first use, or raise.  There is no fallback.
-  * CPU tensors take the kernel's plain PyTorch version, ``k12_plain`` /
-    ``k12m_plain``, built from the ported split, update and environment
-    functions.
+  * CPU tensors take the kernel's plain PyTorch version (``k12_plain``,
+    ``k12m_plain``, ``k1_plain``, ``k2_plain``), built from the ported
+    update, split and environment functions.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the dispatches to the
 plain versions, so a run can show which path it took.  Operand layouts are
 the JAX kernels': the class-major center [C, chi, d, chi], environments
-[N, chi], conjugated features [N, d], subspace caches [chi*d, chi].
+[N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and K1's
+bond tensor [C, chi*d, d, chi].
 """
 
 from __future__ import annotations
@@ -24,16 +27,17 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from .bond_update import apply_update
-from .decomp import warm_split_left, warm_split_right
+from .decomp import _qr_orth, warm_iterate, warm_split_left, warm_split_right
 from .env import env_step_left_scaled, env_step_right_scaled
 
 #: Kernel launches per kernel since the last reset_counts().
-LAUNCHES: Dict[str, int] = {"k12": 0, "k12m": 0}
+LAUNCHES: Dict[str, int] = {"k12": 0, "k12m": 0, "k1": 0, "k2": 0}
 #: Dispatches to each kernel's plain version since the last reset_counts().
-PLAIN_CALLS: Dict[str, int] = {"k12": 0, "k12m": 0}
+PLAIN_CALLS: Dict[str, int] = {"k12": 0, "k12m": 0, "k1": 0, "k2": 0}
 
 Out5 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
              torch.Tensor]
+Out4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def reset_counts() -> None:
@@ -46,37 +50,75 @@ def reset_counts() -> None:
 # plain versions
 # --------------------------------------------------------------------------
 
-def k12_plain(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
-              eta, cutoff, *, forward: bool, refresh: bool = True,
-              power_iters: int = 1, max_rank=None, loss: str = "KLD",
-              bbopt: str = "TSGO", opp_ls=None) -> Out5:
-    """One bond step in plain PyTorch, with K12's operands: the gradient
-    step (ops/bond_update.py), the warm split with the Newton-Schulz polar
-    route (ops/decomp.py) and the scaled environment step (ops/env.py).
-    Returns (center_c', core', env', env_ls', Q')."""
+def k1_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
+             forward: bool, emit_y: bool = True, power_iters: int = 1,
+             orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 in plain PyTorch: the bond tensor, the gradient step
+    (ops/bond_update.py) and q warm power steps.  ``gls`` [N]: the total
+    log-scales le_ls + re_ls (read by the MSE gradient only).  Returns
+    (BT [C, chi*d, d, chi], Y [chi*d, chi]); Y is the column-normalised
+    iterate under orth="qr", orthonormal under "ns", and V0 itself when
+    ``emit_y`` is False (a frozen bond)."""
     C, chi, d, _ = center_c.shape
-    gls = env_ls + opp_ls if loss == "MSE" else env_ls
     if forward:
         BT = torch.einsum("caim,mkb->aikbc", center_c, A_or_B)
     else:
         BT = torch.einsum("aim,cmkb->aikbc", A_or_B, center_c)
     _, BT = apply_update(BT, le, re, phil, phir, y1h, w, gls, eta=eta,
                          loss=loss, bbopt=bbopt)
-    kw = dict(q=power_iters, refresh=refresh, max_rank=max_rank, orth="ns")
+    Y = V0
+    if emit_y:
+        if forward:
+            M = BT.reshape(chi * d, d * chi * C)
+            Y = warm_iterate(lambda Yp: M @ (M.T @ Yp), V0, power_iters, orth)
+        else:
+            M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
+            Y = warm_iterate(lambda Yp: M.T @ (M @ Yp), V0, power_iters, orth)
+    BTk = BT.permute(4, 0, 1, 2, 3).reshape(C, chi * d, d, chi)
+    return BTk.contiguous(), Y.contiguous()
+
+
+def k2_plain(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
+             max_rank=None) -> Out4:
+    """K2 in plain PyTorch: the split of BT [C, chi*d, d, chi] against the
+    orthonormal basis Q [chi*d, chi] (ops/decomp.py's warm split of a frozen
+    bond) and the scaled step of the advancing environment (``env``,
+    ``env_ls``, ``phi``: le / phil forward, re / phir backward).  Returns
+    (center_c', core', env', env_ls')."""
+    C, P, d, chi = BT.shape
     if forward:
-        U, SVh, Q = warm_split_right(BT.reshape(chi * d, d * chi * C), V0,
-                                     chi, cutoff, **kw)
+        M = BT.permute(1, 2, 3, 0).reshape(P, d * chi * C)
+        U, SVh, _ = warm_split_right(M, Q, chi, cutoff, refresh=False,
+                                     max_rank=max_rank)
         core = U.reshape(chi, d, chi)
         center = SVh.reshape(chi, d, chi, C).permute(3, 0, 1, 2)
-        env2, ls2 = env_step_left_scaled(le, env_ls, core, phil)
+        env2, ls2 = env_step_left_scaled(env, env_ls, core, phi)
     else:
-        M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
-        US, Vh, Q = warm_split_left(M, V0, chi, cutoff, **kw)
+        M = BT.permute(1, 0, 2, 3).reshape(P * C, d * chi)
+        US, Vh, _ = warm_split_left(M, Q, chi, cutoff, refresh=False,
+                                    max_rank=max_rank)
         center = US.reshape(chi, d, C, chi).permute(2, 0, 1, 3)
         core = Vh.reshape(chi, d, chi)
-        env2, ls2 = env_step_right_scaled(re, env_ls, core, phir)
-    return (center.contiguous(), core.contiguous(), env2, ls2,
-            Q.contiguous())
+        env2, ls2 = env_step_right_scaled(env, env_ls, core, phi)
+    return center.contiguous(), core.contiguous(), env2, ls2
+
+
+def k12_plain(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
+              eta, cutoff, *, forward: bool, refresh: bool = True,
+              power_iters: int = 1, max_rank=None, loss: str = "KLD",
+              bbopt: str = "TSGO", opp_ls=None) -> Out5:
+    """One bond step in plain PyTorch, with K12's operands: ``k1_plain``
+    with the Newton-Schulz power step, then ``k2_plain`` against its basis.
+    Returns (center_c', core', env', env_ls', Q')."""
+    gls = env_ls + opp_ls if loss == "MSE" else env_ls
+    BT, Q = k1_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0,
+                     eta, forward=forward, emit_y=refresh,
+                     power_iters=power_iters, orth="ns", loss=loss,
+                     bbopt=bbopt)
+    env, phi = (le, phil) if forward else (re, phir)
+    return k2_plain(BT, Q, env, env_ls, phi, cutoff, forward=forward,
+                    max_rank=max_rank) + (Q,)
 
 
 def k12m_plain(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,
@@ -101,6 +143,24 @@ def k12m_plain(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
+
+def _check_operands(dev: torch.device, expect) -> None:
+    """Every operand on ``dev``, float32, of its shape and contiguous."""
+    for name, (t, shape) in expect.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, center_c on {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _empty(dev: torch.device, *shape: int) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
 
 def _launch_k12m(A_blk, center_c, envx_blk, env0, env_ls0, opp_ls, phil_blk,
                  phir_blk, y1h, w, V0_blk, eta, cutoff, *, forward: bool,
@@ -133,26 +193,16 @@ def _launch_k12m(A_blk, center_c, envx_blk, env0, env_ls0, opp_ls, phil_blk,
     if loss == "MSE":
         expect["opp_ls"] = (opp_ls, (N,))
     dev = center_c.device
-    for name, (t, shape) in expect.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, center_c on {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_operands(dev, expect)
     if Bb < 1 or power_iters < 1:
         raise ValueError(f"need Bb >= 1 and power_iters >= 1, got {Bb}, "
                          f"{power_iters}")
-    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-    center2 = empty(C, chi, d, chi)
-    core_b = empty(Bb, chi, d, chi)
-    env_b = empty(Bb, N, chi)
-    ls_b = empty(Bb, N)
-    q_b = empty(Bb, chi * d, chi)
-    ws = empty(workspace_floats(C, chi, d, N))
+    center2 = _empty(dev, C, chi, d, chi)
+    core_b = _empty(dev, Bb, chi, d, chi)
+    env_b = _empty(dev, Bb, N, chi)
+    ls_b = _empty(dev, Bb, N)
+    q_b = _empty(dev, Bb, chi * d, chi)
+    ws = _empty(dev, workspace_floats(C, chi, d, N))
     mr = float(chi) if max_rank is None else float(max_rank)
     launch(A_blk.data_ptr(), center_c.data_ptr(), envx_blk.data_ptr(),
            env0.data_ptr(), env_ls0.data_ptr(),
@@ -166,19 +216,89 @@ def _launch_k12m(A_blk, center_c, envx_blk, env0, env_ls0, opp_ls, phil_blk,
     return center2, core_b, env_b, ls_b, q_b
 
 
-def _cuda_launch(device: torch.device):
-    """(launch, workspace_floats) for the built library on ``device``."""
+def _launch_k1(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta,
+               *, forward: bool, emit_y: bool, power_iters: int, orth: str,
+               loss: str, bbopt: str, launch: Callable[..., None],
+               workspace_floats: Callable[[int, int, int, int], int]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check K1's operands, allocate BT, Y and the workspace, and hand
+    everything to ``launch`` in the kernel's C argument order."""
+    if center_c.dim() != 4:
+        raise ValueError(f"center_c must be [C, chi, d, chi], got "
+                         f"{tuple(center_c.shape)}")
+    C, chi, d, _ = center_c.shape
+    N, P = le.shape[0], chi * d
+    expect = {
+        "A_or_B": (A_or_B, (chi, d, chi)),
+        "center_c": (center_c, (C, chi, d, chi)),
+        "le": (le, (N, chi)), "re": (re, (N, chi)),
+        "phil": (phil, (N, d)), "phir": (phir, (N, d)),
+        "y1h": (y1h, (N, C)), "w": (w, (N,)), "V0": (V0, (P, chi)),
+    }
+    if loss == "MSE":
+        expect["gls"] = (gls, (N,))
+    dev = center_c.device
+    _check_operands(dev, expect)
+    if power_iters < 1 or orth not in ("qr", "ns"):
+        raise ValueError(f"need power_iters >= 1 and orth 'qr' or 'ns', got "
+                         f"{power_iters}, {orth!r}")
+    BT = _empty(dev, C, P, d, chi)
+    Y = _empty(dev, P, chi)
+    ws = _empty(dev, workspace_floats(C, chi, d, N))
+    launch(A_or_B.data_ptr(), center_c.data_ptr(), le.data_ptr(),
+           re.data_ptr(), gls.data_ptr() if loss == "MSE" else None,
+           phil.data_ptr(), phir.data_ptr(), y1h.data_ptr(), w.data_ptr(),
+           V0.data_ptr(), BT.data_ptr(), Y.data_ptr(), ws.data_ptr(), C, chi,
+           d, N, int(forward), int(emit_y), int(power_iters),
+           int(orth == "qr"), int(loss == "MSE"), int(bbopt == "GD"),
+           float(eta))
+    return BT, Y
+
+
+def _launch_k2(BT, Q, env, env_ls, phi, cutoff, *, forward: bool, max_rank,
+               launch: Callable[..., None],
+               workspace_floats: Callable[[int, int, int, int], int]) -> Out4:
+    """Check K2's operands, allocate its outputs and workspace, and hand
+    everything to ``launch`` in the kernel's C argument order."""
+    if BT.dim() != 4:
+        raise ValueError(f"BT must be [C, chi*d, d, chi], got "
+                         f"{tuple(BT.shape)}")
+    C, P, d, chi = BT.shape
+    N = env.shape[0]
+    expect = {
+        "BT": (BT, (C, chi * d, d, chi)), "Q": (Q, (P, chi)),
+        "env": (env, (N, chi)), "env_ls": (env_ls, (N,)), "phi": (phi, (N, d)),
+    }
+    dev = BT.device
+    _check_operands(dev, expect)
+    center2 = _empty(dev, C, chi, d, chi)
+    core = _empty(dev, chi, d, chi)
+    env2 = _empty(dev, N, chi)
+    ls2 = _empty(dev, N)
+    ws = _empty(dev, workspace_floats(C, chi, d, N))
+    mr = float(chi) if max_rank is None else float(max_rank)
+    launch(BT.data_ptr(), Q.data_ptr(), env.data_ptr(), env_ls.data_ptr(),
+           phi.data_ptr(), center2.data_ptr(), core.data_ptr(),
+           env2.data_ptr(), ls2.data_ptr(), ws.data_ptr(), C, chi, d, N,
+           int(forward), float(cutoff), mr)
+    return center2, core, env2, ls2
+
+
+def _cuda_launch(device: torch.device, entry: str):
+    """(launch, workspace_floats) for the built library's ``entry`` on
+    ``device``."""
     from ..kernels.build import load_library
     lib = load_library()
+    fn = getattr(lib, entry)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     stream = torch.cuda.current_stream(index).cuda_stream
 
     def launch(*args):
         with torch.cuda.device(index):      # the stream's device is current
-            rc = lib.mpst_k12m_launch(*args, stream)
+            rc = fn(*args, stream)
         if rc != 0:
-            raise RuntimeError(f"K12m launch failed: CUDA error {rc} "
+            raise RuntimeError(f"{entry} failed: CUDA error {rc} "
                                f"({lib.mpst_error_string(rc).decode()})")
 
     return launch, lib.mpst_k12_workspace_floats
@@ -189,7 +309,7 @@ def k12_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
              power_iters: int = 1, max_rank=None, loss: str = "KLD",
              bbopt: str = "TSGO", opp_ls=None) -> Out5:
     """K12: one bond step as one launch of the block kernel at Bb = 1."""
-    launch, wsf = _cuda_launch(center_c.device)
+    launch, wsf = _cuda_launch(center_c.device, "mpst_k12m_launch")
     env, envx = (le, re) if forward else (re, le)
     center2, core, env2, ls2, Q = _launch_k12m(
         A_or_B[None], center_c, envx[None], env, env_ls, opp_ls, phil[None],
@@ -205,7 +325,7 @@ def k12m_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,
               refresh: bool = True, power_iters: int = 1, max_rank=None,
               bbopt: str = "TSGO") -> Out5:
     """K12m: Bb consecutive bond steps (KLD) as one launch."""
-    launch, wsf = _cuda_launch(center_c.device)
+    launch, wsf = _cuda_launch(center_c.device, "mpst_k12m_launch")
     out = _launch_k12m(
         A_blk, center_c, envx_blk, env0, env_ls0, None, phil_blk, phir_blk,
         y1h, w, V0_blk, eta, cutoff, forward=forward, refresh=refresh,
@@ -215,24 +335,47 @@ def k12m_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,
     return out
 
 
+def k1_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
+            forward: bool, emit_y: bool = True, power_iters: int = 1,
+            orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as one launch; operands and results as ``k1_plain``'s."""
+    launch, wsf = _cuda_launch(center_c.device, "mpst_k1_launch")
+    out = _launch_k1(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0,
+                     eta, forward=forward, emit_y=emit_y,
+                     power_iters=power_iters, orth=orth, loss=loss,
+                     bbopt=bbopt, launch=launch, workspace_floats=wsf)
+    LAUNCHES["k1"] += 1
+    return out
+
+
+def k2_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
+            max_rank=None) -> Out4:
+    """K2 as one launch; operands and results as ``k2_plain``'s."""
+    launch, wsf = _cuda_launch(BT.device, "mpst_k2_launch")
+    out = _launch_k2(BT, Q, env, env_ls, phi, cutoff, forward=forward,
+                     max_rank=max_rank, launch=launch, workspace_floats=wsf)
+    LAUNCHES["k2"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------
 # public bond steps
 # --------------------------------------------------------------------------
 
-def _check_route(refresh: bool, orth: str, loss: str, bbopt: str,
-                 axis_name, stream_tile) -> None:
+def _check_route(orth: str, loss: str, bbopt: str, axis_name,
+                 stream_tile) -> None:
     if axis_name is not None or stream_tile is not None:
         raise NotImplementedError(
             "the data-parallel and N-streaming bond steps (kernels K1a, K1b, "
             "K2-split, K2-env) are ROADMAP.md queue 2 items 6-9")
-    if refresh and orth != "ns":
-        raise NotImplementedError(
-            f"orth={orth!r} refresh bonds run K1 -> QR -> K2, which are "
-            "ROADMAP.md queue 2 items 3-4; use orth='ns'")
+    if orth not in ("qr", "ns"):
+        raise ValueError(f"orth must be 'qr' or 'ns', got {orth!r}")
     if loss not in ("KLD", "MSE") or bbopt not in ("TSGO", "GD"):
-        raise NotImplementedError(
-            f"loss={loss}/bbopt={bbopt}: the fused bond step covers "
-            "{KLD, MSE} x {TSGO, GD}")
+        raise ValueError(
+            f"loss={loss}/bbopt={bbopt}: the bond kernels cover "
+            "{KLD, MSE} x {TSGO, GD}; other configurations take the unfused "
+            "route of training/sweep.py")
 
 
 def _device_of(t: torch.Tensor) -> str:
@@ -242,12 +385,33 @@ def _device_of(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def qr_bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
+                 eta, cutoff, *, forward: bool, plain: bool,
+                 power_iters: int = 1, max_rank=None, loss: str = "KLD",
+                 bbopt: str = "TSGO", opp_ls=None) -> Out5:
+    """A refresh bond under orth="qr": K1, the thin QR of its Y, then K2
+    against Q (pallas_bond.py:1320-1372, without the split tail and dp).
+    ``plain`` selects the kernels' plain versions instead of the CUDA
+    kernels; both orthonormalise with the same ``torch.linalg.qr``.
+    Returns (center_c', core', env', env_ls', Q')."""
+    k1, k2 = (k1_plain, k2_plain) if plain else (k1_cuda, k2_cuda)
+    gls = env_ls + opp_ls if loss == "MSE" else env_ls
+    BT, Y = k1(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta,
+               forward=forward, power_iters=power_iters, orth="qr",
+               loss=loss, bbopt=bbopt)
+    Q = _qr_orth(Y).contiguous()
+    env, phi = (le, phil) if forward else (re, phir)
+    return k2(BT, Q, env, env_ls, phi, cutoff, forward=forward,
+              max_rank=max_rank) + (Q,)
+
+
 def bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
               eta, cutoff, *, forward: bool, refresh: bool = True,
               axis_name: str = None, power_iters: int = 1, orth: str = "qr",
               max_rank=None, stream_tile: Optional[int] = None,
               loss: str = "KLD", bbopt: str = "TSGO", opp_ls=None) -> Out5:
-    """One fused bond step (K12).
+    """One bond step: K1 -> QR -> K2 for a refresh bond under orth="qr",
+    else one K12.
 
     backward (forward=False): A_or_B = cores[j]; advances the right
     environment (re, env_ls) through the new V with phir.  forward:
@@ -255,15 +419,21 @@ def bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     the new U with phil.  ``opp_ls`` is the opposite side's log-scale, which
     the MSE gradient needs.  center_c: [C, chi, d, chi].  Returns
     (center_c', core', env', env_ls', Q')."""
-    _check_route(refresh, orth, loss, bbopt, axis_name, stream_tile)
-    kw = dict(forward=forward, refresh=refresh, power_iters=power_iters,
-              max_rank=max_rank, loss=loss, bbopt=bbopt, opp_ls=opp_ls)
+    _check_route(orth, loss, bbopt, axis_name, stream_tile)
     args = (A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
             cutoff)
-    if _device_of(center_c) == "cuda":
-        return k12_cuda(*args, **kw)
+    kw = dict(forward=forward, power_iters=power_iters, max_rank=max_rank,
+              loss=loss, bbopt=bbopt, opp_ls=opp_ls)
+    cuda = _device_of(center_c) == "cuda"
+    if refresh and orth == "qr":
+        if not cuda:
+            PLAIN_CALLS["k1"] += 1
+            PLAIN_CALLS["k2"] += 1
+        return qr_bond_step(*args, plain=not cuda, **kw)
+    if cuda:
+        return k12_cuda(*args, refresh=refresh, **kw)
     PLAIN_CALLS["k12"] += 1
-    return k12_plain(*args, **kw)
+    return k12_plain(*args, refresh=refresh, **kw)
 
 
 def bond_block_steps(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
@@ -271,7 +441,8 @@ def bond_block_steps(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
                      forward: bool, refresh: bool = True,
                      power_iters: int = 1, orth: str = "ns", max_rank=None,
                      bbopt: str = "TSGO") -> Out5:
-    """Bb consecutive bond updates (K12m, KLD loss).
+    """Bb consecutive bond updates (K12m, KLD loss): Newton-Schulz refresh
+    bonds, or frozen bonds under either orth.
 
     A_blk [Bb, chi, d, chi]: the static cores in update order (backward:
     cores[j], j descending; forward: cores[j+1], j ascending); envx_blk
@@ -279,7 +450,10 @@ def bond_block_steps(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
     RE[j+2]); env0/env_ls0: the advancing environment entering the block.
     Returns (center_c', core_blk, env_blk, env_ls_blk, Q_blk), per-bond
     emissions in update order."""
-    _check_route(refresh, orth, "KLD", bbopt, None, None)
+    _check_route(orth, "KLD", bbopt, None, None)
+    if refresh and orth != "ns":
+        raise ValueError("K12m refreshes with the Newton-Schulz polar only; "
+                         "orth='qr' refresh bonds run bond_step")
     kw = dict(forward=forward, refresh=refresh, power_iters=power_iters,
               max_rank=max_rank, bbopt=bbopt)
     args = (A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,

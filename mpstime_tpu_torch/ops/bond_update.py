@@ -35,6 +35,11 @@ def _yhat(BT, L, R):
     return torch.einsum("nyc,ny->nc", t, R.conj())
 
 
+def bond_yhat(BT: torch.Tensor, le, re, phi_l, phi_r) -> torch.Tensor:
+    """Scaled yhat [N, C] for bond tensor BT [chi, d, d, chi, C]."""
+    return _yhat(BT, *_lr_factors(le, re, phi_l, phi_r))
+
+
 def kld_loss_grad(BT: torch.Tensor, le, re, phi_l, phi_r,
                   y_onehot: torch.Tensor, class_weight: torch.Tensor,
                   env_ls: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -69,7 +74,39 @@ def mse_loss_grad(BT: torch.Tensor, le, re, phi_l, phi_r,
     return loss, grad.reshape(BT.shape)
 
 
-_LOSS_GRADS = {"KLD": kld_loss_grad, "MSE": mse_loss_grad}
+def mixed_loss_grad(BT: torch.Tensor, le, re, phi_l, phi_r,
+                    y_onehot: torch.Tensor, class_weight: torch.Tensor,
+                    env_ls: torch.Tensor, alpha: float = 5.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KLD + alpha * MSE (the reference's :Mixed loss, loss_functions.jl:
+    622-668); the Kronecker factors and yhat are computed once for both."""
+    L, R = _lr_factors(le, re, phi_l, phi_r)
+    yhat_s = _yhat(BT, L, R)
+    y1 = y_onehot.to(yhat_s.dtype)
+    # KLD part (see kld_loss_grad)
+    y_true = torch.sum(yhat_s * y1, dim=1)
+    abs2 = y_true.real ** 2 + (y_true.imag ** 2 if y_true.is_complex() else 0)
+    l_kld = torch.sum(class_weight * (-torch.log(abs2) - 2.0 * env_ls))
+    u = (class_weight / y_true.conj()).to(BT.dtype)
+    Wc = y_onehot.to(BT.dtype) * u[:, None]
+    g_kld = -torch.einsum("nx,nyc->xyc", L, R[:, :, None] * Wc[:, None, :])
+    # MSE part (see mse_loss_grad)
+    scale = torch.exp(env_ls).to(yhat_s.real.dtype)
+    resid = yhat_s * scale[:, None].to(yhat_s.dtype) - y1
+    l_mse = 0.5 * torch.sum(class_weight * torch.sum(resid.abs() ** 2, dim=1))
+    W = resid * (class_weight * scale)[:, None].to(resid.dtype)
+    g_mse = torch.einsum("nx,nyc->xyc", L.conj(),
+                         R.conj()[:, :, None] * W[:, None, :])
+    return l_kld + alpha * l_mse, (g_kld + alpha * g_mse).reshape(BT.shape)
+
+
+_LOSS_GRADS = {"KLD": kld_loss_grad, "MSE": mse_loss_grad,
+               "MIXED": mixed_loss_grad}
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Re <a, b> with a conjugated, over all elements."""
+    return torch.sum(a.conj() * b).real
 
 
 def apply_update(BT: torch.Tensor, le, re, phi_l, phi_r, y_onehot,
@@ -78,21 +115,33 @@ def apply_update(BT: torch.Tensor, le, re, phi_l, phi_r, y_onehot,
                  rescale: Tuple[bool, bool] = (False, True)
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Optimise one bond tensor (reference apply_update,
-    loss_functions.jl:88-188) with "GD" (fixed step) or "TSGO"
-    (normalised-gradient step, loss_functions.jl:79).  Returns
-    (loss_before_last_step, BT_new)."""
-    if loss not in _LOSS_GRADS or bbopt not in ("TSGO", "GD"):
-        raise NotImplementedError(
-            f"loss={loss}/bbopt={bbopt}: the port covers {{KLD, MSE}} x "
-            "{TSGO, GD}; the mixed loss and CGD are ROADMAP.md queue 1 "
-            "item 10")
+    loss_functions.jl:88-188) with "GD" (fixed step), "TSGO"
+    (normalised-gradient step, loss_functions.jl:79) or "CGD" (Polak-Ribiere
+    conjugate gradient with a normalised fixed step; the reference's CGD
+    uses a line search instead, a difference documented at
+    mpstime_tpu/options.py:258-267).  ``loss``: "KLD", "MSE" or "MIXED".
+    Returns (loss_before_last_step, BT_new)."""
+    if loss not in _LOSS_GRADS or bbopt not in ("TSGO", "GD", "CGD"):
+        raise ValueError(f"loss={loss}/bbopt={bbopt}: loss must be one of "
+                         f"{sorted(_LOSS_GRADS)} and bbopt TSGO, GD or CGD")
     loss_grad = _LOSS_GRADS[loss]
     if rescale[0]:
         BT = BT / torch.linalg.vector_norm(BT)
+    tiny = torch.finfo(BT.real.dtype).tiny
     last_loss = torch.zeros((), dtype=BT.real.dtype, device=BT.device)
+    g_prev = p_prev = torch.zeros_like(BT)
     for _ in range(update_iters):
         last_loss, g = loss_grad(BT, le, re, phi_l, phi_r, y_onehot,
                                  class_weight, env_ls)
+        if bbopt == "CGD":
+            gg = _vdot(g_prev, g_prev)
+            beta = torch.clamp(_vdot(g, g - g_prev) / torch.clamp(gg, min=tiny),
+                               min=0.0)
+            p = -g + torch.where(gg > 0, beta, 0.0).to(g.dtype) * p_prev
+            BT = BT + eta * (p / torch.clamp(torch.linalg.vector_norm(p),
+                                             min=tiny))
+            g_prev, p_prev = g, p
+            continue
         if bbopt == "TSGO":
             g = g / torch.linalg.vector_norm(g)
         BT = BT - eta * g

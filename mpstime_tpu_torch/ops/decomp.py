@@ -1,5 +1,8 @@
-"""Warm-started truncated two-site splits (counterpart of the
-``randomized_warm`` pieces of ``mpstime_tpu/ops/decomp.py``).
+"""Truncated two-site splits (counterpart of the real routes of
+``mpstime_tpu/ops/decomp.py``): the warm-started splits of the fused bond
+step, and the unfused ones, ``split_bond_left/right`` with the Gram
+eigendecomposition (the CPU default), the SVD, and the cold randomized and
+lean sketches.
 
 Shapes are static: a split always yields exactly ``keep`` (= chi_max)
 directions and truncation (the chi cap and ITensor's relative ``cutoff`` on
@@ -33,6 +36,21 @@ def _trunc_mask(w_desc: torch.Tensor, keep: int, cutoff,
     if max_rank is not None:
         mask = mask & (idx < max_rank)
     return mask.to(w.dtype)
+
+
+def _fixed_sketch(shape, dtype, device="cpu") -> torch.Tensor:
+    """Deterministic Gaussian sketch matrix: host numpy from the JAX
+    package's seed (decomp.py:53), so both packages sketch with bit-identical
+    matrices; the same sketch serves every bond."""
+    rng = np.random.default_rng(20240817)
+    om = rng.standard_normal(shape)
+    if np.dtype(dtype).kind == "c":
+        om = om + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(om.astype(dtype)).to(device)
+
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
 
 
 def _qr_orth(Y: torch.Tensor) -> torch.Tensor:
@@ -82,14 +100,43 @@ def _col_normalize(Z: torch.Tensor) -> torch.Tensor:
                            min=_tiny(Z))
 
 
-def _warm_power(mm, Y: torch.Tensor, q: int, orth: str) -> torch.Tensor:
+def _power_orth(mm, Y0: torch.Tensor, q: int, orth: str) -> torch.Tensor:
+    """Orthonormal basis of the q-step power iterate of Y0 under ``mm``
+    (decomp.py:194): orth="qr" chains q applications, normalises the columns
+    once and takes one QR; orth="ns" runs subspace iteration (per-step
+    normalisation, eps revival and NS polar after every step)."""
+    if orth == "ns":
+        Y = _col_normalize(Y0)
+        for _ in range(q):
+            Y = ns_orth(_col_normalize(mm(Y)) + _NS_REVIVE * Y)
+        return Y
+    for _ in range(q):
+        Y0 = mm(Y0)
+    return _orth(_col_normalize(Y0), orth)
+
+
+def _sketch_k(keep: int, other: int) -> int:
+    """Sketch width: keep + max(keep/8, 8) oversampling, capped by the small
+    dimension (decomp.py:227)."""
+    return min(keep + max(keep // 8, 8), other)
+
+
+def warm_iterate(mm, Y: torch.Tensor, q: int, orth: str) -> torch.Tensor:
     """q power steps of ``mm`` (one application of M^H M or M M^H) from the
-    cached basis Y with per-step column normalisation; orth="ns" runs
-    subspace iteration (eps revival + NS polar after every step), other
-    orths orthogonalise once at the end."""
+    cached basis Y with per-step column normalisation.  orth="ns" runs
+    subspace iteration (eps revival + NS polar after every step) and returns
+    an orthonormal basis; other orths return the column-normalised iterate,
+    which the caller orthogonalises (K1's Y)."""
     for _ in range(q):
         Z = _col_normalize(mm(Y))
         Y = ns_orth(Z + _NS_REVIVE * Y) if orth == "ns" else Z
+    return Y
+
+
+def _warm_power(mm, Y: torch.Tensor, q: int, orth: str) -> torch.Tensor:
+    """The warm splits' subspace refresh (decomp.py:362): ``warm_iterate``,
+    orthogonalised once at the end unless orth="ns"."""
+    Y = warm_iterate(mm, Y, q, orth)
     return Y if orth == "ns" else _orth(Y, orth)
 
 
@@ -101,6 +148,14 @@ def _mask_by_energy(w: torch.Tensor, keep: int, cutoff, max_rank):
     keep_col = torch.zeros_like(w)
     keep_col[order] = mask
     return keep_col
+
+
+def _pad_cols(X: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.nn.functional.pad(X, (0, n)) if n > 0 else X
+
+
+def _pad_rows(X: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.nn.functional.pad(X, (0, 0, 0, n)) if n > 0 else X
 
 
 def warm_split_left(M: torch.Tensor, V0: torch.Tensor, keep: int, cutoff,
@@ -118,13 +173,9 @@ def warm_split_left(M: torch.Tensor, V0: torch.Tensor, keep: int, cutoff,
     B = M @ Q
     keep_col = _mask_by_energy(torch.sum(B.abs() ** 2, dim=0), keep, cutoff,
                                max_rank)
-    US = B * keep_col
-    Vh = Q.conj().T * keep_col[:, None]
-    if keep > k:
-        US = torch.nn.functional.pad(US, (0, keep - k))
-        Vh = torch.nn.functional.pad(Vh, (0, 0, 0, keep - k))
-        Q = torch.nn.functional.pad(Q, (0, keep - k))
-    return US, Vh, Q
+    return (_pad_cols(B * keep_col, keep - k),
+            _pad_rows(Q.conj().T * keep_col[:, None], keep - k),
+            _pad_cols(Q, keep - k))
 
 
 def warm_split_right(M: torch.Tensor, U0: torch.Tensor, keep: int, cutoff,
@@ -140,13 +191,143 @@ def warm_split_right(M: torch.Tensor, U0: torch.Tensor, keep: int, cutoff,
     B = Q.conj().T @ M
     keep_col = _mask_by_energy(torch.sum(B.abs() ** 2, dim=1), keep, cutoff,
                                max_rank)
-    U = Q * keep_col
-    SVh = B * keep_col[:, None]
-    if keep > k:
-        U = torch.nn.functional.pad(U, (0, keep - k))
-        SVh = torch.nn.functional.pad(SVh, (0, 0, 0, keep - k))
-        Q = torch.nn.functional.pad(Q, (0, keep - k))
-    return U, SVh, Q
+    return (_pad_cols(Q * keep_col, keep - k),
+            _pad_rows(B * keep_col[:, None], keep - k),
+            _pad_cols(Q, keep - k))
+
+
+def _eigh_desc(G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigenpairs of a hermitian G in descending order (eigh ascends).
+
+    Single precision is solved in double and cast back: MKL's float32 eigh
+    raises or returns NaN eigenvectors on the Gram matrices of early bonds,
+    most of whose rows are exactly zero (measured on such matrices, 125 x
+    125 of rank <= 7: 25 failures in 100 in float32, none in float64)."""
+    wide = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+    w, V = torch.linalg.eigh(G.to(wide.get(G.dtype, G.dtype)))
+    return (torch.flip(w, (0,)).to(G.real.dtype),
+            torch.flip(V, (1,)).to(G.dtype))
+
+
+def randomized_split_left(M: torch.Tensor, keep: int, cutoff, q: int = 2,
+                          max_rank=None, orth: str = "qr"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Randomized truncated split (column side, decomp.py:235): a sketched
+    power iteration finds the dominant right-singular subspace, a
+    Rayleigh-Ritz eigh orders it for the cutoff."""
+    R, C = M.shape
+    k = _sketch_k(keep, C)
+    if k >= C:
+        return split_bond_left(M, keep, cutoff, "gram_eigh", max_rank=max_rank)
+    Psi = _fixed_sketch((R, k), _np_dtype(M), M.device)
+    Q = _power_orth(lambda Yp: M.conj().T @ (M @ Yp), M.conj().T @ Psi, q,
+                    orth)                                    # [C, k]
+    B = M @ Q
+    w, W = _eigh_desc(B.conj().T @ B)                        # [k, k] Ritz Gram
+    mask = _trunc_mask(w, keep, cutoff, max_rank)
+    Qt = Q @ (W[:, :keep] * mask[:keep])                     # k > keep here
+    return M @ Qt, Qt.conj().T
+
+
+def randomized_split_right(M: torch.Tensor, keep: int, cutoff, q: int = 2,
+                           max_rank=None, orth: str = "qr"
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mirror of :func:`randomized_split_left` on the row side (U, SVh)."""
+    R, C = M.shape
+    k = _sketch_k(keep, R)
+    if k >= R:
+        return split_bond_right(M, keep, cutoff, "gram_eigh", max_rank=max_rank)
+    Psi = _fixed_sketch((C, k), _np_dtype(M), M.device)
+    Q = _power_orth(lambda Yp: M @ (M.conj().T @ Yp), M @ Psi, q,
+                    orth)                                    # [R, k]
+    B = Q.conj().T @ M
+    w, W = _eigh_desc(B @ B.conj().T)
+    mask = _trunc_mask(w, keep, cutoff, max_rank)
+    Ut = Q @ (W[:, :keep] * mask[:keep])
+    return Ut, Ut.conj().T @ M
+
+
+def lean_split_left(M: torch.Tensor, keep: int, cutoff, q: int = 2,
+                    max_rank=None, orth: str = "qr"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Randomized split without the Rayleigh-Ritz eigh (decomp.py:296): the
+    sketched basis itself is the kept isometry, masked by column energy."""
+    R, C = M.shape
+    k = min(keep, C)
+    Psi = _fixed_sketch((R, k), _np_dtype(M), M.device)
+    Q = _power_orth(lambda Yp: M.conj().T @ (M @ Yp), M.conj().T @ Psi, q,
+                    orth)                                    # [C, k]
+    B = M @ Q
+    keep_col = _mask_by_energy(torch.sum(B.abs() ** 2, dim=0), keep, cutoff,
+                               max_rank)
+    return (_pad_cols(B * keep_col, keep - k),
+            _pad_rows(Q.conj().T * keep_col[:, None], keep - k))
+
+
+def lean_split_right(M: torch.Tensor, keep: int, cutoff, q: int = 2,
+                     max_rank=None, orth: str = "qr"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mirror of :func:`lean_split_left` on the row side."""
+    R, C = M.shape
+    k = min(keep, R)
+    Psi = _fixed_sketch((C, k), _np_dtype(M), M.device)
+    Q = _power_orth(lambda Yp: M @ (M.conj().T @ Yp), M @ Psi, q,
+                    orth)                                    # [R, k]
+    B = Q.conj().T @ M
+    keep_col = _mask_by_energy(torch.sum(B.abs() ** 2, dim=1), keep, cutoff,
+                               max_rank)
+    return (_pad_cols(Q * keep_col, keep - k),
+            _pad_rows(B * keep_col[:, None], keep - k))
+
+
+def split_bond_left(M: torch.Tensor, keep: int, cutoff,
+                    alg: str = "gram_eigh", max_rank=None, orth: str = "qr"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split M [R, C] -> (US [R, keep], Vh [keep, C]) with V column-
+    orthonormal, truncated and masked (decomp.py:788).  Used going left:
+    U*S joins the new center (reference RealRealHighDimension.jl:171-173).
+    ``alg``: "gram_eigh" (eigh of M^H M), "svd", "randomized",
+    "randomized_lean"."""
+    if alg == "randomized":
+        return randomized_split_left(M, keep, cutoff, max_rank=max_rank,
+                                     orth=orth)
+    if alg == "randomized_lean":
+        return lean_split_left(M, keep, cutoff, max_rank=max_rank, orth=orth)
+    if alg == "svd":
+        U, S, Vh = torch.linalg.svd(M, full_matrices=False)
+        mask = _trunc_mask(S * S, keep, cutoff, max_rank)
+        k = min(keep, S.shape[0])
+        return (_pad_cols(U[:, :k] * (S[:k] * mask[:k]), keep - k),
+                _pad_rows(Vh[:k] * mask[:k, None], keep - k))
+    w, V = _eigh_desc(M.conj().T @ M)
+    mask = _trunc_mask(w, keep, cutoff, max_rank)
+    k = min(keep, M.shape[1])
+    Vk = V[:, :k] * mask[:k]
+    return _pad_cols(M @ Vk, keep - k), _pad_rows(Vk.conj().T, keep - k)
+
+
+def split_bond_right(M: torch.Tensor, keep: int, cutoff,
+                     alg: str = "gram_eigh", max_rank=None, orth: str = "qr"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split M [R, C] -> (U [R, keep], SVh [keep, C]) with U column-
+    orthonormal, truncated and masked (decomp.py:828).  Used going right:
+    S*Vh joins the new center (reference RealRealHighDimension.jl:189-191)."""
+    if alg == "randomized":
+        return randomized_split_right(M, keep, cutoff, max_rank=max_rank,
+                                      orth=orth)
+    if alg == "randomized_lean":
+        return lean_split_right(M, keep, cutoff, max_rank=max_rank, orth=orth)
+    if alg == "svd":
+        U, S, Vh = torch.linalg.svd(M, full_matrices=False)
+        mask = _trunc_mask(S * S, keep, cutoff, max_rank)
+        k = min(keep, S.shape[0])
+        return (_pad_cols(U[:, :k] * mask[:k], keep - k),
+                _pad_rows((S[:k] * mask[:k])[:, None] * Vh[:k], keep - k))
+    w, U = _eigh_desc(M @ M.conj().T)
+    mask = _trunc_mask(w, keep, cutoff, max_rank)
+    k = min(keep, M.shape[0])
+    Uk = U[:, :k] * mask[:k]
+    return _pad_cols(Uk, keep - k), _pad_rows(Uk.conj().T @ M, keep - k)
 
 
 def warm_sketch_init(n: int, keep: int, dtype, device="cpu") -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Environment (prefix/suffix) caches for the DMRG sweep (counterpart of
 ``mpstime_tpu/ops/env.py``).
 
-  LE[t] = contraction of sites 0..t-1 with conj(phi); LE[0] = e0.
+  LE[t] = contraction of sites 0..t-1 with conj(phi); LE[0] = e0
+  RE[t] = contraction of sites t..T-1 with conj(phi); RE[T] = e0
 
 Environments are stored normalised per sample with an accumulated
 log-scale, since raw prefix products under/overflow within ~100 sites.  The
@@ -67,3 +68,19 @@ def build_left_envs(cores: torch.Tensor, phis_c: torch.Tensor
         vs.append(v)
         lss.append(ls)
     return torch.stack(vs), torch.stack(lss)
+
+
+def build_right_envs(cores: torch.Tensor, phis_c: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(RE [T+1, N, chi], logscale [T+1, N]) with RE[T] = e0; RE[t] is the
+    contraction of sites t..T-1."""
+    T, chi = cores.shape[0], cores.shape[1]
+    N = phis_c.shape[1]
+    v = boundary_env(N, chi, cores.dtype, cores.device)
+    ls = torch.zeros((N,), dtype=phis_c.real.dtype, device=cores.device)
+    vs, lss = [v], [ls]
+    for t in range(T - 1, -1, -1):
+        v, ls = env_step_right_scaled(v, ls, cores[t], phis_c[t])
+        vs.append(v)
+        lss.append(ls)
+    return torch.stack(vs[::-1]), torch.stack(lss[::-1])

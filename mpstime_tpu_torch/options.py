@@ -2,8 +2,10 @@
 
 Same fields, defaults and JSON as ``mpstime_tpu.options.MPSOptions``, so one
 options file drives both packages.  The ``resolved_*`` policies key on the
-``torch.device`` a fit runs on: ``cuda`` resolves as the JAX package's
-accelerator branch does, ``cpu`` as its CPU branch does.  ``resolved_dtype``
+``torch.device`` a fit runs on, the card unless the caller names the CPU:
+``cuda`` resolves as the JAX package's accelerator branch does (its
+``jax.default_backend()`` on a TPU), ``cpu`` as its CPU branch does.
+``resolved_dtype``
 defaults to float32 (complex64 for complex encodings), as JAX without x64.
 """
 
@@ -188,7 +190,7 @@ class MPSOptions:
     def real_dtype(self) -> np.dtype:
         return np.dtype(np.zeros(0, self.resolved_dtype()).real.dtype)
 
-    def resolved_svd_alg(self, device="cpu") -> str:
+    def resolved_svd_alg(self, device="cuda") -> str:
         if self.svd_alg != "auto":
             return self.svd_alg
         if _device(device).type == "cpu":
@@ -198,7 +200,7 @@ class MPSOptions:
             return "randomized_warm_ritz"
         return "randomized_warm"
 
-    def resolved_orth_alg(self, device="cpu") -> str:
+    def resolved_orth_alg(self, device="cuda") -> str:
         """Explicit value wins; padded runs and the ritz route resolve to
         "qr" everywhere; otherwise "qr" on the CPU and the Newton-Schulz
         polar route ("ns") on the GPU (mpstime_tpu/options.py:344-386)."""
@@ -210,7 +212,7 @@ class MPSOptions:
             return "qr"
         return "qr" if _device(device).type == "cpu" else "ns"
 
-    def resolved_ritz_rots(self, device="cpu") -> Tuple[str, str]:
+    def resolved_ritz_rots(self, device="cuda") -> Tuple[str, str]:
         cpu = _device(device).type == "cpu"
         exact = (self.ritz_rot_exact if self.ritz_rot_exact != "auto"
                  else "eigh")
@@ -220,7 +222,7 @@ class MPSOptions:
             exact = "jacobi_warm"
         return exact, track
 
-    def resolved_power_iters(self, device="cpu") -> int:
+    def resolved_power_iters(self, device="cuda") -> int:
         if self.subspace_power_iters > 0:
             return int(self.subspace_power_iters)
         if not encoding_is_complex(self.encoding):

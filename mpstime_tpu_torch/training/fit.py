@@ -20,7 +20,7 @@ from ..models.mps import MPS, random_mps
 from ..options import MPSOptions, torch_dtype
 from ..utils.preprocessing import TransformNorms, transform_data
 from .stats import loss_acc_conf
-from .sweep import full_sweeps
+from .sweep import full_sweeps, pallas_route_notice
 
 
 @dataclass
@@ -43,7 +43,7 @@ class TrainedMPS:
     @classmethod
     def from_numpy(cls, cores: np.ndarray, center: np.ndarray,
                    center_pos: int, opts, norms, labels,
-                   enc_args=None, device="cpu") -> "TrainedMPS":
+                   enc_args=None, device="cuda") -> "TrainedMPS":
         """Weight converter: a TrainedMPS from a JAX model's host arrays.
 
         ``opts``: this package's MPSOptions, or the JAX options' JSON
@@ -76,17 +76,20 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
             opts: MPSOptions = None,
             custom_encoding: Optional[EncodingSpec] = None,
             mesh=None, test_run: bool = False,
-            pad_samples_to: Optional[int] = None, device="cpu"
+            pad_samples_to: Optional[int] = None, device="cuda"
             ) -> Tuple[TrainedMPS, Dict[str, list], EncodedDataset]:
     """Train a label-indexed MPS (reference fitMPS :383).
 
     X_train: [N, T] series as rows.  y_train defaults to all zeros
     (unsupervised).  X_test/y_test are only used for evaluation logging.
-    ``device``: where the sweeps run ("cpu" or "cuda"); "cuda" runs the
-    hand-written bond kernels and raises where no GPU is present.  Returns
-    (trained, info, encoded_test_states); the test states are class-sorted.
+    ``device``: where the sweeps run, the card ("cuda", the default) or
+    "cpu"; "cuda" raises where no GPU is present.  On the card the bond-
+    kernel route runs the hand-written kernels and every other configuration
+    the unfused route in PyTorch (training/sweep.py).  Returns (trained,
+    info, encoded_test_states); the test states are class-sorted.
     ``info["sweep_seconds"]`` holds each sweep's wall time, ended by a
-    device synchronisation."""
+    device synchronisation; with ``opts.track_cost``, ``info["bond_costs"]``
+    holds each sweep's per-bond loss trace [2(T-1)] in update order."""
     if mesh is not None:
         raise _not_ported("mesh= (data-parallel training)", "queue 1 item 16")
     if test_run:
@@ -98,8 +101,6 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     if opts.pad_to is not None or pad_samples_to:
         raise _not_ported("pad_to / pad_samples_to (padded hyperopt trials)",
                           "queue 1 item 18")
-    if opts.track_cost:
-        raise _not_ported("track_cost=True", "queue 1 item 10")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit_mps(device='cuda'): no CUDA device is available")
@@ -157,6 +158,8 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
                              ("train_loss", "train_acc", "train_KL_div",
                               "test_loss", "test_acc", "test_KL_div",
                               "test_conf", "time_taken", "sweep_seconds")}
+    if opts.track_cost:
+        info["bond_costs"] = []
     has_test = len(test_ds) > 0
 
     def log_stats(m: MPS, elapsed: float) -> float:
@@ -190,6 +193,15 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
                     svd_alg=opts.resolved_svd_alg(device),
                     power_iters=opts.resolved_power_iters(device),
                     orth=opts.resolved_orth_alg(device))
+    if verb >= 1:
+        # off the bond kernels a fit runs many small PyTorch operations per
+        # bond on the card: say so once
+        notice = pallas_route_notice(
+            mps.dtype, opts.loss_grad, opts.bbopt, opts.update_iters,
+            opts.rescale, sweep_kw["svd_alg"], device,
+            track_cost=opts.track_cost)
+        if notice:
+            print(notice)
 
     def sync():
         if device.type == "cuda":
@@ -197,11 +209,20 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
 
     clock = [time.perf_counter()]
 
-    def on_sweep(i: int, cores: torch.Tensor, center: torch.Tensor) -> bool:
+    def on_sweep(i: int, cores: torch.Tensor, center: torch.Tensor,
+                 costs: Optional[torch.Tensor]) -> bool:
         sync()
         elapsed = time.perf_counter() - clock[0]
         info["sweep_seconds"].append(elapsed)
         m = MPS(cores, center, T - 1)
+        if costs is not None:
+            # the whole sweep's per-bond loss trace (reference track_cost
+            # prints the cost during updates, loss_functions.jl:50)
+            costs = costs.cpu().numpy()
+            info["bond_costs"].append(costs)
+            if verb >= 1:
+                print(f"Sweep {i + 1} bond costs: first {costs[0]:.6g}, "
+                      f"last {costs[-1]:.6g}, mean {costs.mean():.6g}")
         if verb > -1:
             print(f"Finished sweep {i + 1}. Time for sweep: {elapsed:.2f}s")
         tr_acc = log_stats(m, elapsed) if opts.log_level > 0 else None
@@ -229,8 +250,8 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     cores, center = full_sweeps(
         mps.cores, mps.center, phis_c, y_onehot, class_weight, opts.eta,
         opts.cutoff, nsweeps=opts.nsweeps,
-        refresh_every=opts.subspace_refresh_every, on_sweep=on_sweep,
-        **sweep_kw)
+        refresh_every=opts.subspace_refresh_every,
+        track_cost=opts.track_cost, on_sweep=on_sweep, **sweep_kw)
     mps = MPS(cores, center, T - 1).normalize()
     if verb > -1:
         print("\nMPS normalised!\n")

@@ -30,3 +30,10 @@ def loss_acc_conf(mps: MPS, X_enc: torch.Tensor, y_idx: np.ndarray
     conf = torch.zeros((C, C), dtype=torch.long, device=y.device)
     conf.index_put_((y, preds), torch.ones_like(y), accumulate=True)
     return float(mse), float(kld), float(acc), conf.cpu().numpy()
+
+
+def predict_class_indices(mps: MPS, X_enc: torch.Tensor) -> np.ndarray:
+    """argmax_c |yhat_c| predictions as 0-based class indices
+    (scale-invariant: uses the scaled contraction)."""
+    yhat_s, _ = contract_batch_scaled(mps, X_enc)
+    return torch.argmax(yhat_s.abs(), dim=1).cpu().numpy()

@@ -1,5 +1,5 @@
 """DMRG-style two-site sweeps (counterpart of
-``mpstime_tpu/training/sweep.py``, the real ``randomized_warm`` route).
+``mpstime_tpu/training/sweep.py``, its real routes).
 
 One full sweep is a backward half-sweep (bonds T-2..0) then a forward one
 (0..T-2), reference RealRealHighDimension.jl:726-804.  JAX's ``lax.scan``
@@ -10,27 +10,41 @@ environments and caches are stacked in the same order; the running
 environment is the carry.  Each half-sweep's environment emissions are the
 exact environments the next half-sweep consumes.
 
-Every bond runs the fused bond step: one K12m launch per block of ``BB``
-consecutive bonds plus one remainder block (KLD), or one K12 launch per bond
-(MSE, whose gradient needs per-bond opposite-side log-scales).  On CUDA
-tensors these are the hand-written kernels; on CPU tensors their plain
-versions (ops/bond_kernels.py).
+Two routes, chosen per configuration as the JAX package chooses between its
+Pallas kernels and XLA (``_ineligible_reasons``):
+
+  * the bond-kernel route (real float32, {KLD, MSE} x {TSGO, GD}, one
+    update iteration, rescale (False, True), svd_alg "randomized_warm", no
+    cost tracking): one K12m launch per block of ``BB`` consecutive bonds
+    plus one remainder block (KLD; Newton-Schulz refresh or frozen sweeps),
+    else one ``bond_step`` per bond, which runs K12 or, for a refresh bond
+    under orth="qr", K1 -> QR -> K2.  On CUDA tensors these are the
+    hand-written kernels; on CPU tensors their plain versions
+    (ops/bond_kernels.py), the counterpart of Pallas interpret mode;
+  * the unfused route, every other real configuration, in plain PyTorch on
+    the tensors' own device: ``apply_update`` (ops/bond_update.py), the warm
+    split or ``split_bond_*`` (ops/decomp.py), then the scaled environment
+    step (ops/env.py), as the JAX package's XLA bond step
+    (sweep.py:433-455, :576-597).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..options import torch_dtype
 from ..ops.bond_kernels import bond_block_steps, bond_step
-from ..ops.decomp import warm_sketch_init
-from ..ops.env import boundary_env, build_left_envs
+from ..ops.bond_update import apply_update
+from ..ops.decomp import (_np_dtype, split_bond_left, split_bond_right,
+                          warm_sketch_init, warm_split_left, warm_split_right)
+from ..ops.env import (boundary_env, build_left_envs, env_step_left_scaled,
+                       env_step_right_scaled)
 
 BOND_BLOCK: Optional[int] = None
 """Override for the multi-bond block size (K12m): None = auto (the largest
-of 8/6/4/3/2 that is at most T-1), 1 = one K12 launch per bond."""
+of 8/6/4/3/2 that is at most T-1), 1 = one bond_step per bond."""
 
 
 def _auto_block(T: int) -> int:
@@ -44,43 +58,44 @@ def _auto_block(T: int) -> int:
 
 
 def _ineligible_reasons(dtype, loss, bbopt, update_iters, rescale,
-                        svd_alg, device) -> list:
-    reasons = []
-    if svd_alg != "randomized_warm":
-        reasons.append(f"svd_alg={svd_alg!r} (the unfused splits gram_eigh, "
-                       "svd, randomized, lean and ritz are ROADMAP.md queue 1 "
-                       "items 10 and 14)")
-    if int(update_iters) != 1:
-        reasons.append(f"update_iters={update_iters} (ROADMAP.md queue 1 "
-                       "item 10)")
-    if tuple(rescale) != (False, True):
-        reasons.append(f"rescale={tuple(rescale)} (ROADMAP.md queue 1 item "
-                       "10)")
-    if loss not in ("KLD", "MSE") or bbopt not in ("TSGO", "GD"):
-        reasons.append(f"loss={loss}/bbopt={bbopt} (the mixed loss and CGD "
-                       "are ROADMAP.md queue 1 item 10)")
+                        svd_alg, track_cost: bool = False) -> list:
+    """Why a configuration takes the unfused route rather than the bond
+    kernels (empty: the kernels), the counterpart of the JAX package's
+    ``_pallas_eligible`` (sweep.py:125-165).  Raises NotImplementedError
+    for what the port does not run yet: complex dtypes and the ritz route."""
     dt = dtype if isinstance(dtype, torch.dtype) else torch_dtype(dtype)
-    dev = torch.device(device).type
-    if dev not in ("cuda", "cpu"):
-        reasons.append(f"device={dev} (cpu or cuda)")
-    # the plain versions are dtype-generic, so the CPU also runs float64
-    if not (dt == torch.float32 or (dt == torch.float64 and dev == "cpu")):
-        reasons.append(f"dtype={dt} (the CUDA bond kernels are float32 and "
-                       "the CPU also runs float64; complex is ROADMAP.md "
-                       "queue 1 item 14)")
+    if dt.is_complex:
+        raise NotImplementedError(
+            f"dtype={dt}: complex sweeps are ROADMAP.md queue 1 item 14")
+    if svd_alg == "randomized_warm_ritz":
+        raise NotImplementedError(
+            "svd_alg='randomized_warm_ritz' (the ritz route) is ROADMAP.md "
+            "queue 1 item 14")
+    reasons = []
+    if track_cost:
+        reasons.append("track_cost=True (per-bond loss trace)")
+    if svd_alg != "randomized_warm":
+        reasons.append(f"svd_alg={svd_alg!r} (the kernels run "
+                       "'randomized_warm')")
+    if int(update_iters) != 1:
+        reasons.append(f"update_iters={update_iters} (the kernels run one)")
+    if tuple(rescale) != (False, True):
+        reasons.append(f"rescale={tuple(rescale)} (the kernels run "
+                       "(False, True))")
+    if loss not in ("KLD", "MSE") or bbopt not in ("TSGO", "GD"):
+        reasons.append(f"loss={loss}/bbopt={bbopt} (the kernels cover "
+                       "{KLD, MSE} x {TSGO, GD})")
+    if dt != torch.float32:
+        reasons.append(f"dtype={dt} (the kernels are float32)")
     return reasons
 
 
 def _kernel_eligible(dtype, loss, bbopt, update_iters, rescale, svd_alg,
-                     device) -> bool:
-    """Whether the fused bond step (K12 / K12m) covers a configuration: real
-    float32, {KLD, MSE} x {TSGO, GD}, one update iteration,
-    rescale=(False, True), svd_alg="randomized_warm", on a CUDA device.  A
-    CPU device runs the same route through the kernels' plain versions (the
-    counterpart of the JAX package's Pallas interpret mode), in float32 or
-    float64."""
+                     track_cost: bool = False) -> bool:
+    """Whether the sweep takes the bond-kernel route (on CUDA the kernels,
+    on the CPU their plain versions) rather than the unfused route."""
     return not _ineligible_reasons(dtype, loss, bbopt, update_iters, rescale,
-                                   svd_alg, device)
+                                   svd_alg, track_cost)
 
 
 def pallas_route_notice(dtype, loss, bbopt, update_iters, rescale, svd_alg,
@@ -90,13 +105,12 @@ def pallas_route_notice(dtype, loss, bbopt, update_iters, rescale, svd_alg,
     if torch.device(device).type != "cuda":
         return None
     reasons = _ineligible_reasons(dtype, loss, bbopt, update_iters, rescale,
-                                  svd_alg, device)
-    if track_cost:
-        reasons.append("track_cost=True (per-bond loss trace)")
+                                  svd_alg, track_cost)
     if not reasons:
         return None
-    return ("[mpstime_tpu_torch] note: this configuration cannot run on the "
-            "CUDA bond kernels: " + "; ".join(reasons))
+    return ("[mpstime_tpu_torch] note: this configuration takes the unfused "
+            "route (plain PyTorch on the card), not the CUDA bond kernels: "
+            + "; ".join(reasons))
 
 
 def init_subspaces(T: int, chi: int, d: int, dtype, device="cpu"):
@@ -116,115 +130,171 @@ def init_left_env_state(cores: torch.Tensor, phis_c: torch.Tensor):
     return LE[:-1], LE_ls[:-1]
 
 
-def _half_sweep(carry, xs, BB: int, step, block):
+Stacks = Dict[str, torch.Tensor]
+
+
+def _half_sweep(carry, xs: Stacks, BB: int, step, block):
     """Run one half-sweep over the bonds of ``xs`` (per-bond stacks in
     update order): blocks of BB bonds through ``block`` plus one remainder
     block, or every bond through ``step`` when BB == 1.  Returns the final
-    carry and the per-bond emissions (core, env, env_ls, Q) stacked in
-    update order."""
-    nb = xs[0].shape[0]
+    carry and the per-bond emissions stacked in update order."""
+    nb = next(iter(xs.values())).shape[0]
     outs = []
     if BB > 1:
         for s in range(0, nb, BB):
-            carry, ys = block(carry, [x[s:s + BB] for x in xs])
+            carry, ys = block(carry, {k: v[s:s + BB] for k, v in xs.items()})
             outs.append(ys)
     else:
         for j in range(nb):
-            carry, ys = step(carry, [x[j] for x in xs])
-            outs.append(tuple(y[None] for y in ys))
-    return carry, [torch.cat(y) for y in zip(*outs)]
+            carry, ys = step(carry, {k: v[j] for k, v in xs.items()})
+            outs.append({k: y[None] for k, y in ys.items()})
+    return carry, {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
 def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
                 class_weight, eta, cutoff, *, loss: str, bbopt: str,
                 update_iters: int, rescale: Tuple[bool, bool], svd_alg: str,
-                power_iters: int = 1, orth: str = "ns",
-                refresh: bool = True, max_rank=None):
+                power_iters: int = 1, orth: str = "qr",
+                refresh: bool = True, max_rank=None,
+                track_cost: bool = False):
     """One full sweep; center at site T-1 on entry and exit.
 
     LE [T, N, chi] / LE_ls [T, N]: left environments of the current cores
-    (slot t = sites 0..t-1).  VB/UF: the warm-split subspace caches.
-    Returns (cores, center, LE', LE_ls', VB', UF'), LE' being exactly what
-    the next sweep needs."""
+    (slot t = sites 0..t-1).  VB/UF: the warm-split subspace caches (None
+    unless svd_alg is "randomized_warm", the one warm split ported; the
+    JAX package's "randomized_warm_ritz" is ROADMAP.md queue 1 item 14).
+    Returns (cores, center, LE', LE_ls', VB', UF', costs), LE' being
+    exactly what the next sweep needs;
+    costs is the per-bond loss [2(T-1)] in update order (backward bonds
+    T-2..0, then forward 0..T-2) when ``track_cost``, else None."""
     T, chi, d, _ = cores.shape
+    C = center.shape[3]
     N = phis_c.shape[1]
     dev = cores.device
-    reasons = _ineligible_reasons(cores.dtype, loss, bbopt, update_iters,
-                                  rescale, svd_alg, dev)
-    if reasons:
-        raise NotImplementedError(
-            "this configuration has no fused bond step in the port: "
-            + "; ".join(reasons))
-    kw = dict(refresh=refresh, power_iters=power_iters, orth=orth,
-              max_rank=max_rank, bbopt=bbopt)
-    # MSE bonds need per-bond opposite-side log-scales, which the block
-    # kernel does not carry: they run one K12 per bond
-    BB = _auto_block(T) if loss == "KLD" else 1
-    center = center.permute(3, 0, 1, 2).contiguous()   # class-major
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"sweeps run on cpu or cuda, got {dev}")
+    fused = not _ineligible_reasons(cores.dtype, loss, bbopt, update_iters,
+                                    rescale, svd_alg, track_cost)
+    warm = svd_alg == "randomized_warm"
     e0 = boundary_env(N, chi, cores.dtype, dev)
     ls0 = torch.zeros((N,), dtype=phis_c.real.dtype, device=dev)
+
+    def fused_steps(forward: bool):
+        kw = dict(refresh=refresh, power_iters=power_iters, orth=orth,
+                  max_rank=max_rank, bbopt=bbopt)
+
+        def step(carry, x):
+            center, env, ls = carry
+            le, re = (env, x["envx"]) if forward else (x["envx"], env)
+            center, core, v2, ls2, Q = bond_step(
+                x["core"], center, le, re, ls, x["phl"], x["phr"], y_onehot,
+                class_weight, x["q"], eta, cutoff, forward=forward,
+                loss=loss, opp_ls=x["envx_ls"], **kw)
+            return (center, v2, ls2), dict(core=core, env=v2, ls=ls2, q=Q)
+
+        def block(carry, x):
+            center, env, ls = carry
+            center, core, env_b, ls_b, Q = bond_block_steps(
+                x["core"], center, x["envx"], env, ls, x["phl"], x["phr"],
+                y_onehot, class_weight, x["q"], eta, cutoff, forward=forward,
+                **kw)
+            return (center, env_b[-1], ls_b[-1]), dict(core=core, env=env_b,
+                                                       ls=ls_b, q=Q)
+        return step, block
+
+    def unfused_step(forward: bool):
+        def step(carry, x):
+            center, env, ls = carry
+            le, re = (env, x["envx"]) if forward else (x["envx"], env)
+            if forward:
+                BT = torch.einsum("aimc,mkb->aikbc", center, x["core"])
+            else:
+                BT = torch.einsum("aim,mkbc->aikbc", x["core"], center)
+            cost, BT = apply_update(
+                BT, le, re, x["phl"].conj(), x["phr"].conj(), y_onehot,
+                class_weight, ls + x["envx_ls"], eta=eta, loss=loss,
+                bbopt=bbopt, update_iters=update_iters, rescale=rescale)
+            split_kw = dict(max_rank=max_rank, orth=orth)
+            warm_kw = dict(q=power_iters, refresh=refresh, **split_kw)
+            ys = {}
+            if forward:
+                M = BT.reshape(chi * d, d * chi * C)
+                if warm:
+                    U, SVh, ys["q"] = warm_split_right(M, x["q"], chi, cutoff,
+                                                       **warm_kw)
+                else:
+                    U, SVh = split_bond_right(M, chi, cutoff, svd_alg,
+                                              **split_kw)
+                core = U.reshape(chi, d, chi)
+                center = SVh.reshape(chi, d, chi, C)
+                v2, ls2 = env_step_left_scaled(env, ls, core, x["phl"])
+            else:
+                # rows (a, i, c): the label stays on the sweep side (:166-169)
+                M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
+                if warm:
+                    US, Vh, ys["q"] = warm_split_left(M, x["q"], chi, cutoff,
+                                                      **warm_kw)
+                else:
+                    US, Vh = split_bond_left(M, chi, cutoff, svd_alg,
+                                             **split_kw)
+                center = US.reshape(chi, d, C, chi).permute(0, 1, 3, 2)
+                core = Vh.reshape(chi, d, chi)
+                v2, ls2 = env_step_right_scaled(env, ls, core, x["phr"])
+            ys.update(core=core, env=v2, ls=ls2)
+            if track_cost:
+                ys["cost"] = cost
+            return (center, v2, ls2), ys
+        return step, None
+
+    if fused:
+        # K12m blocks carry no per-bond opposite-side log-scales (MSE) and
+        # refresh with the Newton-Schulz polar only (sweep.py:467-475)
+        BB = (_auto_block(T) if loss == "KLD" and (orth == "ns" or not refresh)
+              else 1)
+        steps = fused_steps
+        center = center.permute(3, 0, 1, 2).contiguous()   # class-major
+    else:
+        BB, steps = 1, unfused_step
 
     # ---------------- backward half-sweep (center T-1 -> 0) ----------------
     # update order jj = 0..T-2 is bond j = T-2-jj
     fl = lambda a: torch.flip(a, (0,))                 # noqa: E731
-    xs_b = [fl(cores[:T - 1]), fl(LE[:T - 1]), fl(phis_c[:T - 1]),
-            fl(phis_c[1:T]), fl(VB), fl(LE_ls[:T - 1])]
-
-    def backward_step(carry, x):
-        center, re_v, re_ls = carry
-        A, le, phl, phr, vb, le_ls = x
-        center, V, v2, ls2, Qv = bond_step(
-            A, center, le, re_v, re_ls, phl, phr, y_onehot, class_weight, vb,
-            eta, cutoff, forward=False, loss=loss, opp_ls=le_ls, **kw)
-        return (center, v2, ls2), (V, v2, ls2, Qv)
-
-    def backward_block(carry, x):
-        center, re_v, re_ls = carry
-        A, le, phl, phr, vb, _ = x
-        center, V, env_b, ls_b, Qv = bond_block_steps(
-            A, center, le, re_v, re_ls, phl, phr, y_onehot, class_weight, vb,
-            eta, cutoff, forward=False, **kw)
-        return (center, env_b[-1], ls_b[-1]), (V, env_b, ls_b, Qv)
-
-    (center, _, _), (V, re_e, re_ls_e, qv) = _half_sweep(
-        (center, e0, ls0), xs_b, BB, backward_step, backward_block)
+    xs_b = dict(core=fl(cores[:T - 1]), envx=fl(LE[:T - 1]),
+                phl=fl(phis_c[:T - 1]), phr=fl(phis_c[1:T]),
+                envx_ls=fl(LE_ls[:T - 1]))
+    if warm:
+        xs_b["q"] = fl(VB)
+    (center, _, _), ys_b = _half_sweep((center, e0, ls0), xs_b, BB,
+                                       *steps(False))
     # new cores[1..T-1] (emitted for j = T-2..0 -> slots T-1..1)
-    cores_mid = torch.cat([cores[:1], fl(V)])
-    VB = fl(qv)
+    cores_mid = torch.cat([cores[:1], fl(ys_b["core"])])
+    if warm:
+        VB = fl(ys_b["q"])
     # RE stack for the forward pass: the emissions are RE[j+1]; forward bond
     # j reads RE[j+2], i.e. slots 2..T-1 plus the boundary at slot T
-    xs_re = torch.cat([fl(re_e)[1:], e0[None]])
-    xs_re_ls = torch.cat([fl(re_ls_e)[1:], ls0[None]])
+    xs_f = dict(core=cores_mid[1:T].contiguous(),
+                envx=torch.cat([fl(ys_b["env"])[1:], e0[None]]),
+                phl=phis_c[:T - 1], phr=phis_c[1:T],
+                envx_ls=torch.cat([fl(ys_b["ls"])[1:], ls0[None]]))
+    if warm:
+        xs_f["q"] = UF
 
     # ---------------- forward half-sweep (center 0 -> T-1) -----------------
-    xs_f = [cores_mid[1:T].contiguous(), xs_re, phis_c[:T - 1],
-            phis_c[1:T], UF, xs_re_ls]
-
-    def forward_step(carry, x):
-        center, le_v, le_ls = carry
-        B, re, phl, phr, uf, re_ls = x
-        center, U, v2, ls2, Qu = bond_step(
-            B, center, le_v, re, le_ls, phl, phr, y_onehot, class_weight, uf,
-            eta, cutoff, forward=True, loss=loss, opp_ls=re_ls, **kw)
-        return (center, v2, ls2), (U, v2, ls2, Qu)
-
-    def forward_block(carry, x):
-        center, le_v, le_ls = carry
-        B, re, phl, phr, uf, _ = x
-        center, U, env_b, ls_b, Qu = bond_block_steps(
-            B, center, re, le_v, le_ls, phl, phr, y_onehot, class_weight, uf,
-            eta, cutoff, forward=True, **kw)
-        return (center, env_b[-1], ls_b[-1]), (U, env_b, ls_b, Qu)
-
-    (center, _, _), (U, le_e, le_ls_e, UF) = _half_sweep(
-        (center, e0, ls0), xs_f, BB, forward_step, forward_block)
-    cores_out = torch.cat([U, cores_mid[T - 1:]])
+    (center, _, _), ys_f = _half_sweep((center, e0, ls0), xs_f, BB,
+                                       *steps(True))
+    cores_out = torch.cat([ys_f["core"], cores_mid[T - 1:]])
+    if warm:
+        UF = ys_f["q"]
     # LE stack for the next backward pass: slot 0 = boundary, slots 1..T-1
     # from the forward emissions (exact environments of cores_out)
-    LE_out = torch.cat([e0[None], le_e])
-    LE_ls_out = torch.cat([ls0[None], le_ls_e])
-    center = center.permute(1, 2, 3, 0).contiguous()
-    return cores_out, center, LE_out, LE_ls_out, VB, UF
+    LE_out = torch.cat([e0[None], ys_f["env"]])
+    LE_ls_out = torch.cat([ls0[None], ys_f["ls"]])
+    if fused:
+        center = center.permute(1, 2, 3, 0)
+    costs = (torch.cat([ys_b["cost"], ys_f["cost"]]) if track_cost
+             else None)
+    return (cores_out, center.contiguous(), LE_out, LE_ls_out, VB, UF,
+            costs)
 
 
 def full_sweeps(cores: torch.Tensor, center: torch.Tensor,
@@ -232,28 +302,31 @@ def full_sweeps(cores: torch.Tensor, center: torch.Tensor,
                 class_weight: torch.Tensor, eta, cutoff, *, nsweeps: int,
                 loss: str, bbopt: str, update_iters: int,
                 rescale: Tuple[bool, bool], svd_alg: str,
-                power_iters: int = 1, orth: str = "ns",
+                power_iters: int = 1, orth: str = "qr",
                 refresh_every: int = 1, max_rank=None,
-                on_sweep: Optional[Callable[[int, torch.Tensor, torch.Tensor],
-                                            bool]] = None
+                track_cost: bool = False,
+                on_sweep: Optional[Callable[..., bool]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``nsweeps`` full sweeps; the left environments and the per-bond
     subspace caches persist across them.
 
-    ``refresh_every=K``: refresh the subspaces (power step + polar) on
-    sweeps 0, K, 2K, ...; in between, split against the frozen cached bases.
-    ``on_sweep(i, cores, center)`` runs after each sweep (logging, timing);
-    returning True stops the loop early."""
+    ``refresh_every=K``: refresh the subspaces (power step + orthogonal
+    basis) on sweeps 0, K, 2K, ...; in between, split against the frozen
+    cached bases.  ``on_sweep(i, cores, center, costs)`` runs after each
+    sweep (logging, timing; ``costs`` is the per-bond loss trace when
+    ``track_cost``, else None); returning True stops the loop early."""
     T, chi, d, _ = cores.shape
     LE, LE_ls = init_left_env_state(cores, phis_c)
-    VB, UF = init_subspaces(T, chi, d, torch.empty(0, dtype=cores.dtype)
-                            .numpy().dtype, cores.device)
+    VB = UF = None
+    if svd_alg == "randomized_warm":
+        VB, UF = init_subspaces(T, chi, d, _np_dtype(cores), cores.device)
     for i in range(nsweeps):
-        cores, center, LE, LE_ls, VB, UF = _sweep_core(
+        cores, center, LE, LE_ls, VB, UF, costs = _sweep_core(
             cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot, class_weight,
             eta, cutoff, loss=loss, bbopt=bbopt, update_iters=update_iters,
             rescale=rescale, svd_alg=svd_alg, power_iters=power_iters,
-            orth=orth, refresh=i % refresh_every == 0, max_rank=max_rank)
-        if on_sweep is not None and on_sweep(i, cores, center):
+            orth=orth, refresh=i % refresh_every == 0, max_rank=max_rank,
+            track_cost=track_cost)
+        if on_sweep is not None and on_sweep(i, cores, center, costs):
             break
     return cores, center

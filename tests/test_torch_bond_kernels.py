@@ -244,14 +244,21 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
 def test_unported_routes_raise():
     x = _block(61)
     args = _single_args(x, False, torch.from_numpy) + (0.05, 1e-10)
-    with pytest.raises(NotImplementedError, match="items 3-4"):
-        bk.bond_step(*args, forward=False, orth="qr")
     with pytest.raises(NotImplementedError, match="items 6-9"):
         bk.bond_step(*args, forward=False, orth="ns", stream_tile=4)
-    with pytest.raises(NotImplementedError, match="CGD"):
+    # CGD and the mixed loss are no kernel's: the sweep sends them to the
+    # unfused route, and the kernels refuse them
+    with pytest.raises(ValueError, match="CGD"):
         bk.bond_step(*args, forward=False, orth="ns", bbopt="CGD")
-    # frozen bonds need no orthogonalisation: any orth runs
+    with pytest.raises(ValueError, match="Newton-Schulz"):
+        bk.bond_block_steps(*_blk_args(_block(62, Bb=2), torch.from_numpy),
+                            0.05, 1e-10, forward=False, orth="qr")
+    # a refresh bond under orth="qr" runs K1 -> QR -> K2 (here their plain
+    # versions); a frozen one runs K12 under any orth
+    bk.reset_counts()
+    bk.bond_step(*args, forward=False, orth="qr")
     bk.bond_step(*args, forward=False, refresh=False, orth="qr")
+    assert bk.PLAIN_CALLS == {"k12": 1, "k12m": 0, "k1": 1, "k2": 1}
 
 
 def test_auto_block_rule(monkeypatch):
@@ -264,20 +271,33 @@ def test_auto_block_rule(monkeypatch):
 
 
 def test_kernel_eligibility_matches_pallas_conditions():
+    # the route choice is the JAX package's _pallas_eligible
+    # (sweep.py:125-165, interpret mode on the CPU): the bond kernels for
+    # real float32, {KLD, MSE} x {TSGO, GD}, one update iteration,
+    # rescale (False, True), randomized_warm and no cost tracking; every
+    # other real configuration takes the unfused route
     ok = dict(dtype=np.float32, loss="KLD", bbopt="TSGO", update_iters=1,
               rescale=(False, True), svd_alg="randomized_warm")
-    for dev in ("cuda", "cpu", torch.device("cuda:0")):
-        assert tsweep._kernel_eligible(device=dev, **ok)
-    for change in (dict(dtype=np.float64), dict(dtype=torch.complex64),
+    assert tsweep._kernel_eligible(**ok)
+    assert tsweep._kernel_eligible(**{**ok, "loss": "MSE", "bbopt": "GD"})
+    for change in (dict(dtype=np.float64), dict(dtype=torch.float64),
                    dict(loss="MIXED"), dict(bbopt="CGD"),
                    dict(update_iters=2), dict(rescale=(True, True)),
-                   dict(svd_alg="gram_eigh")):
-        assert not tsweep._kernel_eligible(device="cuda", **{**ok, **change})
+                   dict(svd_alg="gram_eigh"), dict(svd_alg="randomized"),
+                   dict(track_cost=True)):
+        assert not tsweep._kernel_eligible(**{**ok, **change})
+    # what the port does not run yet raises, naming its ROADMAP item
+    for change in (dict(dtype=torch.complex64),
+                   dict(svd_alg="randomized_warm_ritz")):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            tsweep._kernel_eligible(**{**ok, **change})
     assert tsweep.pallas_route_notice(torch.float32, "KLD", "TSGO", 1,
                                       (False, True), "randomized_warm",
                                       "cuda") is None
     note = tsweep.pallas_route_notice(torch.float32, "KLD", "TSGO", 2,
-                                      (False, True), "svd", "cuda")
+                                      (False, True), "svd", "cuda",
+                                      track_cost=True)
     assert "svd_alg='svd'" in note and "update_iters=2" in note
+    assert "track_cost" in note
     assert tsweep.pallas_route_notice(torch.float32, "KLD", "TSGO", 2,
                                       (False, True), "svd", "cpu") is None

@@ -1,4 +1,4 @@
-"""The port's CUDA bond kernels (K12, K12m) held against their plain
+"""The port's CUDA bond kernels (K12, K12m, K1, K2) held against their plain
 PyTorch versions on the card.  These tests need an NVIDIA GPU with nvcc and
 skip without one.  This file imports nothing of JAX, so it runs where JAX
 is not installed; tests/conftest.py does import JAX, hence --noconftest:
@@ -103,6 +103,54 @@ def test_k12m_kernel_matches_plain_and_chained_k12(bk, Bb, forward, refresh):
     _close((center,), (got[0],), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("emit_y,q", [(True, 1), (True, 3), (False, 1)])
+@pytest.mark.parametrize("loss,bbopt", [("KLD", "TSGO"), ("MSE", "GD")])
+def test_k1_kernel_matches_plain(bk, forward, emit_y, q, loss, bbopt):
+    x = _inputs(10, 1, **SHAPE)
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    args = (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+            x["y1h"], x["w"], x["ls0"] + x["opp"], x["V0"][0], 0.05)
+    kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth="qr",
+              loss=loss, bbopt=bbopt)
+    n0 = bk.LAUNCHES["k1"]
+    got = bk.k1_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1"] == n0 + 1
+    _close(got, bk.k1_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("mr", [None, 17])
+def test_k2_kernel_matches_plain(bk, forward, mr):
+    x = _inputs(11, 1, **SHAPE)
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    BT, Y = bk.k1_plain(x["A"][0], x["center"], le, re, x["phil"][0],
+                        x["phir"][0], x["y1h"], x["w"], x["ls0"], x["V0"][0],
+                        0.05, forward=forward)
+    Q = torch.linalg.qr(Y).Q.contiguous()
+    env, phi = (le, x["phil"][0]) if forward else (re, x["phir"][0])
+    args = (BT, Q, env, x["ls0"], phi, 1e-10)
+    got = bk.k2_cuda(*args, forward=forward, max_rank=mr)
+    torch.cuda.synchronize()
+    _close(got, bk.k2_plain(*args, forward=forward, max_rank=mr))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+def test_qr_bond_kernels_match_the_plain_qr_bond(bk, forward):
+    # K1 -> torch.linalg.qr -> K2 against the plain versions around the same
+    # QR call, so the column signs agree
+    x = _inputs(12, 1, **SHAPE)
+    kw = dict(forward=forward, loss="MSE", opp_ls=x["opp"])
+    bk.reset_counts()
+    got = bk.bond_step(*_single(x, forward), orth="qr", **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES == {"k12": 0, "k12m": 0, "k1": 1, "k2": 1}
+    _close(got, bk.qr_bond_step(*_single(x, forward), plain=True, **kw))
+
+
 def test_kernel_rejects_operands_off_the_card(bk):
     x = _inputs(9, 1, **SHAPE)
     args = list(_single(x, False))
@@ -125,6 +173,44 @@ def test_fit_on_cuda_runs_the_kernels(bk):
                                      verbosity=-1, log_level=-1),
         device="cuda")
     assert bk.LAUNCHES["k12m"] == 3 * 2 * 12 and bk.LAUNCHES["k12"] == 0
-    assert bk.PLAIN_CALLS == {"k12": 0, "k12m": 0}
+    assert sum(bk.PLAIN_CALLS.values()) == 0
     assert trained.mps.center.is_cuda and len(info["sweep_seconds"]) == 3
     assert np.mean(mt.classify(trained, Xtr) == ytr) >= 0.9
+
+
+def test_qr_fit_on_cuda_runs_k1_and_k2(bk):
+    import mpstime_tpu_torch as mt
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40], data["y_train"][:40]
+    bk.reset_counts()
+    trained, _, _ = mt.fit_mps(
+        Xtr, ytr, opts=mt.MPSOptions(nsweeps=2, chi_max=12, d=3,
+                                     verbosity=-1, log_level=-1,
+                                     orth_alg="qr", subspace_refresh_every=2),
+        device="cuda")
+    # refresh sweep: one K1 and one K2 per bond; frozen sweep: K12m blocks
+    assert bk.LAUNCHES == {"k12": 0, "k12m": 2 * 12, "k1": 2 * 95,
+                           "k2": 2 * 95}
+    assert sum(bk.PLAIN_CALLS.values()) == 0
+    assert trained.mps.center.is_cuda
+    assert np.mean(mt.classify(trained, Xtr) == ytr) >= 0.9
+
+
+@pytest.mark.parametrize("kw", [
+    dict(svd_alg="gram_eigh", track_cost=True),
+    dict(dtype="float64", bbopt="CGD", update_iters=2),
+    dict(svd_alg="randomized_lean", loss_grad="Mixed")])
+def test_unfused_fit_on_cuda_runs_no_kernel(bk, kw):
+    import mpstime_tpu_torch as mt
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40, :24], data["y_train"][:40]
+    bk.reset_counts()
+    trained, info, _ = mt.fit_mps(
+        Xtr, ytr, opts=mt.MPSOptions(nsweeps=1, chi_max=8, d=3, verbosity=-1,
+                                     log_level=-1, **kw),
+        device="cuda")
+    assert sum(bk.LAUNCHES.values()) == sum(bk.PLAIN_CALLS.values()) == 0
+    assert trained.mps.cores.is_cuda
+    assert bool(torch.isfinite(trained.mps.center).all())
+    if kw.get("track_cost"):
+        assert len(info["bond_costs"][0]) == 46

@@ -28,7 +28,8 @@ def _t(a):
     (5, 2, 1, 3, 8, np.float32), (96, 5, 2, 4, 25, np.float32)])
 def test_random_mps_bit_identical(T, d, C, chi_init, chi_max, dtype):
     j = jmps.random_mps(1234, T, d, C, chi_init, chi_max, dtype=dtype)
-    t = tmps.random_mps(1234, T, d, C, chi_init, chi_max, dtype=dtype)
+    t = tmps.random_mps(1234, T, d, C, chi_init, chi_max, dtype=dtype,
+                        device="cpu")
     np.testing.assert_array_equal(t.cores.numpy(), np.asarray(j.cores))
     np.testing.assert_array_equal(t.center.numpy(), np.asarray(j.center))
     assert t.center_pos == j.center_pos == T - 1
@@ -62,7 +63,7 @@ def test_contract_batch_scaled_matches_jax_f64(center_pos):
     phis = _states(4, N, T, d)
     yj, lj = jmps._contract_batch(jnp.asarray(cores), jnp.asarray(center),
                                   center_pos, jnp.asarray(phis))
-    m = tmps.MPS.from_numpy(cores, center, center_pos)
+    m = tmps.MPS.from_numpy(cores, center, center_pos, device="cpu")
     yt, lt = tmps.contract_batch_scaled(m, _t(phis))
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-10,
                                atol=1e-12)
@@ -78,7 +79,7 @@ def test_contract_batch_scaled_matches_jax_f64(center_pos):
 def test_expand_label_index_and_normalize_match_jax():
     j = jmps.random_mps(9, 7, 3, 3, 4, 5, dtype=np.float64)
     t = tmps.MPS.from_numpy(np.asarray(j.cores), np.asarray(j.center),
-                            j.center_pos)
+                            j.center_pos, device="cpu")
     for sj, st in zip(jmps.expand_label_index(j), tmps.expand_label_index(t)):
         np.testing.assert_allclose(st.center.numpy(), np.asarray(sj.center),
                                    rtol=1e-12)
@@ -89,9 +90,11 @@ def test_expand_label_index_and_normalize_match_jax():
 
 def test_mps_from_numpy_checks_layouts():
     with pytest.raises(ValueError):
-        tmps.MPS.from_numpy(np.zeros((4, 3, 2, 3)), np.zeros((3, 2, 4, 2)), 3)
+        tmps.MPS.from_numpy(np.zeros((4, 3, 2, 3)), np.zeros((3, 2, 4, 2)), 3,
+                            device="cpu")
     with pytest.raises(ValueError):
-        tmps.MPS.from_numpy(np.zeros((4, 3, 2)), np.zeros((3, 2, 3, 2)), 3)
+        tmps.MPS.from_numpy(np.zeros((4, 3, 2)), np.zeros((3, 2, 3, 2)), 3,
+                            device="cpu")
 
 
 @pytest.mark.parametrize("side", ["left", "right"])
@@ -149,11 +152,21 @@ def test_apply_update_matches_jax_f64(loss, bbopt):
 
 
 def test_apply_update_rejects_unported_optimisers():
+    # CGD (Polak-Ribiere, normalised step) is ported: held against JAX in
+    # f64 over three iterations, the first of which has no previous
+    # direction; names outside {KLD, MSE, MIXED} x {TSGO, GD, CGD} raise
     b = _bond(23)
-    args = tuple(_t(b[k]) for k in ("BT", "le", "re", "phl", "phr", "y1h",
-                                    "w", "ls"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tbu.apply_update(*args, eta=0.1, bbopt="CGD")
+    keys = ("BT", "le", "re", "phl", "phr", "y1h", "w", "ls")
+    kw = dict(eta=0.1, bbopt="CGD", update_iters=3)
+    lj, BTj = jbu.apply_update(*(jnp.asarray(b[k]) for k in keys), **kw)
+    lt, BTt = tbu.apply_update(*(_t(b[k]) for k in keys), **kw)
+    np.testing.assert_allclose(BTt.numpy(), np.asarray(BTj), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(float(lt), float(lj), rtol=1e-10)
+    args = tuple(_t(b[k]) for k in keys)
+    for bad in (dict(bbopt="adam"), dict(loss="hinge")):
+        with pytest.raises(ValueError):
+            tbu.apply_update(*args, eta=0.1, **bad)
 
 
 @pytest.mark.parametrize("n,keep,dtype", [(15, 5, np.float32), (24, 8, np.float64),

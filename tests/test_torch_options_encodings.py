@@ -69,6 +69,18 @@ def test_cuda_resolution_is_the_accelerator_branch(kw, svd, orth, q):
     assert o.resolved_ritz_rots("cuda") == ("eigh", "jacobi")
 
 
+def test_resolution_defaults_to_the_card():
+    # the JAX package resolves from jax.default_backend(); the port's
+    # counterpart is the card, unless the caller names the CPU
+    o = mt.MPSOptions()
+    assert o.resolved_svd_alg() == o.resolved_svd_alg("cuda") == \
+        "randomized_warm"
+    assert o.resolved_orth_alg() == "ns"
+    assert o.resolved_power_iters() == 1
+    assert o.resolved_ritz_rots() == ("eigh", "jacobi")
+    assert o.resolved_svd_alg("cpu") == "gram_eigh"
+
+
 def test_resolved_dtype_defaults_to_single_precision():
     assert mt.MPSOptions().resolved_dtype() == np.float32
     assert mt.MPSOptions(encoding="fourier").resolved_dtype() == np.complex64
@@ -114,7 +126,7 @@ def test_encode_dataset_matches_jax_f64(ecg200, encoding, d):
     opts_t = mt.MPSOptions(encoding=encoding, d=d)
     Xs, _ = mj.transform_train_data(Xtr, opts_j)
     dj = jax_encode_dataset(Xtr, Xs, ytr, opts_j, dtype=np.float64)
-    dt = encode_dataset(Xtr, Xs, ytr, opts_t, dtype=np.float64)
+    dt = encode_dataset(Xtr, Xs, ytr, opts_t, dtype=np.float64, device="cpu")
     assert dt.X_enc.dtype == torch.float64 and dt.X_enc.shape == (40, 24, d)
     # f64: the same recurrence in the same order, rtol 1e-10
     np.testing.assert_allclose(dt.X_enc.numpy(), np.asarray(dj.X_enc),
@@ -128,14 +140,15 @@ def test_encode_dataset_matches_jax_f64(ecg200, encoding, d):
 def test_encode_dataset_casts_to_model_dtype_and_empty_sets():
     opts = mt.MPSOptions(d=3)
     X = np.linspace(-0.9, 0.9, 12).reshape(3, 4)
-    ds = encode_dataset(X, X, np.array([1, 0, 1]), opts)
+    ds = encode_dataset(X, X, np.array([1, 0, 1]), opts, device="cpu")
     assert ds.X_enc.dtype == torch.float32
     np.testing.assert_array_equal(ds.y_idx, [0, 1, 1])
     empty = encode_dataset(np.zeros((0, 4)), np.zeros((0, 4)),
-                           np.zeros(0), opts, labels=np.array([0, 1]))
+                           np.zeros(0), opts, labels=np.array([0, 1]),
+                           device="cpu")
     assert len(empty) == 0 and empty.X_enc.shape == (0, 0, 3)
     with pytest.raises(ValueError, match="rescaled"):
-        encode_dataset(X, X + 5.0, np.zeros(3), opts)
+        encode_dataset(X, X + 5.0, np.zeros(3), opts, device="cpu")
 
 
 @pytest.mark.parametrize("name,item", [

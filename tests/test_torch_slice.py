@@ -52,7 +52,8 @@ def jax_fit(slice_data):
 def torch_fit(slice_data):
     Xtr, ytr, _, _ = slice_data
     bk.reset_counts()
-    trained, info, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(**SLICE_OPTS))
+    trained, info, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(**SLICE_OPTS),
+                                  device="cpu")
     return trained, info, dict(bk.PLAIN_CALLS), dict(bk.LAUNCHES)
 
 
@@ -71,7 +72,8 @@ def test_fit_matches_jax_fit_f64(slice_data):
     jf = _jax_fit(Xtr, ytr, dtype="float64")
     tf, _, _ = mt.fit_mps(Xtr, ytr,
                           opts=mt.MPSOptions(**{**SLICE_OPTS,
-                                                "dtype": "float64"}))
+                                                "dtype": "float64"}),
+                          device="cpu")
     assert tf.mps.cores.dtype == torch.float64
     np.testing.assert_allclose(tf.mps.cores.numpy(), np.asarray(jf.mps.cores),
                                rtol=1e-3, atol=1e-4)
@@ -92,7 +94,8 @@ def test_f32_fit_matches_jax_pallas_fit_over_one_short_sweep(slice_data):
     Xtr, Xte = Xtr[:, :8], Xte[:, :8]
     jf = _jax_fit(Xtr, ytr, nsweeps=1)
     tf, _, _ = mt.fit_mps(Xtr, ytr,
-                          opts=mt.MPSOptions(**{**SLICE_OPTS, "nsweeps": 1}))
+                          opts=mt.MPSOptions(**{**SLICE_OPTS, "nsweeps": 1}),
+                          device="cpu")
     assert tf.mps.cores.dtype == torch.float32
     np.testing.assert_allclose(tf.mps.cores.numpy(), np.asarray(jf.mps.cores),
                                rtol=1e-3, atol=1e-4)
@@ -126,8 +129,8 @@ def test_f32_fit_tracks_jax_pallas_fit(slice_data, jax_fit, torch_fit):
 def test_fit_took_the_block_route_on_cpu(torch_fit):
     _, info, plain, launches = torch_fit
     # T=32: 31 bonds per half-sweep = 3 blocks of 8 + a block of 7
-    assert plain == {"k12": 0, "k12m": 2 * 2 * 4}
-    assert launches == {"k12": 0, "k12m": 0}
+    assert plain == {"k12": 0, "k12m": 2 * 2 * 4, "k1": 0, "k2": 0}
+    assert launches == {"k12": 0, "k12m": 0, "k1": 0, "k2": 0}
     assert len(info["sweep_seconds"]) == 2
 
 
@@ -137,7 +140,7 @@ def test_converted_jax_model_classifies_like_jax(slice_data, jax_fit):
         np.asarray(jax_fit.mps.cores), np.asarray(jax_fit.mps.center),
         jax_fit.mps.center_pos, jax_fit.opts.to_json(),
         jax_fit.norms.to_dict(), jax_fit.labels,
-        enc_args=jax_fit.train_data.enc_args)
+        enc_args=jax_fit.train_data.enc_args, device="cpu")
     np.testing.assert_array_equal(mt.classify(conv, Xte),
                                   mj.classify(jax_fit, Xte))
     from mpstime_tpu.summary import _encode_test as jax_encode_test
@@ -156,7 +159,7 @@ def test_stats_match_jax(jax_fit):
     conv = mt.TrainedMPS.from_numpy(
         np.asarray(jax_fit.mps.cores), np.asarray(jax_fit.mps.center),
         jax_fit.mps.center_pos, jax_fit.opts.to_json(),
-        jax_fit.norms.to_dict(), jax_fit.labels)
+        jax_fit.norms.to_dict(), jax_fit.labels, device="cpu")
     X_enc, y_idx = jax_fit.train_data.X_enc, jax_fit.train_data.y_idx
     sj = jax_stats(jax_fit.mps, X_enc, y_idx)
     st = loss_acc_conf(conv.mps, torch.from_numpy(np.array(X_enc)), y_idx)
@@ -168,7 +171,8 @@ def test_stats_match_jax(jax_fit):
 def test_logged_fit_records_stats(slice_data):
     Xtr, ytr, Xte, yte = slice_data
     opts = mt.MPSOptions(**{**SLICE_OPTS, "log_level": 1, "nsweeps": 1})
-    trained, info, test_ds = mt.fit_mps(Xtr, ytr, Xte, yte, opts)
+    trained, info, test_ds = mt.fit_mps(Xtr, ytr, Xte, yte, opts,
+                                        device="cpu")
     # before training, after the sweep, and after normalisation
     assert len(info["train_acc"]) == len(info["test_acc"]) == 3
     assert len(info["sweep_seconds"]) == 1 and len(test_ds) == len(yte)
@@ -181,30 +185,63 @@ def test_mse_fit_runs_k12_per_bond(slice_data):
     bk.reset_counts()
     opts = mt.MPSOptions(**{**SLICE_OPTS, "nsweeps": 1, "loss_grad": "MSE",
                             "chi_max": 4})
-    trained, _, _ = mt.fit_mps(Xtr[:, :8], ytr, opts=opts)
-    assert bk.PLAIN_CALLS == {"k12": 2 * 7, "k12m": 0}
+    trained, _, _ = mt.fit_mps(Xtr[:, :8], ytr, opts=opts, device="cpu")
+    assert bk.PLAIN_CALLS == {"k12": 2 * 7, "k12m": 0, "k1": 0, "k2": 0}
     assert bool(torch.isfinite(trained.mps.center).all())
 
 
 def test_default_options_on_cpu_resolve_to_unported_gram_eigh(slice_data):
-    Xtr, ytr, _, _ = slice_data
-    with pytest.raises(NotImplementedError, match="gram_eigh"):
-        mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(verbosity=-1, nsweeps=1))
+    # the CPU default resolves to gram_eigh, which now runs: the unfused
+    # route, no bond kernel and no plain version of one (the route itself is
+    # held against JAX in tests/test_torch_unfused.py)
+    Xtr, ytr, Xte, _ = slice_data
+    bk.reset_counts()
+    trained, info, _ = mt.fit_mps(
+        Xtr[:, :12], ytr, opts=mt.MPSOptions(verbosity=-1, log_level=-1,
+                                             nsweeps=1, chi_max=8, d=3),
+        device="cpu")
+    assert trained.opts.resolved_svd_alg("cpu") == "gram_eigh"
+    assert sum(bk.PLAIN_CALLS.values()) == sum(bk.LAUNCHES.values()) == 0
+    assert bool(torch.isfinite(trained.mps.center).all())
+    assert len(mt.classify(trained, Xte[:, :12])) == len(Xte)
 
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=object()), "item 16"), (dict(test_run=True), "item 18"),
     (dict(pad_samples_to=64), "item 18"),
     (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "pad_to": (10, 4)})), "item 18"),
-    (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "track_cost": True})), "item 10"),
     (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "dtype": "complex64"})), "item 14"),
-    (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "orth_alg": "qr"})), "items 3-4"),
 ])
 def test_unported_fit_configurations_raise(slice_data, kw, match):
     Xtr, ytr, _, _ = slice_data
     kw = {"opts": mt.MPSOptions(**SLICE_OPTS), **kw}
     with pytest.raises(NotImplementedError, match=match):
-        mt.fit_mps(Xtr[:, :6], ytr, **kw)
+        mt.fit_mps(Xtr[:, :6], ytr, device="cpu", **kw)
+
+
+def test_track_cost_fit_records_the_bond_costs(slice_data):
+    # track_cost takes the unfused route, as in the JAX package
+    # (sweep.py:341), and records each sweep's per-bond loss trace
+    Xtr, ytr, _, _ = slice_data
+    bk.reset_counts()
+    _, info, _ = mt.fit_mps(Xtr[:, :6], ytr, device="cpu",
+                            opts=mt.MPSOptions(**{**SLICE_OPTS,
+                                                  "track_cost": True}))
+    assert [c.shape for c in info["bond_costs"]] == [(2 * 5,)] * 2
+    assert all(np.isfinite(c).all() for c in info["bond_costs"])
+    assert sum(bk.PLAIN_CALLS.values()) == 0
+
+
+def test_qr_fit_runs_k1_and_k2_on_refresh_bonds(slice_data):
+    # orth="qr": refresh bonds run K1 -> QR -> K2 one by one (here the plain
+    # versions); the frozen sweep runs K12m blocks (sweep.py:467-475), here
+    # a block of 4 and a remainder of 1 per half-sweep
+    Xtr, ytr, _, _ = slice_data
+    bk.reset_counts()
+    mt.fit_mps(Xtr[:, :6], ytr, device="cpu",
+               opts=mt.MPSOptions(**{**SLICE_OPTS, "orth_alg": "qr",
+                                     "subspace_refresh_every": 2}))
+    assert bk.PLAIN_CALLS == {"k12": 0, "k12m": 4, "k1": 10, "k2": 10}
 
 
 def test_cuda_fit_without_a_card_raises(slice_data, monkeypatch):
