@@ -25,11 +25,22 @@ Phases, one status line each; any failure exits non-zero:
      it under torch.profiler (device time by kernel).
   6. unfused path: a 2-sweep gram_eigh fit with track_cost on the card,
      which runs no kernel and no plain version of one.
-Then one JSON line of per-kernel results (each kernel's launches from the
-fit that runs it; its bound, the least time the card could take for the
-work of the timed call: bytes over 3.35 TB/s or float32 operations over
-67 TFLOP/s, whichever is larger), the nvidia-smi line, and the final JSON
-status line.
+  7. complex kernels: K12c, K12mc (Bb=4), K1c and K2c against their plain
+     versions on complex64 operands at the main-path shape, K12mc against
+     chained K12c launches, and a whole complex QR bond (K1c -> realified
+     QR -> K2c); then each one's time beside its plain version's.
+  8. complex path: fit_mps on ECG200 with MPSOptions(encoding="fourier")
+     (complex64, d 5, chi 25, q 3, 10 sweeps -> one K12c per bond), its
+     counts read from its own run, accuracy held to the JAX lane's band,
+     then classify, and the same fit at two more init seeds (reported);
+     then the qr route of it (K1c -> QR -> K2c on refresh sweeps, K12mc
+     blocks of 4 on frozen ones) and a profiled sweep of each route.
+Then the ptxas line (registers and spills of each kernel), one JSON line of
+per-kernel results (each kernel's launches from the fit that runs it; its
+bound, the least time the card could take for the work of the timed call:
+bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is
+larger; a complex multiply-add counts 8 float32 operations and a complex64
+value 8 bytes), the nvidia-smi line, and the final JSON status line.
 
 Exits 2 without a result when no CUDA device is available or the package
 is not beside this script.  Imports nothing of JAX.
@@ -46,16 +57,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
 RTOL, ATOL = 1e-4, 3e-5          # as tests/test_pallas_bond.py:73-82
 CHAIN_ATOL = 1e-6                # K12m vs chained K12 launches
 ACC_FLOOR = 0.85                 # f32 floor of the JAX hardware lane
 QR_ACC_FLOOR = 0.80              # below the 0.84-0.91 seed spread of the ns route
+FOURIER_ACC = (0.60, 0.92)       # the JAX lane's c64 band (tests/test_tpu_lane.py:134)
 SHAPE = dict(C=2, chi=25, d=5, N=100)
 PEAK_BYTES_S = 3.35e12           # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12          # H100 SXM float32 outside the tensor cores
 KERNEL_SRC = "mpstime_tpu_torch/csrc/bond_step.cu"
+KERNEL_SRC_C = "mpstime_tpu_torch/csrc/bond_step_c.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -97,6 +112,52 @@ def bond_inputs(seed: int, Bb: int, C: int, chi: int, d: int, N: int):
     )
 
 
+def bond_inputs_c(seed: int, Bb: int, C: int, chi: int, d: int, N: int):
+    """Numpy-seeded complex64 operands of a block of Bb bonds, on the card:
+    unit-modulus conjugated features, real log-scales, labels and weights."""
+    from mpstime_tpu_torch.ops.decomp import warm_sketch_init
+    rng = np.random.default_rng(seed)
+
+    def c(*shape):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(z.astype(np.complex64)).cuda()
+
+    def phi(*shape):
+        z = np.exp(1j * rng.uniform(-np.pi, np.pi, shape)) / np.sqrt(d)
+        return torch.from_numpy(z.astype(np.complex64)).cuda()
+
+    def r(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+    return dict(
+        A=c(Bb, chi, d, chi), center=c(C, chi, d, chi), envx=c(Bb, N, chi),
+        env0=c(N, chi), ls0=r(rng.standard_normal(N)),
+        phil=phi(Bb, N, d), phir=phi(Bb, N, d),
+        y1h=r(np.eye(C)[rng.integers(0, C, N)]), w=r(np.full(N, 1.0 / N)),
+        V0=torch.stack([warm_sketch_init(chi * d, chi, np.complex64, "cuda")]
+                       * Bb))
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers and spill bytes of each kernel entry in nvcc's -Xptxas -v
+    output."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            kern = next((k for k in ("k12m_kernel", "k1_kernel", "k2_kernel")
+                         if k in mangled), mangled)
+            name = f"{kern}<{'cfloat' if 'cfloat' in mangled else 'float'}>"
+            spill = "0"
+        elif name and "spill stores" in line:
+            spill = line.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            out.append(f"{name} {regs} registers, {spill} B spill stores")
+            name = None
+    return "; ".join(out) if out else "(library built earlier: no log)"
+
+
 def k12_args(x, forward: bool, b: int = 0):
     le, re = (x["env0"], x["envx"][b]) if forward else (x["envx"][b], x["env0"])
     return (x["A"][b], x["center"], le, re, x["ls0"], x["phil"][b],
@@ -114,6 +175,14 @@ def k1_args(x, forward: bool):
                                                        x["env0"])
     return (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
             x["y1h"], x["w"], x["ls0"] + x["opp"], x["V0"][0], 0.05)
+
+
+def k1c_args(x, forward: bool):
+    """K1c's operands from bond_inputs_c (no log-scale: KLD only)."""
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    return (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+            x["y1h"], x["w"], x["V0"][0], 0.05)
 
 
 def k2_args(bk, x, forward: bool):
@@ -168,45 +237,59 @@ def compare(name, got, ref, forward, atol=ATOL, rtol=RTOL) -> float:
     return err
 
 
-def k1_work(C, chi, d, N, *, emit_y=True, q=1, qr=True, mse=False):
-    """(float32 operations, bytes) of one K1 call: two per multiply-add of
-    its products, one per elementwise operation; each operand read once and
-    each result written once."""
+def _units(cplx: bool):
+    """(float32 operations per multiply-add, per elementwise operation,
+    bytes per value) of the kernels' scalar type."""
+    return (8, 4, 8) if cplx else (2, 1, 4)
+
+
+def k1_work(C, chi, d, N, *, emit_y=True, q=1, qr=True, mse=False,
+            cplx=False):
+    """(float32 operations, bytes) of one K1 (K1c) call: its multiply-adds
+    and elementwise operations; each operand read once and each result
+    written once (labels, weights and log-scales are float32)."""
+    m, e, b = _units(cplx)
     P, K = chi * d, chi
     mac = C * P * P * chi + 2 * C * N * P * P + N * C * P
-    ops = 2 * mac + 2 * N * P + 2 * C * N * P + 6 * C * P * P
+    ops = m * mac + e * (2 * N * P + 2 * C * N * P + 6 * C * P * P)
     if emit_y:
         ns = 0 if qr else (8 * (K * K * P + K ** 3 + P * K * K)
                            + 6 * (K * K * P + P * K * K))
-        ops += q * (2 * (2 * C * P * K * P + ns) + 6 * P * K)
-    reads = (P * chi * (C + 1) + 2 * N * chi + 2 * N * d + N * C + N + P * K
-             + (N if mse else 0))
-    writes = C * P * P + P * K
-    return ops, 4 * (reads + writes)
+        ops += q * (m * (2 * C * P * K * P + ns) + e * 6 * P * K)
+    reads = b * (P * chi * (C + 1) + 2 * N * chi + 2 * N * d + P * K)
+    reads += 4 * (N * C + N + (N if mse else 0))
+    writes = b * (C * P * P + P * K)
+    return ops, reads + writes
 
 
-def k2_work(C, chi, d, N):
-    """(float32 operations, bytes) of one K2 call."""
+def k2_work(C, chi, d, N, cplx=False):
+    """(float32 operations, bytes) of one K2 (K2c) call."""
+    m, e, b = _units(cplx)
     P, K = chi * d, chi
-    ops = (2 * (C * P * K * P + N * K * P) + 2 * C * P * K + 3 * K * K
-           + 2 * N * P + 2 * C * P * K + 3 * N * K)
-    reads = C * P * P + P * K + N * chi + N + N * d
-    writes = C * chi * d * chi + chi * d * chi + N * chi + N
-    return ops, 4 * (reads + writes)
+    ops = (m * (C * P * K * P + N * K * P)
+           + e * (2 * C * P * K + 3 * K * K + 2 * N * P + 2 * C * P * K
+                  + 3 * N * K))
+    reads = b * (C * P * P + P * K + N * chi + N * d) + 4 * N
+    writes = b * (C * chi * d * chi + chi * d * chi + N * chi) + 4 * N
+    return ops, reads + writes
 
 
-def k12_work(C, chi, d, N, *, Bb=1, refresh=True, q=1, mse=False):
-    """(float32 operations, bytes) of one K12 / K12m call over Bb bonds:
-    K1 with the Newton-Schulz power step and K2, BT kept on chip."""
-    o1, _ = k1_work(C, chi, d, N, emit_y=refresh, q=q, qr=False, mse=mse)
-    o2, _ = k2_work(C, chi, d, N)
+def k12_work(C, chi, d, N, *, Bb=1, refresh=True, q=1, mse=False,
+             cplx=False):
+    """(float32 operations, bytes) of one K12 / K12m (K12c / K12mc) call
+    over Bb bonds: K1 with the Newton-Schulz power step and K2, BT kept on
+    chip."""
+    o1, _ = k1_work(C, chi, d, N, emit_y=refresh, q=q, qr=False, mse=mse,
+                    cplx=cplx)
+    o2, _ = k2_work(C, chi, d, N, cplx=cplx)
+    _, _, b = _units(cplx)
     P = chi * d
-    reads = (Bb * chi * d * chi + C * chi * d * chi + (Bb + 1) * N * chi + N
-             + 2 * Bb * N * d + N * C + N + Bb * P * chi
-             + (N if mse else 0))
-    writes = (C * chi * d * chi + Bb * (chi * d * chi + N * chi + N
-                                        + P * chi))
-    return Bb * (o1 + o2), 4 * (reads + writes)
+    reads = b * (Bb * chi * d * chi + C * chi * d * chi + (Bb + 1) * N * chi
+                 + 2 * Bb * N * d + Bb * P * chi)
+    reads += 4 * (N + N * C + N + (N if mse else 0))
+    writes = b * (C * chi * d * chi + Bb * (chi * d * chi + N * chi
+                                            + P * chi)) + 4 * Bb * N
+    return Bb * (o1 + o2), reads + writes
 
 
 def bound(work):
@@ -281,7 +364,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.last_build_seconds:.2f} s)", flush=True)
 
+    ptxas = ptxas_summary(build.build_log)
+    print(f"[ptxas] {ptxas}", flush=True)
     from mpstime_tpu_torch.ops import bond_kernels as bk
+    from mpstime_tpu_torch.ops import bond_kernels_c as bkc
+    from mpstime_tpu_torch.ops.decomp import _qr_orth
 
     # ---- 3. kernel vs plain ----------------------------------------------
     err = {"k12": 0.0, "k12m": 0.0}
@@ -510,7 +597,8 @@ def main() -> int:
     check(m.cores.is_cuda and m.center.is_cuda, "qr fit: model not on the card")
     for t in (m.cores, m.center):
         check(bool(torch.isfinite(t).all()), "qr fit: non-finite weights")
-    want = {"k12": 0, "k12m": 5 * 24, "k1": 5 * 190, "k2": 5 * 190}
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k12m": 5 * 24, "k1": 5 * 190,
+            "k2": 5 * 190}
     check(qr_launches == want, f"qr fit: launches {qr_launches} != {want}")
     check(sum(qr_plain.values()) == 0, f"qr fit: plain calls {qr_plain}")
     check(qr_acc >= QR_ACC_FLOOR, f"qr fit: test accuracy {qr_acc} < "
@@ -526,7 +614,6 @@ def main() -> int:
 
     # where a qr fit's device time goes: one refresh and one frozen sweep
     # under torch.profiler (sums of each device kernel's own time)
-    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, prof_info, _ = mt.fit_mps(
@@ -535,7 +622,6 @@ def main() -> int:
                                          subspace_refresh_every=2),
             device="cuda")
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
     dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA}
     busy = sum(dev.values())
@@ -573,20 +659,232 @@ def main() -> int:
           f"{[round(t, 4) for t in uf_info['sweep_seconds']]} s; launches "
           f"{uf_launches}; plain calls {uf_plain} ({card})", flush=True)
 
+    # ---- 7. complex kernels ----------------------------------------------
+    cerr = {"k12c": 0.0, "k12mc": 0.0, "k1c": 0.0, "k2c": 0.0}
+    k12c_grid = [(f, r, q, mr) for f in (False, True)
+                 for r, q, mr in ((True, 1, None), (True, 3, None),
+                                  (False, 1, None), (True, 3, 17))]
+    for i, (forward, refresh, q, mr) in enumerate(k12c_grid):
+        x = bond_inputs_c(600 + i, 1, **SHAPE)
+        kw = dict(forward=forward, refresh=refresh, power_iters=q,
+                  max_rank=mr)
+        got = bkc.k12c_cuda(*k12_args(x, forward), **kw)
+        torch.cuda.synchronize()
+        ref = bkc.k12c_plain(*k12_args(x, forward), **kw)
+        cerr["k12c"] = max(cerr["k12c"], compare(f"K12c {kw}", got, ref,
+                                                 forward))
+    for i, (forward, refresh) in enumerate((f, r) for f in (False, True)
+                                           for r in (True, False)):
+        x = bond_inputs_c(700 + i, 4, **SHAPE)
+        kw = dict(forward=forward, refresh=refresh, power_iters=1)
+        name = f"K12mc Bb=4 {'fwd' if forward else 'bwd'} refresh={refresh}"
+        got = bkc.k12mc_cuda(*k12m_args(x), **kw)
+        torch.cuda.synchronize()
+        ref = bkc.k12mc_plain(*k12m_args(x), **kw)
+        cerr["k12mc"] = max(cerr["k12mc"], compare(name, got, ref, forward))
+        center, env, ls, chain = x["center"], x["env0"], x["ls0"], []
+        for b in range(4):
+            le, re = (env, x["envx"][b]) if forward else (x["envx"][b], env)
+            center, core, env, ls, Q = bkc.k12c_cuda(
+                x["A"][b], center, le, re, ls, x["phil"][b], x["phir"][b],
+                x["y1h"], x["w"], x["V0"][b], 0.05, 1e-10, **kw)
+            chain.append((core, env, ls, Q))
+        chained = (center,) + tuple(torch.stack(c) for c in zip(*chain))
+        compare(name + " vs chained K12c", got, chained, forward,
+                atol=CHAIN_ATOL, rtol=0.0)
+    print(f"[kernel-vs-plain] K12c {len(k12c_grid)} cases, max |err| "
+          f"{cerr['k12c']:.3e}; K12mc Bb=4 4 cases, max |err| "
+          f"{cerr['k12mc']:.3e} (rtol {RTOL}, atol {ATOL}; K12mc vs chained "
+          f"K12c atol {CHAIN_ATOL}); kept ranks equal", flush=True)
+    for i, (forward, emit_y, q, orth) in enumerate(
+            (f, e, q, o) for f in (False, True)
+            for e, q, o in ((True, 1, "qr"), (True, 3, "qr"),
+                            (False, 1, "qr"), (True, 3, "ns"))):
+        x = bond_inputs_c(800 + i, 1, **SHAPE)
+        args = k1c_args(x, forward)
+        kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth)
+        got = bkc.k1c_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        ref = bkc.k1c_plain(*args, **kw)
+        cerr["k1c"] = max(cerr["k1c"], compare_all(f"K1c {kw}", got, ref))
+    for i, (forward, mr) in enumerate((f, m) for f in (False, True)
+                                      for m in (None, 17)):
+        x = bond_inputs_c(900 + i, 1, **SHAPE)
+        a1 = k1c_args(x, forward)
+        BT, Y = bkc.k1c_plain(*a1, forward=forward, power_iters=3)
+        Q = _qr_orth(Y).contiguous()
+        le, re = a1[2], a1[3]
+        env, phi = (le, x["phil"][0]) if forward else (re, x["phir"][0])
+        args = (BT, Q, env, x["ls0"], phi, 1e-10)
+        got = bkc.k2c_cuda(*args, forward=forward, max_rank=mr)
+        torch.cuda.synchronize()
+        ref = bkc.k2c_plain(*args, forward=forward, max_rank=mr)
+        cerr["k2c"] = max(cerr["k2c"], compare(
+            f"K2c {'fwd' if forward else 'bwd'} max_rank={mr}", got, ref,
+            forward))
+    cqr_err = 0.0
+    for i, forward in enumerate((False, True)):
+        x = bond_inputs_c(950 + i, 1, **SHAPE)
+        kw = dict(forward=forward, power_iters=3)
+        got = bkc.qr_bond_step_c(*k12_args(x, forward), plain=False, **kw)
+        torch.cuda.synchronize()
+        ref = bkc.qr_bond_step_c(*k12_args(x, forward), plain=True, **kw)
+        cqr_err = max(cqr_err, compare(f"complex QR bond {kw}", got, ref,
+                                       forward))
+    print(f"[kernel-vs-plain] K1c 8 cases, max |err| {cerr['k1c']:.3e}; K2c "
+          f"4 cases, max |err| {cerr['k2c']:.3e}; complex QR bond (K1c -> "
+          f"realified QR -> K2c, q 3) 2 cases, max |err| {cqr_err:.3e} "
+          f"(rtol {RTOL}, atol {ATOL}); kept ranks equal", flush=True)
+    err.update(cerr)
+
+    # timed calls: the complex path's bond (backward refresh, q 3), a frozen
+    # block of 4 (the qr fit's frozen sweeps), one qr refresh bond's halves
+    xc1 = bond_inputs_c(17, 1, **SHAPE)
+    xc4 = bond_inputs_c(18, 4, **SHAPE)
+    kw3 = dict(forward=False, refresh=True, power_iters=3)
+    kwf = dict(forward=False, refresh=False, power_iters=1)
+    times["k12c"] = (
+        time_ms(lambda: bkc.k12c_cuda(*k12_args(xc1, False), **kw3)),
+        time_ms(lambda: bkc.k12c_plain(*k12_args(xc1, False), **kw3)))
+    times["k12mc"] = (
+        time_ms(lambda: bkc.k12mc_cuda(*k12m_args(xc4), **kwf)),
+        time_ms(lambda: bkc.k12mc_plain(*k12m_args(xc4), **kwf)))
+    a1c = k1c_args(xc1, False)
+    BTc, Yc = bkc.k1c_cuda(*a1c, forward=False, power_iters=3)
+    Qc = _qr_orth(Yc).contiguous()
+    a2c = (BTc, Qc, xc1["envx"][0], xc1["ls0"], xc1["phir"][0], 1e-10)
+    times["k1c"] = (
+        time_ms(lambda: bkc.k1c_cuda(*a1c, forward=False, power_iters=3)),
+        time_ms(lambda: bkc.k1c_plain(*a1c, forward=False, power_iters=3)))
+    times["k2c"] = (time_ms(lambda: bkc.k2c_cuda(*a2c, forward=False)),
+                    time_ms(lambda: bkc.k2c_plain(*a2c, forward=False)))
+    cqr_ms = time_ms(lambda: _qr_orth(Yc))
+    print(f"[timing] complex: K12c (refresh, q 3) {times['k12c'][0]:.3f} ms "
+          f"vs plain {times['k12c'][1]:.3f} ms; K12mc (frozen, Bb 4) "
+          f"{times['k12mc'][0]:.3f} ms vs plain {times['k12mc'][1]:.3f} ms; "
+          f"K1c (qr, q 3) {times['k1c'][0]:.3f} ms vs plain "
+          f"{times['k1c'][1]:.3f} ms; realified QR of Y {list(Yc.shape)} "
+          f"{cqr_ms:.3f} ms; K2c {times['k2c'][0]:.3f} ms vs plain "
+          f"{times['k2c'][1]:.3f} ms ({card})", flush=True)
+
+    # ---- 8. complex path --------------------------------------------------
+    fourier = dict(encoding="fourier", verbosity=-1, log_level=-1)
+    bk.reset_counts()
+    c_trained, c_info, _ = mt.fit_mps(Xtr, ytr, Xte, yte,
+                                      mt.MPSOptions(**fourier),
+                                      device="cuda")
+    torch.cuda.synchronize()
+    c_launches, c_plain = dict(bk.LAUNCHES), dict(bk.PLAIN_CALLS)
+    t0 = time.perf_counter()
+    c_preds = mt.classify(c_trained, Xte)
+    torch.cuda.synchronize()
+    c_classify_s = time.perf_counter() - t0
+    c_acc = float(np.mean(c_preds == yte))
+    m = c_trained.mps
+    check(m.cores.is_cuda and m.cores.dtype == torch.complex64,
+          f"fourier fit: model {m.cores.dtype} on {m.cores.device}")
+    check(tuple(m.center.shape) == (25, 5, 25, 2), f"center {m.center.shape}")
+    for t in (m.cores, m.center):
+        check(bool(torch.isfinite(t).all()), "fourier fit: non-finite weights")
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k12c": 10 * 190}
+    check(c_launches == want, f"fourier fit: launches {c_launches} != {want}")
+    check(sum(c_plain.values()) == 0, f"fourier fit: plain calls {c_plain}")
+    check(FOURIER_ACC[0] <= c_acc <= FOURIER_ACC[1],
+          f"fourier fit: test accuracy {c_acc} outside {FOURIER_ACC}")
+    c_sweep_s = statistics.median(c_info["sweep_seconds"][1:])
+    print(f"[complex-path] ECG200 MPSOptions(encoding='fourier') (complex64, "
+          f"d 5, chi 25, q 3, 10 sweeps) on cuda: test accuracy {c_acc:.4f}; "
+          f"median sweep {c_sweep_s:.4f} s (after 1 warm sweep); classify "
+          f"{c_classify_s:.4f} s for {len(Xte)} series; launches "
+          f"{ {k: v for k, v in c_launches.items() if v} }; plain calls "
+          f"{sum(c_plain.values())} ({card})", flush=True)
+
+    # the fourier fit's accuracy over other init seeds (reported, not held)
+    c_seed_acc = {}
+    for seed in (1, 2):
+        tr, inf, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
+            **fourier, init_rng=seed), device="cuda")
+        c_seed_acc[seed] = (float(np.mean(mt.classify(tr, Xte) == yte)),
+                            statistics.median(inf["sweep_seconds"][1:]))
+    print("[complex-seeds] ECG200 MPSOptions(encoding='fourier') on cuda, "
+          "init_rng: test accuracy, median sweep s: " + "; ".join(
+              f"{s}: {a:.4f}, {t:.4f}" for s, (a, t) in c_seed_acc.items())
+          + f" ({card})", flush=True)
+
+    bk.reset_counts()
+    cq_trained, cq_info, _ = mt.fit_mps(
+        Xtr, ytr, opts=mt.MPSOptions(**fourier, orth_alg="qr",
+                                     subspace_refresh_every=2),
+        device="cuda")
+    cq_preds = mt.classify(cq_trained, Xte)
+    torch.cuda.synchronize()
+    cq_launches, cq_plain = dict(bk.LAUNCHES), dict(bk.PLAIN_CALLS)
+    for t in (cq_trained.mps.cores, cq_trained.mps.center):
+        check(bool(torch.isfinite(t).all()), "complex qr fit: non-finite")
+    # 95 bonds per half-sweep: 23 blocks of 4 and one of 3 when frozen
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k1c": 5 * 190, "k2c": 5 * 190,
+            "k12mc": 5 * 48}
+    check(cq_launches == want, f"complex qr fit: launches {cq_launches} != "
+          f"{want}")
+    check(sum(cq_plain.values()) == 0, f"complex qr fit: plain calls "
+          f"{cq_plain}")
+    secs = cq_info["sweep_seconds"]
+    print(f"[complex-qr-path] ECG200 MPSOptions(encoding='fourier', "
+          f"orth_alg='qr', subspace_refresh_every=2) on cuda: test accuracy "
+          f"{float(np.mean(cq_preds == yte)):.4f} (reported, no floor); "
+          f"median refresh sweep {statistics.median(secs[2::2]):.4f} s, "
+          f"frozen sweep {statistics.median(secs[1::2]):.4f} s; launches "
+          f"{ {k: v for k, v in cq_launches.items() if v} }; plain calls "
+          f"{sum(cq_plain.values())} ({card})", flush=True)
+
+    # where a complex sweep's device time goes: the default fourier fit's
+    # first sweep and a qr refresh + frozen sweep, under torch.profiler
+    for label, kw in (("fourier fit, one sweep", dict(nsweeps=1)),
+                      ("fourier qr fit, one refresh + one frozen sweep",
+                       dict(nsweeps=2, orth_alg="qr",
+                            subspace_refresh_every=2))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, p_info, _ = mt.fit_mps(Xtr, ytr,
+                                      opts=mt.MPSOptions(**fourier, **kw),
+                                      device="cuda")
+            torch.cuda.synchronize()
+        dev = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[profile] {label} on cuda: device busy "
+              f"{sum(dev.values()):.1f} ms of "
+              f"{1e3 * sum(p_info['sweep_seconds']):.1f} ms sweep wall time; "
+              "by kernel: " + "; ".join(f"{k[:60]} {v:.1f} ms"
+                                        for k, v in top)
+              + f" ({card})", flush=True)
+
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape
+    # and the complex ones timed above
     work = {"k12": k12_work(**SHAPE), "k12m": k12_work(**SHAPE, Bb=8),
-            "k1": k1_work(**SHAPE), "k2": k2_work(**SHAPE)}
-    rows = (("K12", "k12", ":863", mse_launches["k12"]),
-            ("K12m", "k12m", ":966", launches["k12m"]),
-            ("K1", "k1", ":419", qr_launches["k1"]),
-            ("K2", "k2", ":748", qr_launches["k2"]))
+            "k1": k1_work(**SHAPE), "k2": k2_work(**SHAPE),
+            "k12c": k12_work(**SHAPE, q=3, cplx=True),
+            "k12mc": k12_work(**SHAPE, Bb=4, refresh=False, cplx=True),
+            "k1c": k1_work(**SHAPE, q=3, cplx=True),
+            "k2c": k2_work(**SHAPE, cplx=True)}
+    real_src = (KERNEL_SRC, "mpstime_tpu/ops/pallas_bond.py")
+    cplx_src = (KERNEL_SRC_C, "mpstime_tpu/ops/pallas_bond_c.py")
+    rows = (("K12", "k12", real_src, ":863", mse_launches["k12"]),
+            ("K12m", "k12m", real_src, ":966", launches["k12m"]),
+            ("K1", "k1", real_src, ":419", qr_launches["k1"]),
+            ("K2", "k2", real_src, ":748", qr_launches["k2"]),
+            ("K12c", "k12c", cplx_src, ":754", c_launches["k12c"]),
+            ("K12mc", "k12mc", cplx_src, ":1075", cq_launches["k12mc"]),
+            ("K1c", "k1c", cplx_src, ":368", cq_launches["k1c"]),
+            ("K2c", "k2c", cplx_src, ":639", cq_launches["k2c"]))
     kernels = []
-    for name, key, line, n in rows:
+    for name, key, (src, ref_file), line, n in rows:
         b_ms, b_by = bound(work[key])
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SRC,
-            "replaces": "mpstime_tpu/ops/pallas_bond.py" + line,
+            "name": name, "route": "cuda", "source": src,
+            "replaces": ref_file + line,
             "launches": n, "max_abs_err": err[key], "ms": times[key][0],
             "plain_ms": times[key][1], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})

@@ -51,7 +51,7 @@
 extern "C" {
 
 long mpst_k12_workspace_floats(int C, int chi, int d, int N) {
-  return mpst::workspace_floats(C, chi, d, N);
+  return mpst::workspace_floats<float>(C, chi, d, N);
 }
 
 int mpst_k12m_launch(const void* lhs, const void* center0, const void* envx,
@@ -62,40 +62,10 @@ int mpst_k12m_launch(const void* lhs, const void* center0, const void* envx,
                      void* ws, int Bb, int C, int chi, int d, int N,
                      int forward, int refresh, int q_iters, int mse, int gd,
                      float eta, float cutoff, float max_rank, void* stream) {
-  mpst::K12Args a{};
-  a.lhs = static_cast<const float*>(lhs);
-  a.center0 = static_cast<const float*>(center0);
-  a.envx = static_cast<const float*>(envx);
-  a.env0 = static_cast<const float*>(env0);
-  a.ls0 = static_cast<const float*>(ls0);
-  a.opp_ls = static_cast<const float*>(opp_ls);
-  a.phil = static_cast<const float*>(phil);
-  a.phir = static_cast<const float*>(phir);
-  a.y1h = static_cast<const float*>(y1h);
-  a.w = static_cast<const float*>(w);
-  a.v0 = static_cast<const float*>(v0);
-  a.center_out = static_cast<float*>(center_out);
-  a.core_out = static_cast<float*>(core_out);
-  a.env_out = static_cast<float*>(env_out);
-  a.ls_out = static_cast<float*>(ls_out);
-  a.q_out = static_cast<float*>(q_out);
-  a.ws = static_cast<float*>(ws);
-  a.Bb = Bb;
-  a.C = C;
-  a.chi = chi;
-  a.d = d;
-  a.N = N;
-  a.forward = forward;
-  a.refresh = refresh;
-  a.q_iters = q_iters;
-  a.mse = mse;
-  a.gd = gd;
-  a.eta = eta;
-  a.cutoff = cutoff;
-  a.max_rank = max_rank;
-  mpst::k12m_kernel<<<1, mpst::kMaxThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return mpst::launch_k12m<float>(
+      lhs, center0, envx, env0, ls0, opp_ls, phil, phir, y1h, w, v0,
+      center_out, core_out, env_out, ls_out, q_out, ws, Bb, C, chi, d, N,
+      forward, refresh, q_iters, mse, gd, eta, cutoff, max_rank, stream);
 }
 
 // K1.  gls: [N] total log-scales (MSE only, else null); emit_y = 0 passes
@@ -107,33 +77,10 @@ int mpst_k1_launch(const void* lhs, const void* center0, const void* le,
                    int chi, int d, int N, int forward, int emit_y,
                    int q_iters, int qr, int mse, int gd, float eta,
                    void* stream) {
-  mpst::K12Args a{};
-  a.lhs = static_cast<const float*>(lhs);
-  a.center0 = static_cast<const float*>(center0);
-  a.ls0 = static_cast<const float*>(gls);
-  a.phil = static_cast<const float*>(phil);
-  a.phir = static_cast<const float*>(phir);
-  a.y1h = static_cast<const float*>(y1h);
-  a.w = static_cast<const float*>(w);
-  a.v0 = static_cast<const float*>(v0);
-  a.ws = static_cast<float*>(ws);
-  a.Bb = 1;
-  a.C = C;
-  a.chi = chi;
-  a.d = d;
-  a.N = N;
-  a.forward = forward;
-  a.refresh = emit_y;
-  a.q_iters = q_iters;
-  a.qr = qr;
-  a.mse = mse;
-  a.gd = gd;
-  a.eta = eta;
-  mpst::k1_kernel<<<1, mpst::kMaxThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const float*>(le), static_cast<const float*>(re),
-      static_cast<float*>(bt_out), static_cast<float*>(y_out));
-  return (int)cudaGetLastError();
+  return mpst::launch_k1<float>(lhs, center0, le, re, gls, phil, phir, y1h,
+                                w, v0, bt_out, y_out, ws, C, chi, d, N,
+                                forward, emit_y, q_iters, qr, mse, gd, eta,
+                                stream);
 }
 
 // K2.  env / env_ls / phi: the advancing side's environment, log-scales and
@@ -143,27 +90,9 @@ int mpst_k2_launch(const void* bt, const void* q, const void* env,
                    void* core_out, void* env_out, void* ls_out, void* ws,
                    int C, int chi, int d, int N, int forward, float cutoff,
                    float max_rank, void* stream) {
-  mpst::K12Args a{};
-  a.env0 = static_cast<const float*>(env);
-  a.ls0 = static_cast<const float*>(env_ls);
-  a.phil = static_cast<const float*>(phi);
-  a.center_out = static_cast<float*>(center_out);
-  a.core_out = static_cast<float*>(core_out);
-  a.env_out = static_cast<float*>(env_out);
-  a.ls_out = static_cast<float*>(ls_out);
-  a.ws = static_cast<float*>(ws);
-  a.Bb = 1;
-  a.C = C;
-  a.chi = chi;
-  a.d = d;
-  a.N = N;
-  a.forward = forward;
-  a.cutoff = cutoff;
-  a.max_rank = max_rank;
-  mpst::k2_kernel<<<1, mpst::kMaxThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const float*>(bt), static_cast<const float*>(q));
-  return (int)cudaGetLastError();
+  return mpst::launch_k2<float>(bt, q, env, env_ls, phi, center_out,
+                                core_out, env_out, ls_out, ws, C, chi, d, N,
+                                forward, cutoff, max_rank, stream);
 }
 
 const char* mpst_error_string(int code) {

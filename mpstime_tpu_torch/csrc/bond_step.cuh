@@ -1,26 +1,39 @@
 // Device code of the fused DMRG bond step (K12), its multi-bond block (K12m)
-// and its two halves around an outside QR (K1, K2).  See bond_step.cu for
-// what the kernels replace and how they are bounded; this header holds the
-// math, phase by phase.
+// and its two halves around an outside QR (K1, K2), real (float) and complex
+// (cfloat).  See bond_step.cu and bond_step_c.cu for what the kernels replace
+// and how they are bounded; this header holds the math, phase by phase,
+// written once for both scalar types.
 //
-// Layouts (all float32, row-major, contiguous):
-//   lhs      [Bb, chi, d, chi]  the static core of each bond
-//                              (backward: cores[j]; forward: cores[j+1])
-//   center   [C, chi, d, chi]  the class-major two-site center
-//   envx     [Bb, N, chi]      the opposite-side environment of each bond
-//                              (backward: LE[j]; forward: RE[j+2])
-//   env0/ls0 [N, chi] / [N]    the advancing environment entering the block
-//   phil/phir [Bb, N, d]       conjugated site features of the two sites
-//   y1h [N, C], w [N]          one-hot labels and per-sample weights
-//   v0  [Bb, chi*d, chi]       the cached subspace of each bond
+// Layouts (row-major, contiguous; T = float or cfloat):
+//   lhs      [Bb, chi, d, chi]  T  the static core of each bond
+//                                  (backward: cores[j]; forward: cores[j+1])
+//   center   [C, chi, d, chi]   T  the class-major two-site center
+//   envx     [Bb, N, chi]       T  the opposite-side environment of each bond
+//                                  (backward: LE[j]; forward: RE[j+2])
+//   env0/ls0 [N, chi] / [N]     T / float  the advancing environment entering
+//                                  the block
+//   phil/phir [Bb, N, d]        T  conjugated site features of the two sites
+//   y1h [N, C], w [N]           float  one-hot labels and per-sample weights
+//   v0  [Bb, chi*d, chi]        T  the cached subspace of each bond
 // With P = chi*d, the bond tensor of class c is BT[c] [P, P]: rows
 // p = a*d + i (left bond a, left site i), columns q = k*chi + b (right site
 // k, right bond b).  The subspace Q [P, chi] spans the q side going backward
 // and the p side going forward.
 //
+// Complex conjugation (the map of mpstime_tpu/ops/pallas_bond_c.py:15-32;
+// conj is the identity on float, so the real kernels read the same code):
+//   L = conj(le) (x) phil,  R = phir (x) conj(re)        yhat = L BT R
+//   u = w / conj(y_true),   G = -conj(L)^T (conj(R) * y1h * u)
+//   power step: Y <- BT^H BT Y backward, BT BT^H Y forward; NS on X^H X
+//   split: backward B = BT Q, core = Qm^H; forward B = Q^H BT, core = Qm
+//   env advance on the stored environment (no conj), through conj(Qm)
+//   backward and Qm forward.
+// Energies, norms, the cutoff mask and the log-scales are real.
+//
 // The code uses only __syncthreads() and shared memory, no warp intrinsics,
 // and every loop is strided by blockDim.x, so one block of any power-of-two
-// size up to kMaxThreads computes the same result.
+// size up to kMaxThreads computes the same result.  The host launchers at
+// the end need <cuda_runtime.h>, included first by the .cu sources.
 #pragma once
 
 namespace mpst {
@@ -31,25 +44,105 @@ constexpr float kNsA = 3.4445f, kNsB = -4.7750f, kNsC = 2.0315f;
 constexpr int kNsQuintic = 8, kNsCubic = 6;
 constexpr float kNsRevive = 1e-3f;
 
+// ---- scalar types -----------------------------------------------------------
+
+// complex64 as torch lays it out: interleaved (re, im) float pairs.
+struct __align__(8) cfloat {
+  float x, y;
+};
+
+template <class T>
+struct IsComplex {
+  static constexpr bool value = false;
+};
+template <>
+struct IsComplex<cfloat> {
+  static constexpr bool value = true;
+};
+
+__host__ __device__ inline cfloat operator+(cfloat a, cfloat b) {
+  return {a.x + b.x, a.y + b.y};
+}
+__host__ __device__ inline cfloat operator-(cfloat a, cfloat b) {
+  return {a.x - b.x, a.y - b.y};
+}
+__host__ __device__ inline cfloat operator-(cfloat a) { return {-a.x, -a.y}; }
+__host__ __device__ inline cfloat operator*(cfloat a, cfloat b) {
+  return {a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x};
+}
+__host__ __device__ inline cfloat operator*(float s, cfloat a) {
+  return {s * a.x, s * a.y};
+}
+__host__ __device__ inline cfloat operator*(cfloat a, float s) {
+  return {a.x * s, a.y * s};
+}
+__host__ __device__ inline cfloat operator/(cfloat a, float s) {
+  return {a.x / s, a.y / s};
+}
+__host__ __device__ inline cfloat& operator+=(cfloat& a, cfloat b) {
+  a = a + b;
+  return a;
+}
+__host__ __device__ inline cfloat& operator*=(cfloat& a, float s) {
+  a = a * s;
+  return a;
+}
+__host__ __device__ inline cfloat& operator/=(cfloat& a, float s) {
+  a = a / s;
+  return a;
+}
+
+__device__ inline float conj(float a) { return a; }
+__device__ inline cfloat conj(cfloat a) { return {a.x, -a.y}; }
+
+template <bool C, class T>
+__device__ inline T cj(T a) {
+  return C ? conj(a) : a;
+}
+
+// acc + a * b
+__device__ inline float mac(float a, float b, float acc) {
+  return fmaf(a, b, acc);
+}
+__device__ inline cfloat mac(cfloat a, cfloat b, cfloat acc) {
+  return {fmaf(-a.y, b.y, fmaf(a.x, b.x, acc.x)),
+          fmaf(a.y, b.x, fmaf(a.x, b.y, acc.y))};
+}
+
+// s + |v|^2
+__device__ inline float abs2_add(float v, float s) { return fmaf(v, v, s); }
+__device__ inline float abs2_add(cfloat v, float s) {
+  return fmaf(v.y, v.y, fmaf(v.x, v.x, s));
+}
+
+// The KLD weight u = w / conj(y_true) (= w * y_true / |y_true|^2).
+__device__ inline float kld_u(float w, float yt) { return w / yt; }
+__device__ inline cfloat kld_u(float w, cfloat yt) {
+  return yt * (w / abs2_add(yt, 0.f));
+}
+
+// ---- operands and workspace -------------------------------------------------
+
+template <class T>
 struct K12Args {
-  const float* lhs;
-  const float* center0;
-  const float* envx;
-  const float* env0;
+  const T* lhs;
+  const T* center0;
+  const T* envx;
+  const T* env0;
   const float* ls0;
   const float* opp_ls;     // [N] opposite-side log-scales (MSE only; null
                            // when ls0 already holds the total, as in K1)
-  const float* phil;
-  const float* phir;
+  const T* phil;
+  const T* phir;
   const float* y1h;
   const float* w;
-  const float* v0;
-  float* center_out;       // [C, chi, d, chi]
-  float* core_out;         // [Bb, chi, d, chi]
-  float* env_out;          // [Bb, N, chi]
+  const T* v0;
+  T* center_out;           // [C, chi, d, chi]
+  T* core_out;             // [Bb, chi, d, chi]
+  T* env_out;              // [Bb, N, chi]
   float* ls_out;           // [Bb, N]
-  float* q_out;            // [Bb, chi*d, chi]
-  float* ws;               // workspace_floats(C, chi, d, N)
+  T* q_out;                // [Bb, chi*d, chi]
+  float* ws;               // workspace_floats<T>(C, chi, d, N)
   int Bb, C, chi, d, N;
   int forward, refresh, q_iters, mse, gd;
   int qr;                  // power step for an outside QR: column
@@ -59,27 +152,34 @@ struct K12Args {
 
 // Global scratch, carved from one workspace: the bond tensor and its
 // gradient (2 x C*P*P), batch products, power-step and Newton-Schulz
-// buffers.  It stays resident in L2 between the phases of a bond.
-__host__ __device__ inline long workspace_floats(int C, int chi, int d, int N) {
+// buffers of T, then the real per-direction vectors.  It stays resident in
+// L2 between the phases of a bond.
+template <class T>
+__host__ __device__ inline long workspace_floats(int C, int chi, int d,
+                                                 int N) {
   const long P = (long)chi * d, K = chi;
-  return 2 * C * P * P          // BT, G
-         + (long)C * N * P      // T1 / U
-         + 2L * N * P           // L, R
-         + 2L * N * C           // yhat, wc
-         + (long)C * P * K      // MV / projected blocks
-         + 3 * P * K            // Ya, Yb, Yc
-         + 3 * K * K            // Gm, G2, Mq
-         + 3 * K;               // wv, mask, nrm
+  const long s = sizeof(T) / sizeof(float);
+  return s * (2 * C * P * P          // BT, G
+              + (long)C * N * P      // T1 / U
+              + 2L * N * P           // L, R
+              + 2L * N * C           // yhat, wc
+              + (long)C * P * K      // MV / projected blocks
+              + 3 * P * K            // Ya, Yb, Yc
+              + 3 * K * K)           // Gm, G2, Mq
+         + 3 * K;                    // wv, mask, nrm
 }
 
+template <class T>
 struct Work {
-  float *BT, *G, *T1, *L, *R, *yhat, *wc, *MV, *Ya, *Yb, *Yc, *Gm, *G2, *Mq,
-      *wv, *mask, *nrm;
+  T *BT, *G, *T1, *L, *R, *yhat, *wc, *MV, *Ya, *Yb, *Yc, *Gm, *G2, *Mq;
+  float *wv, *mask, *nrm;
 };
 
-__device__ inline Work carve(float* ws, int C, int chi, int d, int N) {
+template <class T>
+__device__ inline Work<T> carve(float* wsf, int C, int chi, int d, int N) {
   const long P = (long)chi * d, K = chi;
-  Work w;
+  T* ws = reinterpret_cast<T*>(wsf);
+  Work<T> w;
   w.BT = ws;            ws += C * P * P;
   w.G = ws;             ws += C * P * P;
   w.T1 = ws;            ws += (long)C * N * P;
@@ -94,35 +194,45 @@ __device__ inline Work carve(float* ws, int C, int chi, int d, int N) {
   w.Gm = ws;            ws += K * K;
   w.G2 = ws;            ws += K * K;
   w.Mq = ws;            ws += K * K;
-  w.wv = ws;            ws += K;
-  w.mask = ws;          ws += K;
-  w.nrm = ws;
+  float* f = reinterpret_cast<float*>(ws);
+  w.wv = f;             f += K;
+  w.mask = f;           f += K;
+  w.nrm = f;
   return w;
 }
 
 // A strided matrix view: element (b, r, c) at p[b*sb + r*sr + c*sc].
+template <class T>
 struct View {
-  const float* p;
+  const T* p;
   long sb, sr, sc;
 };
 
+template <class T>
+__device__ inline View<T> vw(const T* p, long sb, long sr, long sc) {
+  return View<T>{p, sb, sr, sc};
+}
+
 // out[b, m, n] = alpha * sum_k A[b, m, k] * B[b, k, n] + beta * src[b, m, n]
-// (src shares out's strides and may be out itself).  One output element per
-// thread, n fastest, so a warp reads B along n and broadcasts A.
-__device__ inline void gemm(int batch, int M, int Nc, int Kd, View A, View B,
-                            float* out, long ob, long orow, long ocol,
+// (src shares out's strides and may be out itself), with A conjugated when
+// CA and B when CB.  One output element per thread, n fastest, so a warp
+// reads B along n and broadcasts A.
+template <bool CA = false, bool CB = false, class T>
+__device__ inline void gemm(int batch, int M, int Nc, int Kd, View<T> A,
+                            View<T> B, T* out, long ob, long orow, long ocol,
                             float alpha = 1.f, float beta = 0.f,
-                            const float* src = nullptr) {
+                            const T* src = nullptr) {
   const int total = batch * M * Nc;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int n = e % Nc;
     const int t = e / Nc;
     const int m = t % M;
     const int b = t / M;
-    const float* a = A.p + b * A.sb + m * A.sr;
-    const float* bb = B.p + b * B.sb + n * B.sc;
-    float acc = 0.f;
-    for (int k = 0; k < Kd; ++k) acc = fmaf(a[k * A.sc], bb[k * B.sr], acc);
+    const T* a = A.p + b * A.sb + m * A.sr;
+    const T* bb = B.p + b * B.sb + n * B.sc;
+    T acc{};
+    for (int k = 0; k < Kd; ++k)
+      acc = mac(cj<CA>(a[k * A.sc]), cj<CB>(bb[k * B.sr]), acc);
     const long o = b * ob + m * orow + n * ocol;
     out[o] = (src != nullptr) ? alpha * acc + beta * src[o] : alpha * acc;
   }
@@ -143,85 +253,89 @@ __device__ inline float block_sum(float v, float* red) {
 
 // ---- K1 body: kron factors, bond tensor, yhat, gradient, step --------------
 
-// L[n, a*d+i] = le[n,a] phil[n,i];  R[n, k*chi+b] = phir[n,k] re[n,b].
-__device__ inline void kron_factors(const float* le, const float* re,
-                                    const float* phil, const float* phir,
-                                    Work w, int chi, int d, int N) {
+// L[n, a*d+i] = conj(le[n,a]) phil[n,i];  R[n, k*chi+b] = phir[n,k] conj(re[n,b]).
+template <class T>
+__device__ inline void kron_factors(const T* le, const T* re, const T* phil,
+                                    const T* phir, Work<T> w, int chi, int d,
+                                    int N) {
   const int P = chi * d;
   for (int e = threadIdx.x; e < N * P; e += blockDim.x) {
     const int n = e / P, p = e % P;
-    w.L[e] = le[n * chi + p / d] * phil[n * d + p % d];
-    w.R[e] = phir[n * d + p / chi] * re[n * chi + p % chi];
+    w.L[e] = conj(le[n * chi + p / d]) * phil[n * d + p % d];
+    w.R[e] = phir[n * d + p / chi] * conj(re[n * chi + p % chi]);
   }
 }
 
 // BT[c] = X_c @ Y_c: backward X = core [P, chi], Y_c = center[c] [chi, P];
 // forward X_c = center[c] [P, chi], Y = core [chi, P].
-__device__ inline void bond_tensor(const float* core, const float* center,
-                                   Work w, int C, int chi, int d,
-                                   bool forward) {
+template <class T>
+__device__ inline void bond_tensor(const T* core, const T* center, Work<T> w,
+                                   int C, int chi, int d, bool forward) {
   const long P = (long)chi * d;
-  View X = forward ? View{center, P * chi, chi, 1} : View{core, 0, chi, 1};
-  View Y = forward ? View{core, 0, P, 1} : View{center, chi * P, P, 1};
+  View<T> X = forward ? vw(center, P * chi, chi, 1) : vw(core, 0, chi, 1);
+  View<T> Y = forward ? vw(core, 0, P, 1) : vw(center, chi * P, P, 1);
   gemm(C, P, P, chi, X, Y, w.BT, P * P, P, 1);
 }
 
 // yhat, the loss weights, the gradient and the optimiser step with
 // post-normalisation; BT leaves updated in place.
-__device__ inline void k1_update(const K12Args& a, const float* ls, Work w,
-                                 float* red) {
+template <class T>
+__device__ inline void k1_update(const K12Args<T>& a, const float* ls,
+                                 Work<T> w, float* red) {
   const int C = a.C, N = a.N;
   const long P = (long)a.chi * a.d, PP = P * P;
   // T1[c, n, q] = sum_p L[n,p] BT[c,p,q]
-  gemm(C, N, P, P, View{w.L, 0, P, 1}, View{w.BT, PP, P, 1}, w.T1, N * P, P, 1);
+  gemm(C, N, P, P, vw(w.L, 0, P, 1), vw(w.BT, PP, P, 1), w.T1, N * P, P, 1);
   __syncthreads();
   // yhat[n, c] = sum_q T1[c,n,q] R[n,q]
   for (int e = threadIdx.x; e < N * C; e += blockDim.x) {
     const int n = e / C, c = e % C;
-    const float* t = w.T1 + (c * (long)N + n) * P;
-    const float* r = w.R + n * P;
-    float acc = 0.f;
-    for (int q = 0; q < P; ++q) acc = fmaf(t[q], r[q], acc);
+    const T* t = w.T1 + (c * (long)N + n) * P;
+    const T* r = w.R + n * P;
+    T acc{};
+    for (int q = 0; q < P; ++q) acc = mac(t[q], r[q], acc);
     w.yhat[e] = acc;
   }
   __syncthreads();
   // per-sample, per-class weights (the KLD sign folded in)
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     const float* y1 = a.y1h + n * C;
-    const float* yh = w.yhat + n * C;
+    const T* yh = w.yhat + n * C;
     if (!a.mse) {
-      float yt = 0.f;
+      T yt{};
       for (int c = 0; c < C; ++c) yt += yh[c] * y1[c];
-      const float u = a.w[n] / yt;
+      const T u = kld_u(a.w[n], yt);
       for (int c = 0; c < C; ++c) w.wc[n * C + c] = -(y1[c] * u);
-    } else {
+    } else if constexpr (!IsComplex<T>::value) {
+      // the complex kernels take KLD only (their launchers pass mse = 0)
       const float s = expf(a.opp_ls ? ls[n] + a.opp_ls[n] : ls[n]);
       const float ws = a.w[n] * s;
       for (int c = 0; c < C; ++c) w.wc[n * C + c] = (yh[c] * s - y1[c]) * ws;
     }
   }
   __syncthreads();
-  // U[c, n, q] = R[n,q] wc[n,c]  (into T1)
+  // U[c, n, q] = conj(R[n,q]) wc[n,c]  (into T1)
   for (int e = threadIdx.x; e < C * N * P; e += blockDim.x) {
     const int q = e % P, n = (e / P) % N, c = e / (P * N);
-    w.T1[e] = w.R[n * P + q] * w.wc[n * C + c];
+    w.T1[e] = conj(w.R[n * P + q]) * w.wc[n * C + c];
   }
   __syncthreads();
-  // G[c, p, q] = sum_n L[n,p] U[c,n,q]
-  gemm(C, P, P, N, View{w.L, 0, 1, P}, View{w.T1, N * P, P, 1}, w.G, PP, P, 1);
+  // G[c, p, q] = sum_n conj(L[n,p]) U[c,n,q]
+  gemm<true>(C, P, P, N, vw(w.L, 0, 1, P), vw(w.T1, N * P, P, 1), w.G, PP, P,
+             1);
   __syncthreads();
   float step = a.eta;
   if (!a.gd) {                       // TSGO: normalised-gradient step
     float part = 0.f;
     for (long e = threadIdx.x; e < C * PP; e += blockDim.x)
-      part = fmaf(w.G[e], w.G[e], part);
+      part = abs2_add(w.G[e], part);
     step = a.eta / sqrtf(fmaxf(block_sum(part, red), kTiny));
   }
   float part = 0.f;
   for (long e = threadIdx.x; e < C * PP; e += blockDim.x) {
-    const float v = w.BT[e] - step * w.G[e];
+    const T v = w.BT[e] - step * w.G[e];
     w.BT[e] = v;
-    part = fmaf(v, v, part);
+    part = abs2_add(v, part);
   }
   const float bn = 1.f / sqrtf(fmaxf(block_sum(part, red), kTiny));
   for (long e = threadIdx.x; e < C * PP; e += blockDim.x) w.BT[e] *= bn;
@@ -233,69 +347,71 @@ __device__ inline void k1_update(const K12Args& a, const float* ls, Work w,
 // X <- polar(X) by 8 quintic + 6 cubic Newton-Schulz steps; X is the
 // pre-scaled input in *x, *xn is scratch; returns the buffer holding the
 // result.
-__device__ inline float* ns_polar(float* x, float* xn, Work w, int P, int K) {
+template <class T>
+__device__ inline T* ns_polar(T* x, T* xn, Work<T> w, int P, int K) {
   for (int it = 0; it < kNsQuintic + kNsCubic; ++it) {
     const bool quintic = it < kNsQuintic;
-    // Gm = X^T X
-    gemm(1, K, K, P, View{x, 0, 1, K}, View{x, 0, K, 1}, w.Gm, 0, K, 1);
+    // Gm = X^H X
+    gemm<true>(1, K, K, P, vw(x, 0, 1, K), vw(x, 0, K, 1), w.Gm, 0, K, 1);
     __syncthreads();
     if (quintic) {
-      gemm(1, K, K, K, View{w.Gm, 0, K, 1}, View{w.Gm, 0, K, 1}, w.G2, 0, K, 1);
+      gemm(1, K, K, K, vw(w.Gm, 0, K, 1), vw(w.Gm, 0, K, 1), w.G2, 0, K, 1);
       __syncthreads();
       for (int e = threadIdx.x; e < K * K; e += blockDim.x)
         w.Mq[e] = kNsB * w.Gm[e] + kNsC * w.G2[e];
       __syncthreads();
       // X' = a X + X (b G + c G^2)
-      gemm(1, P, K, K, View{x, 0, K, 1}, View{w.Mq, 0, K, 1}, xn, 0, K, 1,
-           1.f, kNsA, x);
+      gemm(1, P, K, K, vw(x, 0, K, 1), vw(w.Mq, 0, K, 1), xn, 0, K, 1, 1.f,
+           kNsA, x);
     } else {
       // X' = 1.5 X - 0.5 X G
-      gemm(1, P, K, K, View{x, 0, K, 1}, View{w.Gm, 0, K, 1}, xn, 0, K, 1,
-           -0.5f, 1.5f, x);
+      gemm(1, P, K, K, vw(x, 0, K, 1), vw(w.Gm, 0, K, 1), xn, 0, K, 1, -0.5f,
+           1.5f, x);
     }
     __syncthreads();
-    float* t = x; x = xn; xn = t;
+    T* t = x; x = xn; xn = t;
   }
   return x;
 }
 
 // q warm power steps from v0 (subspace iteration: per-column normalisation,
-// eps revival, NS polar each step).  Backward: Y <- sum_c BT_c^T BT_c Y;
-// forward: Y <- sum_c BT_c BT_c^T Y.  Returns the orthonormal Q (in w.Ya).
+// eps revival, NS polar each step).  Backward: Y <- sum_c BT_c^H BT_c Y;
+// forward: Y <- sum_c BT_c BT_c^H Y.  Returns the orthonormal Q (in w.Ya).
 // With a.qr set, each step only normalises the columns (no revival, no
 // polar) and the returned iterate is orthonormalised by the caller's QR.
-__device__ inline const float* power_tail(const K12Args& a, const float* v0,
-                                          Work w, float* red) {
+template <class T>
+__device__ inline const T* power_tail(const K12Args<T>& a, const T* v0,
+                                      Work<T> w, float* red) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d, PP = P * P;
-  const float* yprev = v0;
+  const T* yprev = v0;
   for (int it = 0; it < a.q_iters; ++it) {
     if (!a.forward) {
       // MV[c, p, j] = sum_q BT[c,p,q] Y[q,j]
-      gemm(C, P, K, P, View{w.BT, PP, P, 1}, View{yprev, 0, K, 1}, w.MV,
-           P * K, K, 1);
+      gemm(C, P, K, P, vw(w.BT, PP, P, 1), vw(yprev, 0, K, 1), w.MV, P * K, K,
+           1);
       __syncthreads();
-      // Ynew[q, j] = sum_c sum_p BT[c,p,q] MV[c,p,j]  (class by class; the
-      // same thread owns each element in every pass)
+      // Ynew[q, j] = sum_c sum_p conj(BT[c,p,q]) MV[c,p,j]  (class by class;
+      // the same thread owns each element in every pass)
       for (int c = 0; c < C; ++c)
-        gemm(1, P, K, P, View{w.BT + c * PP, 0, 1, P},
-             View{w.MV + c * P * K, 0, K, 1}, w.Yb, 0, K, 1, 1.f,
-             c ? 1.f : 0.f, c ? w.Yb : nullptr);
+        gemm<true>(1, P, K, P, vw(w.BT + c * PP, 0, 1, P),
+                   vw(w.MV + c * P * K, 0, K, 1), w.Yb, 0, K, 1, 1.f,
+                   c ? 1.f : 0.f, c ? w.Yb : nullptr);
     } else {
-      // MtU[c, q, j] = sum_p BT[c,p,q] Y[p,j]
-      gemm(C, P, K, P, View{w.BT, PP, 1, P}, View{yprev, 0, K, 1}, w.MV,
-           P * K, K, 1);
+      // MtU[c, q, j] = sum_p conj(BT[c,p,q]) Y[p,j]
+      gemm<true>(C, P, K, P, vw(w.BT, PP, 1, P), vw(yprev, 0, K, 1), w.MV,
+                 P * K, K, 1);
       __syncthreads();
       // Ynew[p, j] = sum_c sum_q BT[c,p,q] MtU[c,q,j]
       for (int c = 0; c < C; ++c)
-        gemm(1, P, K, P, View{w.BT + c * PP, 0, P, 1},
-             View{w.MV + c * P * K, 0, K, 1}, w.Yb, 0, K, 1, 1.f,
+        gemm(1, P, K, P, vw(w.BT + c * PP, 0, P, 1),
+             vw(w.MV + c * P * K, 0, K, 1), w.Yb, 0, K, 1, 1.f,
              c ? 1.f : 0.f, c ? w.Yb : nullptr);
     }
     __syncthreads();
     for (int j = threadIdx.x; j < K; j += blockDim.x) {
       float s = 0.f;
-      for (int r = 0; r < P; ++r) s = fmaf(w.Yb[r * K + j], w.Yb[r * K + j], s);
+      for (int r = 0; r < P; ++r) s = abs2_add(w.Yb[r * K + j], s);
       w.nrm[j] = fmaxf(sqrtf(s), kTiny);
     }
     __syncthreads();
@@ -309,16 +425,16 @@ __device__ inline const float* power_tail(const K12Args& a, const float* v0,
     // X = Ynew / ||col|| + eps * Yprev, then pre-scale by ||X||_F (1 + 1e-3)
     float part = 0.f;
     for (int e = threadIdx.x; e < P * K; e += blockDim.x) {
-      const float v = w.Yb[e] / w.nrm[e % K] + kNsRevive * yprev[e];
+      const T v = w.Yb[e] / w.nrm[e % K] + kNsRevive * yprev[e];
       w.Yb[e] = v;
-      part = fmaf(v, v, part);
+      part = abs2_add(v, part);
     }
     const float grow = 1.f + 1e-3f;
     const float sc = 1.f / sqrtf(fmaxf(block_sum(part, red) * (grow * grow),
                                        kTiny));
     for (int e = threadIdx.x; e < P * K; e += blockDim.x) w.Yb[e] *= sc;
     __syncthreads();
-    const float* y = ns_polar(w.Yb, w.Yc, w, P, K);
+    const T* y = ns_polar(w.Yb, w.Yc, w, P, K);
     for (int e = threadIdx.x; e < P * K; e += blockDim.x) w.Ya[e] = y[e];
     __syncthreads();
     yprev = w.Ya;
@@ -334,28 +450,25 @@ __device__ inline const float* power_tail(const K12Args& a, const float* v0,
 // j >= i (the stable descending order), and is kept iff that suffix's
 // energy exceeds cutoff * total, w_i > 0, and its sorted position is below
 // max_rank (cnt_i > K - max_rank).
-__device__ inline void project_mask(const K12Args& a, const float* Q, Work w) {
+template <class T>
+__device__ inline void project_mask(const K12Args<T>& a, const T* Q,
+                                    Work<T> w) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d, PP = P * P;
   if (!a.forward)
-    gemm(C, P, K, P, View{w.BT, PP, P, 1}, View{Q, 0, K, 1}, w.MV, P * K, K, 1);
+    gemm(C, P, K, P, vw(w.BT, PP, P, 1), vw(Q, 0, K, 1), w.MV, P * K, K, 1);
   else
-    gemm(C, K, P, P, View{Q, 0, 1, K}, View{w.BT, PP, P, 1}, w.MV, K * P, P, 1);
+    gemm<true>(C, K, P, P, vw(Q, 0, 1, K), vw(w.BT, PP, P, 1), w.MV, K * P, P,
+               1);
   __syncthreads();
   for (int j = threadIdx.x; j < K; j += blockDim.x) {
     float wv = 0.f;
     for (int c = 0; c < C; ++c) {
       float s = 0.f;
       if (!a.forward) {
-        for (int p = 0; p < P; ++p) {
-          const float v = w.MV[(c * P + p) * K + j];
-          s = fmaf(v, v, s);
-        }
+        for (int p = 0; p < P; ++p) s = abs2_add(w.MV[(c * P + p) * K + j], s);
       } else {
-        for (int q = 0; q < P; ++q) {
-          const float v = w.MV[(c * K + j) * P + q];
-          s = fmaf(v, v, s);
-        }
+        for (int q = 0; q < P; ++q) s = abs2_add(w.MV[(c * K + j) * P + q], s);
       }
       wv += s;
     }
@@ -384,8 +497,9 @@ __device__ inline void project_mask(const K12Args& a, const float* Q, Work w) {
 // Emit the masked split factors in their final core layouts, the unmasked
 // subspace cache (unless q_out is null), and the masked isometry Qm (into
 // w.Yb).
-__device__ inline void emit(const K12Args& a, const float* Q, float* core_out,
-                            float* q_out, Work w) {
+template <class T>
+__device__ inline void emit(const K12Args<T>& a, const T* Q, T* core_out,
+                            T* q_out, Work<T> w) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d;
   // backward center[c, a, i, m] = B[c, p, m] mask[m];
@@ -396,30 +510,50 @@ __device__ inline void emit(const K12Args& a, const float* Q, float* core_out,
   }
   for (long e = threadIdx.x; e < P * K; e += blockDim.x) {
     const int m = (int)(e % K);
-    const float qm = Q[e] * w.mask[m];
+    const T qm = Q[e] * w.mask[m];
     w.Yb[e] = qm;
     if (q_out != nullptr) q_out[e] = Q[e];
     if (a.forward) {
       core_out[e] = qm;                       // U[a, i, m]
     } else {
-      core_out[m * P + e / K] = qm;           // V[m, k, b] = Qm[(k, b), m]
+      core_out[m * P + e / K] = conj(qm);     // V[m, k, b] = conj(Qm[(k, b), m])
     }
   }
   __syncthreads();
 }
 
 // env'[n, m] = sum_r F[n, r] Qm[r, m] with F = L forward, R backward; then
-// per-sample renormalisation with log-scale accumulation.
-__device__ inline void env_advance(const K12Args& a, const float* ls,
-                                   float* env_out, float* ls_out, Work w) {
-  const int N = a.N, K = a.chi;
+// per-sample renormalisation with log-scale accumulation.  In complex the
+// factor takes the stored environment ``env`` and features ``phi`` without
+// the conjugation K1 puts on the environment, and the backward advance
+// reads conj(Qm).
+template <class T>
+__device__ inline void env_advance(const K12Args<T>& a, const T* env,
+                                   const T* phi, const float* ls,
+                                   T* env_out, float* ls_out, Work<T> w) {
+  const int N = a.N, K = a.chi, d = a.d;
   const long P = (long)a.chi * a.d;
-  const float* F = a.forward ? w.L : w.R;
-  gemm(1, N, K, P, View{F, 0, P, 1}, View{w.Yb, 0, K, 1}, env_out, 0, K, 1);
+  T* F = a.forward ? w.L : w.R;
+  if constexpr (IsComplex<T>::value) {
+    for (long e = threadIdx.x; e < N * P; e += blockDim.x) {
+      const long n = e / P, p = e % P;
+      F[e] = a.forward ? env[n * K + p / d] * phi[n * d + p % d]
+                       : phi[n * d + p / K] * env[n * K + p % K];
+    }
+    __syncthreads();
+    if (!a.forward) {
+      gemm<false, true>(1, N, K, P, vw(F, 0, P, 1), vw(w.Yb, 0, K, 1), env_out,
+                        0, K, 1);
+    } else {
+      gemm(1, N, K, P, vw(F, 0, P, 1), vw(w.Yb, 0, K, 1), env_out, 0, K, 1);
+    }
+  } else {
+    gemm(1, N, K, P, vw(F, 0, P, 1), vw(w.Yb, 0, K, 1), env_out, 0, K, 1);
+  }
   __syncthreads();
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     float s = 0.f;
-    for (int m = 0; m < K; ++m) s = fmaf(env_out[n * K + m], env_out[n * K + m], s);
+    for (int m = 0; m < K; ++m) s = abs2_add(env_out[n * K + m], s);
     const float nrm = sqrtf(s);
     const float safe = fmaxf(nrm, kTiny);
     const float div = nrm > 0.f ? safe : 1.f;
@@ -431,30 +565,32 @@ __device__ inline void env_advance(const K12Args& a, const float* ls,
 
 // Bb consecutive bond steps in one block; the center, environment and
 // log-scales carry from bond to bond through the outputs.
-__global__ void __launch_bounds__(kMaxThreads) k12m_kernel(K12Args a) {
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k12m_kernel(K12Args<T> a) {
   __shared__ float red[kMaxThreads];
   const int chi = a.chi, d = a.d, N = a.N;
   const long P = (long)chi * d;
-  Work w = carve(a.ws, a.C, chi, d, N);
-  const float* env = a.env0;
+  Work<T> w = carve<T>(a.ws, a.C, chi, d, N);
+  const T* env = a.env0;
   const float* ls = a.ls0;
-  const float* center = a.center0;
+  const T* center = a.center0;
   for (int b = 0; b < a.Bb; ++b) {
-    const float* core = a.lhs + b * P * chi;
-    const float* envx = a.envx + (long)b * N * chi;
-    const float* v0 = a.v0 + b * P * chi;
-    float* env_out = a.env_out + (long)b * N * chi;
+    const T* core = a.lhs + b * P * chi;
+    const T* envx = a.envx + (long)b * N * chi;
+    const T* v0 = a.v0 + b * P * chi;
+    const T* phil = a.phil + (long)b * N * d;
+    const T* phir = a.phir + (long)b * N * d;
+    T* env_out = a.env_out + (long)b * N * chi;
     float* ls_out = a.ls_out + (long)b * N;
-    kron_factors(a.forward ? env : envx, a.forward ? envx : env,
-                 a.phil + (long)b * N * d, a.phir + (long)b * N * d, w, chi,
-                 d, N);
+    kron_factors(a.forward ? env : envx, a.forward ? envx : env, phil, phir,
+                 w, chi, d, N);
     bond_tensor(core, center, w, a.C, chi, d, a.forward);
     __syncthreads();
     k1_update(a, ls, w, red);
-    const float* Q = a.refresh ? power_tail(a, v0, w, red) : v0;
+    const T* Q = a.refresh ? power_tail(a, v0, w, red) : v0;
     project_mask(a, Q, w);
     emit(a, Q, a.core_out + b * P * chi, a.q_out + b * P * chi, w);
-    env_advance(a, ls, env_out, ls_out, w);
+    env_advance(a, env, a.forward ? phil : phir, ls, env_out, ls_out, w);
     env = env_out;
     ls = ls_out;
     center = a.center_out;
@@ -466,19 +602,20 @@ __global__ void __launch_bounds__(kMaxThreads) k12m_kernel(K12Args a) {
 // chi]); y_out [P, chi] gets the q-step power iterate (a.qr: column-
 // normalised only) or, for a frozen bond (a.refresh == 0), v0.  ls0 holds
 // the total log-scales le_ls + re_ls (MSE only; opp_ls is null).
-__global__ void __launch_bounds__(kMaxThreads) k1_kernel(K12Args a,
-                                                         const float* le,
-                                                         const float* re,
-                                                         float* bt_out,
-                                                         float* y_out) {
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k1_kernel(K12Args<T> a,
+                                                         const T* le,
+                                                         const T* re,
+                                                         T* bt_out,
+                                                         T* y_out) {
   __shared__ float red[kMaxThreads];
-  Work w = carve(a.ws, a.C, a.chi, a.d, a.N);
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
   w.BT = bt_out;
   kron_factors(le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
   bond_tensor(a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
   __syncthreads();
   k1_update(a, a.ls0, w, red);
-  const float* y = a.refresh ? power_tail(a, a.v0, w, red) : a.v0;
+  const T* y = a.refresh ? power_tail(a, a.v0, w, red) : a.v0;
   const long PK = (long)a.chi * a.d * a.chi;
   for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
 }
@@ -488,17 +625,139 @@ __global__ void __launch_bounds__(kMaxThreads) k1_kernel(K12Args a,
 // their final layouts, and the advance of the environment env0 / ls0
 // through the new isometry with its features phil (backward: re and phir;
 // forward: le and phil).
-__global__ void __launch_bounds__(kMaxThreads) k2_kernel(K12Args a,
-                                                         const float* bt,
-                                                         const float* Q) {
-  Work w = carve(a.ws, a.C, a.chi, a.d, a.N);
-  w.BT = const_cast<float*>(bt);            // read only
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k2_kernel(K12Args<T> a,
+                                                         const T* bt,
+                                                         const T* Q) {
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
+  w.BT = const_cast<T*>(bt);                // read only
   // one side's factor is all the advance needs: L (forward) or R (backward)
-  kron_factors(a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
-  __syncthreads();
+  if constexpr (!IsComplex<T>::value) {
+    kron_factors(a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
+    __syncthreads();
+  }
   project_mask(a, Q, w);
-  emit(a, Q, a.core_out, nullptr, w);
-  env_advance(a, a.ls0, a.env_out, a.ls_out, w);
+  emit(a, Q, a.core_out, static_cast<T*>(nullptr), w);
+  env_advance(a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
+}
+
+// ---- host launchers ---------------------------------------------------------
+// The C entry points of bond_step.cu (T = float) and bond_step_c.cu
+// (T = cfloat) forward to these, so one argument list per kernel serves
+// both scalar types.  Each launches one block of kMaxThreads on the caller's
+// stream and returns cudaGetLastError().
+
+template <class T>
+inline int launch_k12m(const void* lhs, const void* center0, const void* envx,
+                       const void* env0, const void* ls0, const void* opp_ls,
+                       const void* phil, const void* phir, const void* y1h,
+                       const void* w, const void* v0, void* center_out,
+                       void* core_out, void* env_out, void* ls_out,
+                       void* q_out, void* ws, int Bb, int C, int chi, int d,
+                       int N, int forward, int refresh, int q_iters, int mse,
+                       int gd, float eta, float cutoff, float max_rank,
+                       void* stream) {
+  K12Args<T> a{};
+  a.lhs = static_cast<const T*>(lhs);
+  a.center0 = static_cast<const T*>(center0);
+  a.envx = static_cast<const T*>(envx);
+  a.env0 = static_cast<const T*>(env0);
+  a.ls0 = static_cast<const float*>(ls0);
+  a.opp_ls = static_cast<const float*>(opp_ls);
+  a.phil = static_cast<const T*>(phil);
+  a.phir = static_cast<const T*>(phir);
+  a.y1h = static_cast<const float*>(y1h);
+  a.w = static_cast<const float*>(w);
+  a.v0 = static_cast<const T*>(v0);
+  a.center_out = static_cast<T*>(center_out);
+  a.core_out = static_cast<T*>(core_out);
+  a.env_out = static_cast<T*>(env_out);
+  a.ls_out = static_cast<float*>(ls_out);
+  a.q_out = static_cast<T*>(q_out);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = Bb;
+  a.C = C;
+  a.chi = chi;
+  a.d = d;
+  a.N = N;
+  a.forward = forward;
+  a.refresh = refresh;
+  a.q_iters = q_iters;
+  a.mse = mse;
+  a.gd = gd;
+  a.eta = eta;
+  a.cutoff = cutoff;
+  a.max_rank = max_rank;
+  k12m_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K1: gls [N] is the total log-scale (MSE only, else null); emit_y = 0
+// passes v0 through as Y (frozen bond).
+template <class T>
+inline int launch_k1(const void* lhs, const void* center0, const void* le,
+                     const void* re, const void* gls, const void* phil,
+                     const void* phir, const void* y1h, const void* w,
+                     const void* v0, void* bt_out, void* y_out, void* ws,
+                     int C, int chi, int d, int N, int forward, int emit_y,
+                     int q_iters, int qr, int mse, int gd, float eta,
+                     void* stream) {
+  K12Args<T> a{};
+  a.lhs = static_cast<const T*>(lhs);
+  a.center0 = static_cast<const T*>(center0);
+  a.ls0 = static_cast<const float*>(gls);
+  a.phil = static_cast<const T*>(phil);
+  a.phir = static_cast<const T*>(phir);
+  a.y1h = static_cast<const float*>(y1h);
+  a.w = static_cast<const float*>(w);
+  a.v0 = static_cast<const T*>(v0);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = 1;
+  a.C = C;
+  a.chi = chi;
+  a.d = d;
+  a.N = N;
+  a.forward = forward;
+  a.refresh = emit_y;
+  a.q_iters = q_iters;
+  a.qr = qr;
+  a.mse = mse;
+  a.gd = gd;
+  a.eta = eta;
+  k1_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const T*>(le), static_cast<const T*>(re),
+      static_cast<T*>(bt_out), static_cast<T*>(y_out));
+  return (int)cudaGetLastError();
+}
+
+// K2: env / env_ls / phi are the advancing side's environment, log-scales
+// and features.
+template <class T>
+inline int launch_k2(const void* bt, const void* q, const void* env,
+                     const void* env_ls, const void* phi, void* center_out,
+                     void* core_out, void* env_out, void* ls_out, void* ws,
+                     int C, int chi, int d, int N, int forward, float cutoff,
+                     float max_rank, void* stream) {
+  K12Args<T> a{};
+  a.env0 = static_cast<const T*>(env);
+  a.ls0 = static_cast<const float*>(env_ls);
+  a.phil = static_cast<const T*>(phi);
+  a.center_out = static_cast<T*>(center_out);
+  a.core_out = static_cast<T*>(core_out);
+  a.env_out = static_cast<T*>(env_out);
+  a.ls_out = static_cast<float*>(ls_out);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = 1;
+  a.C = C;
+  a.chi = chi;
+  a.d = d;
+  a.N = N;
+  a.forward = forward;
+  a.cutoff = cutoff;
+  a.max_rank = max_rank;
+  k2_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const T*>(bt), static_cast<const T*>(q));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace mpst

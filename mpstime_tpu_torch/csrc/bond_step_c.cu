@@ -1,0 +1,89 @@
+// Complex (complex64) fused DMRG bond step for NVIDIA Hopper (sm_90a): K12c
+// and K12mc, and the two halves K1c and K2c of the bond step around an
+// outside QR.
+//
+// Replaces the Pallas TPU kernels of mpstime_tpu/ops/pallas_bond_c.py:
+// _k12c_kernel (one complex bond step), _k12mc_kernel (Bb <= 4 consecutive
+// complex bond steps with the center carried on chip), _k1c_kernel and
+// _k2c_kernel (the orth="qr" refresh bond: K1c, a QR of the realified Y in
+// PyTorch, then K2c).  Mosaic has no complex type, so the TPU kernels carry
+// every operand as a (re, im) pair of f32 arrays and expand each complex
+// product into four real ones.  Here the operands stay torch.complex64
+// tensors, read interleaved as cfloat, and the kernels are the real
+// kernels' device functions (bond_step.cuh) instantiated at cfloat: no
+// second copy of the math.  K12c is the K12mc launch at Bb = 1.  They cover
+// what the TPU kernels cover: KLD loss, TSGO step, one update iteration,
+// Newton-Schulz refresh (or the column-normalised iterate for an outside
+// QR), frozen bonds, and the runtime max_rank cap.
+//
+// What bounds them on this card: at the complex main-path shape (C = 2,
+// chi = 25, d = 5, N = 100, q = 3) a refresh bond is a chain of ~20 M
+// complex multiply-adds (four real ones each) in ~170 dependent phases (the
+// batch products, q power steps of fourteen Newton-Schulz steps each, the
+// projection, the mask).  Like the real kernels they are latency-bound on
+// one thread block.  BT and its gradient (2 x C*chi*d*d*chi complex values,
+// 500 KB) live in the L2-resident global workspace.  Arithmetic is plain
+// f32 FMA; the block sums use a fixed tree, so results are deterministic.
+//
+// C interface (ctypes): pointers as void*, the stream as a void* handle; the
+// launch goes to the caller's current device and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+#include "bond_step.cuh"
+
+using mpst::cfloat;
+
+extern "C" {
+
+long mpst_c_workspace_floats(int C, int chi, int d, int N) {
+  return mpst::workspace_floats<cfloat>(C, chi, d, N);
+}
+
+// K12mc (K12c at Bb = 1).  The argument lists are the real launchers', so
+// one host wrapper per kernel serves both; the complex kernels take KLD +
+// TSGO only and refuse mse or gd (opp_ls and gls are unused).
+int mpst_k12mc_launch(const void* lhs, const void* center0, const void* envx,
+                      const void* env0, const void* ls0, const void* opp_ls,
+                      const void* phil, const void* phir, const void* y1h,
+                      const void* w, const void* v0, void* center_out,
+                      void* core_out, void* env_out, void* ls_out,
+                      void* q_out, void* ws, int Bb, int C, int chi, int d,
+                      int N, int forward, int refresh, int q_iters, int mse,
+                      int gd, float eta, float cutoff, float max_rank,
+                      void* stream) {
+  if (mse || gd) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k12m<cfloat>(
+      lhs, center0, envx, env0, ls0, nullptr, phil, phir, y1h, w, v0,
+      center_out, core_out, env_out, ls_out, q_out, ws, Bb, C, chi, d, N,
+      forward, refresh, q_iters, 0, 0, eta, cutoff, max_rank, stream);
+}
+
+// K1c: emit_y = 0 passes v0 through as Y (frozen bond); qr = 1 leaves Y
+// column-normalised for the caller's QR.  Scratch: mpst_c_workspace_floats.
+int mpst_k1c_launch(const void* lhs, const void* center0, const void* le,
+                    const void* re, const void* gls, const void* phil,
+                    const void* phir, const void* y1h, const void* w,
+                    const void* v0, void* bt_out, void* y_out, void* ws,
+                    int C, int chi, int d, int N, int forward, int emit_y,
+                    int q_iters, int qr, int mse, int gd, float eta,
+                    void* stream) {
+  if (mse || gd) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k1<cfloat>(lhs, center0, le, re, nullptr, phil, phir,
+                                 y1h, w, v0, bt_out, y_out, ws, C, chi, d, N,
+                                 forward, emit_y, q_iters, qr, 0, 0, eta,
+                                 stream);
+}
+
+// K2c.  Scratch: mpst_c_workspace_floats.
+int mpst_k2c_launch(const void* bt, const void* q, const void* env,
+                    const void* env_ls, const void* phi, void* center_out,
+                    void* core_out, void* env_out, void* ls_out, void* ws,
+                    int C, int chi, int d, int N, int forward, float cutoff,
+                    float max_rank, void* stream) {
+  return mpst::launch_k2<cfloat>(bt, q, env, env_ls, phi, center_out,
+                                 core_out, env_out, ls_out, ws, C, chi, d, N,
+                                 forward, cutoff, max_rank, stream);
+}
+
+}  // extern "C"

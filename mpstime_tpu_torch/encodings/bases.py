@@ -1,18 +1,79 @@
-"""Closed-form real feature-map bases on torch tensors (counterpart of
-``mpstime_tpu/encodings/bases.py``; the complex bases follow in a later
-slice).  Each ``*_encode`` maps ``x`` (any shape) to ``x.shape + (d,)``."""
+"""Closed-form feature-map bases on torch tensors (counterpart of
+``mpstime_tpu/encodings/bases.py``).  Each ``*_encode`` maps ``x`` (any
+shape) to ``x.shape + (d,)``; the complex bases (``angle_encode``,
+``fourier_encode``, ``sahand_encode``) return the complex dtype of x's
+precision."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
+
+
+def _cis(theta: torch.Tensor) -> torch.Tensor:
+    """e^{i theta} as cos + i sin (the JAX package's Euler form)."""
+    return torch.complex(torch.cos(theta), torch.sin(theta))
 
 
 def uniform_encode(x: torch.Tensor, d: int) -> torch.Tensor:
     """Constant 1/d features (reference bases.jl:3-5)."""
     return torch.full(tuple(x.shape) + (d,), 1.0 / d, dtype=x.dtype,
                       device=x.device)
+
+
+def angle_encode(x: torch.Tensor, d: int = 2,
+                 periods: float = 0.25) -> torch.Tensor:
+    """Stoudenmire spin-1/2 angle encoding, d=2 only (reference
+    bases.jl:8-20): [e^{3 i pi x/2} cos(2 pi p x), e^{-3 i pi x/2}
+    sin(2 pi p x)]."""
+    if d != 2:
+        raise ValueError("Stoudenmire angle encoding only supports d = 2!")
+    ph = _cis(1.5 * math.pi * x)
+    s1 = ph * torch.cos(2 * math.pi * periods * x)
+    s2 = ph.conj() * torch.sin(2 * math.pi * periods * x)
+    return torch.stack([s1, s2], dim=-1)
+
+
+def get_fourier_freqs(d: int) -> np.ndarray:
+    """Symmetric frequency selection [0, 1, -1, 2, -2, ...][:d]
+    (reference bases.jl:27-34)."""
+    hbound = int(math.ceil((d - 1.0) / 2.0))
+    freqs = [0]
+    for i in range(1, hbound + 1):
+        freqs += [i, -i]
+    return np.asarray(freqs[:d], dtype=np.float64)
+
+
+def fourier_encode(x: torch.Tensor, d: int,
+                   freqs: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """phi_k(x) = e^{i pi f_k x} / sqrt(nf) (reference bases.jl:23-50);
+    ``freqs`` overrides the default symmetric selection."""
+    if freqs is None:
+        freqs = get_fourier_freqs(d)
+    f = torch.as_tensor(np.asarray(freqs), dtype=x.dtype, device=x.device)
+    return _cis(math.pi * x[..., None] * f) / math.sqrt(float(f.shape[0]))
+
+
+def sahand_encode(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Piecewise-interval complex basis, even d (reference bases.jl:53-74)."""
+    if d % 2 != 0:
+        raise ValueError("Sahand encoding only supports even dimension")
+    x = x[..., None]
+    i = np.arange(1, d + 1, dtype=np.float64)            # basis index
+    dx = 2.0 / d
+    interval = np.ceil(i / 2.0)
+    as_x = lambda a: torch.as_tensor(a, dtype=x.dtype, device=x.device)  # noqa: E731
+    startx = as_x((interval - 1) * dx)
+    inside = (startx <= x) & (x <= as_x(interval * dx))
+    odd = torch.as_tensor(i.astype(np.int64) % 2 == 1, device=x.device)
+    phase = _cis(math.pi * 1.5 * x / dx)
+    arg = 0.5 * math.pi * (x - startx) / dx
+    vals = torch.where(odd, phase * torch.cos(arg),
+                       phase.conj() * torch.sin(arg))
+    return vals * inside.to(x.dtype)
 
 
 def _legendre_norm_const(l: int) -> float:

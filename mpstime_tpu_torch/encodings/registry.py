@@ -1,7 +1,8 @@
 """Encoding registry (counterpart of ``mpstime_tpu/encodings/registry.py``)
-for the closed-form real bases: ``legendre*`` and ``uniform``.  The other
-encodings are later slices of the port and raise ``NotImplementedError``
-naming their ROADMAP item."""
+for the closed-form bases: ``legendre*``, ``uniform`` and the complex
+``fourier``, ``stoudenmire`` and ``sahand``.  The other encodings are later
+slices of the port and raise ``NotImplementedError`` naming their ROADMAP
+item."""
 
 from __future__ import annotations
 
@@ -32,6 +33,18 @@ def _enc_uniform(X, d, enc_args=None):
     return bases.uniform_encode(X, d)
 
 
+def _enc_stoudenmire(X, d, enc_args=None):
+    return bases.angle_encode(X, d)
+
+
+def _enc_fourier(X, d, enc_args=None):
+    return bases.fourier_encode(X, d)
+
+
+def _enc_sahand(X, d, enc_args=None):
+    return bases.sahand_encode(X, d)
+
+
 def _enc_legendre(X, d, enc_args=None):
     return bases.legendre_encode(X, d, norm=False)
 
@@ -41,9 +54,6 @@ def _enc_legendre_norm(X, d, enc_args=None):
 
 
 _LATER = {
-    "fourier": "queue 1 item 14 (complex encodings)",
-    "stoudenmire": "queue 1 item 14 (complex encodings)",
-    "sahand": "queue 1 item 14 (complex encodings)",
     "sahand_legendre": "queue 1 item 4 (data-driven encodings)",
     "sahand_legendre_time_dependent": "queue 1 item 4 (data-driven encodings)",
     "custom": "queue 1 item 4 (custom encodings)",
@@ -75,6 +85,15 @@ def get_encoding(name: str, project: bool = False) -> EncodingSpec:
     if s == "uniform":
         return EncodingSpec("Uniform", False, False, False, (0.0, 1.0),
                             None, _enc_uniform)
+    if s == "fourier":
+        return EncodingSpec("Fourier", True, False, False, (-1.0, 1.0),
+                            None, _enc_fourier)
+    if s == "stoudenmire":
+        return EncodingSpec("Stoudenmire", True, False, False, (0.0, 1.0),
+                            None, _enc_stoudenmire)
+    if s == "sahand":
+        return EncodingSpec("Sahand", True, False, False, (0.0, 1.0),
+                            None, _enc_sahand)
     raise ValueError(f"Unknown encoding {name!r}")
 
 

@@ -2,10 +2,12 @@
 
 The sources under ``mpstime_tpu_torch/csrc/`` compile with ``nvcc`` into one
 shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), loaded with ``ctypes``.  The library is built at first use
+takes seconds), loaded with ``ctypes``: one ``nvcc -c`` per ``.cu`` source,
+all started together, then one link.  The library is built at first use
 into ``mpstime_tpu_torch/_build/``, keyed by a hash of the sources and the
-flags, so a fresh checkout builds it on its first CUDA call.  Nothing here
-runs at import time.
+flags, so a fresh checkout builds it on its first CUDA call.  ``build_log``
+keeps the compilers' output (``-Xptxas -v``: registers, shared memory and
+spills of each kernel).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -25,12 +27,14 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the last build took (0.0 when the library was already built).
 last_build_seconds = 0.0
+#: The compilers' output of the last build ("" when nothing was built).
+build_log = ""
 
 
 def _sources():
@@ -65,24 +69,37 @@ def build() -> Path:
     """Compile the .cu sources into the keyed shared library unless it is
     there; returns its path.  Raises RuntimeError with nvcc's output when
     the build fails."""
-    global last_build_seconds
+    global last_build_seconds, build_log
     out = library_path()
     if out.exists():
-        last_build_seconds = 0.0
+        last_build_seconds, build_log = 0.0, ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)          # atomic: a concurrent build never sees half
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            objs.append(str(Path(tmp) / (src.stem + ".o")))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [proc.communicate()[0] for _, proc in procs]   # wait for all
+        for (cmd, proc), text in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{text}")
+        lib = str(Path(tmp) / "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(lib, out)      # atomic: a concurrent build never sees half
     last_build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
     return out
 
 
@@ -95,14 +112,20 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mpst_k12_workspace_floats.argtypes = [i, i, i, i]
-        lib.mpst_k12_workspace_floats.restype = ctypes.c_long
-        lib.mpst_k12m_launch.argtypes = [p] * 17 + [i] * 10 + [f] * 3 + [p]
-        lib.mpst_k12m_launch.restype = i
-        lib.mpst_k1_launch.argtypes = [p] * 13 + [i] * 10 + [f] + [p]
-        lib.mpst_k1_launch.restype = i
-        lib.mpst_k2_launch.argtypes = [p] * 10 + [i] * 5 + [f] * 2 + [p]
-        lib.mpst_k2_launch.restype = i
+        # each complex launcher takes its real twin's argument list
+        for ws in ("mpst_k12_workspace_floats", "mpst_c_workspace_floats"):
+            getattr(lib, ws).argtypes = [i, i, i, i]
+            getattr(lib, ws).restype = ctypes.c_long
+        for names, argtypes in (
+                (("mpst_k12m_launch", "mpst_k12mc_launch"),
+                 [p] * 17 + [i] * 10 + [f] * 3 + [p]),
+                (("mpst_k1_launch", "mpst_k1c_launch"),
+                 [p] * 13 + [i] * 10 + [f] + [p]),
+                (("mpst_k2_launch", "mpst_k2c_launch"),
+                 [p] * 10 + [i] * 5 + [f] * 2 + [p])):
+            for name in names:
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = i
         lib.mpst_error_string.argtypes = [i]
         lib.mpst_error_string.restype = ctypes.c_char_p
         _lib = lib

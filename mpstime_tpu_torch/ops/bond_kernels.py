@@ -31,9 +31,11 @@ from .decomp import _qr_orth, warm_iterate, warm_split_left, warm_split_right
 from .env import env_step_left_scaled, env_step_right_scaled
 
 #: Kernel launches per kernel since the last reset_counts().
-LAUNCHES: Dict[str, int] = {"k12": 0, "k12m": 0, "k1": 0, "k2": 0}
+#: The complex kernels (ops/bond_kernels_c.py) count here too.
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
-PLAIN_CALLS: Dict[str, int] = {"k12": 0, "k12m": 0, "k1": 0, "k2": 0}
+PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
 Out5 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
              torch.Tensor]
@@ -54,8 +56,8 @@ def k1_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
              forward: bool, emit_y: bool = True, power_iters: int = 1,
              orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO"
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 in plain PyTorch: the bond tensor, the gradient step
-    (ops/bond_update.py) and q warm power steps.  ``gls`` [N]: the total
+    """K1 in plain PyTorch, real or complex: the bond tensor, the gradient
+    step (ops/bond_update.py) and q warm power steps.  ``gls`` [N]: the total
     log-scales le_ls + re_ls (read by the MSE gradient only).  Returns
     (BT [C, chi*d, d, chi], Y [chi*d, chi]); Y is the column-normalised
     iterate under orth="qr", orthonormal under "ns", and V0 itself when
@@ -65,16 +67,19 @@ def k1_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
         BT = torch.einsum("caim,mkb->aikbc", center_c, A_or_B)
     else:
         BT = torch.einsum("aim,cmkb->aikbc", A_or_B, center_c)
-    _, BT = apply_update(BT, le, re, phil, phir, y1h, w, gls, eta=eta,
-                         loss=loss, bbopt=bbopt)
+    # apply_update takes the features unconjugated (bond_update.py)
+    _, BT = apply_update(BT, le, re, phil.conj(), phir.conj(), y1h, w, gls,
+                         eta=eta, loss=loss, bbopt=bbopt)
     Y = V0
     if emit_y:
         if forward:
             M = BT.reshape(chi * d, d * chi * C)
-            Y = warm_iterate(lambda Yp: M @ (M.T @ Yp), V0, power_iters, orth)
+            Y = warm_iterate(lambda Yp: M @ (M.conj().T @ Yp), V0,
+                             power_iters, orth)
         else:
             M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
-            Y = warm_iterate(lambda Yp: M.T @ (M @ Yp), V0, power_iters, orth)
+            Y = warm_iterate(lambda Yp: M.conj().T @ (M @ Yp), V0,
+                             power_iters, orth)
     BTk = BT.permute(4, 0, 1, 2, 3).reshape(C, chi * d, d, chi)
     return BTk.contiguous(), Y.contiguous()
 
@@ -144,13 +149,23 @@ def k12m_plain(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,
 # kernel wrappers
 # --------------------------------------------------------------------------
 
-def _check_operands(dev: torch.device, expect) -> None:
-    """Every operand on ``dev``, float32, of its shape and contiguous."""
-    for name, (t, shape) in expect.items():
+#: An ``expect`` entry's marker for a real (float32) operand.
+REAL = "real"
+
+
+def _check_operands(dev: torch.device, expect,
+                    dtype: torch.dtype = torch.float32) -> None:
+    """Every operand on ``dev``, of its shape, contiguous, and of ``dtype``
+    (the kernel's scalar type) unless its entry names float32 (labels,
+    weights and log-scales are real in every kernel)."""
+    for name, (t, shape, *real) in expect.items():
+        want = torch.float32 if real else dtype
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, center_c on {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != want:
+            raise ValueError(f"{name} must be "
+                             f"{str(want).replace('torch.', '')}, got "
+                             f"{t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got "
                              f"{tuple(t.shape)}")
@@ -158,19 +173,20 @@ def _check_operands(dev: torch.device, expect) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _empty(dev: torch.device, *shape: int) -> torch.Tensor:
-    return torch.empty(shape, dtype=torch.float32, device=dev)
+def _empty(dev: torch.device, *shape: int,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=dev)
 
 
 def _launch_k12m(A_blk, center_c, envx_blk, env0, env_ls0, opp_ls, phil_blk,
                  phir_blk, y1h, w, V0_blk, eta, cutoff, *, forward: bool,
                  refresh: bool, power_iters: int, max_rank, loss: str,
                  bbopt: str, launch: Callable[..., None],
-                 workspace_floats: Callable[[int, int, int, int], int]
-                 ) -> Out5:
-    """Check K12m's operands, allocate its outputs and workspace on the
-    operands' device, and hand everything to ``launch`` in the kernel's C
-    argument order."""
+                 workspace_floats: Callable[[int, int, int, int], int],
+                 dtype: torch.dtype = torch.float32) -> Out5:
+    """Check K12m's (or K12mc's) operands, allocate its outputs and
+    workspace on the operands' device, and hand everything to ``launch`` in
+    the kernel's C argument order; ``dtype`` is the kernel's scalar type."""
     if A_blk.dim() != 4 or center_c.dim() != 4:
         raise ValueError(f"A_blk must be [Bb, chi, d, chi] and center_c "
                          f"[C, chi, d, chi]; got {tuple(A_blk.shape)} and "
@@ -183,25 +199,25 @@ def _launch_k12m(A_blk, center_c, envx_blk, env0, env_ls0, opp_ls, phil_blk,
         "center_c": (center_c, (C, chi, d, chi)),
         "envx_blk": (envx_blk, (Bb, N, chi)),
         "env0": (env0, (N, chi)),
-        "env_ls0": (env_ls0, (N,)),
+        "env_ls0": (env_ls0, (N,), REAL),
         "phil_blk": (phil_blk, (Bb, N, d)),
         "phir_blk": (phir_blk, (Bb, N, d)),
-        "y1h": (y1h, (N, C)),
-        "w": (w, (N,)),
+        "y1h": (y1h, (N, C), REAL),
+        "w": (w, (N,), REAL),
         "V0_blk": (V0_blk, (Bb, chi * d, chi)),
     }
     if loss == "MSE":
-        expect["opp_ls"] = (opp_ls, (N,))
+        expect["opp_ls"] = (opp_ls, (N,), REAL)
     dev = center_c.device
-    _check_operands(dev, expect)
+    _check_operands(dev, expect, dtype)
     if Bb < 1 or power_iters < 1:
         raise ValueError(f"need Bb >= 1 and power_iters >= 1, got {Bb}, "
                          f"{power_iters}")
-    center2 = _empty(dev, C, chi, d, chi)
-    core_b = _empty(dev, Bb, chi, d, chi)
-    env_b = _empty(dev, Bb, N, chi)
+    center2 = _empty(dev, C, chi, d, chi, dtype=dtype)
+    core_b = _empty(dev, Bb, chi, d, chi, dtype=dtype)
+    env_b = _empty(dev, Bb, N, chi, dtype=dtype)
     ls_b = _empty(dev, Bb, N)
-    q_b = _empty(dev, Bb, chi * d, chi)
+    q_b = _empty(dev, Bb, chi * d, chi, dtype=dtype)
     ws = _empty(dev, workspace_floats(C, chi, d, N))
     mr = float(chi) if max_rank is None else float(max_rank)
     launch(A_blk.data_ptr(), center_c.data_ptr(), envx_blk.data_ptr(),
@@ -219,10 +235,11 @@ def _launch_k12m(A_blk, center_c, envx_blk, env0, env_ls0, opp_ls, phil_blk,
 def _launch_k1(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta,
                *, forward: bool, emit_y: bool, power_iters: int, orth: str,
                loss: str, bbopt: str, launch: Callable[..., None],
-               workspace_floats: Callable[[int, int, int, int], int]
+               workspace_floats: Callable[[int, int, int, int], int],
+               dtype: torch.dtype = torch.float32
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check K1's operands, allocate BT, Y and the workspace, and hand
-    everything to ``launch`` in the kernel's C argument order."""
+    """Check K1's (or K1c's) operands, allocate BT, Y and the workspace,
+    and hand everything to ``launch`` in the kernel's C argument order."""
     if center_c.dim() != 4:
         raise ValueError(f"center_c must be [C, chi, d, chi], got "
                          f"{tuple(center_c.shape)}")
@@ -233,17 +250,18 @@ def _launch_k1(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta,
         "center_c": (center_c, (C, chi, d, chi)),
         "le": (le, (N, chi)), "re": (re, (N, chi)),
         "phil": (phil, (N, d)), "phir": (phir, (N, d)),
-        "y1h": (y1h, (N, C)), "w": (w, (N,)), "V0": (V0, (P, chi)),
+        "y1h": (y1h, (N, C), REAL), "w": (w, (N,), REAL),
+        "V0": (V0, (P, chi)),
     }
     if loss == "MSE":
-        expect["gls"] = (gls, (N,))
+        expect["gls"] = (gls, (N,), REAL)
     dev = center_c.device
-    _check_operands(dev, expect)
+    _check_operands(dev, expect, dtype)
     if power_iters < 1 or orth not in ("qr", "ns"):
         raise ValueError(f"need power_iters >= 1 and orth 'qr' or 'ns', got "
                          f"{power_iters}, {orth!r}")
-    BT = _empty(dev, C, P, d, chi)
-    Y = _empty(dev, P, chi)
+    BT = _empty(dev, C, P, d, chi, dtype=dtype)
+    Y = _empty(dev, P, chi, dtype=dtype)
     ws = _empty(dev, workspace_floats(C, chi, d, N))
     launch(A_or_B.data_ptr(), center_c.data_ptr(), le.data_ptr(),
            re.data_ptr(), gls.data_ptr() if loss == "MSE" else None,
@@ -257,9 +275,10 @@ def _launch_k1(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta,
 
 def _launch_k2(BT, Q, env, env_ls, phi, cutoff, *, forward: bool, max_rank,
                launch: Callable[..., None],
-               workspace_floats: Callable[[int, int, int, int], int]) -> Out4:
-    """Check K2's operands, allocate its outputs and workspace, and hand
-    everything to ``launch`` in the kernel's C argument order."""
+               workspace_floats: Callable[[int, int, int, int], int],
+               dtype: torch.dtype = torch.float32) -> Out4:
+    """Check K2's (or K2c's) operands, allocate its outputs and workspace,
+    and hand everything to ``launch`` in the kernel's C argument order."""
     if BT.dim() != 4:
         raise ValueError(f"BT must be [C, chi*d, d, chi], got "
                          f"{tuple(BT.shape)}")
@@ -267,13 +286,14 @@ def _launch_k2(BT, Q, env, env_ls, phi, cutoff, *, forward: bool, max_rank,
     N = env.shape[0]
     expect = {
         "BT": (BT, (C, chi * d, d, chi)), "Q": (Q, (P, chi)),
-        "env": (env, (N, chi)), "env_ls": (env_ls, (N,)), "phi": (phi, (N, d)),
+        "env": (env, (N, chi)), "env_ls": (env_ls, (N,), REAL),
+        "phi": (phi, (N, d)),
     }
     dev = BT.device
-    _check_operands(dev, expect)
-    center2 = _empty(dev, C, chi, d, chi)
-    core = _empty(dev, chi, d, chi)
-    env2 = _empty(dev, N, chi)
+    _check_operands(dev, expect, dtype)
+    center2 = _empty(dev, C, chi, d, chi, dtype=dtype)
+    core = _empty(dev, chi, d, chi, dtype=dtype)
+    env2 = _empty(dev, N, chi, dtype=dtype)
     ls2 = _empty(dev, N)
     ws = _empty(dev, workspace_floats(C, chi, d, N))
     mr = float(chi) if max_rank is None else float(max_rank)
@@ -284,9 +304,10 @@ def _launch_k2(BT, Q, env, env_ls, phi, cutoff, *, forward: bool, max_rank,
     return center2, core, env2, ls2
 
 
-def _cuda_launch(device: torch.device, entry: str):
+def _cuda_launch(device: torch.device, entry: str,
+                 workspace: str = "mpst_k12_workspace_floats"):
     """(launch, workspace_floats) for the built library's ``entry`` on
-    ``device``."""
+    ``device``, with the workspace size function ``workspace``."""
     from ..kernels.build import load_library
     lib = load_library()
     fn = getattr(lib, entry)
@@ -301,7 +322,7 @@ def _cuda_launch(device: torch.device, entry: str):
             raise RuntimeError(f"{entry} failed: CUDA error {rc} "
                                f"({lib.mpst_error_string(rc).decode()})")
 
-    return launch, lib.mpst_k12_workspace_floats
+    return launch, getattr(lib, workspace)
 
 
 def k12_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,

@@ -1,0 +1,215 @@
+"""The complex bond-step kernels K12c, K12mc, K1c and K2c (counterpart of
+``mpstime_tpu/ops/pallas_bond_c.py``).
+
+``bond_step_c`` and ``bond_block_steps_c`` keep the signatures of the JAX
+package's (pallas_bond_c.py:1308, :1184) with complex tensors in place of
+its (re, im) pairs: complex operands stay ``torch.complex64`` (or, on the
+CPU, complex128) end to end, and the CUDA kernels read them interleaved.  A
+refresh bond under orth="qr" runs K1c -> the realified QR of
+ops/decomp.py's ``_qr_orth`` -> K2c (pallas_bond_c.py:1368-1412); every
+other bond runs K12c, and a block of bonds K12mc.  As in the JAX package
+the complex kernels cover KLD + TSGO only; the wrappers refuse any other
+loss or optimiser with a ValueError.
+
+  * CUDA tensors launch the hand-written kernels (csrc/bond_step_c.cu, the
+    real kernels' device functions at a complex scalar), or raise.  There
+    is no fallback.
+  * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
+    ``k1c_plain``, ``k2c_plain``), built from the ported update, warm split
+    and environment steps, which are dtype-generic.
+
+Launches and plain calls count under "k12c", "k12mc", "k1c" and "k2c" in
+``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS``.  Operand layouts are the real
+kernels': phil / phir are the conjugated encoded states, the center is
+class-major [C, chi, d, chi], environments [N, chi] with real log-scales
+[N], labels [N, C] and weights [N] real float32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import bond_kernels as bk
+from .decomp import _qr_orth
+
+Out4, Out5 = bk.Out4, bk.Out5
+
+
+def _check_kld_tsgo(loss: str, bbopt: str) -> None:
+    if (loss, bbopt) != ("KLD", "TSGO"):
+        raise ValueError(f"loss={loss}/bbopt={bbopt}: the complex bond "
+                         "kernels cover KLD + TSGO only; other complex "
+                         "configurations take the unfused route of "
+                         "training/sweep.py")
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def k1c_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
+              forward: bool, emit_y: bool = True, power_iters: int = 1,
+              orth: str = "qr") -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1c in plain PyTorch, with K1c's operands (no log-scale: the KLD
+    gradient needs none): ``bond_kernels.k1_plain``.  Returns
+    (BT [C, chi*d, d, chi], Y [chi*d, chi])."""
+    gls = torch.zeros(le.shape[0], dtype=le.real.dtype, device=le.device)
+    return bk.k1_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0,
+                       eta, forward=forward, emit_y=emit_y,
+                       power_iters=power_iters, orth=orth)
+
+
+#: The other plain versions are the real kernels', which are dtype-generic
+#: and take the same operands (KLD + TSGO by default).
+k2c_plain = bk.k2_plain
+k12c_plain = bk.k12_plain
+k12mc_plain = bk.k12m_plain
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+def _launcher(device: torch.device, entry: str):
+    return bk._cuda_launch(device, entry, "mpst_c_workspace_floats")
+
+
+def k12c_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
+              eta, cutoff, *, forward: bool, refresh: bool = True,
+              power_iters: int = 1, max_rank=None, loss: str = "KLD",
+              bbopt: str = "TSGO") -> Out5:
+    """K12c: one complex bond step as one launch of the block kernel at
+    Bb = 1."""
+    _check_kld_tsgo(loss, bbopt)
+    launch, wsf = _launcher(center_c.device, "mpst_k12mc_launch")
+    env, envx = (le, re) if forward else (re, le)
+    center2, core, env2, ls2, Q = bk._launch_k12m(
+        A_or_B[None], center_c, envx[None], env, env_ls, None, phil[None],
+        phir[None], y1h, w, V0[None], eta, cutoff, forward=forward,
+        refresh=refresh, power_iters=power_iters, max_rank=max_rank,
+        loss="KLD", bbopt="TSGO", launch=launch, workspace_floats=wsf,
+        dtype=torch.complex64)
+    bk.LAUNCHES["k12c"] += 1
+    return center2, core[0], env2[0], ls2[0], Q[0]
+
+
+def k12mc_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
+               phir_blk, y1h, w, V0_blk, eta, cutoff, *, forward: bool,
+               refresh: bool = True, power_iters: int = 1, max_rank=None,
+               loss: str = "KLD", bbopt: str = "TSGO") -> Out5:
+    """K12mc: Bb consecutive complex bond steps as one launch."""
+    _check_kld_tsgo(loss, bbopt)
+    launch, wsf = _launcher(center_c.device, "mpst_k12mc_launch")
+    out = bk._launch_k12m(
+        A_blk, center_c, envx_blk, env0, env_ls0, None, phil_blk, phir_blk,
+        y1h, w, V0_blk, eta, cutoff, forward=forward, refresh=refresh,
+        power_iters=power_iters, max_rank=max_rank, loss="KLD", bbopt="TSGO",
+        launch=launch, workspace_floats=wsf, dtype=torch.complex64)
+    bk.LAUNCHES["k12mc"] += 1
+    return out
+
+
+def k1c_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
+             forward: bool, emit_y: bool = True, power_iters: int = 1,
+             orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1c as one launch; operands and results as ``k1c_plain``'s."""
+    _check_kld_tsgo(loss, bbopt)
+    launch, wsf = _launcher(center_c.device, "mpst_k1c_launch")
+    out = bk._launch_k1(A_or_B, center_c, le, re, phil, phir, y1h, w, None,
+                        V0, eta, forward=forward, emit_y=emit_y,
+                        power_iters=power_iters, orth=orth, loss="KLD",
+                        bbopt="TSGO", launch=launch, workspace_floats=wsf,
+                        dtype=torch.complex64)
+    bk.LAUNCHES["k1c"] += 1
+    return out
+
+
+def k2c_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
+             max_rank=None) -> Out4:
+    """K2c as one launch; operands and results as ``k2c_plain``'s."""
+    launch, wsf = _launcher(BT.device, "mpst_k2c_launch")
+    out = bk._launch_k2(BT, Q, env, env_ls, phi, cutoff, forward=forward,
+                        max_rank=max_rank, launch=launch,
+                        workspace_floats=wsf, dtype=torch.complex64)
+    bk.LAUNCHES["k2c"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# public complex bond steps
+# --------------------------------------------------------------------------
+
+def _check_route(orth: str, axis_name, stream_tile) -> None:
+    if axis_name is not None or stream_tile is not None:
+        raise NotImplementedError(
+            "the complex data-parallel and N-streaming bond steps (kernels "
+            "K1c-grad, K1c-update, K2c-split, K2c-env) are ROADMAP.md queue "
+            "2 items 16-19")
+    if orth not in ("qr", "ns"):
+        raise ValueError(f"orth must be 'qr' or 'ns', got {orth!r}")
+
+
+def qr_bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
+                   eta, cutoff, *, forward: bool, plain: bool,
+                   power_iters: int = 1, max_rank=None) -> Out5:
+    """A complex refresh bond under orth="qr": K1c, the realified QR of its
+    Y (``_qr_orth``, pallas_bond_c.py:1216-1225), then K2c against Q.
+    ``plain`` selects the plain versions instead of the CUDA kernels; both
+    orthonormalise with the same QR.  Returns (center_c', core', env',
+    env_ls', Q')."""
+    k1, k2 = (k1c_plain, k2c_plain) if plain else (k1c_cuda, k2c_cuda)
+    BT, Y = k1(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta,
+               forward=forward, power_iters=power_iters, orth="qr")
+    Q = _qr_orth(Y).contiguous()
+    env, phi = (le, phil) if forward else (re, phir)
+    return k2(BT, Q, env, env_ls, phi, cutoff, forward=forward,
+              max_rank=max_rank) + (Q,)
+
+
+def bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
+                eta, cutoff, *, forward: bool, refresh: bool = True,
+                axis_name: str = None, power_iters: int = 1,
+                orth: str = "qr", max_rank=None,
+                stream_tile: Optional[int] = None) -> Out5:
+    """One complex bond step (KLD + TSGO): K1c -> QR -> K2c for a refresh
+    bond under orth="qr", else one K12c.  Operands and results as
+    ``bond_kernels.bond_step``'s, complex; env_ls stays real."""
+    _check_route(orth, axis_name, stream_tile)
+    args = (A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
+            cutoff)
+    kw = dict(forward=forward, power_iters=power_iters, max_rank=max_rank)
+    cuda = bk._device_of(center_c) == "cuda"
+    if refresh and orth == "qr":
+        if not cuda:
+            bk.PLAIN_CALLS["k1c"] += 1
+            bk.PLAIN_CALLS["k2c"] += 1
+        return qr_bond_step_c(*args, plain=not cuda, **kw)
+    if cuda:
+        return k12c_cuda(*args, refresh=refresh, **kw)
+    bk.PLAIN_CALLS["k12c"] += 1
+    return k12c_plain(*args, refresh=refresh, **kw)
+
+
+def bond_block_steps_c(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
+                       phir_blk, y1h, w, V0_blk, eta, cutoff, *,
+                       forward: bool, refresh: bool = True,
+                       power_iters: int = 1, orth: str = "ns",
+                       max_rank=None) -> Out5:
+    """Bb consecutive complex bond updates (K12mc): Newton-Schulz refresh
+    bonds, or frozen bonds under either orth.  Operands and results as
+    ``bond_kernels.bond_block_steps``'s, complex."""
+    _check_route(orth, None, None)
+    if refresh and orth != "ns":
+        raise ValueError("K12mc refreshes with the Newton-Schulz polar only; "
+                         "orth='qr' refresh bonds run bond_step_c")
+    kw = dict(forward=forward, refresh=refresh, power_iters=power_iters,
+              max_rank=max_rank)
+    args = (A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,
+            y1h, w, V0_blk, eta, cutoff)
+    if bk._device_of(center_c) == "cuda":
+        return k12mc_cuda(*args, **kw)
+    bk.PLAIN_CALLS["k12mc"] += 1
+    return k12mc_plain(*args, **kw)

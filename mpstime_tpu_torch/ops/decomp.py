@@ -55,11 +55,23 @@ def _np_dtype(t: torch.Tensor) -> np.dtype:
 
 def _qr_orth(Y: torch.Tensor) -> torch.Tensor:
     """Orthonormal basis of the columns of Y: the Q of a reduced QR (the
-    real branch of the JAX package's ``_qr_orth``)."""
-    if Y.is_complex():
-        raise NotImplementedError("complex QR orthogonalisation is ROADMAP.md "
-                                  "queue 1 item 14 (complex encodings)")
-    return torch.linalg.qr(Y, mode="reduced")[0]
+    JAX package's ``_qr_orth``, decomp.py:64-101).
+
+    A complex Y takes one real QR of its realified [2R, 2k] embedding,
+    which interleaves each column y with i*y; the even columns' halves are
+    the (Re, Im) parts of a nested complex-orthonormal basis.  This keeps
+    the JAX package's per-column phases (a complex QR picks others, and the
+    warm caches carry them on).  On a rank-deficient Y the fill-in columns
+    of the deficient tail need not be complex-orthonormal; their energies
+    are ~0 and the cutoff mask drops them (decomp.py:80-91)."""
+    if not Y.is_complex():
+        return torch.linalg.qr(Y, mode="reduced")[0]
+    R, k = Y.shape
+    Yr, Yi = Y.real, Y.imag
+    top = torch.stack([Yr, -Yi], dim=2).reshape(R, 2 * k)
+    bot = torch.stack([Yi, Yr], dim=2).reshape(R, 2 * k)
+    Qe = torch.linalg.qr(torch.cat([top, bot]), mode="reduced")[0][:, ::2]
+    return torch.complex(Qe[:R], Qe[R:])
 
 
 #: Quintic Newton-Schulz coefficients and iteration counts per power step

@@ -1,5 +1,5 @@
 """DMRG-style two-site sweeps (counterpart of
-``mpstime_tpu/training/sweep.py``, its real routes).
+``mpstime_tpu/training/sweep.py``, its real and complex routes).
 
 One full sweep is a backward half-sweep (bonds T-2..0) then a forward one
 (0..T-2), reference RealRealHighDimension.jl:726-804.  JAX's ``lax.scan``
@@ -13,15 +13,17 @@ exact environments the next half-sweep consumes.
 Two routes, chosen per configuration as the JAX package chooses between its
 Pallas kernels and XLA (``_ineligible_reasons``):
 
-  * the bond-kernel route (real float32, {KLD, MSE} x {TSGO, GD}, one
-    update iteration, rescale (False, True), svd_alg "randomized_warm", no
-    cost tracking): one K12m launch per block of ``BB`` consecutive bonds
-    plus one remainder block (KLD; Newton-Schulz refresh or frozen sweeps),
-    else one ``bond_step`` per bond, which runs K12 or, for a refresh bond
-    under orth="qr", K1 -> QR -> K2.  On CUDA tensors these are the
-    hand-written kernels; on CPU tensors their plain versions
-    (ops/bond_kernels.py), the counterpart of Pallas interpret mode;
-  * the unfused route, every other real configuration, in plain PyTorch on
+  * the bond-kernel route (real float32 with {KLD, MSE} x {TSGO, GD}, or
+    complex64 with KLD + TSGO; one update iteration, rescale (False, True),
+    svd_alg "randomized_warm", no cost tracking): one K12m (K12mc) launch
+    per block of ``BB`` consecutive bonds plus one remainder block (KLD;
+    Newton-Schulz refresh or frozen sweeps, and for complex no refresh
+    block at q > 1), else one ``bond_step`` (``bond_step_c``) per bond,
+    which runs K12 (K12c) or, for a refresh bond under orth="qr", K1 -> QR
+    -> K2 (K1c -> QR -> K2c).  On CUDA tensors these are the hand-written
+    kernels; on CPU tensors their plain versions (ops/bond_kernels.py,
+    ops/bond_kernels_c.py), the counterpart of Pallas interpret mode;
+  * the unfused route, every other configuration, in plain PyTorch on
     the tensors' own device: ``apply_update`` (ops/bond_update.py), the warm
     split or ``split_bond_*`` (ops/decomp.py), then the scaled environment
     step (ops/env.py), as the JAX package's XLA bond step
@@ -36,6 +38,7 @@ import torch
 
 from ..options import torch_dtype
 from ..ops.bond_kernels import bond_block_steps, bond_step
+from ..ops.bond_kernels_c import bond_block_steps_c, bond_step_c
 from ..ops.bond_update import apply_update
 from ..ops.decomp import (_np_dtype, split_bond_left, split_bond_right,
                           warm_sketch_init, warm_split_left, warm_split_right)
@@ -43,16 +46,18 @@ from ..ops.env import (boundary_env, build_left_envs, env_step_left_scaled,
                        env_step_right_scaled)
 
 BOND_BLOCK: Optional[int] = None
-"""Override for the multi-bond block size (K12m): None = auto (the largest
-of 8/6/4/3/2 that is at most T-1), 1 = one bond_step per bond."""
+"""Override for the multi-bond block size (K12m / K12mc): None = auto (the
+largest of 8/6/4/3/2 that is at most T-1 and the cap), 1 = one bond_step
+per bond."""
 
 
-def _auto_block(T: int) -> int:
-    """Block size for the K12m route."""
+def _auto_block(T: int, cap: int = 8) -> int:
+    """Block size for the K12m route; the complex route caps it at 4, as
+    the JAX package does (sweep.py:467-468)."""
     if BOND_BLOCK is not None:
         return max(1, min(int(BOND_BLOCK), T - 1))
     for Bb in (8, 6, 4, 3, 2):
-        if Bb <= T - 1:
+        if Bb <= min(cap, T - 1):
             return Bb
     return 1
 
@@ -62,15 +67,12 @@ def _ineligible_reasons(dtype, loss, bbopt, update_iters, rescale,
     """Why a configuration takes the unfused route rather than the bond
     kernels (empty: the kernels), the counterpart of the JAX package's
     ``_pallas_eligible`` (sweep.py:125-165).  Raises NotImplementedError
-    for what the port does not run yet: complex dtypes and the ritz route."""
+    for what the port does not run yet: the ritz route."""
     dt = dtype if isinstance(dtype, torch.dtype) else torch_dtype(dtype)
-    if dt.is_complex:
-        raise NotImplementedError(
-            f"dtype={dt}: complex sweeps are ROADMAP.md queue 1 item 14")
     if svd_alg == "randomized_warm_ritz":
         raise NotImplementedError(
-            "svd_alg='randomized_warm_ritz' (the ritz route) is ROADMAP.md "
-            "queue 1 item 14")
+            "svd_alg='randomized_warm_ritz' (the ritz route, kernel K12cr) "
+            "is ROADMAP.md queue 1 item 14 and queue 2 row 12")
     reasons = []
     if track_cost:
         reasons.append("track_cost=True (per-bond loss trace)")
@@ -82,11 +84,18 @@ def _ineligible_reasons(dtype, loss, bbopt, update_iters, rescale,
     if tuple(rescale) != (False, True):
         reasons.append(f"rescale={tuple(rescale)} (the kernels run "
                        "(False, True))")
+    if dt.is_complex:
+        if (loss, bbopt) != ("KLD", "TSGO"):
+            reasons.append(f"loss={loss}/bbopt={bbopt} (the complex kernels "
+                           "cover KLD+TSGO only)")
+        if dt != torch.complex64:
+            reasons.append(f"dtype={dt} (the kernels are float32/complex64)")
+        return reasons
     if loss not in ("KLD", "MSE") or bbopt not in ("TSGO", "GD"):
         reasons.append(f"loss={loss}/bbopt={bbopt} (the kernels cover "
                        "{KLD, MSE} x {TSGO, GD})")
     if dt != torch.float32:
-        reasons.append(f"dtype={dt} (the kernels are float32)")
+        reasons.append(f"dtype={dt} (the kernels are float32/complex64)")
     return reasons
 
 
@@ -175,29 +184,36 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
         raise ValueError(f"sweeps run on cpu or cuda, got {dev}")
     fused = not _ineligible_reasons(cores.dtype, loss, bbopt, update_iters,
                                     rescale, svd_alg, track_cost)
+    cplx = cores.dtype.is_complex
     warm = svd_alg == "randomized_warm"
     e0 = boundary_env(N, chi, cores.dtype, dev)
     ls0 = torch.zeros((N,), dtype=phis_c.real.dtype, device=dev)
 
     def fused_steps(forward: bool):
         kw = dict(refresh=refresh, power_iters=power_iters, orth=orth,
-                  max_rank=max_rank, bbopt=bbopt)
+                  max_rank=max_rank)
+        # the complex kernels are KLD + TSGO only (the route choice above)
+        step_fn, block_fn = ((bond_step_c, bond_block_steps_c) if cplx
+                             else (bond_step, bond_block_steps))
+        block_kw = {} if cplx else dict(bbopt=bbopt)
 
         def step(carry, x):
             center, env, ls = carry
             le, re = (env, x["envx"]) if forward else (x["envx"], env)
-            center, core, v2, ls2, Q = bond_step(
+            real_kw = {} if cplx else dict(loss=loss, bbopt=bbopt,
+                                           opp_ls=x["envx_ls"])
+            center, core, v2, ls2, Q = step_fn(
                 x["core"], center, le, re, ls, x["phl"], x["phr"], y_onehot,
-                class_weight, x["q"], eta, cutoff, forward=forward,
-                loss=loss, opp_ls=x["envx_ls"], **kw)
+                class_weight, x["q"], eta, cutoff, forward=forward, **kw,
+                **real_kw)
             return (center, v2, ls2), dict(core=core, env=v2, ls=ls2, q=Q)
 
         def block(carry, x):
             center, env, ls = carry
-            center, core, env_b, ls_b, Q = bond_block_steps(
+            center, core, env_b, ls_b, Q = block_fn(
                 x["core"], center, x["envx"], env, ls, x["phl"], x["phr"],
                 y_onehot, class_weight, x["q"], eta, cutoff, forward=forward,
-                **kw)
+                **kw, **block_kw)
             return (center, env_b[-1], ls_b[-1]), dict(core=core, env=env_b,
                                                        ls=ls_b, q=Q)
         return step, block
@@ -248,9 +264,11 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
 
     if fused:
         # K12m blocks carry no per-bond opposite-side log-scales (MSE) and
-        # refresh with the Newton-Schulz polar only (sweep.py:467-475)
-        BB = (_auto_block(T) if loss == "KLD" and (orth == "ns" or not refresh)
-              else 1)
+        # refresh with the Newton-Schulz polar only; complex blocks hold at
+        # most 4 bonds and refresh only at q = 1 (sweep.py:467-475)
+        blocks = (loss == "KLD" and (orth == "ns" or not refresh)
+                  and not (cplx and refresh and power_iters > 1))
+        BB = _auto_block(T, cap=4 if cplx else 8) if blocks else 1
         steps = fused_steps
         center = center.permute(3, 0, 1, 2).contiguous()   # class-major
     else:

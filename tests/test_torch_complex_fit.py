@@ -1,0 +1,256 @@
+"""The complex (Fourier) slice of the port end to end: the complex bases and
+their registry entries, the complex encoded dataset, model and contraction,
+and whole fits, held against the JAX package.
+
+Whole fits: complex128 on the CPU takes the unfused route in both packages
+(the JAX package's XLA bond step), so two f64 sweeps at ECG200 X[:30, :12],
+chi 8, d 3 agree to rtol 1e-3 / atol 1e-4 with identical predictions, as
+the real f64 fit of tests/test_torch_slice.py does; longer or float32 runs
+part chaotically (ROADMAP.md queue 3).  Complex64 takes the kernel route,
+here the plain versions, held over one sweep at T=8 against the JAX
+package's Pallas route in interpret mode."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import mpstime_tpu as mj
+import mpstime_tpu_torch as mt
+from mpstime_tpu.encodings import bases as jbases
+from mpstime_tpu.models.mps import contract_batch_scaled as jax_contract
+from mpstime_tpu.ops import pallas_bond
+from mpstime_tpu_torch.encodings import bases as tbases
+from mpstime_tpu_torch.encodings import get_encoding
+from mpstime_tpu_torch.models.mps import contract_batch_scaled, random_mps
+from mpstime_tpu_torch.ops import bond_kernels as bk
+from mpstime_tpu_torch.summary import _encode_test
+
+torch.set_num_threads(1)
+
+FIT_OPTS = dict(encoding="fourier", chi_max=8, d=3, nsweeps=2, verbosity=-1,
+                log_level=-1, svd_alg="randomized_warm", orth_alg="ns")
+EXACT = dict(rtol=1e-12, atol=1e-12)
+
+
+@pytest.fixture(scope="module")
+def fit_data(ecg200):
+    Xtr, ytr, Xte, yte = ecg200
+    return Xtr[:30, :12], ytr[:30], Xte[:40, :12], yte[:40]
+
+
+def _x(n=40):
+    return np.linspace(-1.0, 1.0, n * 3).reshape(n, 3)
+
+
+@pytest.mark.parametrize("d", [2, 3, 4, 5, 6])
+def test_fourier_encode_matches_jax(d):
+    np.testing.assert_array_equal(tbases.get_fourier_freqs(d),
+                                  jbases.get_fourier_freqs(d))
+    X = _x()
+    got = tbases.fourier_encode(torch.from_numpy(X), d)
+    assert got.dtype == torch.complex128 and got.shape == X.shape + (d,)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jbases.fourier_encode(X, d)),
+                               **EXACT)
+
+
+def test_stoudenmire_encode_matches_jax_at_d2_and_raises_otherwise():
+    X = (_x() + 1.0) / 2.0
+    np.testing.assert_allclose(
+        tbases.angle_encode(torch.from_numpy(X), 2).numpy(),
+        np.asarray(jbases.angle_encode(X, 2)), **EXACT)
+    with pytest.raises(ValueError, match="d = 2"):
+        tbases.angle_encode(torch.from_numpy(X), 3)
+
+
+@pytest.mark.parametrize("d", [2, 4, 6, 3, 5])
+def test_sahand_encode_matches_jax_at_even_d(d):
+    X = torch.from_numpy((_x() + 1.0) / 2.0)
+    if d % 2:
+        with pytest.raises(ValueError, match="even"):
+            tbases.sahand_encode(X, d)
+        return
+    np.testing.assert_allclose(tbases.sahand_encode(X, d).numpy(),
+                               np.asarray(jbases.sahand_encode(X.numpy(), d)),
+                               **EXACT)
+
+
+@pytest.mark.parametrize("name", ["fourier", "stoudenmire", "sahand"])
+def test_complex_specs_match_jax(name):
+    spec, jspec = get_encoding(name), mj.get_encoding(name)
+    assert (spec.name, spec.is_complex, spec.is_time_dependent,
+            spec.is_data_driven, spec.range) == (
+        jspec.name, jspec.is_complex, jspec.is_time_dependent,
+        jspec.is_data_driven, jspec.range)
+    # the projected Fourier basis is data-driven (queue 1 item 4)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        get_encoding(name, project=True)
+
+
+def test_complex_encode_dataset_matches_jax(ecg200):
+    Xtr, ytr, _, _ = ecg200
+    X, y = Xtr[:40, :24], ytr[:40]
+    opts = mt.MPSOptions(encoding="fourier", d=4)
+    jopts = mj.MPSOptions(encoding="fourier", d=4)
+    Xs, _, _, _ = mt.transform_data(X, np.zeros((0, 24)), opts)
+    for dtype in (np.complex128, np.complex64):
+        dt = mt.encode_dataset(X, Xs, y, opts, dtype=dtype, device="cpu")
+        dj = mj.encode_dataset(X, Xs, y, jopts, dtype=dtype)
+        assert dt.X_enc.dtype == torch.from_numpy(np.zeros(0, dtype)).dtype
+        tol = EXACT if dtype == np.complex128 else dict(rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(dt.X_enc.numpy(), np.asarray(dj.X_enc),
+                                   **tol)
+        np.testing.assert_array_equal(dt.y_idx, dj.y_idx)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_complex_random_mps_is_bit_identical(dtype):
+    t = random_mps(5, 10, 3, 2, 4, 8, dtype=dtype, device="cpu")
+    j = mj.random_mps(5, 10, 3, 2, 4, 8, dtype=dtype)
+    np.testing.assert_array_equal(t.cores.numpy(), np.asarray(j.cores))
+    np.testing.assert_array_equal(t.center.numpy(), np.asarray(j.center))
+
+
+def _jax_fit(Xtr, ytr, interpret=False, **kw):
+    """The JAX package's fit: its XLA route, or with ``interpret`` its
+    complex Pallas route in interpret mode."""
+    pallas_bond.set_interpret(interpret)
+    jax.clear_caches()
+    try:
+        trained, _, _ = mj.fit_mps(Xtr, ytr,
+                                   opts=mj.MPSOptions(**{**FIT_OPTS, **kw}))
+    finally:
+        pallas_bond.set_interpret(False)
+        jax.clear_caches()
+    return trained
+
+
+def _assert_fits_agree(tf, jf, Xte, rtol=1e-3, atol=1e-4):
+    np.testing.assert_allclose(tf.mps.cores.numpy(), np.asarray(jf.mps.cores),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(tf.mps.center.numpy(),
+                               np.asarray(jf.mps.center), rtol=rtol,
+                               atol=atol)
+    np.testing.assert_array_equal(mt.classify(tf, Xte), mj.classify(jf, Xte))
+
+
+#: The qr route is held where its bonds keep full rank (chi_max = d =
+#: chi_init = 3): on a rank-deficient bond the QR's fill-in columns are
+#: rounding's, LAPACK builds differ there, and the warm caches carry the
+#: difference on (ROADMAP.md queue 3; at chi_max 8 two sweeps end 0.88
+#: apart in max |cores|).
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(orth_alg="qr", subspace_refresh_every=2, chi_max=3, chi_init=3)])
+def test_c128_fit_matches_jax_xla_fit(fit_data, kw):
+    Xtr, ytr, Xte, _ = fit_data
+    jf = _jax_fit(Xtr, ytr, dtype="complex128", **kw)
+    bk.reset_counts()
+    tf, _, _ = mt.fit_mps(Xtr, ytr, device="cpu", opts=mt.MPSOptions(
+        **{**FIT_OPTS, "dtype": "complex128", **kw}))
+    # complex128 is no kernel's: the unfused route, as in the JAX package
+    assert sum(bk.PLAIN_CALLS.values()) == 0
+    assert tf.mps.cores.dtype == torch.complex128
+    _assert_fits_agree(tf, jf, Xte)
+
+
+@pytest.fixture(scope="module")
+def c64_fits(fit_data):
+    """One complex64 sweep at T=8 through the JAX package's Pallas route
+    (interpret) and the port's kernel route (plain versions)."""
+    Xtr, ytr, Xte, _ = fit_data
+    Xtr, Xte = Xtr[:, :8], Xte[:, :8]
+    jf = _jax_fit(Xtr, ytr, interpret=True, nsweeps=1)
+    bk.reset_counts()
+    tf, _, _ = mt.fit_mps(Xtr, ytr, device="cpu",
+                          opts=mt.MPSOptions(**{**FIT_OPTS, "nsweeps": 1}))
+    return tf, jf, Xte, dict(bk.PLAIN_CALLS)
+
+
+def test_c64_fit_matches_jax_pallas_fit_over_one_short_sweep(c64_fits):
+    tf, jf, Xte, _ = c64_fits
+    assert tf.mps.cores.dtype == torch.complex64
+    _assert_fits_agree(tf, jf, Xte)
+
+
+def test_c64_default_fit_runs_k12c_per_bond(c64_fits):
+    # q = 3 refresh sweeps never block on the complex route
+    # (sweep.py:467-475): one K12c per bond, 2 x 7 bonds at T=8
+    plain = c64_fits[3]
+    assert plain == {**dict.fromkeys(plain, 0), "k12c": 2 * 7}
+
+
+def test_c64_qr_fit_runs_k1c_k2c_then_k12mc_blocks(fit_data):
+    # refresh sweeps: K1c -> QR -> K2c per bond; frozen sweeps: K12mc blocks
+    # of at most 4 (11 bonds per half-sweep: 4 + 4 + a remainder of 3)
+    Xtr, ytr, _, _ = fit_data
+    bk.reset_counts()
+    tf, _, _ = mt.fit_mps(Xtr, ytr, device="cpu", opts=mt.MPSOptions(
+        **{**FIT_OPTS, "orth_alg": "qr", "subspace_refresh_every": 2}))
+    assert bk.PLAIN_CALLS == {**dict.fromkeys(bk.PLAIN_CALLS, 0),
+                              "k1c": 2 * 11, "k2c": 2 * 11, "k12mc": 2 * 3}
+    assert bool(torch.isfinite(tf.mps.center).all())
+
+
+@pytest.mark.parametrize("encoding,d", [("stoudenmire", 2), ("sahand", 4)])
+def test_other_complex_encodings_learn(ecg200, encoding, d):
+    # quality floors only: these encodings' trajectories are held by the
+    # fourier fits above, which share every line past the encoding.  At
+    # this configuration (ECG200, chi 8, 3 sweeps, complex64) the JAX
+    # package reaches test accuracy 0.65 with both and the port 0.71 and
+    # 0.66 (CPU runs); the floor sits below that spread.
+    Xtr, ytr, Xte, yte = ecg200
+    tf, _, _ = mt.fit_mps(Xtr, ytr, device="cpu", opts=mt.MPSOptions(
+        **{**FIT_OPTS, "encoding": encoding, "d": d, "nsweeps": 3}))
+    assert tf.mps.cores.dtype == torch.complex64
+    assert np.mean(mt.classify(tf, Xte) == yte) >= 0.6
+
+
+@pytest.fixture(scope="module")
+def jax_c64(fit_data):
+    Xtr, ytr, _, _ = fit_data
+    return _jax_fit(Xtr, ytr, orth_alg="qr")
+
+
+def _converted(jf):
+    # under x64 the JAX package's CPU fit promotes its model to complex128;
+    # a model trained on an accelerator is complex64, so convert that
+    return mt.TrainedMPS.from_numpy(
+        np.asarray(jf.mps.cores).astype(np.complex64),
+        np.asarray(jf.mps.center).astype(np.complex64), jf.mps.center_pos,
+        jf.opts.to_json(), jf.norms.to_dict(), jf.labels, device="cpu")
+
+
+def test_converted_jax_complex_model_classifies_like_jax(fit_data, jax_c64):
+    _, _, Xte, _ = fit_data
+    jf = jax_c64
+    conv = _converted(jf)
+    assert conv.mps.cores.dtype == torch.complex64
+    np.testing.assert_array_equal(mt.classify(conv, Xte), mj.classify(jf, Xte))
+    from mpstime_tpu.summary import _encode_test as jax_encode_test
+    yj, lj = jax_contract(jf.mps, jax_encode_test(jf, Xte).X_enc)
+    yt, lt = contract_batch_scaled(conv.mps, _encode_test(conv, Xte).X_enc)
+    # complex64 with a different summation order: rtol 1e-5
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_complex_stats_and_kl_div_match_jax(fit_data, jax_c64):
+    from mpstime_tpu.summary import KL_div as jax_kl_div
+    from mpstime_tpu.training.stats import loss_acc_conf as jax_stats
+    from mpstime_tpu_torch.training.stats import loss_acc_conf
+    jf = jax_c64
+    conv = _converted(jf)
+    X_enc, y_idx = jf.train_data.X_enc, jf.train_data.y_idx
+    sj = jax_stats(jf.mps, X_enc, y_idx)
+    st = loss_acc_conf(conv.mps, torch.from_numpy(np.array(X_enc)), y_idx)
+    np.testing.assert_allclose(st[:3], sj[:3], rtol=1e-5)
+    np.testing.assert_array_equal(st[3], sj[3])
+    ds = mt.EncodedDataset(torch.from_numpy(np.array(X_enc)), y_idx,
+                           jf.labels, None, None, None)
+    np.testing.assert_allclose(mt.KL_div(conv, ds),
+                               jax_kl_div(jf, jf.train_data), rtol=1e-5)

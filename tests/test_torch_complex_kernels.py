@@ -1,0 +1,349 @@
+"""The port's complex bond kernels: the plain versions of K12c, K12mc, K1c
+and K2c held against the JAX package's complex Pallas kernels (interpret
+mode, as tests/test_pallas_bond_c.py runs them; a few cases, since each
+interpreted kernel costs seconds) and, for every other direction x refresh
+x orth case, against its XLA complex route (apply_update, the warm split
+and the scaled environment step, tests/test_pallas_bond_c.py:61-75); the
+realified QR against the JAX package's; and the wrappers' dispatch,
+counters and refusals.  The CUDA kernels are held against these plain
+versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+
+Tolerance: rtol 1e-4 / atol 5e-5 per bond, the JAX package's own for its
+complex kernels against XLA (tests/test_pallas_bond_c.py:94-103; float32
+reassociation across a dozen products and fourteen Newton-Schulz steps
+per power step)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mpstime_tpu.ops import pallas_bond, pallas_bond_c
+from mpstime_tpu.ops import decomp as jdec
+from mpstime_tpu.ops.bond_update import apply_update as jax_update
+from mpstime_tpu.ops.env import env_step_left_scaled, env_step_right_scaled
+from mpstime_tpu_torch.ops import bond_kernels as bk
+from mpstime_tpu_torch.ops import bond_kernels_c as bkc
+from mpstime_tpu_torch.ops import decomp as tdec
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-4, 5e-5
+CHI, D, C, N = 6, 3, 2, 12
+
+
+@pytest.fixture(scope="module")
+def interpret():
+    pallas_bond.set_interpret(True)
+    jax.clear_caches()
+    yield
+    pallas_bond.set_interpret(False)
+    jax.clear_caches()
+
+
+def _bond(seed, Bb=1, chi=CHI, d=D, C=C, N=N):
+    """Numpy-seeded complex64 operands of Bb bonds (tests/test_pallas_bond_c
+    .py:37-58): unit-modulus conjugated features, a class-major center."""
+    rng = np.random.default_rng(seed)
+
+    def c(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    def phi(*shape):
+        th = rng.uniform(-np.pi, np.pi, shape)
+        return (np.exp(1j * th) / np.sqrt(d)).astype(np.complex64)
+
+    return dict(
+        A=c(Bb, chi, d, chi), center=c(C, chi, d, chi), envx=c(Bb, N, chi),
+        env0=c(N, chi), ls0=rng.standard_normal(N).astype(np.float32),
+        phil=phi(Bb, N, d), phir=phi(Bb, N, d),
+        y1h=np.eye(C, dtype=np.float32)[rng.integers(0, C, N)],
+        w=np.full(N, 1.0 / N, np.float32),
+        V0=np.stack([tdec.warm_sketch_init(chi * d, chi, np.complex64)
+                     .numpy()] * Bb))
+
+
+def _single(x, forward):
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0], x["env0"])
+    return (x["A"][0], x["center"], le, re, x["ls0"], x["phil"][0],
+            x["phir"][0], x["y1h"], x["w"], x["V0"][0])
+
+
+def _torch(ops):
+    return tuple(torch.from_numpy(np.ascontiguousarray(o)) for o in ops)
+
+
+def _pair(a):
+    a = np.asarray(a)
+    if not np.iscomplexobj(a):
+        return jnp.asarray(a)
+    return (jnp.asarray(a.real.astype(np.float32)),
+            jnp.asarray(a.imag.astype(np.float32)))
+
+
+def _comb(p):
+    if isinstance(p, tuple):
+        return np.asarray(p[0]) + 1j * np.asarray(p[1])
+    return np.asarray(p)
+
+
+def _close(got, ref, rtol=RTOL, atol=ATOL):
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), _comb(r), rtol=rtol, atol=atol)
+
+
+def _xla_bond(ops, forward, refresh, q, orth):
+    """The JAX package's XLA complex bond step (tests/test_pallas_bond_c.py:
+    61-75): (center_c', core', env', env_ls', Q')."""
+    A, center, le, re, ls, phil, phir, y1h, w, V0 = (jnp.asarray(o)
+                                                     for o in ops)
+    Cc = center.shape[0]
+    zeros = jnp.zeros(le.shape[0], jnp.float32)
+    kw = dict(eta=jnp.float32(0.05), loss="KLD", bbopt="TSGO",
+              update_iters=1, rescale=(False, True))
+    split_kw = dict(refresh=refresh, q=q, orth=orth)
+    if forward:
+        BT = jnp.einsum("caim,mkb->aikbc", center, A)
+        _, BT = jax_update(BT, le, re, phil.conj(), phir.conj(), y1h, w,
+                           zeros, **kw)
+        U, SVh, Q = jdec.warm_split_right(BT.reshape(CHI * D, D * CHI * Cc),
+                                          V0, CHI, jnp.float32(1e-10),
+                                          **split_kw)
+        core = U.reshape(CHI, D, CHI)
+        center2 = jnp.moveaxis(SVh.reshape(CHI, D, CHI, Cc), 3, 0)
+        env2, ls2 = env_step_left_scaled(le, ls, core, phil)
+    else:
+        BT = jnp.einsum("aim,cmkb->aikbc", A, center)
+        _, BT = jax_update(BT, le, re, phil.conj(), phir.conj(), y1h, w,
+                           zeros, **kw)
+        M = BT.transpose(0, 1, 4, 2, 3).reshape(CHI * D * Cc, D * CHI)
+        US, Vh, Q = jdec.warm_split_left(M, V0, CHI, jnp.float32(1e-10),
+                                         **split_kw)
+        center2 = jnp.moveaxis(US.reshape(CHI, D, Cc, CHI), 2, 0)
+        core = Vh.reshape(CHI, D, CHI)
+        env2, ls2 = env_step_right_scaled(re, ls, core, phir)
+    return center2, core, env2, ls2, Q
+
+
+def _pallas_bond(ops, forward, refresh, q, orth):
+    out = pallas_bond_c.bond_step_c(
+        *(_pair(o) for o in ops), jnp.float32(0.05), jnp.float32(1e-10),
+        forward=forward, refresh=refresh, power_iters=q, orth=orth)
+    return tuple(_comb(o) for o in out)
+
+
+# (forward, refresh, q, orth): the cases held against the Pallas kernels
+PALLAS_CASES = [(False, True, 3, "ns"),        # K12c, the main path's bond
+                (True, False, 1, "ns"),        # K12c, a frozen bond
+                (False, True, 3, "qr")]        # K1c -> QR -> K2c
+
+
+@pytest.mark.parametrize("forward,refresh,q,orth", PALLAS_CASES)
+def test_plain_bond_matches_pallas_complex_kernels(interpret, forward,
+                                                   refresh, q, orth):
+    x = _bond(3 + q + 2 * refresh)
+    ops = _single(x, forward)
+    ref = _pallas_bond(ops, forward, refresh, q, orth)
+    bk.reset_counts()
+    got = bkc.bond_step_c(*_torch(ops), 0.05, 1e-10, forward=forward,
+                          refresh=refresh, power_iters=q, orth=orth)
+    want = ({"k1c": 1, "k2c": 1} if refresh and orth == "qr"
+            else {"k12c": 1})
+    assert bk.PLAIN_CALLS == {**dict.fromkeys(bk.PLAIN_CALLS, 0), **want}
+    assert sum(bk.LAUNCHES.values()) == 0
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh,q,orth", [(True, 3, "ns"), (True, 1, "ns"),
+                                            (True, 3, "qr"), (True, 1, "qr"),
+                                            (False, 1, "ns")])
+def test_plain_bond_matches_xla_complex_route(forward, refresh, q, orth):
+    x = _bond(20 + q + 2 * refresh + (orth == "qr"))
+    ops = _single(x, forward)
+    got = bkc.bond_step_c(*_torch(ops), 0.05, 1e-10, forward=forward,
+                          refresh=refresh, power_iters=q, orth=orth)
+    _close(got, _xla_bond(ops, forward, refresh, q, orth))
+    # the emitted core is an isometry on its kept directions
+    U = got[1].reshape(CHI * D, CHI) if forward else \
+        got[1].reshape(CHI, D * CHI).T
+    np.testing.assert_allclose((U.conj().T @ U).numpy(), np.eye(CHI),
+                               atol=1e-5)
+
+
+def test_k1c_and_k2c_plain_split_the_xla_route():
+    # K1c's bond tensor and Y before the QR, then K2c against that Q: the
+    # two halves of the XLA route's refresh bond, at max_rank 4
+    x = _bond(41)
+    A, center, le, re, ls, phil, phir, y1h, w, V0 = _torch(_single(x, False))
+    BT, Y = bkc.k1c_plain(A, center, le, re, phil, phir, y1h, w, V0, 0.05,
+                          forward=False, power_iters=3)
+    BTj = jnp.einsum("aim,cmkb->aikbc", *(jnp.asarray(o) for o in
+                                          (x["A"][0], x["center"])))
+    _, BTj = jax_update(BTj, *(jnp.asarray(o) for o in (
+        x["envx"][0], x["env0"], x["phil"][0].conj(), x["phir"][0].conj(),
+        x["y1h"], x["w"])), jnp.zeros(N, jnp.float32), eta=jnp.float32(0.05))
+    np.testing.assert_allclose(
+        BT.numpy(), np.asarray(BTj).transpose(4, 0, 1, 2, 3).reshape(
+            C, CHI * D, D, CHI), rtol=RTOL, atol=ATOL)
+    assert torch.allclose(torch.linalg.vector_norm(Y, dim=0),
+                          torch.ones(CHI), atol=1e-6)
+    Q = tdec._qr_orth(Y)
+    got = bkc.k2c_plain(BT, Q, re, ls, phir, 1e-10, forward=False,
+                        max_rank=4)
+    M = BTj.transpose(0, 1, 4, 2, 3).reshape(CHI * D * C, D * CHI)
+    US, Vh, _ = jdec.warm_split_left(M, jnp.asarray(Q.numpy()), CHI,
+                                     jnp.float32(1e-10), refresh=False,
+                                     max_rank=4)
+    core = Vh.reshape(CHI, D, CHI)
+    env2, ls2 = env_step_right_scaled(jnp.asarray(x["env0"]),
+                                      jnp.asarray(x["ls0"]), core,
+                                      jnp.asarray(x["phir"][0]))
+    _close(got, (jnp.moveaxis(US.reshape(CHI, D, C, CHI), 2, 0), core,
+                 env2, ls2))
+    assert int((got[1] != 0).any(dim=-1).any(dim=-1).sum()) == 4
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh,q", [(True, 1), (False, 1)])
+def test_k12mc_plain_is_chained_k12c_plain(forward, refresh, q):
+    # tests/test_pallas_bond_c.py:170-238's block contract, at its
+    # tolerance: the block equals Bb = 3 chained single bonds
+    x = _bond(51, Bb=3)
+    blk = _torch(x[k] for k in ("A", "center", "envx", "env0", "ls0", "phil",
+                                "phir", "y1h", "w", "V0"))
+    kw = dict(forward=forward, refresh=refresh, power_iters=q)
+    bk.reset_counts()
+    center2, core_b, env_b, ls_b, q_b = bkc.bond_block_steps_c(
+        *blk, 0.05, 1e-10, orth="ns", **kw)
+    assert bk.PLAIN_CALLS["k12mc"] == 1
+    center, env, ls = blk[1], blk[3], blk[4]
+    for b in range(3):
+        le, re = (env, blk[2][b]) if forward else (blk[2][b], env)
+        center, core, env, ls, Q = bkc.k12c_plain(
+            blk[0][b], center, le, re, ls, blk[5][b], blk[6][b], blk[7],
+            blk[8], blk[9][b], 0.05, 1e-10, **kw)
+        for got, want in ((core_b[b], core), (env_b[b], env),
+                          (ls_b[b], ls), (q_b[b], Q)):
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(center2, center, rtol=2e-5, atol=2e-6)
+
+
+def test_complex_cutoff_tie_break_keeps_the_stable_order():
+    # the degenerate frozen bond of tests/test_torch_bond_kernels.py with a
+    # phase on every operand: the energies are |.|^2, so they tie as in the
+    # real case and the lower indices of the tied 2.0s survive
+    chi, d, Cc, Nn = 6, 2, 1, 4
+    w = np.array([4.0, 2.0, 2.0, 2.0, 1.0, 0.5])
+    A = np.zeros((chi, d, chi), np.complex64)
+    A.reshape(chi * d, chi)[:chi] = np.eye(chi) * np.exp(0.3j)
+    center = np.zeros((Cc, chi, d, chi), np.complex64)
+    center[0, :, 0, :] = np.diag(np.sqrt(w)) * np.exp(-1.1j)
+    V0 = np.zeros((d * chi, chi), np.complex64)
+    V0[:chi] = np.eye(chi)
+    env = np.zeros((Nn, chi), np.complex64)
+    env[:, 0] = np.exp(0.7j)
+    phi = np.full((Nn, d), 0.5 * np.exp(-0.2j), np.complex64)
+    ops = _torch((A, center, env, env, np.zeros(Nn, np.float32), phi, phi,
+                  np.ones((Nn, Cc), np.float32),
+                  np.full(Nn, 1.0 / Nn, np.float32), V0))
+    cutoff = float(np.float32(4.5 / w.sum()))
+    got = bkc.bond_step_c(*ops, 0.0, cutoff, forward=False, refresh=False,
+                          orth="ns")
+    kept = (got[1] != 0).any(dim=-1).any(dim=-1).tolist()
+    assert kept == [True, True, True, False, False, False]
+
+
+def test_qr_orth_complex_matches_jax_at_full_rank():
+    rng = np.random.default_rng(61)
+    Y = rng.standard_normal((18, 6)) + 1j * rng.standard_normal((18, 6))
+    Q = tdec._qr_orth(torch.from_numpy(Y))
+    np.testing.assert_allclose(Q.numpy(), np.asarray(jdec._qr_orth(
+        jnp.asarray(Y))), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose((Q.conj().T @ Q).numpy(), np.eye(6),
+                               atol=1e-12)
+
+
+def test_qr_orth_complex_on_a_rank_deficient_y_keeps_the_invariants():
+    # ROADMAP.md queue 3: the fill-in of a deficient tail is rounding's and
+    # differs between LAPACK builds; the leading columns (a nested QR) and
+    # the span are what both packages share
+    rng = np.random.default_rng(62)
+    Y = rng.standard_normal((18, 6)) + 1j * rng.standard_normal((18, 6))
+    Y[:, 4:] = Y[:, :2] @ (rng.standard_normal((2, 2)) + 1j)
+    Q = tdec._qr_orth(torch.from_numpy(Y))
+    Qj = np.asarray(jdec._qr_orth(jnp.asarray(Y)))
+    np.testing.assert_allclose(Q[:, :4].numpy(), Qj[:, :4], rtol=1e-12,
+                               atol=1e-12)
+    Yt = torch.from_numpy(Y)
+    np.testing.assert_allclose((Q @ (Q.conj().T @ Yt)).numpy(), Y,
+                               atol=1e-12)
+    np.testing.assert_allclose((Q[:, :4].conj().T @ Q[:, :4]).numpy(),
+                               np.eye(4), atol=1e-12)
+
+
+def test_complex_routes_refuse_what_they_do_not_cover():
+    x = _bond(71)
+    ops = _torch(_single(x, False))
+    with pytest.raises(NotImplementedError, match="items 16-19"):
+        bkc.bond_step_c(*ops, 0.05, 1e-10, forward=False, stream_tile=4)
+    with pytest.raises(NotImplementedError, match="items 16-19"):
+        bkc.bond_step_c(*ops, 0.05, 1e-10, forward=False, axis_name="dp")
+    # the kernel wrappers refuse another loss or optimiser before launching
+    A, center, le, re, ls, phil, phir, y1h, w, V0 = ops
+    for kw in (dict(loss="MSE"), dict(bbopt="GD")):
+        with pytest.raises(ValueError, match="KLD \\+ TSGO"):
+            bkc.k12c_cuda(*ops, 0.05, 1e-10, forward=False, **kw)
+        with pytest.raises(ValueError, match="KLD \\+ TSGO"):
+            bkc.k1c_cuda(A, center, le, re, phil, phir, y1h, w, V0, 0.05,
+                         forward=False, **kw)
+    blk = _torch(_bond(72, Bb=2)[k] for k in (
+        "A", "center", "envx", "env0", "ls0", "phil", "phir", "y1h", "w",
+        "V0"))
+    with pytest.raises(ValueError, match="Newton-Schulz"):
+        bkc.bond_block_steps_c(*blk, 0.05, 1e-10, forward=False, orth="qr")
+
+
+def test_launch_checks_complex_operands_before_launching():
+    blk = list(_torch(_bond(81, Bb=2)[k] for k in (
+        "A", "center", "envx", "env0", "ls0", "phil", "phir", "y1h", "w",
+        "V0")))
+    calls = []
+
+    def run(args):
+        return bk._launch_k12m(*args[:5], None, *args[5:], 0.05, 1e-10,
+                               forward=True, refresh=True, power_iters=3,
+                               max_rank=None, loss="KLD", bbopt="TSGO",
+                               launch=lambda *p: calls.append(p),
+                               workspace_floats=lambda *s: 16,
+                               dtype=torch.complex64)
+
+    out = run(blk)
+    assert len(calls) == 1 and len(calls[0]) == 30
+    assert [o.dtype for o in out] == [torch.complex64] * 3 + [
+        torch.float32, torch.complex64]
+    bad = list(blk)
+    bad[3] = bad[3].to(torch.complex128)
+    with pytest.raises(ValueError, match="env0 must be complex64"):
+        run(bad)
+    bad = list(blk)
+    bad[7] = bad[7].to(torch.complex64)
+    with pytest.raises(ValueError, match="y1h must be float32"):
+        run(bad)
+    assert len(calls) == 1
+
+
+def test_k12mc_plain_matches_pallas_k12mc(interpret):
+    # a frozen block of 3 (the qr fit's frozen sweeps), forward
+    x = _bond(91, Bb=3)
+    keys = ("A", "center", "envx", "env0", "ls0", "phil", "phir", "y1h", "w",
+            "V0")
+    ref = pallas_bond_c.bond_block_steps_c(
+        *(_pair(x[k]) for k in keys), jnp.float32(0.05), jnp.float32(1e-10),
+        forward=True, refresh=False, power_iters=1, orth="qr")
+    got = bkc.bond_block_steps_c(*_torch(x[k] for k in keys), 0.05, 1e-10,
+                                 forward=True, refresh=False, orth="qr")
+    _close(got, ref)

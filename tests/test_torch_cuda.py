@@ -1,5 +1,5 @@
-"""The port's CUDA bond kernels (K12, K12m, K1, K2) held against their plain
-PyTorch versions on the card.  These tests need an NVIDIA GPU with nvcc and
+"""The port's CUDA bond kernels (K12, K12m, K1, K2 and the complex K12c,
+K12mc, K1c, K2c) held against their plain PyTorch versions on the card.  These tests need an NVIDIA GPU with nvcc and
 skip without one.  This file imports nothing of JAX, so it runs where JAX
 is not installed; tests/conftest.py does import JAX, hence --noconftest:
 
@@ -147,7 +147,7 @@ def test_qr_bond_kernels_match_the_plain_qr_bond(bk, forward):
     bk.reset_counts()
     got = bk.bond_step(*_single(x, forward), orth="qr", **kw)
     torch.cuda.synchronize()
-    assert bk.LAUNCHES == {"k12": 0, "k12m": 0, "k1": 1, "k2": 1}
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), "k1": 1, "k2": 1}
     _close(got, bk.qr_bond_step(*_single(x, forward), plain=True, **kw))
 
 
@@ -189,8 +189,8 @@ def test_qr_fit_on_cuda_runs_k1_and_k2(bk):
                                      orth_alg="qr", subspace_refresh_every=2),
         device="cuda")
     # refresh sweep: one K1 and one K2 per bond; frozen sweep: K12m blocks
-    assert bk.LAUNCHES == {"k12": 0, "k12m": 2 * 12, "k1": 2 * 95,
-                           "k2": 2 * 95}
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), "k12m": 2 * 12,
+                           "k1": 2 * 95, "k2": 2 * 95}
     assert sum(bk.PLAIN_CALLS.values()) == 0
     assert trained.mps.center.is_cuda
     assert np.mean(mt.classify(trained, Xtr) == ytr) >= 0.9
@@ -214,3 +214,148 @@ def test_unfused_fit_on_cuda_runs_no_kernel(bk, kw):
     assert bool(torch.isfinite(trained.mps.center).all())
     if kw.get("track_cost"):
         assert len(info["bond_costs"][0]) == 46
+
+
+# ---- the complex kernels (ops/bond_kernels_c.py) ---------------------------
+
+@pytest.fixture(scope="module")
+def bkc(bk):
+    from mpstime_tpu_torch.ops import bond_kernels_c
+    return bond_kernels_c
+
+
+def _inputs_c(seed, Bb, C, chi, d, N):
+    """Complex64 operands of Bb bonds on the card: unit-modulus conjugated
+    features, as tests/test_torch_complex_kernels.py makes them."""
+    from mpstime_tpu_torch.ops.decomp import warm_sketch_init
+    rng = np.random.default_rng(seed)
+
+    def c(*shape):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(z.astype(np.complex64)).cuda()
+
+    def phi(*shape):
+        z = np.exp(1j * rng.uniform(-np.pi, np.pi, shape)) / np.sqrt(d)
+        return torch.from_numpy(z.astype(np.complex64)).cuda()
+
+    def r(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+    return dict(
+        A=c(Bb, chi, d, chi), center=c(C, chi, d, chi), envx=c(Bb, N, chi),
+        env0=c(N, chi), ls0=r(rng.standard_normal(N)),
+        phil=phi(Bb, N, d), phir=phi(Bb, N, d),
+        y1h=r(np.eye(C)[rng.integers(0, C, N)]), w=r(np.full(N, 1.0 / N)),
+        V0=torch.stack([warm_sketch_init(chi * d, chi, np.complex64, "cuda")]
+                       * Bb))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh,q,mr", [(True, 3, None), (True, 1, None),
+                                          (False, 1, None), (True, 3, 17)])
+def test_k12c_kernel_matches_plain(bk, bkc, forward, refresh, q, mr):
+    x = _inputs_c(21, 1, **SHAPE)
+    kw = dict(forward=forward, refresh=refresh, power_iters=q, max_rank=mr)
+    n0 = bk.LAUNCHES["k12c"]
+    got = bkc.bond_step_c(*_single(x, forward), orth="ns", **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k12c"] == n0 + 1
+    _close(got, bkc.k12c_plain(*_single(x, forward), **kw))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh", [True, False])
+def test_k12mc_kernel_matches_plain_and_chained_k12c(bkc, forward, refresh):
+    x = _inputs_c(22, 4, **SHAPE)
+    kw = dict(forward=forward, refresh=refresh, power_iters=1)
+    got = bkc.bond_block_steps_c(*_block(x), **kw)
+    torch.cuda.synchronize()
+    _close(got, bkc.k12mc_plain(*_block(x), **kw))
+    center, env, ls = x["center"], x["env0"], x["ls0"]
+    for b in range(4):
+        le, re = (env, x["envx"][b]) if forward else (x["envx"][b], env)
+        center, core, env, ls, Q = bkc.k12c_cuda(
+            x["A"][b], center, le, re, ls, x["phil"][b], x["phir"][b],
+            x["y1h"], x["w"], x["V0"][b], 0.05, 1e-10, **kw)
+        _close((core, env, ls, Q), (got[1][b], got[2][b], got[3][b],
+                                    got[4][b]), rtol=0, atol=1e-6)
+    _close((center,), (got[0],), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("emit_y,q,orth", [(True, 1, "qr"), (True, 3, "qr"),
+                                           (False, 1, "qr"), (True, 3, "ns")])
+def test_k1c_kernel_matches_plain(bk, bkc, forward, emit_y, q, orth):
+    x = _inputs_c(23, 1, **SHAPE)
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    args = (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+            x["y1h"], x["w"], x["V0"][0], 0.05)
+    kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth)
+    n0 = bk.LAUNCHES["k1c"]
+    got = bkc.k1c_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1c"] == n0 + 1
+    _close(got, bkc.k1c_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("mr", [None, 17])
+def test_k2c_kernel_matches_plain(bkc, forward, mr):
+    from mpstime_tpu_torch.ops.decomp import _qr_orth
+    x = _inputs_c(24, 1, **SHAPE)
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    BT, Y = bkc.k1c_plain(x["A"][0], x["center"], le, re, x["phil"][0],
+                          x["phir"][0], x["y1h"], x["w"], x["V0"][0], 0.05,
+                          forward=forward, power_iters=3)
+    Q = _qr_orth(Y).contiguous()
+    env, phi = (le, x["phil"][0]) if forward else (re, x["phir"][0])
+    args = (BT, Q, env, x["ls0"], phi, 1e-10)
+    got = bkc.k2c_cuda(*args, forward=forward, max_rank=mr)
+    torch.cuda.synchronize()
+    _close(got, bkc.k2c_plain(*args, forward=forward, max_rank=mr))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+def test_complex_qr_bond_kernels_match_the_plain_qr_bond(bk, bkc, forward):
+    x = _inputs_c(25, 1, **SHAPE)
+    bk.reset_counts()
+    got = bkc.bond_step_c(*_single(x, forward), orth="qr", forward=forward,
+                          power_iters=3)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), "k1c": 1,
+                           "k2c": 1}
+    _close(got, bkc.qr_bond_step_c(*_single(x, forward), forward=forward,
+                                   plain=True, power_iters=3))
+
+
+def test_complex_kernels_refuse_what_they_do_not_cover(bkc):
+    x = _inputs_c(26, 1, **SHAPE)
+    with pytest.raises(ValueError, match="KLD"):
+        bkc.k12c_cuda(*_single(x, False), forward=False, loss="MSE")
+    args = list(_single(x, False))
+    args[1] = args[1].to(torch.complex128)
+    with pytest.raises(ValueError, match="complex64"):
+        bkc.k12c_cuda(*args, forward=False)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(), {"k12c": 2 * 2 * 23}),
+    (dict(orth_alg="qr", subspace_refresh_every=2),
+     {"k1c": 2 * 23, "k2c": 2 * 23, "k12mc": 2 * 6})])
+def test_complex_fit_on_cuda_runs_the_complex_kernels(bk, kw, want):
+    import mpstime_tpu_torch as mt
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40, :24], data["y_train"][:40]
+    bk.reset_counts()
+    trained, _, _ = mt.fit_mps(
+        Xtr, ytr, opts=mt.MPSOptions(encoding="fourier", nsweeps=2,
+                                     chi_max=12, d=3, verbosity=-1,
+                                     log_level=-1, **kw),
+        device="cuda")
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), **want}
+    assert sum(bk.PLAIN_CALLS.values()) == 0
+    assert trained.mps.center.is_cuda
+    assert trained.mps.center.dtype == torch.complex64
+    assert bool(torch.isfinite(trained.mps.center).all())

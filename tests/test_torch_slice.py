@@ -129,8 +129,8 @@ def test_f32_fit_tracks_jax_pallas_fit(slice_data, jax_fit, torch_fit):
 def test_fit_took_the_block_route_on_cpu(torch_fit):
     _, info, plain, launches = torch_fit
     # T=32: 31 bonds per half-sweep = 3 blocks of 8 + a block of 7
-    assert plain == {"k12": 0, "k12m": 2 * 2 * 4, "k1": 0, "k2": 0}
-    assert launches == {"k12": 0, "k12m": 0, "k1": 0, "k2": 0}
+    assert plain == {**dict.fromkeys(plain, 0), "k12m": 2 * 2 * 4}
+    assert sum(launches.values()) == 0
     assert len(info["sweep_seconds"]) == 2
 
 
@@ -186,7 +186,7 @@ def test_mse_fit_runs_k12_per_bond(slice_data):
     opts = mt.MPSOptions(**{**SLICE_OPTS, "nsweeps": 1, "loss_grad": "MSE",
                             "chi_max": 4})
     trained, _, _ = mt.fit_mps(Xtr[:, :8], ytr, opts=opts, device="cpu")
-    assert bk.PLAIN_CALLS == {"k12": 2 * 7, "k12m": 0, "k1": 0, "k2": 0}
+    assert bk.PLAIN_CALLS == {**dict.fromkeys(bk.PLAIN_CALLS, 0), "k12": 2 * 7}
     assert bool(torch.isfinite(trained.mps.center).all())
 
 
@@ -210,7 +210,8 @@ def test_default_options_on_cpu_resolve_to_unported_gram_eigh(slice_data):
     (dict(mesh=object()), "item 16"), (dict(test_run=True), "item 18"),
     (dict(pad_samples_to=64), "item 18"),
     (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "pad_to": (10, 4)})), "item 18"),
-    (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "dtype": "complex64"})), "item 14"),
+    (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "dtype": "complex64",
+                                "svd_alg": "randomized_warm_ritz"})), "item 14"),
 ])
 def test_unported_fit_configurations_raise(slice_data, kw, match):
     Xtr, ytr, _, _ = slice_data
@@ -241,7 +242,8 @@ def test_qr_fit_runs_k1_and_k2_on_refresh_bonds(slice_data):
     mt.fit_mps(Xtr[:, :6], ytr, device="cpu",
                opts=mt.MPSOptions(**{**SLICE_OPTS, "orth_alg": "qr",
                                      "subspace_refresh_every": 2}))
-    assert bk.PLAIN_CALLS == {"k12": 0, "k12m": 4, "k1": 10, "k2": 10}
+    assert bk.PLAIN_CALLS == {**dict.fromkeys(bk.PLAIN_CALLS, 0), "k12m": 4,
+                             "k1": 10, "k2": 10}
 
 
 def test_cuda_fit_without_a_card_raises(slice_data, monkeypatch):
