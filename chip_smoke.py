@@ -35,6 +35,18 @@ Phases, one status line each; any failure exits non-zero:
      then classify, and the same fit at two more init seeds (reported);
      then the qr route of it (K1c -> QR -> K2c on refresh sweeps, K12mc
      blocks of 4 on frozen ones) and a profiled sweep of each route.
+  9. ritz kernel: K12cr against its plain version on complex64 operands at
+     the ritz cell's bond shape (C=2, chi=64, d=5, N=100) and a small one,
+     over directions, refresh and frozen bonds, q 1 and 3, 6 and 24 Jacobi
+     rounds and a rank cap, holding the raw outputs and the gauge
+     invariants; then its time beside its plain version's and its bound.
+ 10. ritz path: fit_mps on ECG200 with MPSOptions(encoding="fourier",
+     chi_max=64, nsweeps=5) (complex64, d 5, q 1, randomized_warm_ritz:
+     two exact sweeps on the unfused route, then one K12cr per bond), its
+     counts read from its own run, accuracy held to the JAX lane's ritz
+     band, then classify, and the same fit with an exact eigh on every
+     sweep (no kernel) and at two more init seeds (reported); then one
+     tracked sweep under torch.profiler.
 Then the ptxas line (registers and spills of each kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
 bound, the least time the card could take for the work of the timed call:
@@ -66,7 +78,15 @@ CHAIN_ATOL = 1e-6                # K12m vs chained K12 launches
 ACC_FLOOR = 0.85                 # f32 floor of the JAX hardware lane
 QR_ACC_FLOOR = 0.80              # below the 0.84-0.91 seed spread of the ns route
 FOURIER_ACC = (0.60, 0.92)       # the JAX lane's c64 band (tests/test_tpu_lane.py:134)
+RITZ_ACC = (0.55, 0.95)          # the JAX lane's ritz band (tests/test_tpu_lane.py:182)
+# K12cr against its plain version: the raw outputs at a wider bound, since
+# Jacobi rounds on a random (untracked) Gram turn float32 rounding into
+# rotations within near-degenerate pairs (a gauge: up to 7.3e-5 at 24
+# rounds, q 3, in the CPU emulation of the kernel); the gauge invariants at
+# RTOL / ATOL
+RITZ_RTOL, RITZ_ATOL = 1e-3, 2e-4
 SHAPE = dict(C=2, chi=25, d=5, N=100)
+RITZ_SHAPE = dict(C=2, chi=64, d=5, N=100)
 PEAK_BYTES_S = 3.35e12           # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12          # H100 SXM float32 outside the tensor cores
 KERNEL_SRC = "mpstime_tpu_torch/csrc/bond_step.cu"
@@ -145,7 +165,8 @@ def ptxas_summary(log: str) -> str:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            kern = next((k for k in ("k12m_kernel", "k1_kernel", "k2_kernel")
+            kern = next((k for k in ("k12cr_kernel", "k12m_kernel",
+                                     "k1_kernel", "k2_kernel")
                          if k in mangled), mangled)
             name = f"{kern}<{'cfloat' if 'cfloat' in mangled else 'float'}>"
             spill = "0"
@@ -292,6 +313,25 @@ def k12_work(C, chi, d, N, *, Bb=1, refresh=True, q=1, mse=False,
     return Bb * (o1 + o2), reads + writes
 
 
+def k12cr_work(C, chi, d, N, *, refresh=True, q=1, rounds=6):
+    """(float32 operations, bytes) of one K12cr call: K1c with the tri-Newton
+    refresh (8 steps of X^H X and X T per power step), the Ritz Gram, the
+    Jacobi rounds (two rows and columns of S and two columns of W per pair,
+    and the re-hermitisation), the emission through W and the env advance;
+    its operands and results are K12c's."""
+    m, e, _ = _units(True)
+    P, K = chi * d, chi
+    ops, _ = k1_work(C, chi, d, N, emit_y=refresh, q=q, qr=True, cplx=True)
+    if refresh:
+        ops += q * 8 * (m * 2 * P * K * K + e * 3 * K * K)
+    ops += m * (C * P * K * P + C * K * K * P)                # Gram
+    ops += rounds * (m * 6 * K * K + e * 2 * K * K)           # Jacobi
+    ops += m * (2 * P * K * K + C * P * K * K) + e * (P * K + K * K)
+    ops += m * N * K * P + e * (N * P + 3 * N * K)            # env advance
+    _, nbytes = k12_work(C, chi, d, N, refresh=refresh, q=q, cplx=True)
+    return ops, nbytes
+
+
 def bound(work):
     """(bound_ms, bound_by) of (operations, bytes)."""
     ops, nbytes = work
@@ -312,6 +352,21 @@ def time_ms(fn, iters: int = 20) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def ritz_invariants(out, forward: bool):
+    """The gauge invariants of a ritz bond step's outputs (tests/
+    test_pallas_bond_c.py:388-432): the reconstructed two-site tensor, the
+    environment contracted against conj(core), the log-scales and the
+    projector of the cache."""
+    center, core, env, ls, Q = out
+    if forward:
+        rec = torch.einsum("aim,cmkb->caikb", core, center)
+        inv = torch.einsum("nm,akm->nak", env, core.conj())
+    else:
+        rec = torch.einsum("caim,mkb->caikb", center, core)
+        inv = torch.einsum("nm,mkb->nkb", env, core.conj())
+    return rec, inv, ls, Q @ Q.conj().T
 
 
 def tie_break_inputs():
@@ -860,15 +915,148 @@ def main() -> int:
                                         for k, v in top)
               + f" ({card})", flush=True)
 
+    # ---- 9. ritz kernel ---------------------------------------------------
+    ritz_grid = [(f, r, q, n, mr) for f in (False, True)
+                 for r, q, n, mr in ((True, 1, 6, None), (False, 1, 6, None),
+                                     (True, 3, 24, None), (True, 1, 6, 17))]
+    rerr = inv_err = 0.0
+    for shape, seed0 in ((RITZ_SHAPE, 1000), (dict(C=2, chi=8, d=3, N=16),
+                                              1100)):
+        for i, (forward, refresh, q, rounds, mr) in enumerate(ritz_grid):
+            x = bond_inputs_c(seed0 + i, 1, **shape)
+            kw = dict(forward=forward, refresh=refresh, power_iters=q,
+                      rounds=rounds, max_rank=mr)
+            name = f"K12cr {shape} {kw}"
+            got = bkc.k12cr_cuda(*k12_args(x, forward), **kw)
+            torch.cuda.synchronize()
+            ref = bkc.k12cr_plain(*k12_args(x, forward), **kw)
+            rerr = max(rerr, compare(name, got, ref, forward, atol=RITZ_ATOL,
+                                     rtol=RITZ_RTOL))
+            inv_err = max(inv_err, compare_all(
+                name + " gauge invariants", ritz_invariants(got, forward),
+                ritz_invariants(ref, forward)))
+    err["k12cr"] = rerr
+    print(f"[kernel-vs-plain] K12cr {2 * len(ritz_grid)} cases (C 2, chi 64, "
+          f"d 5, N 100 and C 2, chi 8, d 3, N 16): raw outputs max |err| "
+          f"{rerr:.3e} (rtol {RITZ_RTOL}, atol {RITZ_ATOL}); gauge invariants "
+          f"max |err| {inv_err:.3e} (rtol {RTOL}, atol {ATOL}); kept ranks "
+          "equal", flush=True)
+    xr = bond_inputs_c(19, 1, **RITZ_SHAPE)
+    kwr = dict(forward=False, refresh=True, power_iters=1, rounds=6)
+    times["k12cr"] = (
+        time_ms(lambda: bkc.k12cr_cuda(*k12_args(xr, False), **kwr)),
+        time_ms(lambda: bkc.k12cr_plain(*k12_args(xr, False), **kwr)))
+    ritz_bound = bound(k12cr_work(**RITZ_SHAPE))
+    print(f"[timing] K12cr (backward refresh bond, C 2, chi 64, d 5, N 100, "
+          f"q 1, 6 rounds) {times['k12cr'][0]:.3f} ms vs plain "
+          f"{times['k12cr'][1]:.3f} ms; bound {ritz_bound[0]:.4f} ms "
+          f"({ritz_bound[1]}) ({card})", flush=True)
+
+    # ---- 10. ritz path ----------------------------------------------------
+    # log_level 1: each sweep's train KLD (computed after its timing)
+    ritz = dict(encoding="fourier", chi_max=64, nsweeps=5, verbosity=-1,
+                log_level=1)
+    r_opts = mt.MPSOptions(**ritz)
+    resolved = (r_opts.resolved_svd_alg("cuda"), r_opts.resolved_orth_alg(
+        "cuda"), r_opts.resolved_power_iters("cuda"),
+        r_opts.resolved_ritz_rots("cuda"))
+    check(resolved == ("randomized_warm_ritz", "qr", 1, ("eigh", "jacobi")),
+          f"ritz options resolve to {resolved}")
+    bk.reset_counts()
+    r_trained, r_info, _ = mt.fit_mps(Xtr, ytr, Xte, yte, r_opts,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    r_launches, r_plain = dict(bk.LAUNCHES), dict(bk.PLAIN_CALLS)
+    t0 = time.perf_counter()
+    r_preds = mt.classify(r_trained, Xte)
+    torch.cuda.synchronize()
+    r_classify_s = time.perf_counter() - t0
+    r_acc = float(np.mean(r_preds == yte))
+    r_train_acc = float(np.mean(mt.classify(r_trained, Xtr) == ytr))
+    m = r_trained.mps
+    check(m.cores.is_cuda and m.cores.dtype == torch.complex64,
+          f"ritz fit: model {m.cores.dtype} on {m.cores.device}")
+    check(tuple(m.center.shape) == (64, 5, 64, 2), f"center {m.center.shape}")
+    for t in (m.cores, m.center):
+        check(bool(torch.isfinite(t).all()), "ritz fit: non-finite weights")
+    # sweeps 0-1 exact (unfused, no kernel), 2-4 tracked (one K12cr a bond)
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k12cr": 3 * 190}
+    check(r_launches == want, f"ritz fit: launches {r_launches} != {want}")
+    check(sum(r_plain.values()) == 0, f"ritz fit: plain calls {r_plain}")
+    check(RITZ_ACC[0] <= r_acc <= RITZ_ACC[1],
+          f"ritz fit: test accuracy {r_acc} outside {RITZ_ACC}")
+    secs = r_info["sweep_seconds"]
+    print(f"[ritz-path] ECG200 MPSOptions(encoding='fourier', chi_max=64, "
+          f"nsweeps=5) on cuda, resolved {resolved}: test accuracy "
+          f"{r_acc:.4f} (train {r_train_acc:.4f}); exact sweeps "
+          f"{secs[0]:.4f}, {secs[1]:.4f} s, tracked sweeps median "
+          f"{statistics.median(secs[2:]):.4f} s "
+          f"({', '.join(f'{t:.4f}' for t in secs[2:])}); classify "
+          f"{r_classify_s:.4f} s for {len(Xte)} series; train KLD by sweep "
+          f"{[round(float(v), 3) for v in r_info['train_KL_div']]}; "
+          f"launches { {k: v for k, v in r_launches.items() if v} }; plain "
+          f"calls {sum(r_plain.values())} ({card})", flush=True)
+
+    # the same fit with an exact eigh on every sweep (ritz_exact_sweeps=-1,
+    # the unfused route throughout), reported beside the tracked one
+    bk.reset_counts()
+    e_trained, e_info, _ = mt.fit_mps(
+        Xtr, ytr, Xte, yte, r_opts.replace(ritz_exact_sweeps=-1),
+        device="cuda")
+    check(sum(bk.LAUNCHES.values()) + sum(bk.PLAIN_CALLS.values()) == 0,
+          f"exact ritz fit: launches {bk.LAUNCHES}, plain {bk.PLAIN_CALLS}")
+    print(f"[ritz-exact] the same fit with ritz_exact_sweeps=-1 on cuda: test "
+          f"accuracy {float(np.mean(mt.classify(e_trained, Xte) == yte)):.4f}"
+          f" (train {float(np.mean(mt.classify(e_trained, Xtr) == ytr)):.4f});"
+          f" sweeps {[round(t, 4) for t in e_info['sweep_seconds']]} s; "
+          f"train KLD by sweep "
+          f"{[round(float(v), 3) for v in e_info['train_KL_div']]} ({card})",
+          flush=True)
+
+    # the ritz fit's accuracy over other init seeds (reported, not held)
+    r_seed_acc = {}
+    for seed in (1, 2):
+        tr, inf, _ = mt.fit_mps(Xtr, ytr, opts=r_opts.replace(init_rng=seed),
+                                device="cuda")
+        r_seed_acc[seed] = (float(np.mean(mt.classify(tr, Xte) == yte)),
+                            float(np.mean(mt.classify(tr, Xtr) == ytr)))
+    print("[ritz-seeds] ECG200 MPSOptions(encoding='fourier', chi_max=64, "
+          "nsweeps=5) on cuda, init_rng: test accuracy, train accuracy: "
+          + "; ".join(f"{s}: {a:.4f}, {b:.4f}"
+                      for s, (a, b) in r_seed_acc.items())
+          + f" ({card})", flush=True)
+
+    # where a tracked sweep's device time goes: one sweep tracked from the
+    # start (ritz_exact_sweeps=0), 190 K12cr launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, p_info, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
+            **{**ritz, "nsweeps": 1, "log_level": -1}, ritz_exact_sweeps=0),
+            device="cuda")
+        torch.cuda.synchronize()
+    dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA}
+    busy = sum(dev.values())
+    wall = 1e3 * sum(p_info["sweep_seconds"])
+    k12cr_ms = sum(v for k, v in dev.items() if "k12cr" in k)
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[ritz-profile] one tracked sweep (ritz_exact_sweeps=0) on cuda: "
+          f"device busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
+          f"({100 * busy / wall:.1f} %); K12cr {k12cr_ms:.1f} ms "
+          f"({100 * k12cr_ms / max(busy, 1e-9):.1f} % of device time); by "
+          "kernel: " + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top)
+          + f" ({card})", flush=True)
+
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
-    # and an 8-bond block, at the main-path shape
-    # and the complex ones timed above
+    # and an 8-bond block, at the main-path shape, and the complex and ritz
+    # ones timed above
     work = {"k12": k12_work(**SHAPE), "k12m": k12_work(**SHAPE, Bb=8),
             "k1": k1_work(**SHAPE), "k2": k2_work(**SHAPE),
             "k12c": k12_work(**SHAPE, q=3, cplx=True),
             "k12mc": k12_work(**SHAPE, Bb=4, refresh=False, cplx=True),
             "k1c": k1_work(**SHAPE, q=3, cplx=True),
-            "k2c": k2_work(**SHAPE, cplx=True)}
+            "k2c": k2_work(**SHAPE, cplx=True),
+            "k12cr": k12cr_work(**RITZ_SHAPE)}
     real_src = (KERNEL_SRC, "mpstime_tpu/ops/pallas_bond.py")
     cplx_src = (KERNEL_SRC_C, "mpstime_tpu/ops/pallas_bond_c.py")
     rows = (("K12", "k12", real_src, ":863", mse_launches["k12"]),
@@ -878,7 +1066,8 @@ def main() -> int:
             ("K12c", "k12c", cplx_src, ":754", c_launches["k12c"]),
             ("K12mc", "k12mc", cplx_src, ":1075", cq_launches["k12mc"]),
             ("K1c", "k1c", cplx_src, ":368", cq_launches["k1c"]),
-            ("K2c", "k2c", cplx_src, ":639", cq_launches["k2c"]))
+            ("K2c", "k2c", cplx_src, ":639", cq_launches["k2c"]),
+            ("K12cr", "k12cr", cplx_src, ":913", r_launches["k12cr"]))
     kernels = []
     for name, key, (src, ref_file), line, n in rows:
         b_ms, b_by = bound(work[key])

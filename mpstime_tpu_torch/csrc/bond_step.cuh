@@ -1,8 +1,9 @@
-// Device code of the fused DMRG bond step (K12), its multi-bond block (K12m)
-// and its two halves around an outside QR (K1, K2), real (float) and complex
-// (cfloat).  See bond_step.cu and bond_step_c.cu for what the kernels replace
-// and how they are bounded; this header holds the math, phase by phase,
-// written once for both scalar types.
+// Device code of the fused DMRG bond step (K12), its multi-bond block (K12m),
+// its two halves around an outside QR (K1, K2), real (float) and complex
+// (cfloat), and the tracked-ritz bond step (K12cr, instantiated at cfloat).
+// See bond_step.cu and bond_step_c.cu for what the kernels replace and how
+// they are bounded; this header holds the math, phase by phase, written once
+// for both scalar types.
 //
 // Layouts (row-major, contiguous; T = float or cfloat):
 //   lhs      [Bb, chi, d, chi]  T  the static core of each bond
@@ -43,6 +44,11 @@ constexpr float kTiny = 1.17549435e-38f;     // FLT_MIN (finfo(float32).tiny)
 constexpr float kNsA = 3.4445f, kNsB = -4.7750f, kNsC = 2.0315f;
 constexpr int kNsQuintic = 8, kNsCubic = 6;
 constexpr float kNsRevive = 1e-3f;
+constexpr int kTriNewton = 8;                // pallas_bond_c.py:325
+static_assert(kTriNewton % 2 == 0, "tri_newton leaves X in its input buffer");
+// Dynamic shared memory K12cr may take for its [K, K] rotation buffers (of
+// the 227 KB a block can address; the rest is static reduction scratch).
+constexpr long kMaxDynSmem = 200L * 1024;
 
 // ---- scalar types -----------------------------------------------------------
 
@@ -94,6 +100,18 @@ __host__ __device__ inline cfloat& operator/=(cfloat& a, float s) {
 
 __device__ inline float conj(float a) { return a; }
 __device__ inline cfloat conj(cfloat a) { return {a.x, -a.y}; }
+
+__device__ inline float real_part(float a) { return a; }
+__device__ inline float real_part(cfloat a) { return a.x; }
+
+template <class T>
+__device__ inline T from_real(float v) {
+  return v;
+}
+template <>
+__device__ inline cfloat from_real<cfloat>(float v) {
+  return {v, 0.f};
+}
 
 template <bool C, class T>
 __device__ inline T cj(T a) {
@@ -147,6 +165,8 @@ struct K12Args {
   int forward, refresh, q_iters, mse, gd;
   int qr;                  // power step for an outside QR: column
                            // normalisation only, no revival, no polar
+  int tri;                 // power step of K12cr: column normalisation,
+                           // then tri_newton (no revival)
   float eta, cutoff, max_rank;
 };
 
@@ -173,6 +193,8 @@ template <class T>
 struct Work {
   T *BT, *G, *T1, *L, *R, *yhat, *wc, *MV, *Ya, *Yb, *Yc, *Gm, *G2, *Mq;
   float *wv, *mask, *nrm;
+  T *Sq, *Wq;              // tri_newton's two [K, K] squares: Gm and G2,
+                           // or K12cr's rotation buffers in shared memory
 };
 
 template <class T>
@@ -198,6 +220,8 @@ __device__ inline Work<T> carve(float* wsf, int C, int chi, int d, int N) {
   w.wv = f;             f += K;
   w.mask = f;           f += K;
   w.nrm = f;
+  w.Sq = w.Gm;
+  w.Wq = w.G2;
   return w;
 }
 
@@ -244,6 +268,20 @@ __device__ inline float block_sum(float v, float* red) {
   __syncthreads();
   for (int s = blockDim.x / 2; s > 0; s >>= 1) {
     if ((int)threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  const float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+// Block-wide maximum, the same tree.
+__device__ inline float block_max(float v, float* red) {
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s)
+      red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
     __syncthreads();
   }
   const float r = red[0];
@@ -374,11 +412,46 @@ __device__ inline T* ns_polar(T* x, T* xn, Work<T> w, int P, int K) {
   return x;
 }
 
+// X <- the QR-gauge orthonormal basis of span(X) [P, K] by kTriNewton damped
+// triangular-Newton steps X <- X (I - s (triu(E, 1) + diag(E)/2)) with
+// E = X^H X - I and s = 1/max(1, ||E||_F) (pallas_bond_c.py:320-365): each
+// correction is upper triangular, so the limit is the thin-QR Q of X with a
+// positive real R diagonal.  xn is scratch [P, K], E and Tm scratch [K, K];
+// the result is left in x.
+template <class T>
+__device__ inline void tri_newton(T* x, T* xn, T* E, T* Tm, int P, int K,
+                                  float* red) {
+  for (int it = 0; it < kTriNewton; ++it) {
+    gemm<true>(1, K, K, P, vw(x, 0, 1, K), vw(x, 0, K, 1), E, 0, K, 1);
+    __syncthreads();
+    float part = 0.f;
+    for (int e = threadIdx.x; e < K * K; e += blockDim.x) {
+      T v = E[e];
+      if (e / K == e % K) v = v - from_real<T>(1.f);
+      E[e] = v;
+      part = abs2_add(v, part);
+    }
+    const float s = rsqrtf(fmaxf(block_sum(part, red), 1.f));
+    // diag(E) is real (hermitian), so Tm's diagonal is real
+    for (int e = threadIdx.x; e < K * K; e += blockDim.x) {
+      const int r = e / K, c = e % K;
+      Tm[e] = r < c ? -(s * E[e])
+                    : (r == c ? from_real<T>(1.f - s * (0.5f * real_part(E[e])))
+                              : T{});
+    }
+    __syncthreads();
+    gemm(1, P, K, K, vw(x, 0, K, 1), vw(Tm, 0, K, 1), xn, 0, K, 1);
+    __syncthreads();
+    T* t = x; x = xn; xn = t;
+  }
+}
+
 // q warm power steps from v0 (subspace iteration: per-column normalisation,
 // eps revival, NS polar each step).  Backward: Y <- sum_c BT_c^H BT_c Y;
 // forward: Y <- sum_c BT_c BT_c^H Y.  Returns the orthonormal Q (in w.Ya).
 // With a.qr set, each step only normalises the columns (no revival, no
-// polar) and the returned iterate is orthonormalised by the caller's QR.
+// polar) and the returned iterate is orthonormalised by the caller's QR;
+// with a.tri set, each normalised step is orthonormalised by tri_newton.
 template <class T>
 __device__ inline const T* power_tail(const K12Args<T>& a, const T* v0,
                                       Work<T> w, float* red) {
@@ -415,10 +488,11 @@ __device__ inline const T* power_tail(const K12Args<T>& a, const T* v0,
       w.nrm[j] = fmaxf(sqrtf(s), kTiny);
     }
     __syncthreads();
-    if (a.qr) {
+    if (a.qr || a.tri) {
       for (int e = threadIdx.x; e < P * K; e += blockDim.x)
         w.Ya[e] = w.Yb[e] / w.nrm[e % K];
       __syncthreads();
+      if (a.tri) tri_newton(w.Ya, w.Yc, w.Sq, w.Wq, P, K, red);
       yprev = w.Ya;
       continue;
     }
@@ -444,37 +518,14 @@ __device__ inline const T* power_tail(const K12Args<T>& a, const T* v0,
 
 // ---- K2: projection, energies, cutoff mask, emission, env advance ---------
 
-// Projected blocks into w.MV (backward [C, P, K], forward [C, K, P]) and the
-// direction energies w.wv [K]; then the ITensor cutoff without a sort:
-// direction i counts j toward its suffix iff w_j < w_i, or w_j == w_i and
-// j >= i (the stable descending order), and is kept iff that suffix's
-// energy exceeds cutoff * total, w_i > 0, and its sorted position is below
-// max_rank (cnt_i > K - max_rank).
+// The ITensor cutoff without a sort on the direction energies w.wv [K], in
+// any order, into w.mask: direction i counts j toward its suffix iff
+// w_j < w_i, or w_j == w_i and j >= i (the stable descending order), and is
+// kept iff that suffix's energy exceeds cutoff * total, w_i > 0, and its
+// sorted position is below max_rank (cnt_i > K - max_rank).
 template <class T>
-__device__ inline void project_mask(const K12Args<T>& a, const T* Q,
-                                    Work<T> w) {
-  const int C = a.C, K = a.chi;
-  const long P = (long)a.chi * a.d, PP = P * P;
-  if (!a.forward)
-    gemm(C, P, K, P, vw(w.BT, PP, P, 1), vw(Q, 0, K, 1), w.MV, P * K, K, 1);
-  else
-    gemm<true>(C, K, P, P, vw(Q, 0, 1, K), vw(w.BT, PP, P, 1), w.MV, K * P, P,
-               1);
-  __syncthreads();
-  for (int j = threadIdx.x; j < K; j += blockDim.x) {
-    float wv = 0.f;
-    for (int c = 0; c < C; ++c) {
-      float s = 0.f;
-      if (!a.forward) {
-        for (int p = 0; p < P; ++p) s = abs2_add(w.MV[(c * P + p) * K + j], s);
-      } else {
-        for (int q = 0; q < P; ++q) s = abs2_add(w.MV[(c * K + j) * P + q], s);
-      }
-      wv += s;
-    }
-    w.wv[j] = wv;
-  }
-  __syncthreads();
+__device__ inline void cutoff_mask(const K12Args<T>& a, Work<T> w) {
+  const int K = a.chi;
   for (int i = threadIdx.x; i < K; i += blockDim.x) {
     const float wi = w.wv[i];
     float total = 0.f, suffix = 0.f;
@@ -492,6 +543,45 @@ __device__ inline void project_mask(const K12Args<T>& a, const T* Q,
     w.mask[i] = keep ? 1.f : 0.f;
   }
   __syncthreads();
+}
+
+// The projected blocks of BT onto Q into w.MV: backward B_c = BT_c Q
+// [C, P, K], forward B_c = Q^H BT_c [C, K, P].
+template <class T>
+__device__ inline void project(const K12Args<T>& a, const T* Q, Work<T> w) {
+  const int C = a.C, K = a.chi;
+  const long P = (long)a.chi * a.d, PP = P * P;
+  if (!a.forward)
+    gemm(C, P, K, P, vw(w.BT, PP, P, 1), vw(Q, 0, K, 1), w.MV, P * K, K, 1);
+  else
+    gemm<true>(C, K, P, P, vw(Q, 0, 1, K), vw(w.BT, PP, P, 1), w.MV, K * P, P,
+               1);
+  __syncthreads();
+}
+
+// The projected blocks, the direction energies w.wv [K] and their cutoff
+// mask.
+template <class T>
+__device__ inline void project_mask(const K12Args<T>& a, const T* Q,
+                                    Work<T> w) {
+  const int C = a.C, K = a.chi;
+  const long P = (long)a.chi * a.d;
+  project(a, Q, w);
+  for (int j = threadIdx.x; j < K; j += blockDim.x) {
+    float wv = 0.f;
+    for (int c = 0; c < C; ++c) {
+      float s = 0.f;
+      if (!a.forward) {
+        for (int p = 0; p < P; ++p) s = abs2_add(w.MV[(c * P + p) * K + j], s);
+      } else {
+        for (int q = 0; q < P; ++q) s = abs2_add(w.MV[(c * K + j) * P + q], s);
+      }
+      wv += s;
+    }
+    w.wv[j] = wv;
+  }
+  __syncthreads();
+  cutoff_mask(a, w);
 }
 
 // Emit the masked split factors in their final core layouts, the unmasked
@@ -641,22 +731,230 @@ __global__ void __launch_bounds__(kMaxThreads) k2_kernel(K12Args<T> a,
   env_advance(a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
 }
 
+// ---- K12cr: the tracked-ritz bond step ------------------------------------
+
+// K12cr's rotation buffers: S and W [K, K], and one round's rotations of the
+// K/2 adjacent pairs, (x, y) and liveness.  In dynamic shared memory when
+// they fit (rot_smem_bytes <= kMaxDynSmem), else in the global workspace's
+// Gm, G2, Mq and nrm, which K12cr does not otherwise need by then.
+template <class T>
+struct Rot {
+  T *S, *W, *x, *y;
+  float* live;
+};
+
+template <class T>
+__host__ __device__ inline long rot_smem_bytes(int K) {
+  return (2L * K * K + 2L * (K / 2)) * (long)sizeof(T) +
+         (K / 2) * (long)sizeof(float);
+}
+
+template <class T>
+__device__ inline Rot<T> rot_buffers(Work<T> w, unsigned char* dyn, int smem,
+                                     int K) {
+  Rot<T> r;
+  if (smem) {
+    r.S = reinterpret_cast<T*>(dyn);
+    r.W = r.S + K * K;
+    r.x = r.W + K * K;
+    r.y = r.x + K / 2;
+    r.live = reinterpret_cast<float*>(r.y + K / 2);
+  } else {
+    r.S = w.Gm;
+    r.W = w.G2;
+    r.x = w.Mq;
+    r.y = w.Mq + K / 2;
+    r.live = w.nrm;
+  }
+  return r;
+}
+
+// The projected blocks (project) and their Gram S [K, K]: sum_c B_c^H B_c
+// backward, sum_c B_c B_c^H forward (pallas_bond_c.py:942-965).
+template <class T>
+__device__ inline void ritz_gram(const K12Args<T>& a, const T* Q, Work<T> w,
+                                 T* S) {
+  const int C = a.C, K = a.chi;
+  const long P = (long)a.chi * a.d;
+  project(a, Q, w);
+  // class by class; the same thread owns each element of S in every pass
+  for (int c = 0; c < C; ++c) {
+    const T* B = w.MV + c * P * K;
+    if (!a.forward)
+      gemm<true>(1, K, K, P, vw(B, 0, 1, K), vw(B, 0, K, 1), S, 0, K, 1, 1.f,
+                 c ? 1.f : 0.f, c ? S : nullptr);
+    else
+      gemm<false, true>(1, K, K, P, vw(B, 0, P, 1), vw(B, 0, 1, P), S, 0, K,
+                        1, 1.f, c ? 1.f : 0.f, c ? S : nullptr);
+  }
+  __syncthreads();
+}
+
+// rounds odd-even rounds of exact 2x2 Jacobi rotations on the adjacent
+// disjoint pairs (i, i+1), i = r % 2, r % 2 + 2, ... (ops/decomp.py's
+// _jacobi_round, pallas_bond_c.py:827-910, the same branch rules): S, scaled
+// by nf = max |diag S|, goes to J^H S J and W from I to W J, where J's
+// column i is (x, y) and column i + 1 (-conj(y), conj(x)); S is
+// re-hermitised after each round.  A round touches two rows and two columns
+// of S and two columns of W per pair, O(K) each, instead of the TPU's dense
+// J products.  wv gets diag(S) * nf in round order.
+template <class T>
+__device__ inline void jacobi_rounds(Rot<T> r, int K, int rounds, float* wv,
+                                     float* red) {
+  T* S = r.S;
+  T* W = r.W;
+  float m = 0.f;
+  for (int i = threadIdx.x; i < K; i += blockDim.x)
+    m = fmaxf(m, fabsf(real_part(S[i * K + i])));
+  const float nf = fmaxf(block_max(m, red), kTiny);
+  for (int e = threadIdx.x; e < K * K; e += blockDim.x) {
+    S[e] /= nf;
+    W[e] = (e / K == e % K) ? from_real<T>(1.f) : T{};
+  }
+  __syncthreads();
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int off = rd % 2;
+    const int np = (K - off) / 2;
+    // each pair's rotation: its first column is the 2x2 block's mu_plus
+    // eigenvector, built on the better-conditioned branch
+    for (int p = threadIdx.x; p < np; p += blockDim.x) {
+      const int i = off + 2 * p;
+      const float al = real_part(S[i * K + i]);
+      const float be = real_part(S[(i + 1) * K + i + 1]);
+      const T wo = S[i * K + i + 1];
+      const float half = 0.5f * (al - be);
+      const float mu =
+          0.5f * (al + be) + sqrtf(half * half + abs2_add(wo, 0.f));
+      const bool hi = al >= be;
+      const T x = hi ? from_real<T>(mu - be) : wo;
+      const T y = hi ? conj(wo) : from_real<T>(mu - al);
+      const float n2 = abs2_add(y, abs2_add(x, 0.f));
+      const bool live = n2 > kTiny;
+      const float n = sqrtf(n2);
+      r.x[p] = live ? x / n : from_real<T>(1.f);
+      r.y[p] = live ? y / n : T{};
+      r.live[p] = live ? 1.f : 0.f;
+    }
+    __syncthreads();
+    // S <- S J, W <- W J: columns i and i + 1 of every row
+    for (int e = threadIdx.x; e < 2 * K * np; e += blockDim.x) {
+      const int p = e % np;
+      if (r.live[p] == 0.f) continue;
+      const int row = (e / np) % K;
+      T* M = e < K * np ? S : W;
+      const int i = off + 2 * p;
+      const T x = r.x[p], y = r.y[p];
+      const T a = M[row * K + i], b = M[row * K + i + 1];
+      M[row * K + i] = mac(b, y, a * x);
+      M[row * K + i + 1] = mac(b, conj(x), a * (-conj(y)));
+    }
+    __syncthreads();
+    // S <- J^H S: rows i and i + 1 of every column
+    for (int e = threadIdx.x; e < K * np; e += blockDim.x) {
+      const int p = e % np;
+      if (r.live[p] == 0.f) continue;
+      const int col = e / np;
+      const int i = off + 2 * p;
+      const T x = r.x[p], y = r.y[p];
+      const T a = S[i * K + col], b = S[(i + 1) * K + col];
+      S[i * K + col] = mac(conj(y), b, conj(x) * a);
+      S[(i + 1) * K + col] = mac(x, b, (-y) * a);
+    }
+    __syncthreads();
+    // S <- (S + S^H) / 2
+    for (int e = threadIdx.x; e < K * K; e += blockDim.x) {
+      const int i = e / K, j = e % K;
+      if (i > j) continue;
+      const T v = 0.5f * (S[e] + conj(S[j * K + i]));
+      S[e] = v;
+      S[j * K + i] = conj(v);
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < K; i += blockDim.x)
+    wv[i] = real_part(S[i * K + i]) * nf;
+  __syncthreads();
+}
+
+// K12cr's emission (pallas_bond_c.py:968-997): the cache Q W (unmasked)
+// into q_out, W masked in place to Wm, the masked isometry Qm = Q Wm into
+// w.Yb, the center through Wm (backward B_c Wm, forward Wm^H B_c) and the
+// core from Qm (backward Qm^H, forward Qm) in their final layouts.
+template <class T>
+__device__ inline void ritz_emit(const K12Args<T>& a, const T* Q, T* W,
+                                 Work<T> w) {
+  const int C = a.C, K = a.chi;
+  const long P = (long)a.chi * a.d;
+  gemm(1, P, K, K, vw(Q, 0, K, 1), vw(W, 0, K, 1), a.q_out, 0, K, 1);
+  __syncthreads();
+  for (int e = threadIdx.x; e < K * K; e += blockDim.x) W[e] *= w.mask[e % K];
+  __syncthreads();
+  gemm(1, P, K, K, vw(Q, 0, K, 1), vw(W, 0, K, 1), w.Yb, 0, K, 1);
+  if (!a.forward)
+    gemm(C, P, K, K, vw(w.MV, P * K, K, 1), vw(W, 0, K, 1), a.center_out,
+         P * K, K, 1);
+  else
+    gemm<true>(C, K, P, K, vw(W, 0, 1, K), vw(w.MV, K * P, P, 1),
+               a.center_out, K * P, P, 1);
+  __syncthreads();
+  for (long e = threadIdx.x; e < P * K; e += blockDim.x) {
+    const int m = (int)(e % K);
+    if (a.forward)
+      a.core_out[e] = w.Yb[e];                     // U[a, i, m]
+    else
+      a.core_out[m * P + e / K] = conj(w.Yb[e]);   // V[m, k, b]
+  }
+  __syncthreads();
+}
+
+// K12cr: one tracked-ritz bond step (Bb = 1): the K1 body, q power steps
+// with tri_newton (a frozen bond keeps Q = v0), the Ritz Gram, rounds
+// Jacobi rounds, the cutoff mask on the round-order energies, the emission
+// and the env advance.  env0/ls0 are the advancing environment, envx the
+// opposite one; smem says whether the rotation buffers are in the dynamic
+// shared memory.
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k12cr_kernel(K12Args<T> a,
+                                                            int rounds,
+                                                            int smem) {
+  __shared__ float red[kMaxThreads];
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
+  const Rot<T> r = rot_buffers(w, dyn_smem, smem, a.chi);
+  w.Sq = r.S;                      // tri_newton's squares, free until the Gram
+  w.Wq = r.W;
+  kron_factors(a.forward ? a.env0 : a.envx, a.forward ? a.envx : a.env0,
+               a.phil, a.phir, w, a.chi, a.d, a.N);
+  bond_tensor(a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  __syncthreads();
+  k1_update(a, a.ls0, w, red);
+  const T* Q = a.refresh ? power_tail(a, a.v0, w, red) : a.v0;
+  ritz_gram(a, Q, w, r.S);
+  jacobi_rounds(r, a.chi, rounds, w.wv, red);
+  cutoff_mask(a, w);
+  ritz_emit(a, Q, r.W, w);
+  env_advance(a, a.env0, a.forward ? a.phil : a.phir, a.ls0, a.env_out,
+              a.ls_out, w);
+}
+
 // ---- host launchers ---------------------------------------------------------
 // The C entry points of bond_step.cu (T = float) and bond_step_c.cu
 // (T = cfloat) forward to these, so one argument list per kernel serves
 // both scalar types.  Each launches one block of kMaxThreads on the caller's
 // stream and returns cudaGetLastError().
 
+// The operands of a K12m (K12cr: Bb = 1) launch.
 template <class T>
-inline int launch_k12m(const void* lhs, const void* center0, const void* envx,
-                       const void* env0, const void* ls0, const void* opp_ls,
-                       const void* phil, const void* phir, const void* y1h,
-                       const void* w, const void* v0, void* center_out,
-                       void* core_out, void* env_out, void* ls_out,
-                       void* q_out, void* ws, int Bb, int C, int chi, int d,
-                       int N, int forward, int refresh, int q_iters, int mse,
-                       int gd, float eta, float cutoff, float max_rank,
-                       void* stream) {
+inline K12Args<T> k12m_args(const void* lhs, const void* center0,
+                            const void* envx, const void* env0,
+                            const void* ls0, const void* opp_ls,
+                            const void* phil, const void* phir,
+                            const void* y1h, const void* w, const void* v0,
+                            void* center_out, void* core_out, void* env_out,
+                            void* ls_out, void* q_out, void* ws, int Bb,
+                            int C, int chi, int d, int N, int forward,
+                            int refresh, int q_iters, int mse, int gd,
+                            float eta, float cutoff, float max_rank) {
   K12Args<T> a{};
   a.lhs = static_cast<const T*>(lhs);
   a.center0 = static_cast<const T*>(center0);
@@ -688,7 +986,54 @@ inline int launch_k12m(const void* lhs, const void* center0, const void* envx,
   a.eta = eta;
   a.cutoff = cutoff;
   a.max_rank = max_rank;
+  return a;
+}
+
+template <class T>
+inline int launch_k12m(const void* lhs, const void* center0, const void* envx,
+                       const void* env0, const void* ls0, const void* opp_ls,
+                       const void* phil, const void* phir, const void* y1h,
+                       const void* w, const void* v0, void* center_out,
+                       void* core_out, void* env_out, void* ls_out,
+                       void* q_out, void* ws, int Bb, int C, int chi, int d,
+                       int N, int forward, int refresh, int q_iters, int mse,
+                       int gd, float eta, float cutoff, float max_rank,
+                       void* stream) {
+  const K12Args<T> a = k12m_args<T>(
+      lhs, center0, envx, env0, ls0, opp_ls, phil, phir, y1h, w, v0,
+      center_out, core_out, env_out, ls_out, q_out, ws, Bb, C, chi, d, N,
+      forward, refresh, q_iters, mse, gd, eta, cutoff, max_rank);
   k12m_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K12cr: K12m's operands at Bb = 1 (KLD + TSGO) plus the Jacobi round count;
+// the rotation buffers go to dynamic shared memory when they fit.
+template <class T>
+inline int launch_k12cr(const void* lhs, const void* center0,
+                        const void* envx, const void* env0, const void* ls0,
+                        const void* phil, const void* phir, const void* y1h,
+                        const void* w, const void* v0, void* center_out,
+                        void* core_out, void* env_out, void* ls_out,
+                        void* q_out, void* ws, int C, int chi, int d, int N,
+                        int forward, int refresh, int q_iters, float eta,
+                        float cutoff, float max_rank, int rounds,
+                        void* stream) {
+  K12Args<T> a = k12m_args<T>(
+      lhs, center0, envx, env0, ls0, nullptr, phil, phir, y1h, w, v0,
+      center_out, core_out, env_out, ls_out, q_out, ws, 1, C, chi, d, N,
+      forward, refresh, q_iters, 0, 0, eta, cutoff, max_rank);
+  a.tri = 1;
+  const long bytes = rot_smem_bytes<T>(chi);
+  const int smem = bytes <= kMaxDynSmem;
+  if (smem && bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k12cr_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  k12cr_kernel<T><<<1, kMaxThreads, smem ? bytes : 0,
+                    static_cast<cudaStream_t>(stream)>>>(a, rounds, smem);
   return (int)cudaGetLastError();
 }
 

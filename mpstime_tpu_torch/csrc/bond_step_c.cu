@@ -1,20 +1,31 @@
 // Complex (complex64) fused DMRG bond step for NVIDIA Hopper (sm_90a): K12c
-// and K12mc, and the two halves K1c and K2c of the bond step around an
-// outside QR.
+// and K12mc, the two halves K1c and K2c of the bond step around an outside
+// QR, and the tracked-ritz bond step K12cr.
 //
 // Replaces the Pallas TPU kernels of mpstime_tpu/ops/pallas_bond_c.py:
 // _k12c_kernel (one complex bond step), _k12mc_kernel (Bb <= 4 consecutive
 // complex bond steps with the center carried on chip), _k1c_kernel and
 // _k2c_kernel (the orth="qr" refresh bond: K1c, a QR of the realified Y in
-// PyTorch, then K2c).  Mosaic has no complex type, so the TPU kernels carry
-// every operand as a (re, im) pair of f32 arrays and expand each complex
-// product into four real ones.  Here the operands stay torch.complex64
+// PyTorch, then K2c), and _k12cr_kernel (one bond of the ritz route's
+// Jacobi-rotated sweeps).  Mosaic has no complex type, so the TPU kernels
+// carry every operand as a (re, im) pair of f32 arrays and expand each
+// complex product into four real ones.  Here the operands stay torch.complex64
 // tensors, read interleaved as cfloat, and the kernels are the real
 // kernels' device functions (bond_step.cuh) instantiated at cfloat: no
 // second copy of the math.  K12c is the K12mc launch at Bb = 1.  They cover
 // what the TPU kernels cover: KLD loss, TSGO step, one update iteration,
 // Newton-Schulz refresh (or the column-normalised iterate for an outside
 // QR), frozen bonds, and the runtime max_rank cap.
+//
+// K12cr is the same device code around three more phases
+// (bond_step.cuh): the power step orthonormalised by damped triangular
+// Newton (the QR gauge, no Householder factorisation), the Ritz Gram
+// S [chi, chi] of the projected blocks, and odd-even Jacobi rounds that
+// rotate two rows and columns of S and two columns of W per adjacent pair,
+// with S and W in dynamic shared memory (2 x 32 KB at chi = 64); the mask,
+// the emission through the rotation and the env advance follow.  At the
+// ritz cell (C = 2, chi = 64, d = 5, N = 100, q = 1, 6 rounds) a bond is
+// ~130 M complex multiply-adds on one block, latency-bound like the rest.
 //
 // What bounds them on this card: at the complex main-path shape (C = 2,
 // chi = 25, d = 5, N = 100, q = 3) a refresh bond is a chain of ~20 M
@@ -84,6 +95,25 @@ int mpst_k2c_launch(const void* bt, const void* q, const void* env,
   return mpst::launch_k2<cfloat>(bt, q, env, env_ls, phi, center_out,
                                  core_out, env_out, ls_out, ws, C, chi, d, N,
                                  forward, cutoff, max_rank, stream);
+}
+
+// K12cr: K12mc's argument list at Bb = 1 (KLD + TSGO; the refresh is always
+// tri-Newton) plus the Jacobi round count.  Scratch: mpst_c_workspace_floats.
+int mpst_k12cr_launch(const void* lhs, const void* center0, const void* envx,
+                      const void* env0, const void* ls0, const void* opp_ls,
+                      const void* phil, const void* phir, const void* y1h,
+                      const void* w, const void* v0, void* center_out,
+                      void* core_out, void* env_out, void* ls_out,
+                      void* q_out, void* ws, int Bb, int C, int chi, int d,
+                      int N, int forward, int refresh, int q_iters, int mse,
+                      int gd, float eta, float cutoff, float max_rank,
+                      int rounds, void* stream) {
+  (void)opp_ls;
+  if (Bb != 1 || mse || gd || rounds < 0) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k12cr<cfloat>(
+      lhs, center0, envx, env0, ls0, phil, phir, y1h, w, v0, center_out,
+      core_out, env_out, ls_out, q_out, ws, C, chi, d, N, forward, refresh,
+      q_iters, eta, cutoff, max_rank, rounds, stream);
 }
 
 }  // extern "C"

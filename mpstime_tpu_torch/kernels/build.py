@@ -112,7 +112,8 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # each complex launcher takes its real twin's argument list
+        # each complex launcher takes its real twin's argument list; K12cr
+        # takes K12mc's and the Jacobi round count
         for ws in ("mpst_k12_workspace_floats", "mpst_c_workspace_floats"):
             getattr(lib, ws).argtypes = [i, i, i, i]
             getattr(lib, ws).restype = ctypes.c_long
@@ -122,7 +123,9 @@ def load_library() -> ctypes.CDLL:
                 (("mpst_k1_launch", "mpst_k1c_launch"),
                  [p] * 13 + [i] * 10 + [f] + [p]),
                 (("mpst_k2_launch", "mpst_k2c_launch"),
-                 [p] * 10 + [i] * 5 + [f] * 2 + [p])):
+                 [p] * 10 + [i] * 5 + [f] * 2 + [p]),
+                (("mpst_k12cr_launch",), [p] * 17 + [i] * 10 + [f] * 3
+                 + [i, p])):
             for name in names:
                 getattr(lib, name).argtypes = argtypes
                 getattr(lib, name).restype = i

@@ -33,7 +33,7 @@ from .env import env_step_left_scaled, env_step_right_scaled
 #: Kernel launches per kernel since the last reset_counts().
 #: The complex kernels (ops/bond_kernels_c.py) count here too.
 LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c"), 0)
+    ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
@@ -60,8 +60,9 @@ def k1_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
     step (ops/bond_update.py) and q warm power steps.  ``gls`` [N]: the total
     log-scales le_ls + re_ls (read by the MSE gradient only).  Returns
     (BT [C, chi*d, d, chi], Y [chi*d, chi]); Y is the column-normalised
-    iterate under orth="qr", orthonormal under "ns", and V0 itself when
-    ``emit_y`` is False (a frozen bond)."""
+    iterate under orth="qr", orthonormal under "ns" and "tri" (K12cr's
+    refresh, ``decomp.tri_newton``), and V0 itself when ``emit_y`` is False
+    (a frozen bond)."""
     C, chi, d, _ = center_c.shape
     if forward:
         BT = torch.einsum("caim,mkb->aikbc", center_c, A_or_B)

@@ -1,28 +1,31 @@
-"""The complex bond-step kernels K12c, K12mc, K1c and K2c (counterpart of
-``mpstime_tpu/ops/pallas_bond_c.py``).
+"""The complex bond-step kernels K12c, K12mc, K1c, K2c and K12cr
+(counterpart of ``mpstime_tpu/ops/pallas_bond_c.py``).
 
-``bond_step_c`` and ``bond_block_steps_c`` keep the signatures of the JAX
-package's (pallas_bond_c.py:1308, :1184) with complex tensors in place of
-its (re, im) pairs: complex operands stay ``torch.complex64`` (or, on the
-CPU, complex128) end to end, and the CUDA kernels read them interleaved.  A
-refresh bond under orth="qr" runs K1c -> the realified QR of
-ops/decomp.py's ``_qr_orth`` -> K2c (pallas_bond_c.py:1368-1412); every
-other bond runs K12c, and a block of bonds K12mc.  As in the JAX package
-the complex kernels cover KLD + TSGO only; the wrappers refuse any other
-loss or optimiser with a ValueError.
+``bond_step_c``, ``bond_block_steps_c`` and ``bond_step_c_ritz`` keep the
+signatures of the JAX package's (pallas_bond_c.py:1308, :1184, :1031) with
+complex tensors in place of its (re, im) pairs: complex operands stay
+``torch.complex64`` (or, on the CPU, complex128) end to end, and the CUDA
+kernels read them interleaved.  A refresh bond under orth="qr" runs K1c ->
+the realified QR of ops/decomp.py's ``_qr_orth`` -> K2c
+(pallas_bond_c.py:1368-1412); every other bond of the warm route runs K12c,
+and a block of bonds K12mc.  A bond of the ritz route's Jacobi-rotated
+sweeps runs K12cr.  As in the JAX package the complex kernels cover KLD +
+TSGO only; the wrappers refuse any other loss or optimiser with a
+ValueError.
 
   * CUDA tensors launch the hand-written kernels (csrc/bond_step_c.cu, the
     real kernels' device functions at a complex scalar), or raise.  There
     is no fallback.
   * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
-    ``k1c_plain``, ``k2c_plain``), built from the ported update, warm split
-    and environment steps, which are dtype-generic.
+    ``k1c_plain``, ``k2c_plain``, ``k12cr_plain``), built from the ported
+    update, splits, rotations and environment steps, which are
+    dtype-generic.
 
-Launches and plain calls count under "k12c", "k12mc", "k1c" and "k2c" in
-``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS``.  Operand layouts are the real
-kernels': phil / phir are the conjugated encoded states, the center is
-class-major [C, chi, d, chi], environments [N, chi] with real log-scales
-[N], labels [N, C] and weights [N] real float32.
+Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c" and
+"k12cr" in ``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS``.  Operand layouts
+are the real kernels': phil / phir are the conjugated encoded states, the
+center is class-major [C, chi, d, chi], environments [N, chi] with real
+log-scales [N], labels [N, C] and weights [N] real float32.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import bond_kernels as bk
-from .decomp import _qr_orth
+from .decomp import (_JACOBI_ROUNDS, _JACOBI_WARM_ROUNDS, _pairwise_mask,
+                     _qr_orth, _ritz_rot_jacobi)
+from .env import env_step_left_scaled, env_step_right_scaled
 
 Out4, Out5 = bk.Out4, bk.Out5
 
@@ -66,6 +71,42 @@ def k1c_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
 k2c_plain = bk.k2_plain
 k12c_plain = bk.k12_plain
 k12mc_plain = bk.k12m_plain
+
+
+def k12cr_plain(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
+                eta, cutoff, *, forward: bool, refresh: bool = True,
+                power_iters: int = 1, max_rank=None,
+                rounds: int = _JACOBI_ROUNDS) -> Out5:
+    """K12cr, the tracked-ritz bond step, in plain PyTorch
+    (pallas_bond_c.py:913-997): K1c with the tri-Newton refresh (a frozen
+    bond keeps Q = V0), the projected blocks B and Gram S, ``rounds`` Jacobi
+    rounds, the sort-free cutoff mask on the round-order energies, the
+    emission through the masked rotation Wm and the environment advance
+    through Qm = Q Wm.  Returns (center_c', core', env', env_ls', Q W); the
+    cache Q W is rotated and unmasked."""
+    C, chi, d, _ = center_c.shape
+    BT, Q = k1c_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta,
+                      forward=forward, emit_y=refresh,
+                      power_iters=power_iters, orth="tri")
+    BT = BT.reshape(C, chi * d, d * chi)
+    if forward:
+        B = Q.conj().T @ BT                            # [C, chi, d*chi]
+        S = torch.sum(B @ B.conj().transpose(1, 2), 0)
+    else:
+        B = BT @ Q                                     # [C, chi*d, chi]
+        S = torch.sum(B.conj().transpose(1, 2) @ B, 0)
+    wv, W = _ritz_rot_jacobi(S, rounds)
+    Wm = W * _pairwise_mask(wv, cutoff, max_rank)
+    Qm = Q @ Wm
+    if forward:
+        center = (Wm.conj().T @ B).reshape(C, chi, d, chi)
+        core = Qm.reshape(chi, d, chi)
+        env2, ls2 = env_step_left_scaled(le, env_ls, core, phil)
+    else:
+        center = (B @ Wm).reshape(C, chi, d, chi)
+        core = Qm.conj().T.resolve_conj().reshape(chi, d, chi)
+        env2, ls2 = env_step_right_scaled(re, env_ls, core, phir)
+    return center, core, env2, ls2, Q @ W
 
 
 # --------------------------------------------------------------------------
@@ -138,6 +179,27 @@ def k2c_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
     return out
 
 
+def k12cr_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
+               eta, cutoff, *, forward: bool, refresh: bool = True,
+               power_iters: int = 1, max_rank=None,
+               rounds: int = _JACOBI_ROUNDS) -> Out5:
+    """K12cr as one launch; operands and results as ``k12cr_plain``'s.  The
+    operands are checked and the outputs allocated as for K12c (a block of
+    one bond); the launch adds the Jacobi round count."""
+    if rounds < 0:
+        raise ValueError(f"rounds must be >= 0, got {rounds}")
+    launch, wsf = _launcher(center_c.device, "mpst_k12cr_launch")
+    env, envx = (le, re) if forward else (re, le)
+    center2, core, env2, ls2, Q = bk._launch_k12m(
+        A_or_B[None], center_c, envx[None], env, env_ls, None, phil[None],
+        phir[None], y1h, w, V0[None], eta, cutoff, forward=forward,
+        refresh=refresh, power_iters=power_iters, max_rank=max_rank,
+        loss="KLD", bbopt="TSGO", launch=lambda *a: launch(*a, int(rounds)),
+        workspace_floats=wsf, dtype=torch.complex64)
+    bk.LAUNCHES["k12cr"] += 1
+    return center2, core[0], env2[0], ls2[0], Q[0]
+
+
 # --------------------------------------------------------------------------
 # public complex bond steps
 # --------------------------------------------------------------------------
@@ -191,6 +253,34 @@ def bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
         return k12c_cuda(*args, refresh=refresh, **kw)
     bk.PLAIN_CALLS["k12c"] += 1
     return k12c_plain(*args, refresh=refresh, **kw)
+
+
+def bond_step_c_ritz(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w,
+                     V0, eta, cutoff, *, forward: bool, refresh: bool = True,
+                     power_iters: int = 1, max_rank=None,
+                     rounds: Optional[int] = None,
+                     rot: str = "jacobi") -> Out5:
+    """One tracked-ritz complex bond step, K12cr (pallas_bond_c.py:1031-
+    1064): the whole step of the ritz route's Jacobi-rotated sweeps in one
+    kernel.  ``rot``: "jacobi" (the tracked sweeps, 6 rounds) or
+    "jacobi_warm" (cold-start sweeps, 24 rounds); ``rounds`` overrides.  The
+    refresh is always the QR-gauge tri-Newton, whatever the fit's orth.
+    Operands and results as ``bond_step_c``'s; the returned cache is the
+    rotated basis Q W."""
+    if rot not in ("jacobi", "jacobi_warm"):
+        raise ValueError(f"K12cr runs the Jacobi rotations 'jacobi' and "
+                         f"'jacobi_warm', got {rot!r}")
+    if rounds is None:
+        rounds = (_JACOBI_WARM_ROUNDS if rot == "jacobi_warm"
+                  else _JACOBI_ROUNDS)
+    args = (A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
+            cutoff)
+    kw = dict(forward=forward, refresh=refresh, power_iters=power_iters,
+              max_rank=max_rank, rounds=rounds)
+    if bk._device_of(center_c) == "cuda":
+        return k12cr_cuda(*args, **kw)
+    bk.PLAIN_CALLS["k12cr"] += 1
+    return k12cr_plain(*args, **kw)
 
 
 def bond_block_steps_c(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,

@@ -12,6 +12,7 @@ squared singular values, reference decomposeBT RealRealHighDimension.jl:
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -103,6 +104,30 @@ def ns_orth(Y: torch.Tensor, n_quintic: int = _NS_QUINTIC,
     return X
 
 
+#: Damped triangular-Newton iterations of ``tri_newton``
+#: (mpstime_tpu/ops/pallas_bond_c.py:320-325).
+_TRI_NEWTON_ITERS = 8
+
+
+def tri_newton(X: torch.Tensor, iters: int = _TRI_NEWTON_ITERS
+               ) -> torch.Tensor:
+    """QR-gauge orthogonalisation by damped triangular Newton, the plain
+    version of the JAX package's ``_tri_newton_pair`` (pallas_bond_c.py:
+    328-365): X <- X (I - s (triu(E, 1) + diag(E)/2)) with E = X^H X - I and
+    s = 1 / max(1, ||E||_F).  Every correction is upper triangular, so the
+    limit is the thin-QR Q factor of X with a positive real R diagonal; the
+    fused tracked-ritz step (K12cr) refreshes its basis with it."""
+    k = X.shape[1]
+    eye = torch.eye(k, dtype=X.dtype, device=X.device)
+    for _ in range(iters):
+        E = X.conj().T @ X - eye
+        s = 1.0 / torch.clamp(torch.linalg.vector_norm(E), min=1.0)
+        # diag(E) is real (E is hermitian), so T's diagonal is real
+        T = eye - s * (torch.triu(E, 1) + torch.diag(E.diagonal().real / 2))
+        X = X @ T
+    return X
+
+
 def _orth(Y: torch.Tensor, orth: str) -> torch.Tensor:
     return ns_orth(Y) if orth == "ns" else _qr_orth(Y)
 
@@ -137,11 +162,18 @@ def warm_iterate(mm, Y: torch.Tensor, q: int, orth: str) -> torch.Tensor:
     """q power steps of ``mm`` (one application of M^H M or M M^H) from the
     cached basis Y with per-step column normalisation.  orth="ns" runs
     subspace iteration (eps revival + NS polar after every step) and returns
-    an orthonormal basis; other orths return the column-normalised iterate,
-    which the caller orthogonalises (K1's Y)."""
+    an orthonormal basis; orth="tri" orthogonalises every normalised step
+    by ``tri_newton``, with no revival (K12cr's refresh, pallas_bond_c.py:
+    289-294); other orths return the column-normalised iterate, which the
+    caller orthogonalises (K1's Y)."""
     for _ in range(q):
         Z = _col_normalize(mm(Y))
-        Y = ns_orth(Z + _NS_REVIVE * Y) if orth == "ns" else Z
+        if orth == "ns":
+            Y = ns_orth(Z + _NS_REVIVE * Y)
+        elif orth == "tri":
+            Y = tri_newton(Z)
+        else:
+            Y = Z
     return Y
 
 
@@ -160,6 +192,23 @@ def _mask_by_energy(w: torch.Tensor, keep: int, cutoff, max_rank):
     keep_col = torch.zeros_like(w)
     keep_col[order] = mask
     return keep_col
+
+
+def _pairwise_mask(w: torch.Tensor, cutoff, max_rank=None) -> torch.Tensor:
+    """The same rule without a sort, as the bond kernels apply it
+    (mpstime_tpu/ops/pallas_bond.py:662-697): direction i counts j toward
+    its suffix iff w_j < w_i, or w_j == w_i and j >= i (the stable
+    descending order), and is kept iff that suffix's energy exceeds cutoff
+    * total, w_i > 0, and its sorted position is below max_rank."""
+    k = w.shape[0]
+    idx = torch.arange(k, device=w.device)
+    wi, wj = w[:, None], w[None, :]
+    leq = (wj < wi) | ((wj == wi) & (idx[None, :] >= idx[:, None]))
+    suffix = torch.sum(torch.where(leq, wj, torch.zeros_like(wj)), dim=1)
+    cnt = torch.sum(leq, dim=1)
+    mr = k if max_rank is None else max_rank
+    keep = (suffix > cutoff * torch.sum(w)) & (w > 0) & (cnt > k - mr)
+    return keep.to(w.dtype)
 
 
 def _pad_cols(X: torch.Tensor, n: int) -> torch.Tensor:
@@ -206,6 +255,181 @@ def warm_split_right(M: torch.Tensor, U0: torch.Tensor, keep: int, cutoff,
     return (_pad_cols(Q * keep_col, keep - k),
             _pad_rows(B * keep_col[:, None], keep - k),
             _pad_cols(Q, keep - k))
+
+
+# ---- the ritz route: per-bond eigen-rotations of the projected Gram ------
+
+#: Orthogonal-iteration steps per bond for rot="track" (decomp.py:445-451).
+_RITZ_TRACK_ITERS = 2
+
+
+def _ritz_rot_track(S: torch.Tensor, iters: int = _RITZ_TRACK_ITERS
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigh-free eigen-tracking of a hermitian PSD S [k, k] by orthogonal
+    iteration, W <- qr(S W) from W0 = qr(S), on S scaled by max |diag S|
+    (decomp.py:454-502).  Returns the Rayleigh quotients diag(W^H S W)
+    sorted descending and W's columns in that order."""
+    nf = torch.clamp(torch.max(torch.abs(torch.diagonal(S))), min=_tiny(S))
+    Sn = S / nf
+    W = _qr_orth(Sn)
+    for _ in range(iters - 1):
+        W = _qr_orth(Sn @ W)
+    w = torch.diagonal(W.conj().T @ (S @ W)).real
+    order = torch.argsort(-w, stable=True)
+    return w[order], W[:, order]
+
+
+#: Relative size, per real itemsize, of the fixed hermitian perturbation
+#: that splits degenerate complex clusters before the realified eigh
+#: (decomp.py:505-517).
+_EIGH_R_SPLIT = {4: 1e-5, 8: 1e-11}
+
+
+@functools.lru_cache(maxsize=8)
+def _fixed_hermitian_np(k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Deterministic unit-norm hermitian (re, im) parts [k, k]: host numpy
+    from the JAX package's seed (decomp.py:520-527), bit-identical."""
+    rng = np.random.default_rng(20250819)
+    A = rng.standard_normal((k, k)) + 1j * rng.standard_normal((k, k))
+    H = (A + A.conj().T) / 2
+    H = H / np.linalg.norm(H)
+    return np.ascontiguousarray(H.real), np.ascontiguousarray(H.imag)
+
+
+def _ritz_rot_eigh_realified(S: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigendecomposition of a complex hermitian S [k, k] through one real
+    symmetric eigh of its realified [2k, 2k] embedding (decomp.py:530-569):
+    a fixed eps-hermitian perturbation splits degenerate complex clusters,
+    every other column of the descending real eigenbasis gives one complex
+    representative per eigenvalue, and the realified QR polishes them.
+    Returns the unperturbed Rayleigh quotients, descending, and W."""
+    k = S.shape[0]
+    rdt = S.real.dtype
+    nf = torch.clamp(torch.linalg.vector_norm(S), min=_tiny(S))
+    eps = _EIGH_R_SPLIT[torch.finfo(rdt).bits // 8]
+    Hr, Hi = (torch.from_numpy(h).to(rdt).to(S.device)
+              for h in _fixed_hermitian_np(k))
+    Sr = S.real + (eps * nf) * Hr
+    Si = S.imag + (eps * nf) * Hi
+    R = torch.cat([torch.cat([Sr, -Si], 1), torch.cat([Si, Sr], 1)])
+    _, V = _eigh_desc(R)                         # J-pairs adjacent
+    cand = V[:, ::2]
+    W = _qr_orth(torch.complex(cand[:k], cand[k:]).to(S.dtype))
+    wq = torch.diagonal(W.conj().T @ (S @ W)).real
+    order = torch.argsort(-wq, stable=True)
+    return wq[order], W[:, order]
+
+
+#: Odd-even adjacent-pair Jacobi rounds per bond for rot="jacobi" (the
+#: tracked sweeps) and rot="jacobi_warm" (the cold-start sweeps that stand
+#: in for an exact eigh), decomp.py:572-587.
+_JACOBI_ROUNDS = 6
+_JACOBI_WARM_ROUNDS = 24
+
+
+def _jacobi_round(S: torch.Tensor, W: torch.Tensor, off: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round of exact 2x2 Jacobi rotations on the disjoint adjacent
+    pairs (i, i+1), i = off, off+2, ...: S <- J^H S J, W <- W J
+    (decomp.py:590-638, the same branch rules).  Each rotation's first
+    column is the larger eigenvector of its 2x2 block, so every touched pair
+    leaves in descending order."""
+    k = S.shape[0]
+    cdt, rdt = S.dtype, S.real.dtype
+    idx = torch.arange(k, device=S.device)
+    first = (idx >= off) & ((idx - off) % 2 == 0) & (idx + 1 < k)
+    alpha = torch.diagonal(S).real
+    beta = torch.roll(alpha, -1)
+    woff = torch.cat([torch.diagonal(S, 1), torch.zeros(1, dtype=cdt,
+                                                        device=S.device)])
+    aw = torch.abs(woff)
+    half = (alpha - beta) / 2
+    root = torch.sqrt(half * half + aw * aw)
+    mu_p = (alpha + beta) / 2 + root
+    use_hi = alpha >= beta
+    x = torch.where(use_hi, (mu_p - beta).to(cdt), woff)
+    y = torch.where(use_hi, woff.conj(), (mu_p - alpha).to(cdt))
+    n = torch.sqrt(torch.abs(x) ** 2 + torch.abs(y) ** 2)
+    live = first & (n > torch.finfo(rdt).tiny ** 0.5)
+    n_safe = torch.where(live, n, torch.ones_like(n)).to(cdt)
+    one = torch.ones_like(x)
+    x = torch.where(live, x / n_safe, one)
+    y = torch.where(live, y / n_safe, torch.zeros_like(y))
+    # J: column i = (x, y) at rows (i, i+1); column i+1 = (-conj(y), conj(x))
+    diag = torch.where(live, x, one)
+    diag = torch.where(torch.roll(live, 1), torch.roll(x.conj(), 1), diag)
+    J = (torch.diag(diag) + torch.diag((-y.conj())[:-1], 1)
+         + torch.diag(y[:-1], -1))
+    S2 = J.conj().T @ (S @ J)
+    return (S2 + S2.conj().T) / 2, W @ J
+
+
+def _ritz_rot_jacobi(S: torch.Tensor, rounds: int = _JACOBI_ROUNDS
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Matmul-only eigen-tracker: ``rounds`` alternating odd-even rounds of
+    ``_jacobi_round`` on S scaled by max |diag S| (decomp.py:641-672).
+    Returns (w, W) in ROUND ORDER, not sorted, as the fused kernel K12cr
+    (which cannot reorder columns) returns them."""
+    nf = torch.clamp(torch.max(torch.abs(torch.diagonal(S))), min=_tiny(S))
+    Sn = S / nf
+    W = torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
+    for r in range(rounds):
+        Sn, W = _jacobi_round(Sn, W, r % 2)
+    return torch.diagonal(Sn).real * nf, W
+
+
+def _ritz_rot(S: torch.Tensor, rot: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ritz splits' eigen-rotation (decomp.py:675-690): the exact eigh
+    (descending), the realified eigh ("eigh_r", complex S), or the eigh-free
+    trackers "track", "jacobi" and "jacobi_warm"."""
+    if rot == "track":
+        return _ritz_rot_track(S)
+    if rot == "jacobi":
+        return _ritz_rot_jacobi(S)
+    if rot == "jacobi_warm":
+        return _ritz_rot_jacobi(S, rounds=_JACOBI_WARM_ROUNDS)
+    if rot == "eigh_r" and S.is_complex():
+        return _ritz_rot_eigh_realified(S)
+    return _eigh_desc(S)
+
+
+def warm_ritz_split_left(M: torch.Tensor, V0: torch.Tensor, keep: int,
+                         cutoff, q: int = 1, refresh: bool = True,
+                         max_rank=None, orth: str = "qr", rot: str = "eigh"
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``warm_split_left`` plus a per-bond Rayleigh-Ritz rotation
+    (svd_alg="randomized_warm_ritz", decomp.py:693-745): the kept basis is
+    rotated by the eigenbasis W of the projected Gram S = (M Q)^H (M Q),
+    and the cutoff mask reads its eigenvalues, decided in sorted order and
+    scattered back to the rotation's column order.  Returns (US, Vh,
+    V_next) with V_next = Q W, rotated and unmasked."""
+    k = min(keep, M.shape[1])
+    Q = (_warm_power(lambda Yp: M.conj().T @ (M @ Yp), V0[:, :k], q, orth)
+         if refresh else V0[:, :k])
+    B = M @ Q
+    w, W = _ritz_rot(B.conj().T @ B, rot)
+    Wm = W * _mask_by_energy(w, keep, cutoff, max_rank)
+    return (_pad_cols(B @ Wm, keep - k),
+            _pad_rows((Q @ Wm).conj().T.resolve_conj(), keep - k),
+            _pad_cols(Q @ W, keep - k))
+
+
+def warm_ritz_split_right(M: torch.Tensor, U0: torch.Tensor, keep: int,
+                          cutoff, q: int = 1, refresh: bool = True,
+                          max_rank=None, orth: str = "qr", rot: str = "eigh"
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mirror of :func:`warm_ritz_split_left` on the row side
+    (decomp.py:748-771); U0 [R, keep]."""
+    k = min(keep, M.shape[0])
+    Q = (_warm_power(lambda Yp: M @ (M.conj().T @ Yp), U0[:, :k], q, orth)
+         if refresh else U0[:, :k])
+    B = Q.conj().T @ M
+    w, W = _ritz_rot(B @ B.conj().T, rot)
+    Wm = W * _mask_by_energy(w, keep, cutoff, max_rank)
+    return (_pad_cols(Q @ Wm, keep - k),
+            _pad_rows(Wm.conj().T @ B, keep - k),
+            _pad_cols(Q @ W, keep - k))
 
 
 def _eigh_desc(G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -188,18 +188,23 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
         log_stats(mps, 0.0)
 
     # ---- sweeps -----------------------------------------------------------
+    # the ritz route's exact -> tracked schedule: sweep i is tracked iff
+    # 0 <= ritz_exact_sweeps <= i (fit.py:261-304, sweep.sweep_schedule)
+    exact_rot, track_rot = opts.resolved_ritz_rots(device)
     sweep_kw = dict(loss=opts.loss_grad, bbopt=opts.bbopt,
                     update_iters=opts.update_iters, rescale=opts.rescale,
                     svd_alg=opts.resolved_svd_alg(device),
                     power_iters=opts.resolved_power_iters(device),
-                    orth=opts.resolved_orth_alg(device))
+                    orth=opts.resolved_orth_alg(device),
+                    ritz_exact_sweeps=opts.ritz_exact_sweeps,
+                    ritz_exact_rot=exact_rot, ritz_track_rot=track_rot)
     if verb >= 1:
         # off the bond kernels a fit runs many small PyTorch operations per
         # bond on the card: say so once
         notice = pallas_route_notice(
             mps.dtype, opts.loss_grad, opts.bbopt, opts.update_iters,
             opts.rescale, sweep_kw["svd_alg"], device,
-            track_cost=opts.track_cost)
+            track_cost=opts.track_cost, ritz_track_rot=track_rot)
         if notice:
             print(notice)
 

@@ -10,8 +10,8 @@ environments and caches are stacked in the same order; the running
 environment is the carry.  Each half-sweep's environment emissions are the
 exact environments the next half-sweep consumes.
 
-Two routes, chosen per configuration as the JAX package chooses between its
-Pallas kernels and XLA (``_ineligible_reasons``):
+Three routes, chosen per configuration as the JAX package chooses between
+its Pallas kernels and XLA (``_ineligible_reasons``, ``_ritz_fused``):
 
   * the bond-kernel route (real float32 with {KLD, MSE} x {TSGO, GD}, or
     complex64 with KLD + TSGO; one update iteration, rescale (False, True),
@@ -23,11 +23,15 @@ Pallas kernels and XLA (``_ineligible_reasons``):
     -> K2 (K1c -> QR -> K2c).  On CUDA tensors these are the hand-written
     kernels; on CPU tensors their plain versions (ops/bond_kernels.py,
     ops/bond_kernels_c.py), the counterpart of Pallas interpret mode;
+  * the fused ritz route (svd_alg "randomized_warm_ritz" on the same
+    complex64 terms, in a sweep whose rotation is "jacobi" or
+    "jacobi_warm"): one K12cr per bond (``bond_step_c_ritz``), sweep.py:
+    319-329;
   * the unfused route, every other configuration, in plain PyTorch on
     the tensors' own device: ``apply_update`` (ops/bond_update.py), the warm
-    split or ``split_bond_*`` (ops/decomp.py), then the scaled environment
-    step (ops/env.py), as the JAX package's XLA bond step
-    (sweep.py:433-455, :576-597).
+    split, the ritz split or ``split_bond_*`` (ops/decomp.py), then the
+    scaled environment step (ops/env.py), as the JAX package's XLA bond
+    step (sweep.py:433-455, :576-597).
 """
 
 from __future__ import annotations
@@ -38,17 +42,27 @@ import torch
 
 from ..options import torch_dtype
 from ..ops.bond_kernels import bond_block_steps, bond_step
-from ..ops.bond_kernels_c import bond_block_steps_c, bond_step_c
+from ..ops.bond_kernels_c import (bond_block_steps_c, bond_step_c,
+                                  bond_step_c_ritz)
 from ..ops.bond_update import apply_update
 from ..ops.decomp import (_np_dtype, split_bond_left, split_bond_right,
+                          warm_ritz_split_left, warm_ritz_split_right,
                           warm_sketch_init, warm_split_left, warm_split_right)
 from ..ops.env import (boundary_env, build_left_envs, env_step_left_scaled,
                        env_step_right_scaled)
+
+RITZ = "randomized_warm_ritz"
+#: The warm splits, which carry per-bond subspace caches across sweeps.
+WARM_ALGS = ("randomized_warm", RITZ)
 
 BOND_BLOCK: Optional[int] = None
 """Override for the multi-bond block size (K12m / K12mc): None = auto (the
 largest of 8/6/4/3/2 that is at most T-1 and the cap), 1 = one bond_step
 per bond."""
+
+
+def _as_torch_dtype(dtype) -> torch.dtype:
+    return dtype if isinstance(dtype, torch.dtype) else torch_dtype(dtype)
 
 
 def _auto_block(T: int, cap: int = 8) -> int:
@@ -66,13 +80,9 @@ def _ineligible_reasons(dtype, loss, bbopt, update_iters, rescale,
                         svd_alg, track_cost: bool = False) -> list:
     """Why a configuration takes the unfused route rather than the bond
     kernels (empty: the kernels), the counterpart of the JAX package's
-    ``_pallas_eligible`` (sweep.py:125-165).  Raises NotImplementedError
-    for what the port does not run yet: the ritz route."""
-    dt = dtype if isinstance(dtype, torch.dtype) else torch_dtype(dtype)
-    if svd_alg == "randomized_warm_ritz":
-        raise NotImplementedError(
-            "svd_alg='randomized_warm_ritz' (the ritz route, kernel K12cr) "
-            "is ROADMAP.md queue 1 item 14 and queue 2 row 12")
+    ``_pallas_eligible`` (sweep.py:125-165).  The ritz route's fused sweeps
+    are ``_ritz_fused``'s."""
+    dt = _as_torch_dtype(dtype)
     reasons = []
     if track_cost:
         reasons.append("track_cost=True (per-bond loss trace)")
@@ -107,14 +117,41 @@ def _kernel_eligible(dtype, loss, bbopt, update_iters, rescale, svd_alg,
                                    svd_alg, track_cost)
 
 
+def _ritz_fused(dtype, loss, bbopt, update_iters, rescale, svd_alg,
+                ritz_rot: str, track_cost: bool = False) -> bool:
+    """Whether a sweep of the ritz route runs one K12cr per bond
+    (sweep.py:319-348): complex64 with the warm kernels' terms (KLD + TSGO,
+    one update iteration, rescale (False, True), no cost tracking) and a
+    Jacobi rotation.  Other ritz sweeps take the unfused route."""
+    dt = _as_torch_dtype(dtype)
+    return (svd_alg == RITZ and ritz_rot in ("jacobi", "jacobi_warm")
+            and dt.is_complex
+            and not _ineligible_reasons(dt, loss, bbopt, update_iters,
+                                        rescale, "randomized_warm",
+                                        track_cost))
+
+
 def pallas_route_notice(dtype, loss, bbopt, update_iters, rescale, svd_alg,
-                        device, track_cost: bool = False) -> Optional[str]:
+                        device, track_cost: bool = False,
+                        ritz_track_rot: str = "jacobi") -> Optional[str]:
     """One line on why a configuration will NOT run on the CUDA bond
-    kernels (None if it will, or if the device is not a GPU)."""
+    kernels (None if it will, or if the device is not a GPU).  A complex
+    ritz fit whose tracked sweeps run K12cr counts as running on them, as
+    in the JAX package (sweep.py:190-206): only its exact sweeps take the
+    unfused route."""
     if torch.device(device).type != "cuda":
         return None
-    reasons = _ineligible_reasons(dtype, loss, bbopt, update_iters, rescale,
-                                  svd_alg, track_cost)
+    dt = _as_torch_dtype(dtype)
+    if svd_alg == RITZ and dt.is_complex:
+        reasons = _ineligible_reasons(dt, loss, bbopt, update_iters, rescale,
+                                      "randomized_warm", track_cost)
+        if ritz_track_rot != "jacobi":
+            reasons.insert(0, f"ritz_rot_track={ritz_track_rot!r} (the ritz "
+                           "route's tracked sweeps run K12cr only with the "
+                           "'jacobi' tracker)")
+    else:
+        reasons = _ineligible_reasons(dt, loss, bbopt, update_iters,
+                                      rescale, svd_alg, track_cost)
     if not reasons:
         return None
     return ("[mpstime_tpu_torch] note: this configuration takes the unfused "
@@ -164,37 +201,45 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
                 class_weight, eta, cutoff, *, loss: str, bbopt: str,
                 update_iters: int, rescale: Tuple[bool, bool], svd_alg: str,
                 power_iters: int = 1, orth: str = "qr",
-                refresh: bool = True, max_rank=None,
+                refresh: bool = True, ritz_rot: str = "eigh", max_rank=None,
                 track_cost: bool = False):
     """One full sweep; center at site T-1 on entry and exit.
 
     LE [T, N, chi] / LE_ls [T, N]: left environments of the current cores
-    (slot t = sites 0..t-1).  VB/UF: the warm-split subspace caches (None
-    unless svd_alg is "randomized_warm", the one warm split ported; the
-    JAX package's "randomized_warm_ritz" is ROADMAP.md queue 1 item 14).
-    Returns (cores, center, LE', LE_ls', VB', UF', costs), LE' being
-    exactly what the next sweep needs;
-    costs is the per-bond loss [2(T-1)] in update order (backward bonds
-    T-2..0, then forward 0..T-2) when ``track_cost``, else None."""
+    (slot t = sites 0..t-1).  VB/UF: the warm splits' subspace caches (None
+    unless svd_alg is one of ``WARM_ALGS``).  ``ritz_rot``: the ritz
+    route's eigen-rotation for this sweep ("eigh", "eigh_r", "track",
+    "jacobi", "jacobi_warm"; ignored off that route).  Returns (cores,
+    center, LE', LE_ls', VB', UF', costs), LE' being exactly what the next
+    sweep needs; costs is the per-bond loss [2(T-1)] in update order
+    (backward bonds T-2..0, then forward 0..T-2) when ``track_cost``, else
+    None."""
     T, chi, d, _ = cores.shape
     C = center.shape[3]
     N = phis_c.shape[1]
     dev = cores.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sweeps run on cpu or cuda, got {dev}")
-    fused = not _ineligible_reasons(cores.dtype, loss, bbopt, update_iters,
-                                    rescale, svd_alg, track_cost)
+    ritz_fused = _ritz_fused(cores.dtype, loss, bbopt, update_iters, rescale,
+                             svd_alg, ritz_rot, track_cost)
+    fused = ritz_fused or not _ineligible_reasons(
+        cores.dtype, loss, bbopt, update_iters, rescale, svd_alg, track_cost)
     cplx = cores.dtype.is_complex
-    warm = svd_alg == "randomized_warm"
+    warm = svd_alg in WARM_ALGS
     e0 = boundary_env(N, chi, cores.dtype, dev)
     ls0 = torch.zeros((N,), dtype=phis_c.real.dtype, device=dev)
 
     def fused_steps(forward: bool):
-        kw = dict(refresh=refresh, power_iters=power_iters, orth=orth,
-                  max_rank=max_rank)
-        # the complex kernels are KLD + TSGO only (the route choice above)
-        step_fn, block_fn = ((bond_step_c, bond_block_steps_c) if cplx
-                             else (bond_step, bond_block_steps))
+        kw = dict(refresh=refresh, power_iters=power_iters, max_rank=max_rank)
+        # the complex kernels are KLD + TSGO only (the route choice above);
+        # K12cr refreshes with tri-Newton whatever the orth
+        if ritz_fused:
+            kw["rot"] = ritz_rot
+            step_fn, block_fn = bond_step_c_ritz, None
+        else:
+            kw["orth"] = orth
+            step_fn, block_fn = ((bond_step_c, bond_block_steps_c) if cplx
+                                 else (bond_step, bond_block_steps))
         block_kw = {} if cplx else dict(bbopt=bbopt)
 
         def step(carry, x):
@@ -218,6 +263,9 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
                                                        ls=ls_b, q=Q)
         return step, block
 
+    wsl, wsr = ((warm_ritz_split_left, warm_ritz_split_right)
+                if svd_alg == RITZ else (warm_split_left, warm_split_right))
+
     def unfused_step(forward: bool):
         def step(carry, x):
             center, env, ls = carry
@@ -232,12 +280,13 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
                 bbopt=bbopt, update_iters=update_iters, rescale=rescale)
             split_kw = dict(max_rank=max_rank, orth=orth)
             warm_kw = dict(q=power_iters, refresh=refresh, **split_kw)
+            if svd_alg == RITZ:
+                warm_kw["rot"] = ritz_rot
             ys = {}
             if forward:
                 M = BT.reshape(chi * d, d * chi * C)
                 if warm:
-                    U, SVh, ys["q"] = warm_split_right(M, x["q"], chi, cutoff,
-                                                       **warm_kw)
+                    U, SVh, ys["q"] = wsr(M, x["q"], chi, cutoff, **warm_kw)
                 else:
                     U, SVh = split_bond_right(M, chi, cutoff, svd_alg,
                                               **split_kw)
@@ -248,8 +297,7 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
                 # rows (a, i, c): the label stays on the sweep side (:166-169)
                 M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
                 if warm:
-                    US, Vh, ys["q"] = warm_split_left(M, x["q"], chi, cutoff,
-                                                      **warm_kw)
+                    US, Vh, ys["q"] = wsl(M, x["q"], chi, cutoff, **warm_kw)
                 else:
                     US, Vh = split_bond_left(M, chi, cutoff, svd_alg,
                                              **split_kw)
@@ -265,9 +313,11 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
     if fused:
         # K12m blocks carry no per-bond opposite-side log-scales (MSE) and
         # refresh with the Newton-Schulz polar only; complex blocks hold at
-        # most 4 bonds and refresh only at q = 1 (sweep.py:467-475)
+        # most 4 bonds and refresh only at q = 1 (sweep.py:467-475); K12cr
+        # runs bond by bond
         blocks = (loss == "KLD" and (orth == "ns" or not refresh)
-                  and not (cplx and refresh and power_iters > 1))
+                  and not (cplx and refresh and power_iters > 1)
+                  and not ritz_fused)
         BB = _auto_block(T, cap=4 if cplx else 8) if blocks else 1
         steps = fused_steps
         center = center.permute(3, 0, 1, 2).contiguous()   # class-major
@@ -315,14 +365,28 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
             costs)
 
 
+def sweep_schedule(i: int, svd_alg: str, refresh_every: int = 1,
+                   ritz_exact_sweeps: int = -1, ritz_exact_rot: str = "eigh",
+                   ritz_track_rot: str = "track") -> Tuple[bool, str]:
+    """(refresh, ritz_rot) of sweep ``i`` (sweep.py:837-870, fit.py:298-
+    304): the warm subspaces refresh on sweeps 0, K, 2K, ... of
+    ``refresh_every=K``; a ritz sweep is tracked (``ritz_track_rot``) iff
+    0 <= ritz_exact_sweeps <= i, else exact (``ritz_exact_rot``), so -1
+    means exact on every sweep and 0 tracked from the first."""
+    tracked = svd_alg == RITZ and 0 <= ritz_exact_sweeps <= i
+    return (i % refresh_every == 0,
+            ritz_track_rot if tracked else ritz_exact_rot)
+
+
 def full_sweeps(cores: torch.Tensor, center: torch.Tensor,
                 phis_c: torch.Tensor, y_onehot: torch.Tensor,
                 class_weight: torch.Tensor, eta, cutoff, *, nsweeps: int,
                 loss: str, bbopt: str, update_iters: int,
                 rescale: Tuple[bool, bool], svd_alg: str,
                 power_iters: int = 1, orth: str = "qr",
-                refresh_every: int = 1, max_rank=None,
-                track_cost: bool = False,
+                refresh_every: int = 1, ritz_exact_sweeps: int = -1,
+                ritz_exact_rot: str = "eigh", ritz_track_rot: str = "track",
+                max_rank=None, track_cost: bool = False,
                 on_sweep: Optional[Callable[..., bool]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``nsweeps`` full sweeps; the left environments and the per-bond
@@ -330,20 +394,24 @@ def full_sweeps(cores: torch.Tensor, center: torch.Tensor,
 
     ``refresh_every=K``: refresh the subspaces (power step + orthogonal
     basis) on sweeps 0, K, 2K, ...; in between, split against the frozen
-    cached bases.  ``on_sweep(i, cores, center, costs)`` runs after each
-    sweep (logging, timing; ``costs`` is the per-bond loss trace when
-    ``track_cost``, else None); returning True stops the loop early."""
+    cached bases.  The ritz route's rotation follows ``sweep_schedule``.
+    ``on_sweep(i, cores, center, costs)`` runs after each sweep (logging,
+    timing; ``costs`` is the per-bond loss trace when ``track_cost``, else
+    None); returning True stops the loop early."""
     T, chi, d, _ = cores.shape
     LE, LE_ls = init_left_env_state(cores, phis_c)
     VB = UF = None
-    if svd_alg == "randomized_warm":
+    if svd_alg in WARM_ALGS:
         VB, UF = init_subspaces(T, chi, d, _np_dtype(cores), cores.device)
     for i in range(nsweeps):
+        refresh, rot = sweep_schedule(i, svd_alg, refresh_every,
+                                      ritz_exact_sweeps, ritz_exact_rot,
+                                      ritz_track_rot)
         cores, center, LE, LE_ls, VB, UF, costs = _sweep_core(
             cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot, class_weight,
             eta, cutoff, loss=loss, bbopt=bbopt, update_iters=update_iters,
             rescale=rescale, svd_alg=svd_alg, power_iters=power_iters,
-            orth=orth, refresh=i % refresh_every == 0, max_rank=max_rank,
+            orth=orth, refresh=refresh, ritz_rot=rot, max_rank=max_rank,
             track_cost=track_cost)
         if on_sweep is not None and on_sweep(i, cores, center, costs):
             break

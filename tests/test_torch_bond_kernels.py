@@ -300,11 +300,23 @@ def test_kernel_eligibility_matches_pallas_conditions():
                    dict(loss="MSE"), dict(svd_alg="gram_eigh")):
         assert not tsweep._kernel_eligible(
             **{**ok, "dtype": torch.complex64, **change})
-    # the ritz route is not ported yet: it raises, naming its ROADMAP item
+    # the ritz route is not the warm kernels' route; its Jacobi-rotated
+    # sweeps run K12cr on complex64 with the same terms (sweep.py:319-348),
+    # every other ritz sweep the unfused route
+    ritz = {**ok, "svd_alg": "randomized_warm_ritz"}
     for dtype in (torch.float32, torch.complex64):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tsweep._kernel_eligible(**{**ok, "dtype": dtype,
-                                       "svd_alg": "randomized_warm_ritz"})
+        assert not tsweep._kernel_eligible(**{**ritz, "dtype": dtype})
+    for rot in ("jacobi", "jacobi_warm"):
+        assert tsweep._ritz_fused(**{**ritz, "dtype": torch.complex64},
+                                  ritz_rot=rot)
+    for change in (dict(ritz_rot="eigh"), dict(ritz_rot="eigh_r"),
+                   dict(ritz_rot="track"), dict(dtype=torch.float32),
+                   dict(dtype=torch.complex128), dict(track_cost=True),
+                   dict(bbopt="GD"), dict(update_iters=2),
+                   dict(svd_alg="randomized_warm")):
+        kw = {**ritz, "dtype": torch.complex64, "ritz_rot": "jacobi",
+              **change}
+        assert not tsweep._ritz_fused(**kw)
     assert tsweep.pallas_route_notice(torch.float32, "KLD", "TSGO", 1,
                                       (False, True), "randomized_warm",
                                       "cuda") is None

@@ -1,7 +1,8 @@
 """The port's CUDA bond kernels (K12, K12m, K1, K2 and the complex K12c,
-K12mc, K1c, K2c) held against their plain PyTorch versions on the card.  These tests need an NVIDIA GPU with nvcc and
-skip without one.  This file imports nothing of JAX, so it runs where JAX
-is not installed; tests/conftest.py does import JAX, hence --noconftest:
+K12mc, K1c, K2c, K12cr) held against their plain PyTorch versions on the
+card.  These tests need an NVIDIA GPU with nvcc and skip without one.
+This file imports nothing of JAX, so it runs where JAX is not installed;
+tests/conftest.py does import JAX, hence --noconftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -357,5 +358,87 @@ def test_complex_fit_on_cuda_runs_the_complex_kernels(bk, kw, want):
     assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), **want}
     assert sum(bk.PLAIN_CALLS.values()) == 0
     assert trained.mps.center.is_cuda
+    assert trained.mps.center.dtype == torch.complex64
+    assert bool(torch.isfinite(trained.mps.center).all())
+
+
+# ---- the ritz kernel K12cr --------------------------------------------------
+
+RITZ_SHAPE = dict(C=2, chi=64, d=5, N=100)     # the ritz cell's bond shape
+# the raw outputs at a wider bound than the other kernels': Jacobi rounds on
+# a random Gram turn float32 rounding into rotations inside near-degenerate
+# pairs (a gauge); the gauge invariants at RTOL / ATOL
+RITZ_RTOL, RITZ_ATOL = 1e-3, 2e-4
+
+
+def _ritz_invariants(out, forward):
+    center, core, env, ls, Q = out
+    if forward:
+        rec = torch.einsum("aim,cmkb->caikb", core, center)
+        inv = torch.einsum("nm,akm->nak", env, core.conj())
+    else:
+        rec = torch.einsum("caim,mkb->caikb", center, core)
+        inv = torch.einsum("nm,mkb->nkb", env, core.conj())
+    return rec, inv, ls, Q @ Q.conj().T
+
+
+def _kept(core, forward):
+    if forward:
+        return (core != 0).any(dim=0).any(dim=0)
+    return (core != 0).any(dim=-1).any(dim=-1)
+
+
+@pytest.mark.parametrize("shape", [RITZ_SHAPE, dict(C=2, chi=8, d=3, N=16)],
+                         ids=["chi64", "chi8"])
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh,q,rounds,mr", [
+    (True, 1, 6, None), (False, 1, 6, None), (True, 3, 24, None),
+    (True, 1, 6, 5)])
+def test_k12cr_kernel_matches_plain(bk, bkc, shape, forward, refresh, q,
+                                    rounds, mr):
+    x = _inputs_c(27, 1, **shape)
+    kw = dict(forward=forward, refresh=refresh, power_iters=q,
+              rounds=rounds, max_rank=mr)
+    n0 = bk.LAUNCHES["k12cr"]
+    got = bkc.bond_step_c_ritz(*_single(x, forward),
+                               rot="jacobi" if rounds == 6 else "jacobi_warm",
+                               **{k: v for k, v in kw.items()
+                                  if k != "rounds"})
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k12cr"] == n0 + 1
+    ref = bkc.k12cr_plain(*_single(x, forward), **kw)
+    _close(got, ref, rtol=RITZ_RTOL, atol=RITZ_ATOL)
+    _close(_ritz_invariants(got, forward), _ritz_invariants(ref, forward))
+    assert torch.equal(_kept(got[1], forward), _kept(ref[1], forward))
+
+
+def test_k12cr_refuses_what_it_does_not_cover(bkc):
+    x = _inputs_c(28, 1, **RITZ_SHAPE)
+    with pytest.raises(ValueError, match="Jacobi"):
+        bkc.bond_step_c_ritz(*_single(x, False), forward=False, rot="eigh")
+    args = list(_single(x, False))
+    args[1] = args[1].to(torch.complex128)
+    with pytest.raises(ValueError, match="complex64"):
+        bkc.k12cr_cuda(*args, forward=False)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(), {"k12cr": 2 * 23}),
+    (dict(ritz_rot_exact="jacobi"), {"k12cr": 3 * 2 * 23}),
+    (dict(ritz_rot_track="track"), {})])
+def test_ritz_fit_on_cuda_runs_k12cr_on_jacobi_sweeps(bk, kw, want):
+    # 3 sweeps at ritz_exact_sweeps=2: two exact (unfused), one tracked
+    import mpstime_tpu_torch as mt
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40, :24], data["y_train"][:40]
+    bk.reset_counts()
+    trained, _, _ = mt.fit_mps(
+        Xtr, ytr, opts=mt.MPSOptions(encoding="fourier", nsweeps=3,
+                                     chi_max=12, d=3, verbosity=-1,
+                                     log_level=-1,
+                                     svd_alg="randomized_warm_ritz", **kw),
+        device="cuda")
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), **want}
+    assert sum(bk.PLAIN_CALLS.values()) == 0
     assert trained.mps.center.dtype == torch.complex64
     assert bool(torch.isfinite(trained.mps.center).all())

@@ -158,14 +158,15 @@ def test_encode_dataset_casts_to_model_dtype_and_empty_sets():
     ("hist_split_uniform", "item 4"), ("custom", "item 4")])
 def test_unported_encodings_name_their_roadmap_item(name, item):
     if item == "item 14":
-        # the complex encodings are ported; what stays of item 14 is the
-        # ritz route, where their fits at chi_max > 40 resolve on the card
+        # item 14 is ported: the complex encodings, and the ritz route their
+        # fits at chi_max > 40 resolve to on the card, whose tracked sweeps
+        # run K12cr
         assert get_encoding(name).is_complex
         opts = mt.MPSOptions(encoding=name, chi_max=64)
-        with pytest.raises(NotImplementedError, match=item):
-            tsweep._kernel_eligible(opts.resolved_dtype(), "KLD", "TSGO", 1,
-                                    (False, True),
-                                    opts.resolved_svd_alg("cuda"))
+        assert tsweep._ritz_fused(opts.resolved_dtype(), "KLD", "TSGO", 1,
+                                  (False, True),
+                                  opts.resolved_svd_alg("cuda"),
+                                  opts.resolved_ritz_rots("cuda")[1])
         return
     with pytest.raises(NotImplementedError, match=item):
         get_encoding(name)

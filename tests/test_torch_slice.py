@@ -210,8 +210,6 @@ def test_default_options_on_cpu_resolve_to_unported_gram_eigh(slice_data):
     (dict(mesh=object()), "item 16"), (dict(test_run=True), "item 18"),
     (dict(pad_samples_to=64), "item 18"),
     (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "pad_to": (10, 4)})), "item 18"),
-    (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "dtype": "complex64",
-                                "svd_alg": "randomized_warm_ritz"})), "item 14"),
 ])
 def test_unported_fit_configurations_raise(slice_data, kw, match):
     Xtr, ytr, _, _ = slice_data
