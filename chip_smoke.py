@@ -47,6 +47,18 @@ Phases, one status line each; any failure exits non-zero:
      band, then classify, and the same fit with an exact eigh on every
      sweep (no kernel) and at two more init seeds (reported); then one
      tracked sweep under torch.profiler.
+ 11. dp kernels: K1a, K1b, K2-split and K2-env against their plain versions
+     at the main-path shape (unit environment rows, as a sweep hands them
+     over) over their variant grids, the chain K1a -> K1b -> K2-split ->
+     K2-env on one shard against K12 and against K1 -> QR -> K2, one bond on
+     two shards of the card against one shard, the batch-tiled bond step
+     (stream_tile=32) against the unstreamed one; then each kernel's time
+     beside its plain version's.
+ 12. dp path: fit_mps on ECG200 at the default MPSOptions on make_mesh(1)
+     (every bond K1a -> sum -> K1b -> K2-split -> K2-env), its counts read
+     from its own run, its sweep-1 train KLD against the single-device
+     fused fit's, then classify; the same fit on two shards of the card
+     (Mesh(["cuda:0"] * 2)); one sweep of each under torch.profiler.
 Then the ptxas line (registers and spills of each kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
 bound, the least time the card could take for the work of the timed call:
@@ -77,6 +89,14 @@ RTOL, ATOL = 1e-4, 3e-5          # as tests/test_pallas_bond.py:73-82
 CHAIN_ATOL = 1e-6                # K12m vs chained K12 launches
 ACC_FLOOR = 0.85                 # f32 floor of the JAX hardware lane
 QR_ACC_FLOOR = 0.80              # below the 0.84-0.91 seed spread of the ns route
+DP_KLD_RTOL = 1e-3               # dp on one shard vs the fused fit, sweep 1
+# two shards against one after 10 sweeps: the order of summing the gradient
+# moves a first sweep's KLD by up to 2x (as rounding of the inputs does,
+# tests/torch_dp_spread.py), and the fits meet again within 0.6 % by sweep
+# 10 on 1, 2 and 4 shards (the same script's fits on the CPU)
+DP2_FINAL_KLD_RTOL = 2e-2
+STREAM_RTOL, STREAM_ATOL = 2e-4, 1e-5   # tests/test_pallas_bond.py:559
+DP2_BOND_ATOL = 1e-4             # one bond, shards (test_parallel.py:199-212)
 FOURIER_ACC = (0.60, 0.92)       # the JAX lane's c64 band (tests/test_tpu_lane.py:134)
 RITZ_ACC = (0.55, 0.95)          # the JAX lane's ritz band (tests/test_tpu_lane.py:182)
 # K12cr against its plain version: the raw outputs at a wider bound, since
@@ -166,7 +186,9 @@ def ptxas_summary(log: str) -> str:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             kern = next((k for k in ("k12cr_kernel", "k12m_kernel",
-                                     "k1_kernel", "k2_kernel")
+                                     "k1_kernel", "k2_kernel", "k1a_kernel",
+                                     "k1b_kernel", "k2_split_kernel",
+                                     "k2_env_kernel")
                          if k in mangled), mangled)
             name = f"{kern}<{'cfloat' if 'cfloat' in mangled else 'float'}>"
             spill = "0"
@@ -214,6 +236,31 @@ def k2_args(bk, x, forward: bool):
     Q = torch.linalg.qr(Y).Q.contiguous()
     env, phi = (le, x["phil"][0]) if forward else (re, x["phir"][0])
     return BT, Q, env, x["ls0"], phi, 1e-10
+
+
+def dp_args(seed: int, forward: bool):
+    """One bond's operands at the main-path shape with unit environment
+    rows, as a sweep hands them over: (A, center, le, re, phil, phir, y1h,
+    w, gls, V0, env, env_ls, phi), env / phi the advancing side's."""
+    x = bond_inputs(seed, 1, **SHAPE)
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    le, re = (t / t.norm(dim=1, keepdim=True) for t in (le, re))
+    env, phi = (le, x["phil"][0]) if forward else (re, x["phir"][0])
+    return (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+            x["y1h"], x["w"], x["ls0"] + x["opp"], x["V0"][0], env,
+            x["ls0"], phi)
+
+
+def dp_step(bk, mesh, args, forward: bool, **kw):
+    """bond_step_dp over ``mesh``'s shards of one bond's operands (``args``
+    as ``k12_args``'), its per-shard outputs joined."""
+    n = len(mesh)
+    out = bk.bond_step_dp(mesh, [args[0]], [args[1]],
+                          *(list(t.chunk(n)) for t in args[2:9]), [args[9]],
+                          args[10], args[11], forward=forward, **kw)
+    return (out[0][0], out[1][0], torch.cat(out[2]), torch.cat(out[3]),
+            out[4][0])
 
 
 def compare_all(name, got, ref, atol=ATOL, rtol=RTOL) -> float:
@@ -293,6 +340,53 @@ def k2_work(C, chi, d, N, cplx=False):
     reads = b * (C * P * P + P * K + N * chi + N * d) + 4 * N
     writes = b * (C * chi * d * chi + chi * d * chi + N * chi) + 4 * N
     return ops, reads + writes
+
+
+def k1a_work(C, chi, d, N, *, mse=False):
+    """(float32 operations, bytes) of one K1a call: the bond tensor, the
+    batch products and the gradient; G [C, chi*d, d, chi] written once."""
+    m, e, b = _units(False)
+    P = chi * d
+    ops = (m * (C * P * P * chi + 2 * C * N * P * P + N * C * P)
+           + e * (2 * N * P + C * N * P + 3 * N * C))
+    reads = b * (P * chi * (C + 1) + 2 * N * chi + 2 * N * d)
+    reads += 4 * (N * C + N + (N if mse else 0))
+    return ops, reads + b * C * P * P
+
+
+def k1b_work(C, chi, d, *, emit_y=True, q=1, qr=False):
+    """(float32 operations, bytes) of one K1b call: the bond tensor, the
+    step against G, the renormalisation and q power steps (Newton-Schulz
+    polar unless qr)."""
+    m, e, b = _units(False)
+    P, K = chi * d, chi
+    ops = m * C * P * P * chi + e * 6 * C * P * P
+    if emit_y:
+        ns = 0 if qr else (8 * (K * K * P + K ** 3 + P * K * K)
+                           + 6 * (K * K * P + P * K * K))
+        ops += q * (m * (2 * C * P * K * P + ns) + e * 6 * P * K)
+    reads = b * (P * chi * (C + 1) + C * P * P + P * K)
+    return ops, reads + b * (C * P * P + P * K)
+
+
+def k2_split_work(C, chi, d):
+    """(float32 operations, bytes) of one K2-split call: the projection,
+    the energies, the mask and the emission."""
+    m, e, b = _units(False)
+    P, K = chi * d, chi
+    ops = m * C * P * K * P + e * (3 * C * P * K + 3 * K * K + 2 * P * K)
+    reads = b * (C * P * P + P * K)
+    return ops, reads + b * (C * chi * d * chi + chi * d * chi + P * K)
+
+
+def k2_env_work(chi, d, N):
+    """(float32 operations, bytes) of one K2-env call: the batch factor, the
+    advance through Qm and the per-sample renormalisation."""
+    m, e, b = _units(False)
+    P, K = chi * d, chi
+    ops = m * N * K * P + e * (N * P + 3 * N * K)
+    reads = b * (P * K + N * chi + N * d) + 4 * N
+    return ops, reads + b * N * chi + 4 * N
 
 
 def k12_work(C, chi, d, N, *, Bb=1, refresh=True, q=1, mse=False,
@@ -1047,6 +1141,212 @@ def main() -> int:
           "kernel: " + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top)
           + f" ({card})", flush=True)
 
+    # ---- 11. dp kernels ---------------------------------------------------
+    from mpstime_tpu_torch.parallel import Mesh, make_mesh
+    one = make_mesh(1)
+    derr = dict.fromkeys(("k1a", "k1b", "k2_split", "k2_env"), 0.0)
+    for i, (forward, loss) in enumerate((f, l) for f in (False, True)
+                                        for l in ("KLD", "MSE")):
+        a = dp_args(1200 + i, forward)[:9]
+        got = bk.k1a_cuda(*a, forward=forward, loss=loss)
+        torch.cuda.synchronize()
+        derr["k1a"] = max(derr["k1a"], compare_all(
+            f"K1a {forward} {loss}", [got],
+            [bk.k1a_plain(*a, forward=forward, loss=loss)]))
+    k1b_grid = [(f, e, q, o, b) for f in (False, True)
+                for e, q, o, b in ((True, 1, "ns", "TSGO"),
+                                   (True, 3, "ns", "TSGO"),
+                                   (True, 1, "qr", "TSGO"),
+                                   (True, 3, "qr", "GD"),
+                                   (False, 1, "qr", "TSGO"))]
+    for i, (forward, emit_y, q, orth, bbopt) in enumerate(k1b_grid):
+        a = dp_args(1300 + i, forward)
+        G = bk.k1a_plain(*a[:9], forward=forward)
+        kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth,
+                  bbopt=bbopt)
+        got = bk.k1b_cuda(a[0], a[1], G, a[9], 0.05, **kw)
+        torch.cuda.synchronize()
+        derr["k1b"] = max(derr["k1b"], compare_all(
+            f"K1b {kw}", got, bk.k1b_plain(a[0], a[1], G, a[9], 0.05, **kw)))
+    for i, (forward, mr) in enumerate((f, m) for f in (False, True)
+                                      for m in (None, 17)):
+        a = dp_args(1400 + i, forward)
+        BT, Y = bk.k1_plain(*a[:10], 0.05, forward=forward)
+        Q = torch.linalg.qr(Y).Q.contiguous()
+        got = bk.k2_split_cuda(BT, Q, 1e-10, forward=forward, max_rank=mr)
+        torch.cuda.synchronize()
+        ref = bk.k2_split_plain(BT, Q, 1e-10, forward=forward, max_rank=mr)
+        derr["k2_split"] = max(derr["k2_split"], compare_all(
+            f"K2-split {forward} max_rank={mr}", got, ref))
+        check(bool(torch.equal(got[2] != 0, ref[2] != 0)),
+              f"K2-split {forward} max_rank={mr}: kept ranks differ")
+        env, ls, phi = a[10:]
+        got = bk.k2_env_cuda(ref[2], env, ls, phi, forward=forward)
+        torch.cuda.synchronize()
+        derr["k2_env"] = max(derr["k2_env"], compare_all(
+            f"K2-env {forward} max_rank={mr}", got,
+            bk.k2_env_plain(ref[2], env, ls, phi, forward=forward)))
+    print(f"[kernel-vs-plain] K1a 4 cases, max |err| {derr['k1a']:.3e}; K1b "
+          f"{len(k1b_grid)} cases, max |err| {derr['k1b']:.3e}; K2-split 4 "
+          f"cases, max |err| {derr['k2_split']:.3e}; K2-env 4 cases, max "
+          f"|err| {derr['k2_env']:.3e} (rtol {RTOL}, atol {ATOL}); kept ranks "
+          "equal", flush=True)
+    err.update(derr)
+    # the chain on one shard is K12's and K1 -> QR -> K2's arithmetic; two
+    # shards of the card sum the gradient in another order
+    chain_err = two_err = 0.0
+    for i, forward in enumerate((False, True)):
+        x = bond_inputs(1500 + i, 1, **SHAPE)
+        args = k12_args(x, forward)
+        chain_err = max(chain_err, compare(
+            f"dp chain (ns) {forward} vs K12", dp_step(bk, one, args, forward,
+                                                       orth="ns"),
+            bk.k12_cuda(*args, forward=forward), forward, atol=CHAIN_ATOL,
+            rtol=0.0))
+        chain_err = max(chain_err, compare(
+            f"dp chain (qr) {forward} vs K1 -> QR -> K2",
+            dp_step(bk, one, args, forward, orth="qr"),
+            bk.qr_bond_step(*args, forward=forward, plain=False), forward,
+            atol=CHAIN_ATOL, rtol=0.0))
+        two_err = max(two_err, compare(
+            f"dp bond on two shards {forward}",
+            dp_step(bk, Mesh(["cuda:0"] * 2), args, forward, orth="ns"),
+            dp_step(bk, one, args, forward, orth="ns"), forward,
+            atol=DP2_BOND_ATOL, rtol=0.0))
+    stream_err = 0.0
+    for i, (forward, orth) in enumerate((f, o) for f in (False, True)
+                                        for o in ("ns", "qr")):
+        x = bond_inputs(1600 + i, 1, **SHAPE)
+        n0 = bk.LAUNCHES["k1a"]
+        got = bk.bond_step(*k12_args(x, forward), forward=forward, orth=orth,
+                           stream_tile=32)
+        check(bk.LAUNCHES["k1a"] == n0 + 4, "stream: 4 tiles of 100 rows")
+        stream_err = max(stream_err, compare(
+            f"stream {forward} {orth}", got,
+            bk.bond_step(*k12_args(x, forward), forward=forward, orth=orth),
+            forward, atol=STREAM_ATOL, rtol=STREAM_RTOL))
+    print(f"[kernel-vs-plain] K1a -> K1b -> K2-split -> K2-env on one shard "
+          f"vs K12 and vs K1 -> QR -> K2, 4 cases, max |err| {chain_err:.3e} "
+          f"(atol {CHAIN_ATOL}); one bond on two shards of the card vs one "
+          f"shard, 2 cases, max |err| {two_err:.3e} (atol {DP2_BOND_ATOL}); "
+          "kept ranks equal", flush=True)
+    print(f"[stream] bond_step(stream_tile=32) at N=100 (4 tiles) vs the "
+          f"unstreamed bond step, ns and qr, both directions: max |err| "
+          f"{stream_err:.3e} (rtol {STREAM_RTOL}, atol {STREAM_ATOL}); kept "
+          "ranks equal", flush=True)
+    xd = dp_args(21, False)
+    G1 = bk.k1a_cuda(*xd[:9], forward=False)
+    BTd, Yd = bk.k1b_cuda(xd[0], xd[1], G1, xd[9], 0.05, forward=False,
+                          orth="ns")
+    _, _, Qm1 = bk.k2_split_cuda(BTd, Yd, 1e-10, forward=False)
+    env1, ls1, phi1 = xd[10:]
+    times["k1a"] = (time_ms(lambda: bk.k1a_cuda(*xd[:9], forward=False)),
+                    time_ms(lambda: bk.k1a_plain(*xd[:9], forward=False)))
+    kwb = dict(forward=False, orth="ns")
+    times["k1b"] = (
+        time_ms(lambda: bk.k1b_cuda(xd[0], xd[1], G1, xd[9], 0.05, **kwb)),
+        time_ms(lambda: bk.k1b_plain(xd[0], xd[1], G1, xd[9], 0.05, **kwb)))
+    times["k2_split"] = (
+        time_ms(lambda: bk.k2_split_cuda(BTd, Yd, 1e-10, forward=False)),
+        time_ms(lambda: bk.k2_split_plain(BTd, Yd, 1e-10, forward=False)))
+    times["k2_env"] = (
+        time_ms(lambda: bk.k2_env_cuda(Qm1, env1, ls1, phi1, forward=False)),
+        time_ms(lambda: bk.k2_env_plain(Qm1, env1, ls1, phi1,
+                                        forward=False)))
+    print("[timing] dp pieces of one backward refresh bond (KLD, TSGO, ns, q "
+          "1, N 100): " + "; ".join(
+              f"{k} {times[k][0]:.3f} ms vs plain {times[k][1]:.3f} ms"
+              for k in ("k1a", "k1b", "k2_split", "k2_env"))
+          + f" ({card})", flush=True)
+
+    # ---- 12. dp path -------------------------------------------------------
+    # the single-device fused fit's first sweep, for the dp fit to meet
+    _, f_info, _ = mt.fit_mps(Xtr, ytr, Xte, yte, mt.MPSOptions(
+        verbosity=-1, log_level=1, nsweeps=1), device="cuda")
+    fused_kld = float(f_info["train_KL_div"][1])
+    dp_runs, dp_counts = {}, {}
+    for label, mesh in (("dp-path", make_mesh(1)),
+                        ("dp2-path", Mesh(["cuda:0"] * 2))):
+        n = len(mesh)
+        bk.reset_counts()
+        d_trained, d_info, _ = mt.fit_mps(
+            Xtr, ytr, Xte, yte, mt.MPSOptions(verbosity=-1, log_level=1),
+            mesh=mesh)
+        d_launches, d_plain = dict(bk.LAUNCHES), dict(bk.PLAIN_CALLS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_preds = mt.classify(d_trained, Xte)
+        torch.cuda.synchronize()
+        d_classify_s = time.perf_counter() - t0
+        d_acc = float(np.mean(d_preds == yte))
+        m = d_trained.mps
+        check(m.center.device == torch.device("cuda", 0),
+              f"{label}: model on {m.center.device}")
+        for t in (m.cores, m.center):
+            check(bool(torch.isfinite(t).all()),
+                  f"{label}: non-finite weights")
+        want = {**dict.fromkeys(bk.LAUNCHES, 0), "k1a": 1900 * n,
+                "k1b": 1900, "k2_split": 1900, "k2_env": 1900 * n}
+        check(d_launches == want, f"{label}: launches {d_launches} != {want}")
+        check(sum(d_plain.values()) == 0, f"{label}: plain calls {d_plain}")
+        check(mesh.reductions == 1900, f"{label}: {mesh.reductions} "
+              "reductions, not one a bond")
+        check(d_acc >= QR_ACC_FLOOR, f"{label}: test accuracy {d_acc} < "
+              f"{QR_ACC_FLOOR}")
+        kld = [float(v) for v in d_info["train_KL_div"]]
+        dp_runs[label], dp_counts[label] = kld, d_launches
+        line = (f"[{label}] ECG200 default MPSOptions on {mesh}: test "
+                f"accuracy {d_acc:.4f} (train "
+                f"{float(d_info['train_acc'][-1]):.4f}); median sweep "
+                f"{statistics.median(d_info['sweep_seconds'][1:]):.4f} s "
+                f"(after 1 warm sweep); classify {d_classify_s:.4f} s for "
+                f"{len(Xte)} series; train KLD by sweep "
+                f"{[round(v, 4) for v in kld]}; launches "
+                f"{ {k: v for k, v in d_launches.items() if v} }; plain calls "
+                f"{sum(d_plain.values())}; reductions {mesh.reductions}")
+        if n == 1:
+            rel = abs(kld[1] - fused_kld) / abs(fused_kld)
+            check(rel <= DP_KLD_RTOL, f"dp-path: sweep-1 train KLD {kld[1]} "
+                  f"vs the fused fit's {fused_kld}: {rel:.3e} relative")
+            line += (f"; sweep-1 train KLD {kld[1]:.6f} vs the fused fit's "
+                     f"{fused_kld:.6f} ({rel:.2e} relative, held to "
+                     f"{DP_KLD_RTOL})")
+        else:
+            one_kld = dp_runs["dp-path"]
+            rel1 = abs(kld[1] - one_kld[1]) / abs(one_kld[1])
+            rel = abs(kld[-1] - one_kld[-1]) / abs(one_kld[-1])
+            check(rel <= DP2_FINAL_KLD_RTOL, f"dp2-path: final train KLD "
+                  f"{kld[-1]} vs dp-path's {one_kld[-1]}: {rel:.3e} relative")
+            line += (f"; vs dp-path: sweep-1 train KLD {rel1:.2e} relative "
+                     f"(reported), final {rel:.2e} (held to "
+                     f"{DP2_FINAL_KLD_RTOL})")
+        print(line + f" ({card})", flush=True)
+    dp_launches = dp_counts["dp-path"]
+    # where a dp sweep's device time goes: one sweep on one and two shards
+    for label, mesh in (("one shard", make_mesh(1)),
+                        ("two shards of the card", Mesh(["cuda:0"] * 2))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, p_info, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
+                verbosity=-1, log_level=-1, nsweeps=1), mesh=mesh)
+            torch.cuda.synchronize()
+        dev = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        busy = sum(dev.values())
+        wall = 1e3 * sum(p_info["sweep_seconds"])
+        parts = {k: sum(v for n, v in dev.items() if k + "_kernel" in n)
+                 for k in ("k1a", "k1b", "k2_split", "k2_env")}
+        copies = {n: v for n, v in dev.items() if "emcpy" in n}
+        print(f"[dp-profile] one sweep on {label} (default options): device "
+              f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
+              f"({100 * busy / wall:.1f} %); " + "; ".join(
+                  f"{k} {v:.1f} ms ({100 * v / max(busy, 1e-9):.1f} %)"
+                  for k, v in parts.items())
+              + f"; the rest {busy - sum(parts.values()):.1f} ms; copies "
+              f"{ {k[:40]: round(v, 3) for k, v in copies.items()} } "
+              f"({card})", flush=True)
+
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex and ritz
     # ones timed above
@@ -1056,7 +1356,10 @@ def main() -> int:
             "k12mc": k12_work(**SHAPE, Bb=4, refresh=False, cplx=True),
             "k1c": k1_work(**SHAPE, q=3, cplx=True),
             "k2c": k2_work(**SHAPE, cplx=True),
-            "k12cr": k12cr_work(**RITZ_SHAPE)}
+            "k12cr": k12cr_work(**RITZ_SHAPE),
+            "k1a": k1a_work(**SHAPE), "k1b": k1b_work(2, 25, 5),
+            "k2_split": k2_split_work(2, 25, 5),
+            "k2_env": k2_env_work(25, 5, 100)}
     real_src = (KERNEL_SRC, "mpstime_tpu/ops/pallas_bond.py")
     cplx_src = (KERNEL_SRC_C, "mpstime_tpu/ops/pallas_bond_c.py")
     rows = (("K12", "k12", real_src, ":863", mse_launches["k12"]),
@@ -1067,7 +1370,12 @@ def main() -> int:
             ("K12mc", "k12mc", cplx_src, ":1075", cq_launches["k12mc"]),
             ("K1c", "k1c", cplx_src, ":368", cq_launches["k1c"]),
             ("K2c", "k2c", cplx_src, ":639", cq_launches["k2c"]),
-            ("K12cr", "k12cr", cplx_src, ":913", r_launches["k12cr"]))
+            ("K12cr", "k12cr", cplx_src, ":913", r_launches["k12cr"]),
+            ("K1a", "k1a", real_src, ":470", dp_launches["k1a"]),
+            ("K1b", "k1b", real_src, ":527", dp_launches["k1b"]),
+            ("K2-split", "k2_split", real_src, ":771",
+             dp_launches["k2_split"]),
+            ("K2-env", "k2_env", real_src, ":784", dp_launches["k2_env"]))
     kernels = []
     for name, key, (src, ref_file), line, n in rows:
         b_ms, b_by = bound(work[key])

@@ -41,6 +41,21 @@
 // block-wide sums use a fixed tree, so results are deterministic.  Spreading
 // a bond over several SMs, wgmma and TMA are left for later work.
 //
+// K1a, K1b, K2-split and K2-env replace _k1_grad_kernel, _k1_update_kernel,
+// _k2_split_kernel and _k2_env_kernel of the same file: the bond step of a
+// data-parallel mesh (K1a on each shard, one sum of the gradients across
+// shards, K1b -> QR -> K2-split on each replica, K2-env on each shard) and of
+// the batch-tiled route (the same pieces over row tiles of one device).  They
+// recompose K12's device functions: K1a is the bond tensor and the gradient
+// half of k1_update, K1b the bond tensor, the step half against the summed
+// gradient and the power step, K2-split the projection, mask and emission
+// with the masked isometry Qm written out, K2-env the environment advance
+// through Qm.  At the main-path shape (C = 2, chi = 25, d = 5, N = 100 per
+// shard) K1a is ~7.1 M multiply-adds, K1b ~4.7 M with the Newton-Schulz
+// power step, K2-split ~0.8 M and K2-env ~0.3 M: latency-bound like K12 and
+// run the same way, one thread block per launch.  The gradient G
+// [C, chi*d, d, chi] (250 KB) is the only operand that crosses devices.
+//
 // C interface (ctypes): pointers as void*, the stream as a void* handle; the
 // launch goes to the caller's current device and returns cudaGetLastError().
 
@@ -93,6 +108,47 @@ int mpst_k2_launch(const void* bt, const void* q, const void* env,
   return mpst::launch_k2<float>(bt, q, env, env_ls, phi, center_out,
                                 core_out, env_out, ls_out, ws, C, chi, d, N,
                                 forward, cutoff, max_rank, stream);
+}
+
+// K1a.  gls: [N] total log-scales (MSE only, else null).  Scratch:
+// mpst_k12_workspace_floats(C, chi, d, N).
+int mpst_k1a_launch(const void* lhs, const void* center0, const void* le,
+                    const void* re, const void* gls, const void* phil,
+                    const void* phir, const void* y1h, const void* w,
+                    void* g_out, void* ws, int C, int chi, int d, int N,
+                    int forward, int mse, void* stream) {
+  return mpst::launch_k1a<float>(lhs, center0, le, re, gls, phil, phir, y1h,
+                                 w, g_out, ws, C, chi, d, N, forward, mse,
+                                 stream);
+}
+
+// K1b.  g: the reduced gradient [C, chi*d, d, chi].  Scratch:
+// mpst_k12_workspace_floats(C, chi, d, 0).
+int mpst_k1b_launch(const void* lhs, const void* center0, const void* g,
+                    const void* v0, void* bt_out, void* y_out, void* ws,
+                    int C, int chi, int d, int forward, int emit_y,
+                    int q_iters, int qr, int gd, float eta, void* stream) {
+  return mpst::launch_k1b<float>(lhs, center0, g, v0, bt_out, y_out, ws, C,
+                                 chi, d, forward, emit_y, q_iters, qr, gd,
+                                 eta, stream);
+}
+
+// K2-split.  Scratch: mpst_k12_workspace_floats(C, chi, d, 0).
+int mpst_k2_split_launch(const void* bt, const void* q, void* center_out,
+                         void* core_out, void* qm_out, void* ws, int C,
+                         int chi, int d, int forward, float cutoff,
+                         float max_rank, void* stream) {
+  return mpst::launch_k2_split<float>(bt, q, center_out, core_out, qm_out,
+                                      ws, C, chi, d, forward, cutoff,
+                                      max_rank, stream);
+}
+
+// K2-env.  Scratch: mpst_k12_workspace_floats(0, chi, d, N).
+int mpst_k2_env_launch(const void* qm, const void* env, const void* env_ls,
+                       const void* phi, void* env_out, void* ls_out, void* ws,
+                       int chi, int d, int N, int forward, void* stream) {
+  return mpst::launch_k2_env<float>(qm, env, env_ls, phi, env_out, ls_out, ws,
+                                    chi, d, N, forward, stream);
 }
 
 const char* mpst_error_string(int code) {

@@ -1,6 +1,8 @@
 // Device code of the fused DMRG bond step (K12), its multi-bond block (K12m),
-// its two halves around an outside QR (K1, K2), real (float) and complex
-// (cfloat), and the tracked-ritz bond step (K12cr, instantiated at cfloat).
+// its two halves around an outside QR (K1, K2), its four pieces for data-
+// parallel and batch-tiled bond steps (K1a, K1b, K2-split, K2-env), real
+// (float) and complex (cfloat), and the tracked-ritz bond step (K12cr,
+// instantiated at cfloat).
 // See bond_step.cu and bond_step_c.cu for what the kernels replace and how
 // they are bounded; this header holds the math, phase by phase, written once
 // for both scalar types.
@@ -315,11 +317,11 @@ __device__ inline void bond_tensor(const T* core, const T* center, Work<T> w,
   gemm(C, P, P, chi, X, Y, w.BT, P * P, P, 1);
 }
 
-// yhat, the loss weights, the gradient and the optimiser step with
-// post-normalisation; BT leaves updated in place.
+// yhat, the loss weights and the loss gradient of the batch into w.G (the
+// KLD sign folded in: w.G is the gradient itself, as K1a emits it).
 template <class T>
-__device__ inline void k1_update(const K12Args<T>& a, const float* ls,
-                                 Work<T> w, float* red) {
+__device__ inline void k1_grad(const K12Args<T>& a, const float* ls,
+                               Work<T> w) {
   const int C = a.C, N = a.N;
   const long P = (long)a.chi * a.d, PP = P * P;
   // T1[c, n, q] = sum_p L[n,p] BT[c,p,q]
@@ -362,6 +364,15 @@ __device__ inline void k1_update(const K12Args<T>& a, const float* ls,
   gemm<true>(C, P, P, N, vw(w.L, 0, 1, P), vw(w.T1, N * P, P, 1), w.G, PP, P,
              1);
   __syncthreads();
+}
+
+// The optimiser step on w.BT against the gradient w.G (TSGO: normalised by
+// the norm of the whole w.G, the reduced gradient in K1b), then
+// post-normalisation; BT leaves updated in place.
+template <class T>
+__device__ inline void k1_step(const K12Args<T>& a, Work<T> w, float* red) {
+  const long P = (long)a.chi * a.d, PP = P * P;
+  const int C = a.C;
   float step = a.eta;
   if (!a.gd) {                       // TSGO: normalised-gradient step
     float part = 0.f;
@@ -378,6 +389,14 @@ __device__ inline void k1_update(const K12Args<T>& a, const float* ls,
   const float bn = 1.f / sqrtf(fmaxf(block_sum(part, red), kTiny));
   for (long e = threadIdx.x; e < C * PP; e += blockDim.x) w.BT[e] *= bn;
   __syncthreads();
+}
+
+// The gradient of the whole batch and the step on it (K1, K12, K12cr).
+template <class T>
+__device__ inline void k1_update(const K12Args<T>& a, const float* ls,
+                                 Work<T> w, float* red) {
+  k1_grad(a, ls, w);
+  k1_step(a, w, red);
 }
 
 // ---- warm power step with Newton-Schulz polar ------------------------------
@@ -728,6 +747,80 @@ __global__ void __launch_bounds__(kMaxThreads) k2_kernel(K12Args<T> a,
   }
   project_mask(a, Q, w);
   emit(a, Q, a.core_out, static_cast<T*>(nullptr), w);
+  env_advance(a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
+}
+
+// ---- K1a, K1b, K2-split, K2-env: the bond step in four pieces ------------
+// The data-parallel bond step (pallas_bond.py:1320-1372 with axis_name) runs
+// K1a on every shard, sums the gradients across shards, runs K1b (and the
+// QR under orth="qr") and K2-split once per replica, then K2-env on every
+// shard; the batch-tiled bond step runs the same pieces over row tiles.
+// Only K1a and K2-env touch the batch; K1b and K2-split carve their
+// workspace at N = 0, K2-env at C = 0.
+
+// K1a: the gradient of this shard's batch, G [C, P, P] into g_out, from the
+// bond tensor of the replicated core and center (left in the workspace).
+// ls0 holds the total log-scales (MSE only).
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k1a_kernel(K12Args<T> a,
+                                                          const T* le,
+                                                          const T* re,
+                                                          T* g_out) {
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
+  w.G = g_out;
+  kron_factors(le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
+  bond_tensor(a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  __syncthreads();
+  k1_grad(a, a.ls0, w);
+}
+
+// K1b: the bond tensor, the step against the reduced gradient g, and the
+// q-step power iterate (a.qr: column-normalised only) into y_out, or v0 for
+// a frozen bond (a.refresh == 0); the stepped bond tensor into bt_out.
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k1b_kernel(K12Args<T> a,
+                                                          const T* g,
+                                                          T* bt_out,
+                                                          T* y_out) {
+  __shared__ float red[kMaxThreads];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
+  w.BT = bt_out;
+  w.G = const_cast<T*>(g);                  // read only
+  bond_tensor(a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  __syncthreads();
+  k1_step(a, w, red);
+  const T* y = a.refresh ? power_tail(a, a.v0, w, red) : a.v0;
+  const long PK = (long)a.chi * a.d * a.chi;
+  for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
+}
+
+// K2-split: the split of bt against the orthonormal basis Q: projection,
+// energies and cutoff mask, the center and core in their final layouts, and
+// the masked isometry Qm = Q * mask into qm_out (emit forms it in w.Yb).
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k2_split_kernel(K12Args<T> a,
+                                                               const T* bt,
+                                                               const T* Q,
+                                                               T* qm_out) {
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
+  w.BT = const_cast<T*>(bt);                // read only
+  w.Yb = qm_out;
+  project_mask(a, Q, w);
+  emit(a, Q, a.core_out, static_cast<T*>(nullptr), w);
+}
+
+// K2-env: the advance of this shard's environment env0 / ls0 through the
+// masked isometry qm with its features phil (backward: re and phir; forward:
+// le and phil).
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k2_env_kernel(K12Args<T> a,
+                                                             const T* qm) {
+  Work<T> w = carve<T>(a.ws, 0, a.chi, a.d, a.N);
+  w.Yb = const_cast<T*>(qm);                // read only
+  if constexpr (!IsComplex<T>::value) {
+    kron_factors(a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
+    __syncthreads();
+  }
   env_advance(a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
 }
 
@@ -1102,6 +1195,112 @@ inline int launch_k2(const void* bt, const void* q, const void* env,
   a.max_rank = max_rank;
   k2_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const T*>(bt), static_cast<const T*>(q));
+  return (int)cudaGetLastError();
+}
+
+// K1a: gls [N] is the total log-scale (MSE only, else null).  Scratch:
+// workspace_floats(C, chi, d, N).
+template <class T>
+inline int launch_k1a(const void* lhs, const void* center0, const void* le,
+                      const void* re, const void* gls, const void* phil,
+                      const void* phir, const void* y1h, const void* w,
+                      void* g_out, void* ws, int C, int chi, int d, int N,
+                      int forward, int mse, void* stream) {
+  K12Args<T> a{};
+  a.lhs = static_cast<const T*>(lhs);
+  a.center0 = static_cast<const T*>(center0);
+  a.ls0 = static_cast<const float*>(gls);
+  a.phil = static_cast<const T*>(phil);
+  a.phir = static_cast<const T*>(phir);
+  a.y1h = static_cast<const float*>(y1h);
+  a.w = static_cast<const float*>(w);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = 1;
+  a.C = C;
+  a.chi = chi;
+  a.d = d;
+  a.N = N;
+  a.forward = forward;
+  a.mse = mse;
+  k1a_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const T*>(le), static_cast<const T*>(re),
+      static_cast<T*>(g_out));
+  return (int)cudaGetLastError();
+}
+
+// K1b: g [C, P, P] is the reduced gradient; emit_y = 0 passes v0 through as
+// Y (frozen bond).  Scratch: workspace_floats(C, chi, d, 0).
+template <class T>
+inline int launch_k1b(const void* lhs, const void* center0, const void* g,
+                      const void* v0, void* bt_out, void* y_out, void* ws,
+                      int C, int chi, int d, int forward, int emit_y,
+                      int q_iters, int qr, int gd, float eta, void* stream) {
+  K12Args<T> a{};
+  a.lhs = static_cast<const T*>(lhs);
+  a.center0 = static_cast<const T*>(center0);
+  a.v0 = static_cast<const T*>(v0);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = 1;
+  a.C = C;
+  a.chi = chi;
+  a.d = d;
+  a.forward = forward;
+  a.refresh = emit_y;
+  a.q_iters = q_iters;
+  a.qr = qr;
+  a.gd = gd;
+  a.eta = eta;
+  k1b_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const T*>(g), static_cast<T*>(bt_out),
+      static_cast<T*>(y_out));
+  return (int)cudaGetLastError();
+}
+
+// K2-split.  Scratch: workspace_floats(C, chi, d, 0).
+template <class T>
+inline int launch_k2_split(const void* bt, const void* q, void* center_out,
+                           void* core_out, void* qm_out, void* ws, int C,
+                           int chi, int d, int forward, float cutoff,
+                           float max_rank, void* stream) {
+  K12Args<T> a{};
+  a.center_out = static_cast<T*>(center_out);
+  a.core_out = static_cast<T*>(core_out);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = 1;
+  a.C = C;
+  a.chi = chi;
+  a.d = d;
+  a.forward = forward;
+  a.cutoff = cutoff;
+  a.max_rank = max_rank;
+  k2_split_kernel<T><<<1, kMaxThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const T*>(bt), static_cast<const T*>(q),
+      static_cast<T*>(qm_out));
+  return (int)cudaGetLastError();
+}
+
+// K2-env: env / env_ls / phi are the advancing side's environment,
+// log-scales and features.  Scratch: workspace_floats(0, chi, d, N).
+template <class T>
+inline int launch_k2_env(const void* qm, const void* env, const void* env_ls,
+                         const void* phi, void* env_out, void* ls_out,
+                         void* ws, int chi, int d, int N, int forward,
+                         void* stream) {
+  K12Args<T> a{};
+  a.env0 = static_cast<const T*>(env);
+  a.ls0 = static_cast<const float*>(env_ls);
+  a.phil = static_cast<const T*>(phi);
+  a.env_out = static_cast<T*>(env_out);
+  a.ls_out = static_cast<float*>(ls_out);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = 1;
+  a.chi = chi;
+  a.d = d;
+  a.N = N;
+  a.forward = forward;
+  k2_env_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const T*>(qm));
   return (int)cudaGetLastError();
 }
 

@@ -1,23 +1,29 @@
-"""The fused bond step, K12, its multi-bond block, K12m, and the two halves
-K1 and K2 of the bond step around an outside QR (counterpart of
+"""The fused bond step, K12, its multi-bond block, K12m, the two halves K1
+and K2 of the bond step around an outside QR, and its four pieces K1a, K1b,
+K2-split and K2-env for data-parallel meshes and batch tiles (counterpart of
 ``mpstime_tpu/ops/pallas_bond.py``).
 
 ``bond_step`` and ``bond_block_steps`` keep the signatures of the JAX
 package's (pallas_bond.py:1235, :1062).  A refresh bond under orth="qr" runs
 K1 -> ``torch.linalg.qr`` -> K2 (pallas_bond.py:1320-1372); every other bond
-runs K12.  Each kernel dispatches on the device of the tensors it is given:
+runs K12.  ``bond_step(stream_tile=)`` runs the batch in row tiles
+(pallas_bond.py:1150-1232) and ``bond_step_dp`` a bond on a data-parallel
+mesh (the JAX bond step with ``axis_name``): K1a per tile or shard, one sum
+of their gradients, K1b -> QR -> K2-split once per device, K2-env per tile
+or shard.  Each kernel dispatches on the device of the tensors it is given:
 
   * CUDA tensors launch the hand-written kernel (csrc/bond_step.cu), built
     at first use, or raise.  There is no fallback.
   * CPU tensors take the kernel's plain PyTorch version (``k12_plain``,
-    ``k12m_plain``, ``k1_plain``, ``k2_plain``), built from the ported
-    update, split and environment functions.
+    ``k12m_plain``, ``k1_plain``, ``k2_plain``, ``k1a_plain``,
+    ``k1b_plain``, ``k2_split_plain``, ``k2_env_plain``), built from the
+    ported gradient, split and environment functions.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the dispatches to the
 plain versions, so a run can show which path it took.  Operand layouts are
 the JAX kernels': the class-major center [C, chi, d, chi], environments
-[N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and K1's
-bond tensor [C, chi*d, d, chi].
+[N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and the
+bond tensor and its gradient [C, chi*d, d, chi].
 """
 
 from __future__ import annotations
@@ -26,14 +32,15 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from .bond_update import apply_update
+from .bond_update import kld_loss_grad, mse_loss_grad
 from .decomp import _qr_orth, warm_iterate, warm_split_left, warm_split_right
 from .env import env_step_left_scaled, env_step_right_scaled
 
 #: Kernel launches per kernel since the last reset_counts().
 #: The complex kernels (ops/bond_kernels_c.py) count here too.
 LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr"), 0)
+    ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr",
+     "k1a", "k1b", "k2_split", "k2_env"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
@@ -52,6 +59,83 @@ def reset_counts() -> None:
 # plain versions
 # --------------------------------------------------------------------------
 
+def _bond_tensor(A_or_B, center_c, forward: bool) -> torch.Tensor:
+    """The bond tensor [chi, d, d, chi, C] (ops/bond_update.py's layout) of
+    the static core and the class-major center."""
+    if forward:
+        return torch.einsum("caim,mkb->aikbc", center_c, A_or_B)
+    return torch.einsum("aim,cmkb->aikbc", A_or_B, center_c)
+
+
+def _class_major(BT: torch.Tensor) -> torch.Tensor:
+    """[chi, d, d, chi, C] -> the kernels' [C, chi*d, d, chi]."""
+    chi, d, _, _, C = BT.shape
+    return BT.permute(4, 0, 1, 2, 3).reshape(C, chi * d, d, chi).contiguous()
+
+
+def _grad(BT, le, re, phil, phir, y1h, w, gls, loss: str) -> torch.Tensor:
+    """The KLD or MSE gradient of BT [chi, d, d, chi, C] over the batch
+    (ops/bond_update.py, which takes the features unconjugated)."""
+    if loss not in ("KLD", "MSE"):
+        raise ValueError(f"loss={loss}: the bond kernels cover KLD and MSE")
+    loss_grad = kld_loss_grad if loss == "KLD" else mse_loss_grad
+    return loss_grad(BT, le, re, phil.conj(), phir.conj(), y1h, w, gls)[1]
+
+
+def _step(BT, G, eta, bbopt: str) -> torch.Tensor:
+    """The TSGO or GD step of BT against G, then renormalisation
+    (ops/bond_update.apply_update at one iteration, rescale (False, True))."""
+    if bbopt not in ("TSGO", "GD"):
+        raise ValueError(f"bbopt={bbopt}: the bond kernels cover TSGO and GD")
+    if bbopt == "TSGO":
+        G = G / torch.linalg.vector_norm(G)
+    BT = BT - eta * G
+    return BT / torch.linalg.vector_norm(BT)
+
+
+def _power(BT, V0, *, forward: bool, emit_y: bool, power_iters: int,
+           orth: str) -> torch.Tensor:
+    """Y [chi*d, chi]: q warm power steps of the stepped BT from V0 (the
+    column-normalised iterate under orth="qr", orthonormal under "ns" and
+    "tri"), or V0 itself for a frozen bond."""
+    if not emit_y:
+        return V0
+    chi, d, _, _, C = BT.shape
+    if forward:
+        M = BT.reshape(chi * d, d * chi * C)
+        return warm_iterate(lambda Yp: M @ (M.conj().T @ Yp), V0,
+                            power_iters, orth)
+    M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
+    return warm_iterate(lambda Yp: M.conj().T @ (M @ Yp), V0, power_iters,
+                        orth)
+
+
+def k1a_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
+              forward: bool, loss: str = "KLD") -> torch.Tensor:
+    """K1a in plain PyTorch: the gradient G [C, chi*d, d, chi] of this
+    batch's KLD or MSE loss at the bond tensor of A_or_B and center_c (the
+    KLD sign included, as _k1_grad_kernel emits -G, pallas_bond.py:521-524).
+    ``gls`` [N]: the total log-scales, read by the MSE gradient only."""
+    BT = _bond_tensor(A_or_B, center_c, forward)
+    return _class_major(_grad(BT, le, re, phil, phir, y1h, w, gls, loss))
+
+
+def k1b_plain(A_or_B, center_c, G, V0, eta, *, forward: bool,
+              emit_y: bool = True, power_iters: int = 1, orth: str = "qr",
+              bbopt: str = "TSGO") -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1b in plain PyTorch: the TSGO or GD step of the bond tensor against
+    the reduced gradient G [C, chi*d, d, chi] (TSGO's norm is G's), then
+    renormalisation and the power step.  Returns (BT [C, chi*d, d, chi],
+    Y [chi*d, chi]) as ``k1_plain``."""
+    C, chi, d, _ = center_c.shape
+    # contiguous in K1's layout, so that its norm sums in K1's order
+    G5 = G.reshape(C, chi, d, d, chi).permute(1, 2, 3, 4, 0).contiguous()
+    BT = _step(_bond_tensor(A_or_B, center_c, forward), G5, eta, bbopt)
+    Y = _power(BT, V0, forward=forward, emit_y=emit_y,
+               power_iters=power_iters, orth=orth)
+    return _class_major(BT), Y.contiguous()
+
+
 def k1_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
              forward: bool, emit_y: bool = True, power_iters: int = 1,
              orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO"
@@ -63,51 +147,63 @@ def k1_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
     iterate under orth="qr", orthonormal under "ns" and "tri" (K12cr's
     refresh, ``decomp.tri_newton``), and V0 itself when ``emit_y`` is False
     (a frozen bond)."""
-    C, chi, d, _ = center_c.shape
-    if forward:
-        BT = torch.einsum("caim,mkb->aikbc", center_c, A_or_B)
-    else:
-        BT = torch.einsum("aim,cmkb->aikbc", A_or_B, center_c)
-    # apply_update takes the features unconjugated (bond_update.py)
-    _, BT = apply_update(BT, le, re, phil.conj(), phir.conj(), y1h, w, gls,
-                         eta=eta, loss=loss, bbopt=bbopt)
-    Y = V0
-    if emit_y:
-        if forward:
-            M = BT.reshape(chi * d, d * chi * C)
-            Y = warm_iterate(lambda Yp: M @ (M.conj().T @ Yp), V0,
-                             power_iters, orth)
-        else:
-            M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
-            Y = warm_iterate(lambda Yp: M.conj().T @ (M @ Yp), V0,
-                             power_iters, orth)
-    BTk = BT.permute(4, 0, 1, 2, 3).reshape(C, chi * d, d, chi)
-    return BTk.contiguous(), Y.contiguous()
+    BT = _bond_tensor(A_or_B, center_c, forward)
+    BT = _step(BT, _grad(BT, le, re, phil, phir, y1h, w, gls, loss), eta,
+               bbopt)
+    Y = _power(BT, V0, forward=forward, emit_y=emit_y,
+               power_iters=power_iters, orth=orth)
+    return _class_major(BT), Y.contiguous()
 
 
-def k2_plain(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
-             max_rank=None) -> Out4:
-    """K2 in plain PyTorch: the split of BT [C, chi*d, d, chi] against the
-    orthonormal basis Q [chi*d, chi] (ops/decomp.py's warm split of a frozen
-    bond) and the scaled step of the advancing environment (``env``,
-    ``env_ls``, ``phi``: le / phil forward, re / phir backward).  Returns
-    (center_c', core', env', env_ls')."""
+def k2_split_plain(BT, Q, cutoff, *, forward: bool, max_rank=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2-split in plain PyTorch: the split of BT [C, chi*d, d, chi]
+    against the orthonormal basis Q [chi*d, chi] (ops/decomp.py's warm split
+    of a frozen bond).  Returns (center_c', core', Qm), Qm [chi*d, chi] the
+    masked isometry Q * mask that the environments advance through."""
     C, P, d, chi = BT.shape
     if forward:
         M = BT.permute(1, 2, 3, 0).reshape(P, d * chi * C)
         U, SVh, _ = warm_split_right(M, Q, chi, cutoff, refresh=False,
                                      max_rank=max_rank)
-        core = U.reshape(chi, d, chi)
         center = SVh.reshape(chi, d, chi, C).permute(3, 0, 1, 2)
-        env2, ls2 = env_step_left_scaled(env, env_ls, core, phi)
+        Qm = U
     else:
         M = BT.permute(1, 0, 2, 3).reshape(P * C, d * chi)
         US, Vh, _ = warm_split_left(M, Q, chi, cutoff, refresh=False,
                                     max_rank=max_rank)
         center = US.reshape(chi, d, C, chi).permute(2, 0, 1, 3)
-        core = Vh.reshape(chi, d, chi)
-        env2, ls2 = env_step_right_scaled(env, env_ls, core, phi)
-    return center.contiguous(), core.contiguous(), env2, ls2
+        Qm = Vh.conj().T.resolve_conj()
+    return (center.contiguous(), _core_of(Qm, forward).contiguous(),
+            Qm.contiguous())
+
+
+def _core_of(Qm, forward: bool) -> torch.Tensor:
+    """The emitted core [chi, d, chi] of the masked isometry: U = Qm
+    forward, V = Qm^H backward."""
+    P, chi = Qm.shape
+    if forward:
+        return Qm.reshape(chi, P // chi, chi)
+    return Qm.conj().T.resolve_conj().reshape(chi, P // chi, chi)
+
+
+def k2_env_plain(Qm, env, env_ls, phi, *, forward: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2-env in plain PyTorch: the scaled step of the advancing environment
+    (``env``, ``env_ls``, ``phi``: le / phil forward, re / phir backward)
+    through the masked isometry Qm.  Returns (env', env_ls')."""
+    step = env_step_left_scaled if forward else env_step_right_scaled
+    return step(env, env_ls, _core_of(Qm, forward), phi)
+
+
+def k2_plain(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
+             max_rank=None) -> Out4:
+    """K2 in plain PyTorch: ``k2_split_plain`` then ``k2_env_plain``.
+    Returns (center_c', core', env', env_ls')."""
+    center, core, Qm = k2_split_plain(BT, Q, cutoff, forward=forward,
+                                      max_rank=max_rank)
+    return (center, core) + k2_env_plain(Qm, env, env_ls, phi,
+                                         forward=forward)
 
 
 def k12_plain(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
@@ -305,6 +401,120 @@ def _launch_k2(BT, Q, env, env_ls, phi, cutoff, *, forward: bool, max_rank,
     return center2, core, env2, ls2
 
 
+def _launch_k1a(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
+                forward: bool, loss: str, launch: Callable[..., None],
+                workspace_floats: Callable[[int, int, int, int], int],
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Check K1a's operands, allocate G and the workspace, and hand
+    everything to ``launch`` in the kernel's C argument order."""
+    if center_c.dim() != 4:
+        raise ValueError(f"center_c must be [C, chi, d, chi], got "
+                         f"{tuple(center_c.shape)}")
+    C, chi, d, _ = center_c.shape
+    N, P = le.shape[0], chi * d
+    expect = {
+        "A_or_B": (A_or_B, (chi, d, chi)),
+        "center_c": (center_c, (C, chi, d, chi)),
+        "le": (le, (N, chi)), "re": (re, (N, chi)),
+        "phil": (phil, (N, d)), "phir": (phir, (N, d)),
+        "y1h": (y1h, (N, C), REAL), "w": (w, (N,), REAL),
+    }
+    if loss == "MSE":
+        expect["gls"] = (gls, (N,), REAL)
+    dev = center_c.device
+    _check_operands(dev, expect, dtype)
+    G = _empty(dev, C, P, d, chi, dtype=dtype)
+    ws = _empty(dev, workspace_floats(C, chi, d, N))
+    launch(A_or_B.data_ptr(), center_c.data_ptr(), le.data_ptr(),
+           re.data_ptr(), gls.data_ptr() if loss == "MSE" else None,
+           phil.data_ptr(), phir.data_ptr(), y1h.data_ptr(), w.data_ptr(),
+           G.data_ptr(), ws.data_ptr(), C, chi, d, N, int(forward),
+           int(loss == "MSE"))
+    return G
+
+
+def _launch_k1b(A_or_B, center_c, G, V0, eta, *, forward: bool,
+                emit_y: bool, power_iters: int, orth: str, bbopt: str,
+                launch: Callable[..., None],
+                workspace_floats: Callable[[int, int, int, int], int],
+                dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check K1b's operands, allocate BT, Y and the workspace (no batch
+    terms), and hand everything to ``launch`` in the kernel's C argument
+    order."""
+    if center_c.dim() != 4:
+        raise ValueError(f"center_c must be [C, chi, d, chi], got "
+                         f"{tuple(center_c.shape)}")
+    C, chi, d, _ = center_c.shape
+    P = chi * d
+    dev = center_c.device
+    _check_operands(dev, {
+        "A_or_B": (A_or_B, (chi, d, chi)),
+        "center_c": (center_c, (C, chi, d, chi)),
+        "G": (G, (C, P, d, chi)), "V0": (V0, (P, chi))}, dtype)
+    if power_iters < 1 or orth not in ("qr", "ns"):
+        raise ValueError(f"need power_iters >= 1 and orth 'qr' or 'ns', got "
+                         f"{power_iters}, {orth!r}")
+    BT = _empty(dev, C, P, d, chi, dtype=dtype)
+    Y = _empty(dev, P, chi, dtype=dtype)
+    ws = _empty(dev, workspace_floats(C, chi, d, 0))
+    launch(A_or_B.data_ptr(), center_c.data_ptr(), G.data_ptr(),
+           V0.data_ptr(), BT.data_ptr(), Y.data_ptr(), ws.data_ptr(), C, chi,
+           d, int(forward), int(emit_y), int(power_iters), int(orth == "qr"),
+           int(bbopt == "GD"), float(eta))
+    return BT, Y
+
+
+def _launch_k2_split(BT, Q, cutoff, *, forward: bool, max_rank,
+                     launch: Callable[..., None],
+                     workspace_floats: Callable[[int, int, int, int], int],
+                     dtype: torch.dtype = torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Check K2-split's operands, allocate the center, core, Qm and the
+    workspace (no batch terms), and hand everything to ``launch``."""
+    if BT.dim() != 4:
+        raise ValueError(f"BT must be [C, chi*d, d, chi], got "
+                         f"{tuple(BT.shape)}")
+    C, P, d, chi = BT.shape
+    dev = BT.device
+    _check_operands(dev, {"BT": (BT, (C, chi * d, d, chi)),
+                          "Q": (Q, (P, chi))}, dtype)
+    center2 = _empty(dev, C, chi, d, chi, dtype=dtype)
+    core = _empty(dev, chi, d, chi, dtype=dtype)
+    Qm = _empty(dev, P, chi, dtype=dtype)
+    ws = _empty(dev, workspace_floats(C, chi, d, 0))
+    mr = float(chi) if max_rank is None else float(max_rank)
+    launch(BT.data_ptr(), Q.data_ptr(), center2.data_ptr(), core.data_ptr(),
+           Qm.data_ptr(), ws.data_ptr(), C, chi, d, int(forward),
+           float(cutoff), mr)
+    return center2, core, Qm
+
+
+def _launch_k2_env(Qm, env, env_ls, phi, *, forward: bool,
+                   launch: Callable[..., None],
+                   workspace_floats: Callable[[int, int, int, int], int],
+                   dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check K2-env's operands, allocate env', env_ls' and the workspace
+    (the batch factor only), and hand everything to ``launch``."""
+    if Qm.dim() != 2 or env.dim() != 2:
+        raise ValueError(f"Qm must be [chi*d, chi] and env [N, chi]; got "
+                         f"{tuple(Qm.shape)} and {tuple(env.shape)}")
+    P, chi = Qm.shape
+    N, d = env.shape[0], P // chi
+    dev = Qm.device
+    _check_operands(dev, {"Qm": (Qm, (chi * d, chi)), "env": (env, (N, chi)),
+                          "env_ls": (env_ls, (N,), REAL),
+                          "phi": (phi, (N, d))}, dtype)
+    env2 = _empty(dev, N, chi, dtype=dtype)
+    ls2 = _empty(dev, N)
+    ws = _empty(dev, workspace_floats(0, chi, d, N))
+    launch(Qm.data_ptr(), env.data_ptr(), env_ls.data_ptr(), phi.data_ptr(),
+           env2.data_ptr(), ls2.data_ptr(), ws.data_ptr(), chi, d, N,
+           int(forward))
+    return env2, ls2
+
+
 def _cuda_launch(device: torch.device, entry: str,
                  workspace: str = "mpst_k12_workspace_floats"):
     """(launch, workspace_floats) for the built library's ``entry`` on
@@ -381,16 +591,55 @@ def k2_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
     return out
 
 
+def k1a_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
+             forward: bool, loss: str = "KLD") -> torch.Tensor:
+    """K1a as one launch; operands and result as ``k1a_plain``'s."""
+    launch, wsf = _cuda_launch(center_c.device, "mpst_k1a_launch")
+    G = _launch_k1a(A_or_B, center_c, le, re, phil, phir, y1h, w, gls,
+                    forward=forward, loss=loss, launch=launch,
+                    workspace_floats=wsf)
+    LAUNCHES["k1a"] += 1
+    return G
+
+
+def k1b_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
+             emit_y: bool = True, power_iters: int = 1, orth: str = "qr",
+             bbopt: str = "TSGO") -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1b as one launch; operands and results as ``k1b_plain``'s."""
+    launch, wsf = _cuda_launch(center_c.device, "mpst_k1b_launch")
+    out = _launch_k1b(A_or_B, center_c, G, V0, eta, forward=forward,
+                      emit_y=emit_y, power_iters=power_iters, orth=orth,
+                      bbopt=bbopt, launch=launch, workspace_floats=wsf)
+    LAUNCHES["k1b"] += 1
+    return out
+
+
+def k2_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2-split as one launch; operands and results as
+    ``k2_split_plain``'s."""
+    launch, wsf = _cuda_launch(BT.device, "mpst_k2_split_launch")
+    out = _launch_k2_split(BT, Q, cutoff, forward=forward, max_rank=max_rank,
+                           launch=launch, workspace_floats=wsf)
+    LAUNCHES["k2_split"] += 1
+    return out
+
+
+def k2_env_cuda(Qm, env, env_ls, phi, *, forward: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2-env as one launch; operands and results as ``k2_env_plain``'s."""
+    launch, wsf = _cuda_launch(Qm.device, "mpst_k2_env_launch")
+    out = _launch_k2_env(Qm, env, env_ls, phi, forward=forward,
+                         launch=launch, workspace_floats=wsf)
+    LAUNCHES["k2_env"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------
 # public bond steps
 # --------------------------------------------------------------------------
 
-def _check_route(orth: str, loss: str, bbopt: str, axis_name,
-                 stream_tile) -> None:
-    if axis_name is not None or stream_tile is not None:
-        raise NotImplementedError(
-            "the data-parallel and N-streaming bond steps (kernels K1a, K1b, "
-            "K2-split, K2-env) are ROADMAP.md queue 2 items 6-9")
+def _check_route(orth: str, loss: str, bbopt: str) -> None:
     if orth not in ("qr", "ns"):
         raise ValueError(f"orth must be 'qr' or 'ns', got {orth!r}")
     if loss not in ("KLD", "MSE") or bbopt not in ("TSGO", "GD"):
@@ -405,6 +654,22 @@ def _device_of(t: torch.Tensor) -> str:
         raise ValueError(f"bond kernels run on cpu or cuda tensors, got "
                          f"{t.device}")
     return t.device.type
+
+
+#: The four pieces of the dp and batch-tiled bond steps: (plain, CUDA).
+_PIECES = {"k1a": (k1a_plain, k1a_cuda), "k1b": (k1b_plain, k1b_cuda),
+           "k2_split": (k2_split_plain, k2_split_cuda),
+           "k2_env": (k2_env_plain, k2_env_cuda)}
+
+
+def _piece(name: str, t: torch.Tensor) -> Callable:
+    """The kernel ``name`` for operands on ``t``'s device: the CUDA wrapper,
+    or on the CPU the plain version (counted in PLAIN_CALLS)."""
+    plain, cuda = _PIECES[name]
+    if _device_of(t) == "cuda":
+        return cuda
+    PLAIN_CALLS[name] += 1
+    return plain
 
 
 def qr_bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
@@ -440,12 +705,27 @@ def bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     A_or_B = cores[j+1]; advances the left environment (le, env_ls) through
     the new U with phil.  ``opp_ls`` is the opposite side's log-scale, which
     the MSE gradient needs.  center_c: [C, chi, d, chi].  Returns
-    (center_c', core', env', env_ls', Q')."""
-    _check_route(orth, loss, bbopt, axis_name, stream_tile)
+    (center_c', core', env', env_ls', Q').
+
+    ``stream_tile``: run the batch in tiles of this many rows
+    (pallas_bond.py:1150-1232): N is padded to a multiple of the tile with
+    copies of row 0 at weight 0, the tiles' K1a gradients are summed in tile
+    order, one K1b (-> QR) -> K2-split follows, then K2-env on each tile;
+    the pad rows' environments are dropped.  The data-parallel bond step is
+    ``bond_step_dp``: the port has no shard_map, so ``axis_name`` is
+    refused."""
+    if axis_name is not None:
+        raise ValueError("the port's data-parallel bond step is "
+                         "bond_step_dp(mesh, ...), one process driving the "
+                         "mesh's devices: it takes no axis_name")
+    _check_route(orth, loss, bbopt)
     args = (A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
             cutoff)
     kw = dict(forward=forward, power_iters=power_iters, max_rank=max_rank,
               loss=loss, bbopt=bbopt, opp_ls=opp_ls)
+    if stream_tile is not None:
+        return _bond_step_streamed(*args, refresh=refresh, orth=orth,
+                                   stream_tile=stream_tile, **kw)
     cuda = _device_of(center_c) == "cuda"
     if refresh and orth == "qr":
         if not cuda:
@@ -456,6 +736,76 @@ def bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
         return k12_cuda(*args, refresh=refresh, **kw)
     PLAIN_CALLS["k12"] += 1
     return k12_plain(*args, refresh=refresh, **kw)
+
+
+def bond_step_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir, y1h,
+                 w, V0, eta, cutoff, *, forward: bool, refresh: bool = True,
+                 power_iters: int = 1, orth: str = "qr", max_rank=None,
+                 loss: str = "KLD", bbopt: str = "TSGO", opp_ls=None):
+    """One bond step on a data-parallel ``mesh`` (parallel/mesh.py), the
+    JAX bond step with ``axis_name`` (pallas_bond.py:1320-1372).
+
+    A_or_B, center_c and V0 are lists with one tensor per replica
+    (``mesh.replicas``); le, re, env_ls, phil, phir, y1h, w and opp_ls
+    lists with one tensor per shard, operands as ``bond_step``'s.  K1a runs
+    on every shard, ``mesh.all_reduce`` sums the gradients (the one
+    cross-device transfer of the bond), K1b, the QR of Y under orth="qr"
+    and K2-split run once per replica, K2-env on every shard.  Returns
+    (center_c', core', env', env_ls', Q'): center_c', core' and Q' per
+    replica, env' and env_ls' per shard."""
+    _check_route(orth, loss, bbopt)
+    on = mesh.to_shards
+    A_s, c_s = on(A_or_B), on(center_c)
+    G = mesh.all_reduce([
+        _piece("k1a", c_s[s])(
+            A_s[s], c_s[s], le[s], re[s], phil[s], phir[s], y1h[s], w[s],
+            env_ls[s] + opp_ls[s] if loss == "MSE" else env_ls[s],
+            forward=forward, loss=loss)
+        for s in range(len(mesh))])
+    reps = []
+    for A, center, g, v0 in zip(A_or_B, center_c, G, V0):
+        BT, Y = _piece("k1b", center)(
+            A, center, g, v0, eta, forward=forward, emit_y=refresh,
+            power_iters=power_iters, orth=orth, bbopt=bbopt)
+        Q = _qr_orth(Y).contiguous() if refresh and orth == "qr" else Y
+        reps.append(_piece("k2_split", BT)(BT, Q, cutoff, forward=forward,
+                                           max_rank=max_rank) + (Q,))
+    center2, core, Qm, Q = (list(r) for r in zip(*reps))
+    env, phi = (le, phil) if forward else (re, phir)
+    Qm_s = on(Qm)
+    env2, ls2 = (list(r) for r in zip(*(
+        _piece("k2_env", Qm_s[s])(Qm_s[s], env[s], env_ls[s], phi[s],
+                                  forward=forward)
+        for s in range(len(mesh)))))
+    return center2, core, env2, ls2, Q
+
+
+def _bond_step_streamed(A_or_B, center_c, le, re, env_ls, phil, phir, y1h,
+                        w, V0, eta, cutoff, *, stream_tile: int,
+                        opp_ls=None, **kw) -> Out5:
+    """``bond_step(stream_tile=)``: ``bond_step_dp`` on a mesh of the
+    batch's row tiles, all on center_c's device (its sum of the gradients
+    is the tile-order sum G0 + G1 + ... of pallas_bond.py:1188-1200)."""
+    from ..parallel.mesh import Mesh
+    if stream_tile < 1:
+        raise ValueError(f"stream_tile must be >= 1, got {stream_tile}")
+    N = le.shape[0]
+    pad = -N % stream_tile
+
+    def tiles(x):
+        # pad rows copy row 0, so their KLD weights stay finite at w = 0
+        if pad:
+            x = torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
+        return list(x.split(stream_tile))
+
+    mesh = Mesh([center_c.device] * ((N + pad) // stream_tile))
+    center2, core, env2, ls2, Q = bond_step_dp(
+        mesh, [A_or_B], [center_c], tiles(le), tiles(re), tiles(env_ls),
+        tiles(phil), tiles(phir), tiles(y1h),
+        list(torch.cat([w, w.new_zeros(pad)]).split(stream_tile)), [V0], eta,
+        cutoff, opp_ls=None if opp_ls is None else tiles(opp_ls), **kw)
+    return (center2[0], core[0], torch.cat(env2)[:N], torch.cat(ls2)[:N],
+            Q[0])
 
 
 def bond_block_steps(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
@@ -472,7 +822,7 @@ def bond_block_steps(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
     RE[j+2]); env0/env_ls0: the advancing environment entering the block.
     Returns (center_c', core_blk, env_blk, env_ls_blk, Q_blk), per-bond
     emissions in update order."""
-    _check_route(orth, "KLD", bbopt, None, None)
+    _check_route(orth, "KLD", bbopt)
     if refresh and orth != "ns":
         raise ValueError("K12m refreshes with the Newton-Schulz polar only; "
                          "orth='qr' refresh bonds run bond_step")

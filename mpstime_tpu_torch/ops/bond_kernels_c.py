@@ -209,7 +209,7 @@ def _check_route(orth: str, axis_name, stream_tile) -> None:
         raise NotImplementedError(
             "the complex data-parallel and N-streaming bond steps (kernels "
             "K1c-grad, K1c-update, K2c-split, K2c-env) are ROADMAP.md queue "
-            "2 items 16-19")
+            "2 rows 16-19, not ported yet")
     if orth not in ("qr", "ns"):
         raise ValueError(f"orth must be 'qr' or 'ns', got {orth!r}")
 

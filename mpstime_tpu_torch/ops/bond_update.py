@@ -109,42 +109,64 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a.conj() * b).real
 
 
-def apply_update(BT: torch.Tensor, le, re, phi_l, phi_r, y_onehot,
-                 class_weight, env_ls, *, eta, loss: str = "KLD",
-                 bbopt: str = "TSGO", update_iters: int = 1,
-                 rescale: Tuple[bool, bool] = (False, True)
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def apply_update(BT, le, re, phi_l, phi_r, y_onehot, class_weight, env_ls,
+                 *, eta, loss: str = "KLD", bbopt: str = "TSGO",
+                 update_iters: int = 1,
+                 rescale: Tuple[bool, bool] = (False, True), mesh=None):
     """Optimise one bond tensor (reference apply_update,
     loss_functions.jl:88-188) with "GD" (fixed step), "TSGO"
     (normalised-gradient step, loss_functions.jl:79) or "CGD" (Polak-Ribiere
     conjugate gradient with a normalised fixed step; the reference's CGD
     uses a line search instead, a difference documented at
     mpstime_tpu/options.py:258-267).  ``loss``: "KLD", "MSE" or "MIXED".
-    Returns (loss_before_last_step, BT_new)."""
+    Returns (loss_before_last_step, BT_new).
+
+    ``mesh``: a data-parallel mesh (parallel/mesh.py).  BT is then a list
+    with one tensor per replica and the batch operands lists with one tensor
+    per shard; at every loss_grad call one ``mesh.all_reduce`` sums the
+    shards' losses and gradients (mpstime_tpu/ops/bond_update.py:145-167)
+    and every replica takes the same step.  Returns the summed loss (replica
+    0's copy) and the list of stepped bond tensors."""
     if loss not in _LOSS_GRADS or bbopt not in ("TSGO", "GD", "CGD"):
         raise ValueError(f"loss={loss}/bbopt={bbopt}: loss must be one of "
                          f"{sorted(_LOSS_GRADS)} and bbopt TSGO, GD or CGD")
     loss_grad = _LOSS_GRADS[loss]
+    batch = (le, re, phi_l, phi_r, y_onehot, class_weight, env_ls)
+    if mesh is None:
+        BTs = [BT]
+
+        def loss_grads(BTs):
+            return [loss_grad(BTs[0], *batch)]
+    else:
+        BTs = list(BT)
+
+        def loss_grads(BTs):
+            on = mesh.to_shards(BTs)
+            return mesh.all_reduce([loss_grad(on[s], *(x[s] for x in batch))
+                                    for s in range(len(mesh))])
     if rescale[0]:
-        BT = BT / torch.linalg.vector_norm(BT)
-    tiny = torch.finfo(BT.real.dtype).tiny
-    last_loss = torch.zeros((), dtype=BT.real.dtype, device=BT.device)
-    g_prev = p_prev = torch.zeros_like(BT)
+        BTs = [B / torch.linalg.vector_norm(B) for B in BTs]
+    tiny = torch.finfo(BTs[0].real.dtype).tiny
+    last_loss = torch.zeros((), dtype=BTs[0].real.dtype,
+                            device=BTs[0].device)
+    g_prev = [torch.zeros_like(B) for B in BTs]
+    p_prev = list(g_prev)
     for _ in range(update_iters):
-        last_loss, g = loss_grad(BT, le, re, phi_l, phi_r, y_onehot,
-                                 class_weight, env_ls)
-        if bbopt == "CGD":
-            gg = _vdot(g_prev, g_prev)
-            beta = torch.clamp(_vdot(g, g - g_prev) / torch.clamp(gg, min=tiny),
-                               min=0.0)
-            p = -g + torch.where(gg > 0, beta, 0.0).to(g.dtype) * p_prev
-            BT = BT + eta * (p / torch.clamp(torch.linalg.vector_norm(p),
-                                             min=tiny))
-            g_prev, p_prev = g, p
-            continue
-        if bbopt == "TSGO":
-            g = g / torch.linalg.vector_norm(g)
-        BT = BT - eta * g
+        lgs = loss_grads(BTs)
+        last_loss = lgs[0][0]
+        for r, (_, g) in enumerate(lgs):
+            if bbopt == "CGD":
+                gg = _vdot(g_prev[r], g_prev[r])
+                beta = torch.clamp(_vdot(g, g - g_prev[r])
+                                   / torch.clamp(gg, min=tiny), min=0.0)
+                p = -g + torch.where(gg > 0, beta, 0.0).to(g.dtype) * p_prev[r]
+                BTs[r] = BTs[r] + eta * (p / torch.clamp(
+                    torch.linalg.vector_norm(p), min=tiny))
+                g_prev[r], p_prev[r] = g, p
+                continue
+            if bbopt == "TSGO":
+                g = g / torch.linalg.vector_norm(g)
+            BTs[r] = BTs[r] - eta * g
     if rescale[1]:
-        BT = BT / torch.linalg.vector_norm(BT)
-    return last_loss, BT
+        BTs = [B / torch.linalg.vector_norm(B) for B in BTs]
+    return last_loss, (BTs[0] if mesh is None else BTs)

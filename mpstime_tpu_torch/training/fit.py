@@ -70,6 +70,18 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
+def _pad_sample_axis(phis_c, y_onehot, class_weight, npad: int):
+    """Pad the sample axis with ``npad`` zero-weight copies of the first
+    sample (fit.py:48-60): every contraction stays finite (a zero-filled row
+    would give the KLD weight 0/0) while the copies add nothing to the loss
+    or the gradient."""
+    if not npad:
+        return phis_c, y_onehot, class_weight
+    return (torch.cat([phis_c, phis_c[:, :1].expand(-1, npad, -1)], dim=1),
+            torch.cat([y_onehot, y_onehot[:1].expand(npad, -1)]),
+            torch.cat([class_weight, class_weight.new_zeros(npad)]))
+
+
 def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
             X_test: Optional[np.ndarray] = None,
             y_test: Optional[np.ndarray] = None,
@@ -88,20 +100,28 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     the unfused route in PyTorch (training/sweep.py).  Returns (trained,
     info, encoded_test_states); the test states are class-sorted.
     ``info["sweep_seconds"]`` holds each sweep's wall time, ended by a
-    device synchronisation; with ``opts.track_cost``, ``info["bond_costs"]``
-    holds each sweep's per-bond loss trace [2(T-1)] in update order."""
-    if mesh is not None:
-        raise _not_ported("mesh= (data-parallel training)", "queue 1 item 16")
+    synchronisation of every device the sweep ran on; with
+    ``opts.track_cost``, ``info["bond_costs"]`` holds each sweep's per-bond
+    loss trace [2(T-1)] in update order.
+
+    ``mesh``: a data-parallel mesh (``parallel.make_mesh()`` over the
+    cards, ``parallel.Mesh(["cpu"] * n)`` on the CPU), which replaces
+    ``device``: the sample axis is padded with zero-weight copies to a
+    multiple of the mesh size and sharded over it, the MPS is replicated,
+    and every bond update sums the shards' gradients once.  The trained
+    model lives on the mesh's first device.  ``pad_samples_to``: pad the
+    sample axis to at least this many rows the same way (before the mesh's
+    padding)."""
     if test_run:
         raise _not_ported("test_run=True (basis preview)", "queue 1 item 18")
     if custom_encoding is not None:
         raise _not_ported("custom_encoding=", "queue 1 item 4")
     if opts is None:
         opts = MPSOptions()
-    if opts.pad_to is not None or pad_samples_to:
-        raise _not_ported("pad_to / pad_samples_to (padded hyperopt trials)",
+    if opts.pad_to is not None:
+        raise _not_ported("pad_to (padded hyperopt trials)",
                           "queue 1 item 18")
-    device = torch.device(device)
+    device = mesh.devices[0] if mesh is not None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit_mps(device='cuda'): no CUDA device is available")
 
@@ -153,6 +173,18 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     w = (1.0 / counts[y_idx] if opts.train_classes_separately
          else np.full(N, 1.0 / N))
     class_weight = torch.as_tensor(w, device=device).to(real_dt)
+    if pad_samples_to:
+        phis_c, y_onehot, class_weight = _pad_sample_axis(
+            phis_c, y_onehot, class_weight, max(N, pad_samples_to) - N)
+    cores, center = mps.cores, mps.center
+    if mesh is not None:
+        from ..parallel import replicate, shard_train_arrays
+        # pad from the current length (pad_samples_to may have grown it), so
+        # the shards are equal (fit.py:182-191)
+        phis_c, y_onehot, class_weight = shard_train_arrays(
+            mesh, *_pad_sample_axis(phis_c, y_onehot, class_weight,
+                                    -phis_c.shape[1] % len(mesh)))
+        cores, center = replicate(mesh, cores, center)
 
     info: Dict[str, list] = {k: [] for k in
                              ("train_loss", "train_acc", "train_KL_div",
@@ -209,7 +241,9 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
             print(notice)
 
     def sync():
-        if device.type == "cuda":
+        if mesh is not None:
+            mesh.synchronize()
+        elif device.type == "cuda":
             torch.cuda.synchronize(device)
 
     clock = [time.perf_counter()]
@@ -253,10 +287,10 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
               f"(optimiser {opts.bbopt}, loss {opts.loss_grad})")
     clock[0] = time.perf_counter()
     cores, center = full_sweeps(
-        mps.cores, mps.center, phis_c, y_onehot, class_weight, opts.eta,
+        cores, center, phis_c, y_onehot, class_weight, opts.eta,
         opts.cutoff, nsweeps=opts.nsweeps,
         refresh_every=opts.subspace_refresh_every,
-        track_cost=opts.track_cost, on_sweep=on_sweep, **sweep_kw)
+        track_cost=opts.track_cost, on_sweep=on_sweep, mesh=mesh, **sweep_kw)
     mps = MPS(cores, center, T - 1).normalize()
     if verb > -1:
         print("\nMPS normalised!\n")

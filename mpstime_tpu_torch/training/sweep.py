@@ -32,16 +32,28 @@ its Pallas kernels and XLA (``_ineligible_reasons``, ``_ritz_fused``):
     split, the ritz split or ``split_bond_*`` (ops/decomp.py), then the
     scaled environment step (ops/env.py), as the JAX package's XLA bond
     step (sweep.py:433-455, :576-597).
+
+Under a data-parallel mesh (``mesh=``, parallel/mesh.py) the batch state
+(features, labels, weights, environments and their log-scales) is a list
+with one tensor per shard and the replicated state (cores, center, subspace
+caches) a list with one tensor per replica.  The bond-kernel route then runs
+every bond as ``bond_step_dp`` (K1a -> one sum over the shards -> K1b -> QR
+-> K2-split -> K2-env; no K12m blocks, sweep.py:469), ritz fits take the
+unfused route (no K12cr, sweep.py:327), and the unfused route sums the
+shards' losses and gradients in ``apply_update``; each is one
+``mesh.all_reduce`` per bond update.  The complex kernel route has no dp
+kernels yet (ROADMAP.md queue 2 rows 16-19) and raises under a mesh.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..options import torch_dtype
-from ..ops.bond_kernels import bond_block_steps, bond_step
+from ..ops.bond_kernels import bond_block_steps, bond_step, bond_step_dp
 from ..ops.bond_kernels_c import (bond_block_steps_c, bond_step_c,
                                   bond_step_c_ritz)
 from ..ops.bond_update import apply_update
@@ -159,7 +171,7 @@ def pallas_route_notice(dtype, loss, bbopt, update_iters, rescale, svd_alg,
             + "; ".join(reasons))
 
 
-def init_subspaces(T: int, chi: int, d: int, dtype, device="cpu"):
+def init_subspaces(T: int, chi: int, d: int, dtype, device="cuda"):
     """Cold-start per-bond subspace caches: VB[j] [d*chi, chi] (right
     subspace of backward bond j), UF[j] [chi*d, chi] (left subspace of
     forward bond j), j = 0..T-2."""
@@ -179,22 +191,51 @@ def init_left_env_state(cores: torch.Tensor, phis_c: torch.Tensor):
 Stacks = Dict[str, torch.Tensor]
 
 
+def _m(f, *xs):
+    """f over matching parts: over the shards or replicas when the operands
+    are lists (a mesh's placed state, transposing tuple results into a tuple
+    of lists), else f itself."""
+    if not isinstance(xs[0], list):
+        return f(*xs)
+    out = [f(*a) for a in zip(*xs)]
+    return tuple(map(list, zip(*out))) if isinstance(out[0], tuple) else out
+
+
+def _first(x):
+    """A tensor, or the first part of a placed list."""
+    return x[0] if isinstance(x, list) else x
+
+
+def _cat(*xs):
+    return _m(lambda *ts: torch.cat(ts), *xs)
+
+
+def _rows(x, a, b):
+    return _m(lambda t: t[a:b], x)
+
+
+def _flip(x):
+    return _m(lambda t: torch.flip(t, (0,)), x)
+
+
 def _half_sweep(carry, xs: Stacks, BB: int, step, block):
     """Run one half-sweep over the bonds of ``xs`` (per-bond stacks in
     update order): blocks of BB bonds through ``block`` plus one remainder
     block, or every bond through ``step`` when BB == 1.  Returns the final
     carry and the per-bond emissions stacked in update order."""
-    nb = next(iter(xs.values())).shape[0]
+    nb = _first(next(iter(xs.values()))).shape[0]
     outs = []
     if BB > 1:
         for s in range(0, nb, BB):
-            carry, ys = block(carry, {k: v[s:s + BB] for k, v in xs.items()})
+            carry, ys = block(carry, {k: _rows(v, s, s + BB)
+                                      for k, v in xs.items()})
             outs.append(ys)
     else:
         for j in range(nb):
-            carry, ys = step(carry, {k: v[j] for k, v in xs.items()})
-            outs.append({k: y[None] for k, y in ys.items()})
-    return carry, {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+            carry, ys = step(carry, {k: _m(lambda t: t[j], v)
+                                     for k, v in xs.items()})
+            outs.append({k: _m(lambda t: t[None], y) for k, y in ys.items()})
+    return carry, {k: _cat(*[o[k] for o in outs]) for k in outs[0]}
 
 
 def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
@@ -202,32 +243,45 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
                 update_iters: int, rescale: Tuple[bool, bool], svd_alg: str,
                 power_iters: int = 1, orth: str = "qr",
                 refresh: bool = True, ritz_rot: str = "eigh", max_rank=None,
-                track_cost: bool = False):
+                track_cost: bool = False, mesh=None):
     """One full sweep; center at site T-1 on entry and exit.
 
     LE [T, N, chi] / LE_ls [T, N]: left environments of the current cores
     (slot t = sites 0..t-1).  VB/UF: the warm splits' subspace caches (None
     unless svd_alg is one of ``WARM_ALGS``).  ``ritz_rot``: the ritz
     route's eigen-rotation for this sweep ("eigh", "eigh_r", "track",
-    "jacobi", "jacobi_warm"; ignored off that route).  Returns (cores,
-    center, LE', LE_ls', VB', UF', costs), LE' being exactly what the next
-    sweep needs; costs is the per-bond loss [2(T-1)] in update order
-    (backward bonds T-2..0, then forward 0..T-2) when ``track_cost``, else
-    None."""
-    T, chi, d, _ = cores.shape
-    C = center.shape[3]
-    N = phis_c.shape[1]
-    dev = cores.device
+    "jacobi", "jacobi_warm"; ignored off that route).  ``mesh``: a
+    data-parallel mesh; the batch operands and LE, LE_ls are then lists
+    over its shards, cores, center, VB and UF lists over its replicas.
+    Returns (cores, center, LE', LE_ls', VB', UF', costs), LE' being exactly
+    what the next sweep needs; costs is the per-bond loss [2(T-1)] in update
+    order (backward bonds T-2..0, then forward 0..T-2) when ``track_cost``,
+    else None."""
+    T, chi, d, _ = _first(cores).shape
+    C = _first(center).shape[3]
+    dtype = _first(cores).dtype
+    dev = _first(cores).device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sweeps run on cpu or cuda, got {dev}")
-    ritz_fused = _ritz_fused(cores.dtype, loss, bbopt, update_iters, rescale,
-                             svd_alg, ritz_rot, track_cost)
-    fused = ritz_fused or not _ineligible_reasons(
-        cores.dtype, loss, bbopt, update_iters, rescale, svd_alg, track_cost)
-    cplx = cores.dtype.is_complex
+    cplx = dtype.is_complex
+    kernels = not _ineligible_reasons(dtype, loss, bbopt, update_iters,
+                                      rescale, svd_alg, track_cost)
+    if mesh is not None and kernels and cplx:
+        raise NotImplementedError(
+            "a complex64 KLD + TSGO randomized_warm fit under a mesh needs "
+            "the complex data-parallel kernels (K1c-grad, K1c-update, "
+            "K2c-split, K2c-env: ROADMAP.md queue 1 item 16, queue 2 rows "
+            "16-19), which are not ported yet")
+    # no K12cr under a mesh: ritz fits run the unfused route (sweep.py:327)
+    ritz_fused = mesh is None and _ritz_fused(
+        dtype, loss, bbopt, update_iters, rescale, svd_alg, ritz_rot,
+        track_cost)
+    fused = ritz_fused or kernels
     warm = svd_alg in WARM_ALGS
-    e0 = boundary_env(N, chi, cores.dtype, dev)
-    ls0 = torch.zeros((N,), dtype=phis_c.real.dtype, device=dev)
+    on_shards = mesh.to_shards if mesh is not None else (lambda v: v)
+    e0 = _m(lambda p: boundary_env(p.shape[1], chi, dtype, p.device), phis_c)
+    ls0 = _m(lambda p: torch.zeros((p.shape[1],), dtype=p.real.dtype,
+                                   device=p.device), phis_c)
 
     def fused_steps(forward: bool):
         kw = dict(refresh=refresh, power_iters=power_iters, max_rank=max_rank)
@@ -240,6 +294,8 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
             kw["orth"] = orth
             step_fn, block_fn = ((bond_step_c, bond_block_steps_c) if cplx
                                  else (bond_step, bond_block_steps))
+            if mesh is not None:
+                step_fn = partial(bond_step_dp, mesh)
         block_kw = {} if cplx else dict(bbopt=bbopt)
 
         def step(carry, x):
@@ -267,44 +323,55 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
                 if svd_alg == RITZ else (warm_split_left, warm_split_right))
 
     def unfused_step(forward: bool):
+        split_kw = dict(max_rank=max_rank, orth=orth)
+        warm_kw = dict(q=power_iters, refresh=refresh, **split_kw)
+        if svd_alg == RITZ:
+            warm_kw["rot"] = ritz_rot
+
+        def split(BT, q=None):
+            """(center, core, q') of one replica's stepped bond tensor."""
+            if forward:
+                M = BT.reshape(chi * d, d * chi * C)
+                if warm:
+                    U, SVh, q = wsr(M, q, chi, cutoff, **warm_kw)
+                else:
+                    U, SVh = split_bond_right(M, chi, cutoff, svd_alg,
+                                              **split_kw)
+                return SVh.reshape(chi, d, chi, C), U.reshape(chi, d, chi), q
+            # rows (a, i, c): the label stays on the sweep side (:166-169)
+            M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
+            if warm:
+                US, Vh, q = wsl(M, q, chi, cutoff, **warm_kw)
+            else:
+                US, Vh = split_bond_left(M, chi, cutoff, svd_alg, **split_kw)
+            return (US.reshape(chi, d, C, chi).permute(0, 1, 3, 2),
+                    Vh.reshape(chi, d, chi), q)
+
         def step(carry, x):
             center, env, ls = carry
             le, re = (env, x["envx"]) if forward else (x["envx"], env)
             if forward:
-                BT = torch.einsum("aimc,mkb->aikbc", center, x["core"])
+                BT = _m(lambda c, B: torch.einsum("aimc,mkb->aikbc", c, B),
+                        center, x["core"])
             else:
-                BT = torch.einsum("aim,mkbc->aikbc", x["core"], center)
+                BT = _m(lambda A, c: torch.einsum("aim,mkbc->aikbc", A, c),
+                        x["core"], center)
             cost, BT = apply_update(
-                BT, le, re, x["phl"].conj(), x["phr"].conj(), y_onehot,
-                class_weight, ls + x["envx_ls"], eta=eta, loss=loss,
-                bbopt=bbopt, update_iters=update_iters, rescale=rescale)
-            split_kw = dict(max_rank=max_rank, orth=orth)
-            warm_kw = dict(q=power_iters, refresh=refresh, **split_kw)
-            if svd_alg == RITZ:
-                warm_kw["rot"] = ritz_rot
-            ys = {}
+                BT, le, re, _m(torch.conj, x["phl"]),
+                _m(torch.conj, x["phr"]), y_onehot, class_weight,
+                _m(torch.add, ls, x["envx_ls"]), eta=eta, loss=loss,
+                bbopt=bbopt, update_iters=update_iters, rescale=rescale,
+                mesh=mesh)
+            center, core, q = _m(split, BT, *([x["q"]] if warm else []))
             if forward:
-                M = BT.reshape(chi * d, d * chi * C)
-                if warm:
-                    U, SVh, ys["q"] = wsr(M, x["q"], chi, cutoff, **warm_kw)
-                else:
-                    U, SVh = split_bond_right(M, chi, cutoff, svd_alg,
-                                              **split_kw)
-                core = U.reshape(chi, d, chi)
-                center = SVh.reshape(chi, d, chi, C)
-                v2, ls2 = env_step_left_scaled(env, ls, core, x["phl"])
+                v2, ls2 = _m(env_step_left_scaled, env, ls, on_shards(core),
+                             x["phl"])
             else:
-                # rows (a, i, c): the label stays on the sweep side (:166-169)
-                M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
-                if warm:
-                    US, Vh, ys["q"] = wsl(M, x["q"], chi, cutoff, **warm_kw)
-                else:
-                    US, Vh = split_bond_left(M, chi, cutoff, svd_alg,
-                                             **split_kw)
-                center = US.reshape(chi, d, C, chi).permute(0, 1, 3, 2)
-                core = Vh.reshape(chi, d, chi)
-                v2, ls2 = env_step_right_scaled(env, ls, core, x["phr"])
-            ys.update(core=core, env=v2, ls=ls2)
+                v2, ls2 = _m(env_step_right_scaled, env, ls, on_shards(core),
+                             x["phr"])
+            ys = dict(core=core, env=v2, ls=ls2)
+            if warm:
+                ys["q"] = q
             if track_cost:
                 ys["cost"] = cost
             return (center, v2, ls2), ys
@@ -314,55 +381,58 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
         # K12m blocks carry no per-bond opposite-side log-scales (MSE) and
         # refresh with the Newton-Schulz polar only; complex blocks hold at
         # most 4 bonds and refresh only at q = 1 (sweep.py:467-475); K12cr
-        # runs bond by bond
+        # runs bond by bond, and a mesh's bonds one bond_step_dp each
         blocks = (loss == "KLD" and (orth == "ns" or not refresh)
                   and not (cplx and refresh and power_iters > 1)
-                  and not ritz_fused)
+                  and not ritz_fused and mesh is None)
         BB = _auto_block(T, cap=4 if cplx else 8) if blocks else 1
         steps = fused_steps
-        center = center.permute(3, 0, 1, 2).contiguous()   # class-major
+        center = _m(lambda c: c.permute(3, 0, 1, 2).contiguous(), center)
     else:
         BB, steps = 1, unfused_step
 
     # ---------------- backward half-sweep (center T-1 -> 0) ----------------
     # update order jj = 0..T-2 is bond j = T-2-jj
-    fl = lambda a: torch.flip(a, (0,))                 # noqa: E731
-    xs_b = dict(core=fl(cores[:T - 1]), envx=fl(LE[:T - 1]),
-                phl=fl(phis_c[:T - 1]), phr=fl(phis_c[1:T]),
-                envx_ls=fl(LE_ls[:T - 1]))
+    xs_b = dict(core=_flip(_rows(cores, 0, T - 1)),
+                envx=_flip(_rows(LE, 0, T - 1)),
+                phl=_flip(_rows(phis_c, 0, T - 1)),
+                phr=_flip(_rows(phis_c, 1, T)),
+                envx_ls=_flip(_rows(LE_ls, 0, T - 1)))
     if warm:
-        xs_b["q"] = fl(VB)
+        xs_b["q"] = _flip(VB)
     (center, _, _), ys_b = _half_sweep((center, e0, ls0), xs_b, BB,
                                        *steps(False))
     # new cores[1..T-1] (emitted for j = T-2..0 -> slots T-1..1)
-    cores_mid = torch.cat([cores[:1], fl(ys_b["core"])])
+    cores_mid = _cat(_rows(cores, 0, 1), _flip(ys_b["core"]))
     if warm:
-        VB = fl(ys_b["q"])
+        VB = _flip(ys_b["q"])
     # RE stack for the forward pass: the emissions are RE[j+1]; forward bond
     # j reads RE[j+2], i.e. slots 2..T-1 plus the boundary at slot T
-    xs_f = dict(core=cores_mid[1:T].contiguous(),
-                envx=torch.cat([fl(ys_b["env"])[1:], e0[None]]),
-                phl=phis_c[:T - 1], phr=phis_c[1:T],
-                envx_ls=torch.cat([fl(ys_b["ls"])[1:], ls0[None]]))
+    xs_f = dict(core=_m(torch.Tensor.contiguous, _rows(cores_mid, 1, T)),
+                envx=_cat(_rows(_flip(ys_b["env"]), 1, T),
+                          _m(lambda e: e[None], e0)),
+                phl=_rows(phis_c, 0, T - 1), phr=_rows(phis_c, 1, T),
+                envx_ls=_cat(_rows(_flip(ys_b["ls"]), 1, T),
+                             _m(lambda e: e[None], ls0)))
     if warm:
         xs_f["q"] = UF
 
     # ---------------- forward half-sweep (center 0 -> T-1) -----------------
     (center, _, _), ys_f = _half_sweep((center, e0, ls0), xs_f, BB,
                                        *steps(True))
-    cores_out = torch.cat([ys_f["core"], cores_mid[T - 1:]])
+    cores_out = _cat(ys_f["core"], _rows(cores_mid, T - 1, T))
     if warm:
         UF = ys_f["q"]
     # LE stack for the next backward pass: slot 0 = boundary, slots 1..T-1
     # from the forward emissions (exact environments of cores_out)
-    LE_out = torch.cat([e0[None], ys_f["env"]])
-    LE_ls_out = torch.cat([ls0[None], ys_f["ls"]])
+    LE_out = _cat(_m(lambda e: e[None], e0), ys_f["env"])
+    LE_ls_out = _cat(_m(lambda e: e[None], ls0), ys_f["ls"])
     if fused:
-        center = center.permute(1, 2, 3, 0)
+        center = _m(lambda c: c.permute(1, 2, 3, 0), center)
     costs = (torch.cat([ys_b["cost"], ys_f["cost"]]) if track_cost
              else None)
-    return (cores_out, center.contiguous(), LE_out, LE_ls_out, VB, UF,
-            costs)
+    return (cores_out, _m(torch.Tensor.contiguous, center), LE_out,
+            LE_ls_out, VB, UF, costs)
 
 
 def sweep_schedule(i: int, svd_alg: str, refresh_every: int = 1,
@@ -378,16 +448,28 @@ def sweep_schedule(i: int, svd_alg: str, refresh_every: int = 1,
             ritz_track_rot if tracked else ritz_exact_rot)
 
 
-def full_sweeps(cores: torch.Tensor, center: torch.Tensor,
-                phis_c: torch.Tensor, y_onehot: torch.Tensor,
-                class_weight: torch.Tensor, eta, cutoff, *, nsweeps: int,
-                loss: str, bbopt: str, update_iters: int,
+def _init_state(cores, phis_c, svd_alg: str, mesh=None):
+    """(LE, LE_ls, VB, UF) for a first sweep: the left environments of
+    ``cores`` (per shard under a mesh) and, for the warm splits, cold-start
+    subspace caches (per replica), else None."""
+    T, chi, d, _ = _first(cores).shape
+    on_shards = mesh.to_shards if mesh is not None else (lambda v: v)
+    LE, LE_ls = _m(init_left_env_state, on_shards(cores), phis_c)
+    VB = UF = None
+    if svd_alg in WARM_ALGS:
+        VB, UF = _m(lambda c: init_subspaces(T, chi, d, _np_dtype(c),
+                                             c.device), cores)
+    return LE, LE_ls, VB, UF
+
+
+def full_sweeps(cores, center, phis_c, y_onehot, class_weight, eta, cutoff,
+                *, nsweeps: int, loss: str, bbopt: str, update_iters: int,
                 rescale: Tuple[bool, bool], svd_alg: str,
                 power_iters: int = 1, orth: str = "qr",
                 refresh_every: int = 1, ritz_exact_sweeps: int = -1,
                 ritz_exact_rot: str = "eigh", ritz_track_rot: str = "track",
                 max_rank=None, track_cost: bool = False,
-                on_sweep: Optional[Callable[..., bool]] = None
+                on_sweep: Optional[Callable[..., bool]] = None, mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``nsweeps`` full sweeps; the left environments and the per-bond
     subspace caches persist across them.
@@ -397,12 +479,11 @@ def full_sweeps(cores: torch.Tensor, center: torch.Tensor,
     cached bases.  The ritz route's rotation follows ``sweep_schedule``.
     ``on_sweep(i, cores, center, costs)`` runs after each sweep (logging,
     timing; ``costs`` is the per-bond loss trace when ``track_cost``, else
-    None); returning True stops the loop early."""
-    T, chi, d, _ = cores.shape
-    LE, LE_ls = init_left_env_state(cores, phis_c)
-    VB = UF = None
-    if svd_alg in WARM_ALGS:
-        VB, UF = init_subspaces(T, chi, d, _np_dtype(cores), cores.device)
+    None); returning True stops the loop early.  ``mesh``: a data-parallel
+    mesh, with cores and center placed by ``parallel.replicate`` and the
+    batch tensors by ``parallel.shard_train_arrays``; the returned cores and
+    center (and on_sweep's) are then the copies on its first device."""
+    LE, LE_ls, VB, UF = _init_state(cores, phis_c, svd_alg, mesh)
     for i in range(nsweeps):
         refresh, rot = sweep_schedule(i, svd_alg, refresh_every,
                                       ritz_exact_sweeps, ritz_exact_rot,
@@ -412,7 +493,24 @@ def full_sweeps(cores: torch.Tensor, center: torch.Tensor,
             eta, cutoff, loss=loss, bbopt=bbopt, update_iters=update_iters,
             rescale=rescale, svd_alg=svd_alg, power_iters=power_iters,
             orth=orth, refresh=refresh, ritz_rot=rot, max_rank=max_rank,
-            track_cost=track_cost)
-        if on_sweep is not None and on_sweep(i, cores, center, costs):
+            track_cost=track_cost, mesh=mesh)
+        if on_sweep is not None and on_sweep(i, _first(cores), _first(center),
+                                             costs):
             break
-    return cores, center
+    return _first(cores), _first(center)
+
+
+def sweep_once(cores, center, phis_c, y_onehot, class_weight, eta, cutoff,
+               *, subspaces=None, mesh=None, **kw):
+    """One self-contained sweep that builds its own left environments
+    (sweep.py:639-672), from the subspace caches ``subspaces`` = (VB, UF)
+    of a warm split (cold-started when None).  ``kw``: ``_sweep_core``'s
+    options.  Returns (cores, center, (VB, UF), costs), placed as
+    ``_sweep_core``'s under a mesh."""
+    LE, LE_ls, VB, UF = _init_state(cores, phis_c, kw["svd_alg"], mesh)
+    if subspaces is not None:
+        VB, UF = subspaces
+    cores, center, _, _, VB, UF, costs = _sweep_core(
+        cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot, class_weight, eta,
+        cutoff, mesh=mesh, **kw)
+    return cores, center, (VB, UF), costs

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from mpstime_tpu.ops import pallas_bond
 from mpstime_tpu.ops.decomp import warm_sketch_init as jax_sketch
 from mpstime_tpu_torch.ops import bond_kernels as bk
+from mpstime_tpu_torch.ops import bond_kernels_c as bkc
 from mpstime_tpu_torch.training import sweep as tsweep
 
 torch.set_num_threads(1)
@@ -249,8 +250,13 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
 def test_unported_routes_raise():
     x = _block(61)
     args = _single_args(x, False, torch.from_numpy) + (0.05, 1e-10)
-    with pytest.raises(NotImplementedError, match="items 6-9"):
-        bk.bond_step(*args, forward=False, orth="ns", stream_tile=4)
+    # the real batch-tiled route is ported; its complex twin is not
+    xc = {k: v.astype(np.complex64) if k in ("A", "center", "envx", "env0",
+                                             "phil", "phir", "V0") else v
+          for k, v in x.items()}
+    with pytest.raises(NotImplementedError, match="rows 16-19"):
+        bkc.bond_step_c(*_single_args(xc, False, torch.from_numpy), 0.05,
+                        1e-10, forward=False, orth="ns", stream_tile=4)
     # CGD and the mixed loss are no kernel's: the sweep sends them to the
     # unfused route, and the kernels refuse them
     with pytest.raises(ValueError, match="CGD"):

@@ -288,9 +288,9 @@ def test_qr_orth_complex_on_a_rank_deficient_y_keeps_the_invariants():
 def test_complex_routes_refuse_what_they_do_not_cover():
     x = _bond(71)
     ops = _torch(_single(x, False))
-    with pytest.raises(NotImplementedError, match="items 16-19"):
+    with pytest.raises(NotImplementedError, match="rows 16-19"):
         bkc.bond_step_c(*ops, 0.05, 1e-10, forward=False, stream_tile=4)
-    with pytest.raises(NotImplementedError, match="items 16-19"):
+    with pytest.raises(NotImplementedError, match="rows 16-19"):
         bkc.bond_step_c(*ops, 0.05, 1e-10, forward=False, axis_name="dp")
     # the kernel wrappers refuse another loss or optimiser before launching
     A, center, le, re, ls, phil, phir, y1h, w, V0 = ops

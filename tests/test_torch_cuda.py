@@ -1,6 +1,6 @@
-"""The port's CUDA bond kernels (K12, K12m, K1, K2 and the complex K12c,
-K12mc, K1c, K2c, K12cr) held against their plain PyTorch versions on the
-card.  These tests need an NVIDIA GPU with nvcc and skip without one.
+"""The port's CUDA bond kernels (K12, K12m, K1, K2, the dp pieces K1a,
+K1b, K2-split, K2-env, and the complex K12c, K12mc, K1c, K2c, K12cr) held
+against their plain PyTorch versions on the card.  These tests need an NVIDIA GPU with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
 
@@ -215,6 +215,150 @@ def test_unfused_fit_on_cuda_runs_no_kernel(bk, kw):
     assert bool(torch.isfinite(trained.mps.center).all())
     if kw.get("track_cost"):
         assert len(info["bond_costs"][0]) == 46
+
+
+# ---- the dp and batch-tiled pieces: K1a, K1b, K2-split, K2-env -------------
+
+def _dp_inputs(seed, forward):
+    """One bond's operands with unit environment rows, as a sweep hands
+    them over: (A, center, le, re, phil, phir, y1h, w, gls, V0, env, phi)."""
+    x = _inputs(seed, 1, **SHAPE)
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    le, re = (t / t.norm(dim=1, keepdim=True) for t in (le, re))
+    env, phi = (le, x["phil"][0]) if forward else (re, x["phir"][0])
+    return (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+            x["y1h"], x["w"], x["ls0"] + x["opp"], x["V0"][0], env, phi,
+            x["ls0"])
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("loss", ["KLD", "MSE"])
+def test_k1a_kernel_matches_plain(bk, forward, loss):
+    a = _dp_inputs(60, forward)[:9]
+    n0 = bk.LAUNCHES["k1a"]
+    got = bk.k1a_cuda(*a, forward=forward, loss=loss)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1a"] == n0 + 1
+    _close([got], [bk.k1a_plain(*a, forward=forward, loss=loss)])
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("emit_y,q,orth,bbopt", [
+    (True, 1, "ns", "TSGO"), (True, 3, "ns", "TSGO"), (True, 1, "qr", "GD"),
+    (True, 3, "qr", "TSGO"), (False, 1, "qr", "TSGO")])
+def test_k1b_kernel_matches_plain(bk, forward, emit_y, q, orth, bbopt):
+    a = _dp_inputs(61, forward)
+    G = bk.k1a_plain(*a[:9], forward=forward)
+    kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth,
+              bbopt=bbopt)
+    n0 = bk.LAUNCHES["k1b"]
+    got = bk.k1b_cuda(a[0], a[1], G, a[9], 0.05, **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1b"] == n0 + 1
+    _close(got, bk.k1b_plain(a[0], a[1], G, a[9], 0.05, **kw))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("mr", [None, 17])
+def test_k2_split_and_k2_env_kernels_match_plain(bk, forward, mr):
+    a = _dp_inputs(62, forward)
+    BT, Y = bk.k1_plain(*a[:10], 0.05, forward=forward)
+    Q = torch.linalg.qr(Y).Q.contiguous()
+    got = bk.k2_split_cuda(BT, Q, 1e-10, forward=forward, max_rank=mr)
+    ref = bk.k2_split_plain(BT, Q, 1e-10, forward=forward, max_rank=mr)
+    _close(got, ref)
+    assert torch.equal(got[2] != 0, ref[2] != 0)        # equal kept ranks
+    env, phi, ls = a[10:]
+    _close(bk.k2_env_cuda(ref[2], env, ls, phi, forward=forward),
+           bk.k2_env_plain(ref[2], env, ls, phi, forward=forward))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+def test_dp_bond_on_one_and_two_shards_of_the_card(bk, forward):
+    """One shard: K1a -> K1b -> K2-split -> K2-env does K12's and K1 ->
+    K2's arithmetic; two shards of one card sum the gradient in another
+    order (the per-bond bound of several shards, tests/test_parallel.py:
+    199-212)."""
+    from mpstime_tpu_torch.parallel import Mesh
+    x = _inputs(63, 1, **SHAPE)
+    args = _single(x, forward)
+
+    def dp(n, **kw):
+        def shards(t):
+            return list(t.chunk(n))
+        out = bk.bond_step_dp(Mesh(["cuda:0"] * n), [args[0]], [args[1]],
+                              *(shards(t) for t in args[2:9]), [args[9]],
+                              0.05, 1e-10, forward=forward, **kw)
+        return (out[0][0], out[1][0], torch.cat(out[2]), torch.cat(out[3]),
+                out[4][0])
+
+    _close(dp(1, orth="ns"), bk.k12_cuda(*args, forward=forward),
+           rtol=0, atol=1e-6)
+    _close(dp(1, orth="qr"), bk.qr_bond_step(*args, forward=forward,
+                                             plain=False), rtol=0, atol=1e-6)
+    _close(dp(2, orth="ns"), dp(1, orth="ns"), rtol=0, atol=1e-4)
+
+
+def test_streamed_bond_step_on_the_card(bk):
+    x = _inputs(64, 1, **SHAPE)
+    for forward in (False, True):
+        args = _single(x, forward)
+        n0 = bk.LAUNCHES["k1a"]
+        got = bk.bond_step(*args, forward=forward, orth="ns", stream_tile=32)
+        assert bk.LAUNCHES["k1a"] == n0 + 4                 # 100 rows -> 4
+        _close(got, bk.bond_step(*args, forward=forward, orth="ns"),
+               rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_mesh_fit_on_one_card_runs_the_dp_kernels(bk, n):
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.parallel import Mesh
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40], data["y_train"][:40]
+    bk.reset_counts()
+    trained, info, _ = mt.fit_mps(
+        Xtr, ytr, opts=mt.MPSOptions(nsweeps=3, chi_max=12, d=3,
+                                     verbosity=-1, log_level=-1),
+        mesh=Mesh(["cuda:0"] * n))
+    bonds = 3 * 2 * 95
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), "k1a": n * bonds,
+                           "k1b": bonds, "k2_split": bonds,
+                           "k2_env": n * bonds}
+    assert sum(bk.PLAIN_CALLS.values()) == 0
+    assert trained.mps.center.is_cuda and len(info["sweep_seconds"]) == 3
+    assert np.mean(mt.classify(trained, Xtr) == ytr) >= 0.9
+
+
+def test_mesh_over_several_cards_is_the_same_shards_on_one(bk):
+    """A mesh over cuda:0 .. cuda:n-1 (n <= 4) sums the same shards in the
+    same order as n shards on cuda:0, and each card's replica computes the
+    same: the fits agree bit for bit."""
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.parallel import Mesh, make_mesh
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40], data["y_train"][:40]
+    opts = mt.MPSOptions(nsweeps=2, chi_max=12, d=3, verbosity=-1,
+                         log_level=-1)
+    bk.reset_counts()
+    mesh = make_mesh(n)
+    several, _, _ = mt.fit_mps(Xtr, ytr, opts=opts, mesh=mesh)
+    bonds = 2 * 2 * 95
+    # K1b and K2-split once on each card's replica, K1a and K2-env per shard
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), "k1a": n * bonds,
+                           "k1b": n * bonds, "k2_split": n * bonds,
+                           "k2_env": n * bonds}
+    assert mesh.reductions == bonds and len(mesh.replicas) == n
+    one, _, _ = mt.fit_mps(Xtr, ytr, opts=opts, mesh=Mesh(["cuda:0"] * n))
+    assert several.mps.center.device == torch.device("cuda", 0)
+    torch.testing.assert_close(several.mps.cores, one.mps.cores, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(several.mps.center, one.mps.center, rtol=0,
+                               atol=0)
 
 
 # ---- the complex kernels (ops/bond_kernels_c.py) ---------------------------

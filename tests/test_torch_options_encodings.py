@@ -187,7 +187,7 @@ def test_encoding_range_matches_jax():
 def test_import_pulls_in_no_jax():
     # a fresh interpreter: the port must import where JAX does not exist
     code = ("import sys, mpstime_tpu_torch, mpstime_tpu_torch.ops.bond_kernels,"
-            " mpstime_tpu_torch.kernels.build; "
+            " mpstime_tpu_torch.kernels.build, mpstime_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'mpstime_tpu.')) or m == 'mpstime_tpu']; "
             "assert not bad, bad; assert 'triton' not in sys.modules")

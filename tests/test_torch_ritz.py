@@ -455,7 +455,7 @@ def test_tracked_sweep_matches_jax_pallas_sweep(interpret):
     cores, center, phis = (torch.from_numpy(x[k]) for k in
                            ("cores", "center", "phis"))
     LE, LE_ls = tsweep.init_left_env_state(cores, phis)
-    VB, UF = tsweep.init_subspaces(T, chi, d, np.complex64)
+    VB, UF = tsweep.init_subspaces(T, chi, d, np.complex64, "cpu")
     bk.reset_counts()
     ct, zt, *_ = tsweep._sweep_core(
         cores, center, LE, LE_ls, VB, UF, phis, torch.from_numpy(x["y1h"]),

@@ -14,6 +14,7 @@ from mpstime_tpu.models.mps import contract_batch_scaled as jax_contract
 from mpstime_tpu.ops import pallas_bond
 from mpstime_tpu_torch.models.mps import contract_batch_scaled
 from mpstime_tpu_torch.ops import bond_kernels as bk
+from mpstime_tpu_torch.parallel import Mesh
 from mpstime_tpu_torch.summary import _encode_test
 
 torch.set_num_threads(1)
@@ -207,8 +208,12 @@ def test_default_options_on_cpu_resolve_to_unported_gram_eigh(slice_data):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "item 16"), (dict(test_run=True), "item 18"),
-    (dict(pad_samples_to=64), "item 18"),
+    # a complex kernel-route fit under a mesh needs the complex dp kernels
+    (dict(mesh=Mesh(["cpu"] * 2), opts=mt.MPSOptions(
+        **{**SLICE_OPTS, "encoding": "fourier", "dtype": "complex64"})),
+     "item 16"), (dict(test_run=True), "item 18"),
+    (dict(pad_samples_to=64,
+          opts=mt.MPSOptions(**{**SLICE_OPTS, "pad_to": (10, 4)})), "item 18"),
     (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "pad_to": (10, 4)})), "item 18"),
 ])
 def test_unported_fit_configurations_raise(slice_data, kw, match):
