@@ -1,6 +1,8 @@
 // Complex (complex64) fused DMRG bond step for NVIDIA Hopper (sm_90a): K12c
 // and K12mc, the two halves K1c and K2c of the bond step around an outside
-// QR, and the tracked-ritz bond step K12cr.
+// QR, the tracked-ritz bond step K12cr, and the four pieces K1c-grad,
+// K1c-update, K2c-split and K2c-env of the data-parallel and batch-tiled
+// bond step.
 //
 // Replaces the Pallas TPU kernels of mpstime_tpu/ops/pallas_bond_c.py:
 // _k12c_kernel (one complex bond step), _k12mc_kernel (Bb <= 4 consecutive
@@ -16,6 +18,20 @@
 // what the TPU kernels cover: KLD loss, TSGO step, one update iteration,
 // Newton-Schulz refresh (or the column-normalised iterate for an outside
 // QR), frozen bonds, and the runtime max_rank cap.
+//
+// K1c-grad, K1c-update, K2c-split and K2c-env replace _k1c_grad_kernel,
+// _k1c_update_kernel, _k2c_split_kernel and _k2c_env_kernel of the same
+// file: the complex bond step of a data-parallel mesh and of the batch-tiled
+// route (K1c-grad per shard or tile, one sum of the gradients, K1c-update ->
+// the realified QR under orth="qr" -> K2c-split once per replica, K2c-env
+// per shard or tile).  They are the real pieces' kernels (k1a_kernel,
+// k1b_kernel, k2_split_kernel, k2_env_kernel) at cfloat, so one shard
+// computes K12c's (ns) and K1c -> QR -> K2c's (qr) arithmetic in the same
+// order.  At the complex main-path shape (N = 100 per shard, q = 3, ns)
+// K1c-grad is ~7.1 M complex multiply-adds and K1c-update ~13 M (three
+// power steps of fourteen Newton-Schulz steps each): latency-bound on one
+// thread block like the rest.  The gradient G (C*chi*d*d*chi complex
+// values, 500 KB) is the one operand that crosses devices.
 //
 // K12cr is the same device code around three more phases
 // (bond_step.cuh): the power step orthonormalised by damped triangular
@@ -114,6 +130,58 @@ int mpst_k12cr_launch(const void* lhs, const void* center0, const void* envx,
       lhs, center0, envx, env0, ls0, phil, phir, y1h, w, v0, center_out,
       core_out, env_out, ls_out, q_out, ws, C, chi, d, N, forward, refresh,
       q_iters, eta, cutoff, max_rank, rounds, stream);
+}
+
+// K1c-grad (K1a at complex64): this shard's (or tile's) KLD gradient of
+// the bond tensor into g_out [C, chi*d, d, chi], the KLD sign included.
+// Scratch: mpst_c_workspace_floats(C, chi, d, N).
+int mpst_k1c_grad_launch(const void* lhs, const void* center0, const void* le,
+                         const void* re, const void* gls, const void* phil,
+                         const void* phir, const void* y1h, const void* w,
+                         void* g_out, void* ws, int C, int chi, int d, int N,
+                         int forward, int mse, void* stream) {
+  (void)gls;
+  if (mse) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k1a<cfloat>(lhs, center0, le, re, nullptr, phil, phir,
+                                  y1h, w, g_out, ws, C, chi, d, N, forward, 0,
+                                  stream);
+}
+
+// K1c-update (K1b at complex64): the TSGO step against the summed gradient
+// g, then the q-step power iterate (qr = 1: column-normalised only) into
+// y_out, or v0 for a frozen bond (emit_y = 0).  Scratch:
+// mpst_c_workspace_floats(C, chi, d, 0).
+int mpst_k1c_update_launch(const void* lhs, const void* center0,
+                           const void* g, const void* v0, void* bt_out,
+                           void* y_out, void* ws, int C, int chi, int d,
+                           int forward, int emit_y, int q_iters, int qr,
+                           int gd, float eta, void* stream) {
+  if (gd) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k1b<cfloat>(lhs, center0, g, v0, bt_out, y_out, ws, C,
+                                  chi, d, forward, emit_y, q_iters, qr, 0,
+                                  eta, stream);
+}
+
+// K2c-split (K2-split at complex64): the center, the core (backward:
+// Qm^H) and the masked isometry Qm.  Scratch:
+// mpst_c_workspace_floats(C, chi, d, 0).
+int mpst_k2c_split_launch(const void* bt, const void* q, void* center_out,
+                          void* core_out, void* qm_out, void* ws, int C,
+                          int chi, int d, int forward, float cutoff,
+                          float max_rank, void* stream) {
+  return mpst::launch_k2_split<cfloat>(bt, q, center_out, core_out, qm_out,
+                                       ws, C, chi, d, forward, cutoff,
+                                       max_rank, stream);
+}
+
+// K2c-env (K2-env at complex64): the advance through Qm, conj(Qm) backward.
+// Scratch: mpst_c_workspace_floats(0, chi, d, N).
+int mpst_k2c_env_launch(const void* qm, const void* env, const void* env_ls,
+                        const void* phi, void* env_out, void* ls_out,
+                        void* ws, int chi, int d, int N, int forward,
+                        void* stream) {
+  return mpst::launch_k2_env<cfloat>(qm, env, env_ls, phi, env_out, ls_out,
+                                     ws, chi, d, N, forward, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Encoding registry (counterpart of ``mpstime_tpu/encodings/registry.py``)
 for the closed-form bases: ``legendre*``, ``uniform`` and the complex
 ``fourier``, ``stoudenmire`` and ``sahand``.  The other encodings are later
-slices of the port and raise ``NotImplementedError`` naming their ROADMAP
-item."""
+slices of the port and raise ``NotImplementedError`` naming the module of
+the JAX package they wait for."""
 
 from __future__ import annotations
 
@@ -53,12 +53,15 @@ def _enc_legendre_norm(X, d, enc_args=None):
     return bases.legendre_encode(X, d, norm=True)
 
 
+_DATA_DRIVEN = ("it waits for the port of mpstime_tpu's "
+                "encodings/data_driven.py")
 _LATER = {
-    "sahand_legendre": "queue 1 item 4 (data-driven encodings)",
-    "sahand_legendre_time_dependent": "queue 1 item 4 (data-driven encodings)",
-    "custom": "queue 1 item 4 (custom encodings)",
-    "erf": "none: 'erf' is a placeholder basis in MPSTime (reference "
-           "basis_structs.jl:178-185) and in mpstime_tpu",
+    "sahand_legendre": _DATA_DRIVEN,
+    "sahand_legendre_time_dependent": _DATA_DRIVEN,
+    "custom": "it waits for the port of mpstime_tpu's "
+              "encodings/registry.py function_basis (custom encodings)",
+    "erf": "no port is planned, 'erf' is a placeholder basis in MPSTime "
+           "(reference basis_structs.jl:178-185) and in mpstime_tpu",
 }
 
 
@@ -67,15 +70,15 @@ def get_encoding(name: str, project: bool = False) -> EncodingSpec:
     s = canonical_encoding_name(name)
     if s.startswith(("hist_split_", "unif_split_")):
         raise NotImplementedError(
-            f"encoding {name!r}: split bases are not ported yet "
-            "(ROADMAP.md queue 1 item 4, split encodings)")
+            f"encoding {name!r}: split bases are not ported yet: they wait "
+            "for the port of mpstime_tpu's encodings/split.py")
     if project:
         raise NotImplementedError(
-            f"projected_basis=True ({name!r}) is not ported yet "
-            "(ROADMAP.md queue 1 item 4, data-driven encodings)")
+            f"projected_basis=True ({name!r}) is not ported yet: "
+            + _DATA_DRIVEN)
     if s in _LATER:
         raise NotImplementedError(
-            f"encoding {name!r} is not ported yet (ROADMAP.md {_LATER[s]})")
+            f"encoding {name!r} is not ported yet: {_LATER[s]}")
     if s == "legendre_no_norm":
         return EncodingSpec("Legendre", False, False, False, (-1.0, 1.0),
                             None, _enc_legendre)

@@ -126,11 +126,14 @@ def load_library() -> ctypes.CDLL:
                  [p] * 10 + [i] * 5 + [f] * 2 + [p]),
                 (("mpst_k12cr_launch",), [p] * 17 + [i] * 10 + [f] * 3
                  + [i, p]),
-                (("mpst_k1a_launch",), [p] * 11 + [i] * 6 + [p]),
-                (("mpst_k1b_launch",), [p] * 7 + [i] * 8 + [f, p]),
-                (("mpst_k2_split_launch",), [p] * 6 + [i] * 4 + [f] * 2
-                 + [p]),
-                (("mpst_k2_env_launch",), [p] * 7 + [i] * 4 + [p])):
+                (("mpst_k1a_launch", "mpst_k1c_grad_launch"),
+                 [p] * 11 + [i] * 6 + [p]),
+                (("mpst_k1b_launch", "mpst_k1c_update_launch"),
+                 [p] * 7 + [i] * 8 + [f, p]),
+                (("mpst_k2_split_launch", "mpst_k2c_split_launch"),
+                 [p] * 6 + [i] * 4 + [f] * 2 + [p]),
+                (("mpst_k2_env_launch", "mpst_k2c_env_launch"),
+                 [p] * 7 + [i] * 4 + [p])):
             for name in names:
                 getattr(lib, name).argtypes = argtypes
                 getattr(lib, name).restype = i

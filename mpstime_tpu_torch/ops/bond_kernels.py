@@ -40,7 +40,8 @@ from .env import env_step_left_scaled, env_step_right_scaled
 #: The complex kernels (ops/bond_kernels_c.py) count here too.
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr",
-     "k1a", "k1b", "k2_split", "k2_env"), 0)
+     "k1a", "k1b", "k2_split", "k2_env", "k1c_grad", "k1c_update",
+     "k2c_split", "k2c_env"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
@@ -656,19 +657,26 @@ def _device_of(t: torch.Tensor) -> str:
     return t.device.type
 
 
-#: The four pieces of the dp and batch-tiled bond steps: (plain, CUDA).
-_PIECES = {"k1a": (k1a_plain, k1a_cuda), "k1b": (k1b_plain, k1b_cuda),
-           "k2_split": (k2_split_plain, k2_split_cuda),
-           "k2_env": (k2_env_plain, k2_env_cuda)}
+#: The four pieces of the dp and batch-tiled bond steps: (counter, plain,
+#: CUDA).  Their complex twins are ``bond_kernels_c.PIECES``.
+_PIECES = {"k1a": ("k1a", k1a_plain, k1a_cuda),
+           "k1b": ("k1b", k1b_plain, k1b_cuda),
+           "k2_split": ("k2_split", k2_split_plain, k2_split_cuda),
+           "k2_env": ("k2_env", k2_env_plain, k2_env_cuda)}
 
 
 def _piece(name: str, t: torch.Tensor) -> Callable:
-    """The kernel ``name`` for operands on ``t``'s device: the CUDA wrapper,
-    or on the CPU the plain version (counted in PLAIN_CALLS)."""
-    plain, cuda = _PIECES[name]
+    """The kernel ``name`` for operands like ``t``: the real piece or, for a
+    complex ``t``, its complex twin; the CUDA wrapper on the card, or on the
+    CPU the plain version (counted in PLAIN_CALLS)."""
+    if t.is_complex():
+        from .bond_kernels_c import PIECES as table
+    else:
+        table = _PIECES
+    counter, plain, cuda = table[name]
     if _device_of(t) == "cuda":
         return cuda
-    PLAIN_CALLS[name] += 1
+    PLAIN_CALLS[counter] += 1
     return plain
 
 
@@ -743,7 +751,10 @@ def bond_step_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir, y1h,
                  power_iters: int = 1, orth: str = "qr", max_rank=None,
                  loss: str = "KLD", bbopt: str = "TSGO", opp_ls=None):
     """One bond step on a data-parallel ``mesh`` (parallel/mesh.py), the
-    JAX bond step with ``axis_name`` (pallas_bond.py:1320-1372).
+    JAX bond step with ``axis_name`` (pallas_bond.py:1320-1372), real or
+    complex: complex64 operands run the complex pieces (K1c-grad,
+    K1c-update, K2c-split, K2c-env, KLD + TSGO only) through the same chain,
+    with the realified QR (``bond_step_c_dp``).
 
     A_or_B, center_c and V0 are lists with one tensor per replica
     (``mesh.replicas``); le, re, env_ls, phil, phir, y1h, w and opp_ls
@@ -754,6 +765,9 @@ def bond_step_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir, y1h,
     (center_c', core', env', env_ls', Q'): center_c', core' and Q' per
     replica, env' and env_ls' per shard."""
     _check_route(orth, loss, bbopt)
+    if center_c[0].is_complex():
+        from .bond_kernels_c import _check_kld_tsgo
+        _check_kld_tsgo(loss, bbopt)
     on = mesh.to_shards
     A_s, c_s = on(A_or_B), on(center_c)
     G = mesh.all_reduce([

@@ -9,20 +9,27 @@ kernels read them interleaved.  A refresh bond under orth="qr" runs K1c ->
 the realified QR of ops/decomp.py's ``_qr_orth`` -> K2c
 (pallas_bond_c.py:1368-1412); every other bond of the warm route runs K12c,
 and a block of bonds K12mc.  A bond of the ritz route's Jacobi-rotated
-sweeps runs K12cr.  As in the JAX package the complex kernels cover KLD +
-TSGO only; the wrappers refuse any other loss or optimiser with a
-ValueError.
+sweeps runs K12cr.  ``bond_step_c_dp`` runs a bond on a data-parallel mesh
+and ``bond_step_c(stream_tile=)`` the batch in row tiles
+(pallas_bond_c.py:1228-1412): K1c-grad per shard or tile, one sum of the
+gradients, K1c-update -> the realified QR (orth="qr") -> K2c-split once per
+replica, K2c-env per shard or tile, the real pieces' chain
+(``bond_kernels.bond_step_dp``) over the complex pieces.  As in the JAX
+package the complex kernels cover KLD + TSGO only; the wrappers refuse any
+other loss or optimiser with a ValueError.
 
   * CUDA tensors launch the hand-written kernels (csrc/bond_step_c.cu, the
     real kernels' device functions at a complex scalar), or raise.  There
     is no fallback.
   * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
-    ``k1c_plain``, ``k2c_plain``, ``k12cr_plain``), built from the ported
-    update, splits, rotations and environment steps, which are
-    dtype-generic.
+    ``k1c_plain``, ``k2c_plain``, ``k12cr_plain``, ``k1c_grad_plain``,
+    ``k1c_update_plain``, ``k2c_split_plain``, ``k2c_env_plain``), built
+    from the ported update, splits, rotations and environment steps, which
+    are dtype-generic.
 
-Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c" and
-"k12cr" in ``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS``.  Operand layouts
+Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c",
+"k12cr", "k1c_grad", "k1c_update", "k2c_split" and "k2c_env" in
+``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS``.  Operand layouts
 are the real kernels': phil / phir are the conjugated encoded states, the
 center is class-major [C, chi, d, chi], environments [N, chi] with real
 log-scales [N], labels [N, C] and weights [N] real float32.
@@ -71,6 +78,13 @@ def k1c_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
 k2c_plain = bk.k2_plain
 k12c_plain = bk.k12_plain
 k12mc_plain = bk.k12m_plain
+k2c_split_plain = bk.k2_split_plain
+k2c_env_plain = bk.k2_env_plain
+#: K1c-grad and K1c-update: the complex KLD gradient of the batch, with the
+#: KLD sign (as _k1c_bt_grad's -G, pallas_bond_c.py:211), and the TSGO step
+#: against the summed gradient with q power steps.
+k1c_grad_plain = bk.k1a_plain
+k1c_update_plain = bk.k1b_plain
 
 
 def k12cr_plain(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
@@ -200,16 +214,75 @@ def k12cr_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     return center2, core[0], env2[0], ls2[0], Q[0]
 
 
+def k1c_grad_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
+                  forward: bool, loss: str = "KLD") -> torch.Tensor:
+    """K1c-grad as one launch; operands and result as ``k1c_grad_plain``'s
+    (``gls`` is not read)."""
+    _check_kld_tsgo(loss, "TSGO")
+    launch, wsf = _launcher(center_c.device, "mpst_k1c_grad_launch")
+    G = bk._launch_k1a(A_or_B, center_c, le, re, phil, phir, y1h, w, None,
+                       forward=forward, loss="KLD", launch=launch,
+                       workspace_floats=wsf, dtype=torch.complex64)
+    bk.LAUNCHES["k1c_grad"] += 1
+    return G
+
+
+def k1c_update_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
+                    emit_y: bool = True, power_iters: int = 1,
+                    orth: str = "qr", bbopt: str = "TSGO"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1c-update as one launch; operands and results as
+    ``k1c_update_plain``'s."""
+    _check_kld_tsgo("KLD", bbopt)
+    launch, wsf = _launcher(center_c.device, "mpst_k1c_update_launch")
+    out = bk._launch_k1b(A_or_B, center_c, G, V0, eta, forward=forward,
+                         emit_y=emit_y, power_iters=power_iters, orth=orth,
+                         bbopt="TSGO", launch=launch, workspace_floats=wsf,
+                         dtype=torch.complex64)
+    bk.LAUNCHES["k1c_update"] += 1
+    return out
+
+
+def k2c_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2c-split as one launch; operands and results as
+    ``k2c_split_plain``'s: (center_c', core', Qm)."""
+    launch, wsf = _launcher(BT.device, "mpst_k2c_split_launch")
+    out = bk._launch_k2_split(BT, Q, cutoff, forward=forward,
+                              max_rank=max_rank, launch=launch,
+                              workspace_floats=wsf, dtype=torch.complex64)
+    bk.LAUNCHES["k2c_split"] += 1
+    return out
+
+
+def k2c_env_cuda(Qm, env, env_ls, phi, *, forward: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2c-env as one launch; operands and results as ``k2c_env_plain``'s."""
+    launch, wsf = _launcher(Qm.device, "mpst_k2c_env_launch")
+    out = bk._launch_k2_env(Qm, env, env_ls, phi, forward=forward,
+                            launch=launch, workspace_floats=wsf,
+                            dtype=torch.complex64)
+    bk.LAUNCHES["k2c_env"] += 1
+    return out
+
+
+#: The complex pieces of ``bond_kernels.bond_step_dp``'s chain, under the
+#: real pieces' names: (counter, plain, CUDA).
+PIECES = {"k1a": ("k1c_grad", k1c_grad_plain, k1c_grad_cuda),
+          "k1b": ("k1c_update", k1c_update_plain, k1c_update_cuda),
+          "k2_split": ("k2c_split", k2c_split_plain, k2c_split_cuda),
+          "k2_env": ("k2c_env", k2c_env_plain, k2c_env_cuda)}
+
+
 # --------------------------------------------------------------------------
 # public complex bond steps
 # --------------------------------------------------------------------------
 
-def _check_route(orth: str, axis_name, stream_tile) -> None:
-    if axis_name is not None or stream_tile is not None:
-        raise NotImplementedError(
-            "the complex data-parallel and N-streaming bond steps (kernels "
-            "K1c-grad, K1c-update, K2c-split, K2c-env) are ROADMAP.md queue "
-            "2 rows 16-19, not ported yet")
+def _check_route(orth: str, axis_name=None) -> None:
+    if axis_name is not None:
+        raise ValueError("the port's data-parallel complex bond step is "
+                         "bond_step_c_dp(mesh, ...), one process driving the "
+                         "mesh's devices: it takes no axis_name")
     if orth not in ("qr", "ns"):
         raise ValueError(f"orth must be 'qr' or 'ns', got {orth!r}")
 
@@ -238,11 +311,20 @@ def bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
                 stream_tile: Optional[int] = None) -> Out5:
     """One complex bond step (KLD + TSGO): K1c -> QR -> K2c for a refresh
     bond under orth="qr", else one K12c.  Operands and results as
-    ``bond_kernels.bond_step``'s, complex; env_ls stays real."""
-    _check_route(orth, axis_name, stream_tile)
+    ``bond_kernels.bond_step``'s, complex; env_ls stays real.
+
+    ``stream_tile``: run the batch in tiles of this many rows
+    (pallas_bond_c.py:1228-1305): the pad rows copy row 0 at weight 0, the
+    tiles' K1c-grad gradients are summed in tile order, one K1c-update (->
+    QR) -> K2c-split follows, then K2c-env on each tile.  The data-parallel
+    step is ``bond_step_c_dp``, so ``axis_name`` is refused."""
+    _check_route(orth, axis_name)
     args = (A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
             cutoff)
     kw = dict(forward=forward, power_iters=power_iters, max_rank=max_rank)
+    if stream_tile is not None:
+        return bk._bond_step_streamed(*args, refresh=refresh, orth=orth,
+                                      stream_tile=stream_tile, **kw)
     cuda = bk._device_of(center_c) == "cuda"
     if refresh and orth == "qr":
         if not cuda:
@@ -253,6 +335,21 @@ def bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
         return k12c_cuda(*args, refresh=refresh, **kw)
     bk.PLAIN_CALLS["k12c"] += 1
     return k12c_plain(*args, refresh=refresh, **kw)
+
+
+def bond_step_c_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir, y1h,
+                   w, V0, eta, cutoff, *, forward: bool, refresh: bool = True,
+                   power_iters: int = 1, orth: str = "qr", max_rank=None):
+    """One complex bond step (KLD + TSGO) on a data-parallel ``mesh``, the
+    JAX ``bond_step_c`` with ``axis_name`` (pallas_bond_c.py:1308-1412):
+    K1c-grad on every shard, ``mesh.all_reduce`` of the gradients, K1c-update,
+    the realified QR under orth="qr" and K2c-split once per replica (a
+    frozen bond keeps Q = V0), K2c-env on every shard.  Operands (lists per
+    replica and per shard) and results as ``bond_kernels.bond_step_dp``'s."""
+    return bk.bond_step_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir,
+                           y1h, w, V0, eta, cutoff, forward=forward,
+                           refresh=refresh, power_iters=power_iters,
+                           orth=orth, max_rank=max_rank)
 
 
 def bond_step_c_ritz(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w,
@@ -291,7 +388,7 @@ def bond_block_steps_c(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
     """Bb consecutive complex bond updates (K12mc): Newton-Schulz refresh
     bonds, or frozen bonds under either orth.  Operands and results as
     ``bond_kernels.bond_block_steps``'s, complex."""
-    _check_route(orth, None, None)
+    _check_route(orth)
     if refresh and orth != "ns":
         raise ValueError("K12mc refreshes with the Newton-Schulz polar only; "
                          "orth='qr' refresh bonds run bond_step_c")

@@ -1,6 +1,6 @@
 """Data-parallel training over a mesh of devices (counterpart of
 ``mpstime_tpu/parallel``); the fold farms (``farm.py``, ``procfarm.py``)
-are ROADMAP.md queue 1 item 18's."""
+come with the port of ``mpstime_tpu/hyperopt``."""
 
 from .mesh import (Mesh, make_mesh, mesh_platform, replicate,
                    shard_train_arrays, sharded_full_sweep,

@@ -66,8 +66,9 @@ class TrainedMPS:
         return cls(mps, opts, norms, train)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+def _not_ported(what: str, module: str):
+    return NotImplementedError(f"{what} is not ported yet: it waits for the "
+                               f"port of mpstime_tpu's {module}")
 
 
 def _pad_sample_axis(phis_c, y_onehot, class_weight, npad: int):
@@ -113,14 +114,16 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     sample axis to at least this many rows the same way (before the mesh's
     padding)."""
     if test_run:
-        raise _not_ported("test_run=True (basis preview)", "queue 1 item 18")
+        raise _not_ported("test_run=True (basis preview)",
+                          "vis/vis_encodings.py (plot_encoding)")
     if custom_encoding is not None:
-        raise _not_ported("custom_encoding=", "queue 1 item 4")
+        raise _not_ported("custom_encoding=",
+                          "encodings/registry.py function_basis")
     if opts is None:
         opts = MPSOptions()
     if opts.pad_to is not None:
         raise _not_ported("pad_to (padded hyperopt trials)",
-                          "queue 1 item 18")
+                          "hyperopt/ (with encodings/pipeline.py _pad_enc)")
     device = mesh.devices[0] if mesh is not None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit_mps(device='cuda'): no CUDA device is available")

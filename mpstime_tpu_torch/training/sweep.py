@@ -38,11 +38,11 @@ Under a data-parallel mesh (``mesh=``, parallel/mesh.py) the batch state
 with one tensor per shard and the replicated state (cores, center, subspace
 caches) a list with one tensor per replica.  The bond-kernel route then runs
 every bond as ``bond_step_dp`` (K1a -> one sum over the shards -> K1b -> QR
--> K2-split -> K2-env; no K12m blocks, sweep.py:469), ritz fits take the
-unfused route (no K12cr, sweep.py:327), and the unfused route sums the
-shards' losses and gradients in ``apply_update``; each is one
-``mesh.all_reduce`` per bond update.  The complex kernel route has no dp
-kernels yet (ROADMAP.md queue 2 rows 16-19) and raises under a mesh.
+-> K2-split -> K2-env), or for complex64 ``bond_step_c_dp`` (K1c-grad ->
+sum -> K1c-update -> realified QR -> K2c-split -> K2c-env; no K12m or K12mc
+blocks, sweep.py:469), ritz fits take the unfused route (no K12cr,
+sweep.py:327), and the unfused route sums the shards' losses and gradients
+in ``apply_update``; each is one ``mesh.all_reduce`` per bond update.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ import torch
 from ..options import torch_dtype
 from ..ops.bond_kernels import bond_block_steps, bond_step, bond_step_dp
 from ..ops.bond_kernels_c import (bond_block_steps_c, bond_step_c,
-                                  bond_step_c_ritz)
+                                  bond_step_c_dp, bond_step_c_ritz)
 from ..ops.bond_update import apply_update
 from ..ops.decomp import (_np_dtype, split_bond_left, split_bond_right,
                           warm_ritz_split_left, warm_ritz_split_right,
@@ -266,12 +266,6 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
     cplx = dtype.is_complex
     kernels = not _ineligible_reasons(dtype, loss, bbopt, update_iters,
                                       rescale, svd_alg, track_cost)
-    if mesh is not None and kernels and cplx:
-        raise NotImplementedError(
-            "a complex64 KLD + TSGO randomized_warm fit under a mesh needs "
-            "the complex data-parallel kernels (K1c-grad, K1c-update, "
-            "K2c-split, K2c-env: ROADMAP.md queue 1 item 16, queue 2 rows "
-            "16-19), which are not ported yet")
     # no K12cr under a mesh: ritz fits run the unfused route (sweep.py:327)
     ritz_fused = mesh is None and _ritz_fused(
         dtype, loss, bbopt, update_iters, rescale, svd_alg, ritz_rot,
@@ -295,7 +289,8 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
             step_fn, block_fn = ((bond_step_c, bond_block_steps_c) if cplx
                                  else (bond_step, bond_block_steps))
             if mesh is not None:
-                step_fn = partial(bond_step_dp, mesh)
+                step_fn = partial(bond_step_c_dp if cplx else bond_step_dp,
+                                  mesh)
         block_kw = {} if cplx else dict(bbopt=bbopt)
 
         def step(carry, x):

@@ -250,13 +250,19 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
 def test_unported_routes_raise():
     x = _block(61)
     args = _single_args(x, False, torch.from_numpy) + (0.05, 1e-10)
-    # the real batch-tiled route is ported; its complex twin is not
+    # the batch-tiled route runs real and complex: the complex one through
+    # the complex pieces (held against JAX in tests/test_torch_complex_dp.py)
     xc = {k: v.astype(np.complex64) if k in ("A", "center", "envx", "env0",
                                              "phil", "phir", "V0") else v
           for k, v in x.items()}
-    with pytest.raises(NotImplementedError, match="rows 16-19"):
-        bkc.bond_step_c(*_single_args(xc, False, torch.from_numpy), 0.05,
-                        1e-10, forward=False, orth="ns", stream_tile=4)
+    bk.reset_counts()
+    out = bkc.bond_step_c(*_single_args(xc, False, torch.from_numpy), 0.05,
+                          1e-10, forward=False, orth="ns", stream_tile=4)
+    n_tiles = -(-xc["env0"].shape[0] // 4)
+    assert {k: v for k, v in bk.PLAIN_CALLS.items() if v} == {
+        "k1c_grad": n_tiles, "k1c_update": 1, "k2c_split": 1,
+        "k2c_env": n_tiles}
+    assert out[0].dtype == torch.complex64 and torch.isfinite(out[2]).all()
     # CGD and the mixed loss are no kernel's: the sweep sends them to the
     # unfused route, and the kernels refuse them
     with pytest.raises(ValueError, match="CGD"):

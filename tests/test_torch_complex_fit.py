@@ -84,8 +84,8 @@ def test_complex_specs_match_jax(name):
             spec.is_data_driven, spec.range) == (
         jspec.name, jspec.is_complex, jspec.is_time_dependent,
         jspec.is_data_driven, jspec.range)
-    # the projected Fourier basis is data-driven (queue 1 item 4)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # the projected Fourier basis is data-driven (encodings/data_driven.py)
+    with pytest.raises(NotImplementedError, match="data_driven.py"):
         get_encoding(name, project=True)
 
 

@@ -288,9 +288,14 @@ def test_qr_orth_complex_on_a_rank_deficient_y_keeps_the_invariants():
 def test_complex_routes_refuse_what_they_do_not_cover():
     x = _bond(71)
     ops = _torch(_single(x, False))
-    with pytest.raises(NotImplementedError, match="rows 16-19"):
-        bkc.bond_step_c(*ops, 0.05, 1e-10, forward=False, stream_tile=4)
-    with pytest.raises(NotImplementedError, match="rows 16-19"):
+    # the batch-tiled route runs (K1c-grad per tile, K1c-update, K2c-split,
+    # K2c-env per tile; held against JAX in tests/test_torch_complex_dp.py);
+    # the data-parallel one is bond_step_c_dp, so axis_name is refused
+    bk.reset_counts()
+    bkc.bond_step_c(*ops, 0.05, 1e-10, forward=False, stream_tile=4)
+    assert {k: v for k, v in bk.PLAIN_CALLS.items() if v} == {
+        "k1c_grad": 3, "k1c_update": 1, "k2c_split": 1, "k2c_env": 3}
+    with pytest.raises(ValueError, match="bond_step_c_dp"):
         bkc.bond_step_c(*ops, 0.05, 1e-10, forward=False, axis_name="dp")
     # the kernel wrappers refuse another loss or optimiser before launching
     A, center, le, re, ls, phil, phir, y1h, w, V0 = ops

@@ -1,6 +1,8 @@
 """The port's CUDA bond kernels (K12, K12m, K1, K2, the dp pieces K1a,
-K1b, K2-split, K2-env, and the complex K12c, K12mc, K1c, K2c, K12cr) held
-against their plain PyTorch versions on the card.  These tests need an NVIDIA GPU with nvcc and skip without one.
+K1b, K2-split, K2-env, the complex K12c, K12mc, K1c, K2c, K12cr and the
+complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env) held against
+their plain PyTorch versions on the card.  These tests need an NVIDIA GPU
+with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
 
@@ -331,10 +333,14 @@ def test_mesh_fit_on_one_card_runs_the_dp_kernels(bk, n):
     assert np.mean(mt.classify(trained, Xtr) == ytr) >= 0.9
 
 
-def test_mesh_over_several_cards_is_the_same_shards_on_one(bk):
+@pytest.mark.parametrize("encoding,pieces", [
+    ("legendre_no_norm", ("k1a", "k1b", "k2_split", "k2_env")),
+    ("fourier", ("k1c_grad", "k1c_update", "k2c_split", "k2c_env"))])
+def test_mesh_over_several_cards_is_the_same_shards_on_one(bk, encoding,
+                                                           pieces):
     """A mesh over cuda:0 .. cuda:n-1 (n <= 4) sums the same shards in the
     same order as n shards on cuda:0, and each card's replica computes the
-    same: the fits agree bit for bit."""
+    same: the fits agree bit for bit, real and complex."""
     n = min(torch.cuda.device_count(), 4)
     if n < 2:
         pytest.skip("needs two CUDA devices")
@@ -343,15 +349,15 @@ def test_mesh_over_several_cards_is_the_same_shards_on_one(bk):
     data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
     Xtr, ytr = data["X_train"][:40], data["y_train"][:40]
     opts = mt.MPSOptions(nsweeps=2, chi_max=12, d=3, verbosity=-1,
-                         log_level=-1)
+                         log_level=-1, encoding=encoding)
     bk.reset_counts()
     mesh = make_mesh(n)
     several, _, _ = mt.fit_mps(Xtr, ytr, opts=opts, mesh=mesh)
     bonds = 2 * 2 * 95
-    # K1b and K2-split once on each card's replica, K1a and K2-env per shard
-    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), "k1a": n * bonds,
-                           "k1b": n * bonds, "k2_split": n * bonds,
-                           "k2_env": n * bonds}
+    # the update and split once on each card's replica, the gradient and
+    # the env advance per shard
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0),
+                           **dict.fromkeys(pieces, n * bonds)}
     assert mesh.reductions == bonds and len(mesh.replicas) == n
     one, _, _ = mt.fit_mps(Xtr, ytr, opts=opts, mesh=Mesh(["cuda:0"] * n))
     assert several.mps.center.device == torch.device("cuda", 0)
@@ -586,3 +592,114 @@ def test_ritz_fit_on_cuda_runs_k12cr_on_jacobi_sweeps(bk, kw, want):
     assert sum(bk.PLAIN_CALLS.values()) == 0
     assert trained.mps.center.dtype == torch.complex64
     assert bool(torch.isfinite(trained.mps.center).all())
+
+
+# ---- the complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env --------
+
+def _dp_inputs_c(seed, forward):
+    """_dp_inputs' operands at complex64 (gls, unread by the KLD gradient,
+    is the log-scale vector)."""
+    x = _inputs_c(seed, 1, **SHAPE)
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    le, re = (t / t.norm(dim=1, keepdim=True) for t in (le, re))
+    env, phi = (le, x["phil"][0]) if forward else (re, x["phir"][0])
+    return (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+            x["y1h"], x["w"], x["ls0"], x["V0"][0], env, phi, x["ls0"])
+
+
+@pytest.mark.parametrize("forward", [False, True])
+def test_k1c_grad_kernel_matches_plain(bk, bkc, forward):
+    a = _dp_inputs_c(70, forward)[:9]
+    n0 = bk.LAUNCHES["k1c_grad"]
+    got = bkc.k1c_grad_cuda(*a, forward=forward)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1c_grad"] == n0 + 1
+    assert got.dtype == torch.complex64
+    _close([got], [bkc.k1c_grad_plain(*a, forward=forward)])
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("emit_y,q,orth", [
+    (True, 1, "ns"), (True, 3, "ns"), (True, 1, "qr"), (True, 3, "qr"),
+    (False, 1, "qr")])
+def test_k1c_update_kernel_matches_plain(bk, bkc, forward, emit_y, q, orth):
+    a = _dp_inputs_c(71, forward)
+    G = bkc.k1c_grad_plain(*a[:9], forward=forward)
+    kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth)
+    n0 = bk.LAUNCHES["k1c_update"]
+    got = bkc.k1c_update_cuda(a[0], a[1], G, a[9], 0.05, **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1c_update"] == n0 + 1
+    _close(got, bkc.k1c_update_plain(a[0], a[1], G, a[9], 0.05, **kw))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("mr", [None, 17])
+def test_k2c_split_and_k2c_env_kernels_match_plain(bk, bkc, forward, mr):
+    from mpstime_tpu_torch.ops.decomp import _qr_orth
+    a = _dp_inputs_c(72, forward)
+    BT, Y = bkc.k1c_plain(*a[:8], a[9], 0.05, forward=forward, power_iters=3)
+    Q = _qr_orth(Y).contiguous()
+    got = bkc.k2c_split_cuda(BT, Q, 1e-10, forward=forward, max_rank=mr)
+    ref = bkc.k2c_split_plain(BT, Q, 1e-10, forward=forward, max_rank=mr)
+    _close(got, ref)
+    assert torch.equal(got[2] != 0, ref[2] != 0)        # equal kept ranks
+    env, phi, ls = a[10:]
+    _close(bkc.k2c_env_cuda(ref[2], env, ls, phi, forward=forward),
+           bkc.k2c_env_plain(ref[2], env, ls, phi, forward=forward))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+def test_complex_dp_bond_on_one_and_two_shards_of_the_card(bk, bkc, forward):
+    """One shard: the complex pieces do K12c's (ns) and K1c -> QR -> K2c's
+    (qr) arithmetic at q 3; two shards sum the gradient in another order;
+    the batch-tiled step (4 tiles of 100 rows) against the unstreamed one."""
+    from mpstime_tpu_torch.parallel import Mesh
+    x = _inputs_c(73, 1, **SHAPE)
+    args = _single(x, forward)
+
+    def dp(n, **kw):
+        def shards(t):
+            return list(t.chunk(n))
+        out = bkc.bond_step_c_dp(Mesh(["cuda:0"] * n), [args[0]], [args[1]],
+                                 *(shards(t) for t in args[2:9]), [args[9]],
+                                 0.05, 1e-10, forward=forward, power_iters=3,
+                                 **kw)
+        return (out[0][0], out[1][0], torch.cat(out[2]), torch.cat(out[3]),
+                out[4][0])
+
+    _close(dp(1, orth="ns"), bkc.k12c_cuda(*args, forward=forward,
+                                           power_iters=3), rtol=0, atol=1e-6)
+    _close(dp(1, orth="qr"), bkc.qr_bond_step_c(*args, forward=forward,
+                                                plain=False, power_iters=3),
+           rtol=0, atol=1e-6)
+    _close(dp(2, orth="ns"), dp(1, orth="ns"), rtol=0, atol=1e-4)
+    n0 = bk.LAUNCHES["k1c_grad"]
+    got = bkc.bond_step_c(*args, forward=forward, orth="ns", power_iters=3,
+                          stream_tile=32)
+    assert bk.LAUNCHES["k1c_grad"] == n0 + 4
+    _close(got, bkc.bond_step_c(*args, forward=forward, orth="ns",
+                                power_iters=3), rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_complex_mesh_fit_on_one_card_runs_the_complex_dp_kernels(bk, n):
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.parallel import Mesh
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40, :24], data["y_train"][:40]
+    bk.reset_counts()
+    mesh = Mesh(["cuda:0"] * n)
+    trained, info, _ = mt.fit_mps(
+        Xtr, ytr, opts=mt.MPSOptions(encoding="fourier", nsweeps=2,
+                                     chi_max=12, d=3, verbosity=-1,
+                                     log_level=-1), mesh=mesh)
+    bonds = 2 * 2 * 23
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0),
+                           "k1c_grad": n * bonds, "k1c_update": bonds,
+                           "k2c_split": bonds, "k2c_env": n * bonds}
+    assert sum(bk.PLAIN_CALLS.values()) == 0 and mesh.reductions == bonds
+    assert trained.mps.center.dtype == torch.complex64
+    assert bool(torch.isfinite(trained.mps.center).all())
+    assert len(mt.classify(trained, data["X_test"][:, :24])) == 100

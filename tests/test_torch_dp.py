@@ -10,8 +10,9 @@ and against the port's single-device sweep:
     reduction) and the float32 kernel route;
   * ``fit_mps(mesh=)`` end to end, with and without ``pad_samples_to``;
   * the contract: one ``all_reduce`` per bond update;
-  * complex fits: the kernel route refuses a mesh (its dp kernels are
-    ROADMAP.md queue 2 rows 16-19), the ritz route runs unfused.
+  * complex fits: the kernel route runs bond_step_c_dp on a mesh (its
+    pieces against JAX in tests/test_torch_complex_dp.py), the ritz route
+    runs unfused.
 
 Tolerances: on one shard the dp route does the single-device route's
 arithmetic (bit for bit in the port, 1e-7 in the JAX package's own test);
@@ -392,13 +393,29 @@ def _complex(tiny, dtype):
     return x
 
 
-def test_complex_kernel_route_under_a_mesh_raises(tiny):
+def test_complex_kernel_route_under_a_mesh_runs(tiny):
+    """A complex64 KLD + TSGO randomized_warm sweep on a mesh runs one
+    bond_step_c_dp per bond (K1c-grad on each shard, one sum, K1c-update,
+    K2c-split, K2c-env on each shard); on one shard it is the
+    single-device sweep's arithmetic (K12mc blocks of chained K12c steps)
+    bit for bit, on two it sums the gradients in another order."""
     x = _complex(tiny, np.complex64)
     x["y1h"], x["w"] = x["y1h"].astype(np.float32), x["w"].astype(np.float32)
-    mesh, placed, _, _ = _sweep_inputs(x, np.float32, 2)
-    with pytest.raises(NotImplementedError, match="rows 16-19"):
-        sharded_full_sweeps(mesh, *placed, 0.05, 1e-10, nsweeps=1,
-                            svd_alg="randomized_warm", **SWEEP_KW)
+    kw = dict(nsweeps=1, svd_alg="randomized_warm", orth="ns", **SWEEP_KW)
+    runs = {}
+    for n in (1, 2):
+        mesh, placed, plain, _ = _sweep_inputs(x, np.float32, n)
+        bk.reset_counts()
+        runs[n] = sharded_full_sweeps(mesh, *placed, 0.05, 1e-10, **kw)
+        assert {k: v for k, v in bk.PLAIN_CALLS.items() if v} == {
+            "k1c_grad": 14 * n, "k1c_update": 14, "k2c_split": 14,
+            "k2c_env": 14 * n}
+        assert mesh.reductions == 14
+    c1, ce1 = tsweep.full_sweeps(*plain, 0.05, 1e-10, **kw)
+    assert c1.dtype == torch.complex64
+    torch.testing.assert_close(runs[1][0], c1, rtol=0, atol=0)
+    torch.testing.assert_close(runs[1][1], ce1, rtol=0, atol=0)
+    assert all(torch.isfinite(t).all() for t in runs[2])
 
 
 def test_complex_ritz_under_a_mesh_runs_unfused(tiny):

@@ -153,14 +153,17 @@ def test_encode_dataset_casts_to_model_dtype_and_empty_sets():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("fourier", "item 14"), ("stoudenmire", "item 14"), ("sahand", "item 14"),
-    ("sahand_legendre", "item 4"), ("sltd", "item 4"),
-    ("hist_split_uniform", "item 4"), ("custom", "item 4")])
+    ("fourier", "ported"), ("stoudenmire", "ported"), ("sahand", "ported"),
+    ("sahand_legendre", "encodings/data_driven.py"),
+    ("sltd", "encodings/data_driven.py"),
+    ("hist_split_uniform", "encodings/split.py"),
+    ("custom", "function_basis")])
 def test_unported_encodings_name_their_roadmap_item(name, item):
-    if item == "item 14":
-        # item 14 is ported: the complex encodings, and the ritz route their
-        # fits at chi_max > 40 resolve to on the card, whose tracked sweeps
-        # run K12cr
+    # an unported encoding's refusal names the JAX module it waits for
+    if item == "ported":
+        # the complex encodings are ported, and the ritz route their fits at
+        # chi_max > 40 resolve to on the card, whose tracked sweeps run
+        # K12cr
         assert get_encoding(name).is_complex
         opts = mt.MPSOptions(encoding=name, chi_max=64)
         assert tsweep._ritz_fused(opts.resolved_dtype(), "KLD", "TSGO", 1,
@@ -173,7 +176,7 @@ def test_unported_encodings_name_their_roadmap_item(name, item):
 
 
 def test_projected_bases_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="data_driven.py"):
         get_encoding("legendre", project=True)
 
 
