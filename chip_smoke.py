@@ -73,6 +73,23 @@ Phases, one status line each; any failure exits non-zero:
      from its own run, its sweep-1 train KLD against the single-device fused
      fourier fit's (K12c), then classify; the same fit on two shards of the
      card; one sweep of it under torch.profiler.
+ 15. split-tail kernels: K1-tail and K1c-tail against their plain versions
+     at the main-path shape and at chi 192 (C 2, d 5) over both directions,
+     orth ns and qr, q 1 and 3; bond_step(split_tail=True) against K12 (ns)
+     and K1 -> QR -> K2 (qr), bond_step_c(split_tail=True) (q 3) against
+     K12c and K1c -> QR -> K2c, the one-shard dp steps and stream_tile=32
+     with the split tail against the same calls without it; then the fused
+     and split forms of a backward refresh bond timed in turns at chi 192,
+     256 and 320 (real, q 1, ns and qr) and 128 and 192 (complex, q 3, ns),
+     K1's (K1c's) in-kernel power steps against a K1-tail (K1c-tail) launch
+     at chi 192 and 320, the chi from which the split form wins
+     (SPLIT_TAIL_CHI), and each tail kernel's time at the main-path shape
+     beside its plain version's.
+ 16. split-tail path: fit_mps on ECG200 at the default MPSOptions and with
+     encoding="fourier" on cuda with bond_kernels.SPLIT_TAIL_CHI = 0 (every
+     refresh bond K1 -> K1-tail -> K2, K1c -> 3 K1c-tail -> K2c), counts
+     read from each run, sweep-1 train KLD against the fused fits', accuracy
+     held as theirs; one sweep of the real fit under torch.profiler.
 Then the ptxas line (registers and spills of each kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
 bound, the least time the card could take for the work of the timed call:
@@ -209,7 +226,7 @@ def ptxas_summary(log: str) -> str:
             kern = next((k for k in ("k12cr_kernel", "k12m_kernel",
                                      "k1_kernel", "k2_kernel", "k1a_kernel",
                                      "k1b_kernel", "k2_split_kernel",
-                                     "k2_env_kernel")
+                                     "k2_env_kernel", "k1_tail_kernel")
                          if k in mangled), mangled)
             name = f"{kern}<{'cfloat' if 'cfloat' in mangled else 'float'}>"
             spill = "0"
@@ -394,6 +411,18 @@ def k1b_work(C, chi, d, *, emit_y=True, q=1, qr=False, cplx=False):
     return ops, reads + b * (C * P * P + P * K)
 
 
+def k1_tail_work(C, chi, d, *, q=1, qr=False, cplx=False):
+    """(float32 operations, bytes) of one K1-tail (K1c-tail) call: q power
+    steps of a stored bond tensor (Newton-Schulz polar unless qr); BT and V0
+    read once, Y written once."""
+    m, e, b = _units(cplx)
+    P, K = chi * d, chi
+    ns = 0 if qr else (8 * (K * K * P + K ** 3 + P * K * K)
+                       + 6 * (K * K * P + P * K * K))
+    ops = q * (m * (2 * C * P * K * P + ns) + e * 6 * P * K)
+    return ops, b * (C * P * P + 2 * P * K)
+
+
 def k2_split_work(C, chi, d, cplx=False):
     """(float32 operations, bytes) of one K2-split (K2c-split) call: the
     projection, the energies, the mask and the emission."""
@@ -459,8 +488,8 @@ def bound(work):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -471,6 +500,33 @@ def time_ms(fn, iters: int = 20) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def time_turns(fused, split, rounds: int, iters: int):
+    """Per-call ms of two forms of one bond, timed in turns (fused, split,
+    split, fused per round) on the same card: (fused times, split times)."""
+    tf, ts = [], []
+    for _ in range(rounds):
+        tf.append(time_ms(fused, iters, warmup=1))
+        ts.append(time_ms(split, iters, warmup=1))
+        ts.append(time_ms(split, iters, warmup=1))
+        tf.append(time_ms(fused, iters, warmup=1))
+    return tf, ts
+
+
+def split_wins_from(timed):
+    """The smallest chi from which the split form beats the fused one by
+    more than the run-to-run spread (the medians apart by more than either
+    form's max - min over its turns) at every larger measured chi, else
+    None."""
+    chi_min = None
+    for chi in sorted(timed, reverse=True):
+        tf, ts = timed[chi]
+        spread = max(max(tf) - min(tf), max(ts) - min(ts))
+        if statistics.median(tf) - statistics.median(ts) <= spread:
+            break
+        chi_min = chi
+    return chi_min
 
 
 def ritz_invariants(out, forward: bool):
@@ -1585,9 +1641,233 @@ def main() -> int:
           + f"; the rest {busy - sum(parts.values()):.1f} ms ({card})",
           flush=True)
 
+    # ---- 15. split-tail kernels --------------------------------------------
+    # K1-tail and K1c-tail over a stepped bond tensor (the plain K1's, as
+    # the route hands it over), at the main-path shape and at chi 192
+    terr = {"k1_tail": 0.0, "k1c_tail": 0.0}
+    tail_grid = [(c, f, o, q) for c in (SHAPE["chi"], 192)
+                 for f in (False, True) for o in ("ns", "qr") for q in (1, 3)]
+    for i, (chi, forward, orth, q) in enumerate(tail_grid):
+        shape = dict(SHAPE, chi=chi)
+        for key, cplx in (("k1_tail", False), ("k1c_tail", True)):
+            if cplx:
+                x = bond_inputs_c(1700 + i, 1, **shape)
+                BT, _ = bkc.k1c_plain(*k1c_args(x, forward), forward=forward,
+                                      emit_y=False)
+                cuda, plain = bkc.k1c_tail_cuda, bkc.k1c_tail_plain
+            else:
+                x = bond_inputs(1700 + i, 1, **shape)
+                BT, _ = bk.k1_plain(*k1_args(x, forward), forward=forward,
+                                    emit_y=False)
+                cuda, plain = bk.k1_tail_cuda, bk.k1_tail_plain
+            kw = dict(forward=forward, power_iters=q, orth=orth)
+            got = cuda(BT, x["V0"][0], **kw)
+            torch.cuda.synchronize()
+            terr[key] = max(terr[key], compare_all(
+                f"{key} chi={chi} {kw}", [got],
+                [plain(BT, x["V0"][0], **kw)]))
+    print(f"[split-tail-kernels] K1-tail {len(tail_grid)} cases (chi "
+          f"{SHAPE['chi']} and 192, both directions, ns/qr, q 1/3), max |err| "
+          f"{terr['k1_tail']:.3e}; K1c-tail {len(tail_grid)} cases, max |err| "
+          f"{terr['k1c_tail']:.3e} (rtol {RTOL}, atol {ATOL})", flush=True)
+    err.update(terr)
+    # the split routes do the fused kernels' arithmetic: the same device
+    # functions over the same BT with the same block size
+    route_err = {}
+
+    def held(label, got, ref, forward):
+        route_err[label] = max(route_err.get(label, 0.0), compare(
+            label, got, ref, forward, atol=CHAIN_ATOL, rtol=0.0))
+
+    for i, forward in enumerate((False, True)):
+        x = bond_inputs(1800 + i, 1, **SHAPE)
+        args = k12_args(x, forward)
+        for q in (1, 3):
+            held("bond_step ns vs K12",
+                 bk.bond_step(*args, forward=forward, orth="ns",
+                              power_iters=q, split_tail=True),
+                 bk.k12_cuda(*args, forward=forward, power_iters=q), forward)
+            held("bond_step qr vs K1 -> QR -> K2",
+                 bk.bond_step(*args, forward=forward, orth="qr",
+                              power_iters=q, split_tail=True),
+                 bk.qr_bond_step(*args, forward=forward, plain=False,
+                                 power_iters=q), forward)
+        for orth in ("ns", "qr"):
+            held("bond_step_dp one shard",
+                 dp_step(bk.bond_step_dp, one, args, forward, orth=orth,
+                         split_tail=True),
+                 dp_step(bk.bond_step_dp, one, args, forward, orth=orth,
+                         split_tail=False), forward)
+            held("stream_tile=32",
+                 bk.bond_step(*args, forward=forward, orth=orth,
+                              stream_tile=32, split_tail=True),
+                 bk.bond_step(*args, forward=forward, orth=orth,
+                              stream_tile=32, split_tail=False), forward)
+        xc = bond_inputs_c(1810 + i, 1, **SHAPE)
+        args = k12_args(xc, forward)
+        kw = dict(forward=forward, power_iters=3)
+        held("bond_step_c ns vs K12c",
+             bkc.bond_step_c(*args, orth="ns", split_tail=True, **kw),
+             bkc.k12c_cuda(*args, **kw), forward)
+        held("bond_step_c qr vs K1c -> QR -> K2c",
+             bkc.bond_step_c(*args, orth="qr", split_tail=True, **kw),
+             bkc.qr_bond_step_c(*args, plain=False, **kw), forward)
+        for orth in ("ns", "qr"):
+            held("bond_step_c_dp one shard",
+                 dp_step(bkc.bond_step_c_dp, one, args, forward, orth=orth,
+                         split_tail=True, power_iters=3),
+                 dp_step(bkc.bond_step_c_dp, one, args, forward, orth=orth,
+                         split_tail=False, power_iters=3), forward)
+            held("complex stream_tile=32",
+                 bkc.bond_step_c(*args, orth=orth, stream_tile=32,
+                                 split_tail=True, **kw),
+                 bkc.bond_step_c(*args, orth=orth, stream_tile=32,
+                                 split_tail=False, **kw), forward)
+    print("[split-tail-kernels] split tail vs the fused route, both "
+          "directions (real q 1 and 3, complex q 3), max |diff|: " + "; ".join(
+              f"{k} {v:.3e}" for k, v in route_err.items())
+          + f" (atol {CHAIN_ATOL}); kept ranks equal", flush=True)
+    # fused against split, a backward refresh bond at large chi, in turns
+    large = {}
+    for label, chis, cplx, orth, q, rounds in (
+            ("ns", (192, 256, 320), False, "ns", 1, 1),
+            ("qr", (192, 256, 320), False, "qr", 1, 1),
+            ("complex ns", (128, 192), True, "ns", 3, 1)):
+        large[label] = {}
+        for chi in chis:
+            shape = dict(SHAPE, chi=chi)
+            x = (bond_inputs_c if cplx else bond_inputs)(1900 + chi, 1,
+                                                         **shape)
+            args = k12_args(x, False)
+            kw = dict(forward=False, orth=orth, power_iters=q)
+            step = bkc.bond_step_c if cplx else bk.bond_step
+            # split_tail=False: K12 (ns), K1 -> QR -> K2 (qr), K12c
+            large[label][chi] = time_turns(
+                lambda: step(*args, split_tail=False, **kw),
+                lambda: step(*args, split_tail=True, **kw), rounds, iters=2)
+        print(f"[split-tail-kernels] a backward refresh bond ({label}, q {q}, "
+              f"C 2, d 5, N 100), per call in turns, fused vs split ms: "
+              + "; ".join(
+                  f"chi {chi}: {[round(t, 3) for t in tf]} vs "
+                  f"{[round(t, 3) for t in ts]}"
+                  for chi, (tf, ts) in large[label].items())
+              + f"; the split form wins from chi "
+              f"{split_wins_from(large[label])} ({card})", flush=True)
+    # where the difference sits: K1's in-kernel power step (K1 with emit_y
+    # less K1 without) against one K1-tail launch over the same BT
+    probe = []
+    for chi, cplx, q in ((192, False, 1), (320, False, 1), (192, True, 3)):
+        if cplx:
+            x = bond_inputs_c(1990 + chi, 1, **dict(SHAPE, chi=chi))
+            k1, a1, tail = bkc.k1c_cuda, k1c_args(x, False), bkc.k1c_tail_cuda
+        else:
+            x = bond_inputs(1990 + chi, 1, **dict(SHAPE, chi=chi))
+            k1, a1, tail = bk.k1_cuda, k1_args(x, False), bk.k1_tail_cuda
+        kw = dict(forward=False, orth="ns", power_iters=q)
+        BTp, _ = k1(*a1, emit_y=False, **kw)
+        t_emit = time_ms(lambda: k1(*a1, **kw), 2, warmup=1)
+        t_bare = time_ms(lambda: k1(*a1, emit_y=False, **kw), 2, warmup=1)
+        t_tail = time_ms(lambda: tail(BTp, x["V0"][0], **kw), 2, warmup=1)
+        name = "K1c" if cplx else "K1"
+        probe.append(f"{name} chi {chi} q {q}: with its power steps "
+                     f"{t_emit:.3f} ms, without {t_bare:.3f} ms (in-kernel "
+                     f"steps {t_emit - t_bare:.3f} ms); {name}-tail at q {q} "
+                     f"{t_tail:.3f} ms")
+    print("[split-tail-kernels] a backward refresh bond's power steps (ns): "
+          + "; ".join(probe) + f" ({card})", flush=True)
+    # one rule for real and complex refresh bonds: the largest of the chis
+    # from which each comparison wins, None if one never does
+    wins = [split_wins_from(v) for v in large.values()]
+    chi_rule = None if None in wins else max(wins)
+    print(f"[split-tail-kernels] SPLIT_TAIL_CHI supported by these timings: "
+          f"{chi_rule} (the package's: {bk.SPLIT_TAIL_CHI})", flush=True)
+    xt = bond_inputs(23, 1, **SHAPE)
+    BTt, _ = bk.k1_plain(*k1_args(xt, False), forward=False, emit_y=False)
+    xtc = bond_inputs_c(24, 1, **SHAPE)
+    BTtc, _ = bkc.k1c_plain(*k1c_args(xtc, False), forward=False,
+                            emit_y=False)
+    kwt = dict(forward=False, orth="ns")
+    times["k1_tail"] = (
+        time_ms(lambda: bk.k1_tail_cuda(BTt, xt["V0"][0], **kwt)),
+        time_ms(lambda: bk.k1_tail_plain(BTt, xt["V0"][0], **kwt)))
+    times["k1c_tail"] = (
+        time_ms(lambda: bkc.k1c_tail_cuda(BTtc, xtc["V0"][0], **kwt)),
+        time_ms(lambda: bkc.k1c_tail_plain(BTtc, xtc["V0"][0], **kwt)))
+    print("[timing] one power step of a stored backward bond tensor (ns, q "
+          "1): " + "; ".join(
+              f"{k} {times[k][0]:.3f} ms vs plain {times[k][1]:.3f} ms"
+              for k in ("k1_tail", "k1c_tail")) + f" ({card})", flush=True)
+
+    # ---- 16. split-tail path ------------------------------------------------
+    # the fits with every refresh bond on the split-tail route; their counts
+    # are read from each run alone
+    split_chi = bk.SPLIT_TAIL_CHI
+    bk.SPLIT_TAIL_CHI = 0
+    try:
+        st_counts = {}
+        for label, opts, want, ref_kld, band in (
+                ("MPSOptions()", mt.MPSOptions(verbosity=-1, log_level=1),
+                 {"k1": 1900, "k1_tail": 1900, "k2": 1900}, fused_kld,
+                 (ACC_FLOOR, 1.0)),
+                ("MPSOptions(encoding='fourier')",
+                 mt.MPSOptions(**{**fourier, "log_level": 1}),
+                 {"k1c": 1900, "k1c_tail": 5700, "k2c": 1900}, cfused_kld,
+                 FOURIER_ACC)):
+            bk.reset_counts()
+            s_trained, s_info, _ = mt.fit_mps(Xtr, ytr, Xte, yte, opts,
+                                              device="cuda")
+            s_launches, s_plain = dict(bk.LAUNCHES), dict(bk.PLAIN_CALLS)
+            s_acc = float(np.mean(mt.classify(s_trained, Xte) == yte))
+            for t in (s_trained.mps.cores, s_trained.mps.center):
+                check(bool(torch.isfinite(t).all()),
+                      f"split-tail-path {label}: non-finite weights")
+            want = {**dict.fromkeys(bk.LAUNCHES, 0), **want}
+            check(s_launches == want, f"split-tail-path {label}: launches "
+                  f"{s_launches} != {want}")
+            check(sum(s_plain.values()) == 0,
+                  f"split-tail-path {label}: plain calls {s_plain}")
+            check(band[0] <= s_acc <= band[1], f"split-tail-path {label}: "
+                  f"test accuracy {s_acc} outside {band}")
+            kld = float(s_info["train_KL_div"][1])
+            rel = abs(kld - ref_kld) / abs(ref_kld)
+            check(rel <= DP_KLD_RTOL, f"split-tail-path {label}: sweep-1 "
+                  f"train KLD {kld} vs the fused fit's {ref_kld}: {rel:.3e}")
+            st_counts[label] = s_launches
+            print(f"[split-tail-path] ECG200 {label} on cuda, "
+                  f"SPLIT_TAIL_CHI = 0: test accuracy {s_acc:.4f} (held "
+                  f"to {band}); median sweep "
+                  f"{statistics.median(s_info['sweep_seconds'][1:]):.4f} s "
+                  f"(after 1 warm sweep); sweep-1 train KLD {kld:.6f} vs the "
+                  f"fused fit's {ref_kld:.6f} ({rel:.2e} relative, held to "
+                  f"{DP_KLD_RTOL}); launches "
+                  f"{ {k: v for k, v in s_launches.items() if v} }; plain "
+                  f"calls {sum(s_plain.values())} ({card})", flush=True)
+        # where a split-tail sweep's device time goes
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, p_info, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
+                verbosity=-1, log_level=-1, nsweeps=1), device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        bk.SPLIT_TAIL_CHI = split_chi
+    dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA}
+    busy = sum(dev.values())
+    wall = 1e3 * sum(p_info["sweep_seconds"])
+    check(busy > 0, "split-tail-profile: no device time traced")
+    parts = {k: sum(v for n, v in dev.items() if k + "_kernel" in n)
+             for k in ("k1", "k1_tail", "k2")}
+    print(f"[split-tail-profile] one default sweep with SPLIT_TAIL_CHI = 0: "
+          f"device busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
+          f"({100 * busy / wall:.1f} %); " + "; ".join(
+              f"{c} {v:.1f} ms ({100 * v / max(busy, 1e-9):.1f} %)"
+              for c, v in zip(("K1", "K1-tail", "K2"), parts.values()))
+          + f"; the rest {busy - sum(parts.values()):.1f} ms ({card})",
+          flush=True)
+
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
-    # and an 8-bond block, at the main-path shape, and the complex and ritz
-    # ones timed above
+    # and an 8-bond block, at the main-path shape, and the complex, ritz and
+    # tail ones timed above
     work = {"k12": k12_work(**SHAPE), "k12m": k12_work(**SHAPE, Bb=8),
             "k1": k1_work(**SHAPE), "k2": k2_work(**SHAPE),
             "k12c": k12_work(**SHAPE, q=3, cplx=True),
@@ -1601,7 +1881,9 @@ def main() -> int:
             "k1c_grad": k1a_work(**SHAPE, cplx=True),
             "k1c_update": k1b_work(2, 25, 5, q=3, cplx=True),
             "k2c_split": k2_split_work(2, 25, 5, cplx=True),
-            "k2c_env": k2_env_work(25, 5, 100, cplx=True)}
+            "k2c_env": k2_env_work(25, 5, 100, cplx=True),
+            "k1_tail": k1_tail_work(2, 25, 5),
+            "k1c_tail": k1_tail_work(2, 25, 5, cplx=True)}
     real_src = (KERNEL_SRC, "mpstime_tpu/ops/pallas_bond.py")
     cplx_src = (KERNEL_SRC_C, "mpstime_tpu/ops/pallas_bond_c.py")
     rows = (("K12", "k12", real_src, ":863", mse_launches["k12"]),
@@ -1625,7 +1907,11 @@ def main() -> int:
             ("K2c-split", "k2c_split", cplx_src, ":654",
              cdp_launches["k2c_split"]),
             ("K2c-env", "k2c_env", cplx_src, ":670",
-             cdp_launches["k2c_env"]))
+             cdp_launches["k2c_env"]),
+            ("K1-tail", "k1_tail", real_src, ":286",
+             st_counts["MPSOptions()"]["k1_tail"]),
+            ("K1c-tail", "k1c_tail", cplx_src, ":409",
+             st_counts["MPSOptions(encoding='fourier')"]["k1c_tail"]))
     kernels = []
     for name, key, (src, ref_file), line, n in rows:
         b_ms, b_by = bound(work[key])

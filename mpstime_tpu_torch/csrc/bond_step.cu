@@ -1,5 +1,6 @@
-// Fused DMRG bond step for NVIDIA Hopper (sm_90a): K12 and K12m, and the
-// two halves K1 and K2 of the bond step around an outside QR.
+// Fused DMRG bond step for NVIDIA Hopper (sm_90a): K12 and K12m, the two
+// halves K1 and K2 of the bond step around an outside QR, its four pieces
+// K1a, K1b, K2-split and K2-env, and the stand-alone power step K1-tail.
 //
 // Replaces the Pallas TPU kernels _k12_kernel (mpstime_tpu/ops/pallas_bond.py,
 // one bond step per launch) and _k12m_kernel (same file, Bb consecutive bond
@@ -55,6 +56,18 @@
 // power step, K2-split ~0.8 M and K2-env ~0.3 M: latency-bound like K12 and
 // run the same way, one thread block per launch.  The gradient G
 // [C, chi*d, d, chi] (250 KB) is the only operand that crosses devices.
+//
+// K1-tail replaces _k1_tail_kernel of the same file: the warm power step of
+// the split-tail route (pallas_bond.py:1320-1372), where K1 or K1b runs with
+// emit_y = 0 and power_iters K1-tail launches at q = 1 read the stored bond
+// tensor back and carry the iterate from one to the next.  It is K1's power
+// step (power_tail) over a read-only BT, with the revival and the
+// Newton-Schulz polar under orth="ns" and column normalisation only under
+// "qr", so a chain of q launches computes what K1's q in-kernel steps do.  At
+// the main-path shape one step is ~1.6 M multiply-adds of the Gram
+// application plus ~2.3 M of the Newton-Schulz polar (ns), over ~150 KB of
+// operands (BT 125 KB, V0 and Y): latency-bound like the rest, one thread
+// block per launch.
 //
 // C interface (ctypes): pointers as void*, the stream as a void* handle; the
 // launch goes to the caller's current device and returns cudaGetLastError().
@@ -131,6 +144,16 @@ int mpst_k1b_launch(const void* lhs, const void* center0, const void* g,
   return mpst::launch_k1b<float>(lhs, center0, g, v0, bt_out, y_out, ws, C,
                                  chi, d, forward, emit_y, q_iters, qr, gd,
                                  eta, stream);
+}
+
+// K1-tail.  bt: a stepped bond tensor [C, chi*d, d, chi]; q_iters power
+// steps from v0 into y_out (qr = 1: column-normalised only).  Scratch:
+// mpst_k12_workspace_floats(C, chi, d, 0).
+int mpst_k1_tail_launch(const void* bt, const void* v0, void* y_out, void* ws,
+                        int C, int chi, int d, int forward, int q_iters,
+                        int qr, void* stream) {
+  return mpst::launch_k1_tail<float>(bt, v0, y_out, ws, C, chi, d, forward,
+                                     q_iters, qr, stream);
 }
 
 // K2-split.  Scratch: mpst_k12_workspace_floats(C, chi, d, 0).

@@ -1,6 +1,7 @@
 // Device code of the fused DMRG bond step (K12), its multi-bond block (K12m),
 // its two halves around an outside QR (K1, K2), its four pieces for data-
-// parallel and batch-tiled bond steps (K1a, K1b, K2-split, K2-env), real
+// parallel and batch-tiled bond steps (K1a, K1b, K2-split, K2-env), the
+// stand-alone power step of the split-tail route (K1-tail), real
 // (float) and complex (cfloat), and the tracked-ritz bond step (K12cr,
 // instantiated at cfloat).
 // See bond_step.cu and bond_step_c.cu for what the kernels replace and how
@@ -794,6 +795,23 @@ __global__ void __launch_bounds__(kMaxThreads) k1b_kernel(K12Args<T> a,
   for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
 }
 
+// K1-tail: a.q_iters warm power steps of a stored, stepped bond tensor bt
+// (K1's or K1b's, launched with emit_y = 0) from v0 into y_out (a.qr:
+// column-normalised only; else the revival and Newton-Schulz polar of each
+// step).  The split-tail route chains launches at q = 1, which is K1's own
+// tail step by step: power_tail over the same BT, as K1b reads it.
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k1_tail_kernel(K12Args<T> a,
+                                                              const T* bt,
+                                                              T* y_out) {
+  __shared__ float red[kMaxThreads];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
+  w.BT = const_cast<T*>(bt);                // read only
+  const T* y = power_tail(a, a.v0, w, red);
+  const long PK = (long)a.chi * a.d * a.chi;
+  for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
+}
+
 // K2-split: the split of bt against the orthonormal basis Q: projection,
 // energies and cutoff mask, the center and core in their final layouts, and
 // the masked isometry Qm = Q * mask into qm_out (emit forms it in w.Yb).
@@ -1253,6 +1271,29 @@ inline int launch_k1b(const void* lhs, const void* center0, const void* g,
   k1b_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const T*>(g), static_cast<T*>(bt_out),
       static_cast<T*>(y_out));
+  return (int)cudaGetLastError();
+}
+
+// K1-tail: bt [C, P, P] is a stepped bond tensor; q_iters power steps from
+// v0 into y_out.  Scratch: workspace_floats(C, chi, d, 0).
+template <class T>
+inline int launch_k1_tail(const void* bt, const void* v0, void* y_out,
+                          void* ws, int C, int chi, int d, int forward,
+                          int q_iters, int qr, void* stream) {
+  K12Args<T> a{};
+  a.v0 = static_cast<const T*>(v0);
+  a.ws = static_cast<float*>(ws);
+  a.Bb = 1;
+  a.C = C;
+  a.chi = chi;
+  a.d = d;
+  a.forward = forward;
+  a.refresh = 1;
+  a.q_iters = q_iters;
+  a.qr = qr;
+  k1_tail_kernel<T><<<1, kMaxThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const T*>(bt), static_cast<T*>(y_out));
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 // Complex (complex64) fused DMRG bond step for NVIDIA Hopper (sm_90a): K12c
 // and K12mc, the two halves K1c and K2c of the bond step around an outside
-// QR, the tracked-ritz bond step K12cr, and the four pieces K1c-grad,
+// QR, the tracked-ritz bond step K12cr, the four pieces K1c-grad,
 // K1c-update, K2c-split and K2c-env of the data-parallel and batch-tiled
-// bond step.
+// bond step, and the stand-alone power step K1c-tail.
 //
 // Replaces the Pallas TPU kernels of mpstime_tpu/ops/pallas_bond_c.py:
 // _k12c_kernel (one complex bond step), _k12mc_kernel (Bb <= 4 consecutive
@@ -32,6 +32,16 @@
 // power steps of fourteen Newton-Schulz steps each): latency-bound on one
 // thread block like the rest.  The gradient G (C*chi*d*d*chi complex
 // values, 500 KB) is the one operand that crosses devices.
+//
+// K1c-tail replaces _k1c_tail_kernel of the same file (_k1c_power,
+// pallas_bond_c.py:250-317): the complex split-tail route runs K1c or
+// K1c-update with emit_y = 0, then power_iters K1c-tail launches at q = 1
+// over the stored bond tensor.  It is k1_tail_kernel at cfloat, power_tail
+// over a read-only BT, and accepts orth "ns" and "qr" only (no tail call of
+// the JAX package passes "tri").  At the complex main-path shape one step is
+// ~1.6 M complex multiply-adds of the Gram application plus ~2.3 M of the
+// Newton-Schulz polar (ns), over ~300 KB of operands (BT 250 KB, V0 and Y):
+// latency-bound on one thread block like the rest.
 //
 // K12cr is the same device code around three more phases
 // (bond_step.cuh): the power step orthonormalised by damped triangular
@@ -182,6 +192,15 @@ int mpst_k2c_env_launch(const void* qm, const void* env, const void* env_ls,
                         void* stream) {
   return mpst::launch_k2_env<cfloat>(qm, env, env_ls, phi, env_out, ls_out,
                                      ws, chi, d, N, forward, stream);
+}
+
+// K1c-tail (K1-tail at complex64).  Scratch:
+// mpst_c_workspace_floats(C, chi, d, 0).
+int mpst_k1c_tail_launch(const void* bt, const void* v0, void* y_out,
+                         void* ws, int C, int chi, int d, int forward,
+                         int q_iters, int qr, void* stream) {
+  return mpst::launch_k1_tail<cfloat>(bt, v0, y_out, ws, C, chi, d, forward,
+                                      q_iters, qr, stream);
 }
 
 }  // extern "C"

@@ -130,6 +130,8 @@ def load_library() -> ctypes.CDLL:
                  [p] * 11 + [i] * 6 + [p]),
                 (("mpst_k1b_launch", "mpst_k1c_update_launch"),
                  [p] * 7 + [i] * 8 + [f, p]),
+                (("mpst_k1_tail_launch", "mpst_k1c_tail_launch"),
+                 [p] * 4 + [i] * 6 + [p]),
                 (("mpst_k2_split_launch", "mpst_k2c_split_launch"),
                  [p] * 6 + [i] * 4 + [f] * 2 + [p]),
                 (("mpst_k2_env_launch", "mpst_k2c_env_launch"),

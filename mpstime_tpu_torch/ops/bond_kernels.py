@@ -1,23 +1,30 @@
 """The fused bond step, K12, its multi-bond block, K12m, the two halves K1
-and K2 of the bond step around an outside QR, and its four pieces K1a, K1b,
-K2-split and K2-env for data-parallel meshes and batch tiles (counterpart of
+and K2 of the bond step around an outside QR, its four pieces K1a, K1b,
+K2-split and K2-env for data-parallel meshes and batch tiles, and the
+stand-alone power step K1-tail of the split-tail route (counterpart of
 ``mpstime_tpu/ops/pallas_bond.py``).
 
 ``bond_step`` and ``bond_block_steps`` keep the signatures of the JAX
 package's (pallas_bond.py:1235, :1062).  A refresh bond under orth="qr" runs
 K1 -> ``torch.linalg.qr`` -> K2 (pallas_bond.py:1320-1372); every other bond
-runs K12.  ``bond_step(stream_tile=)`` runs the batch in row tiles
-(pallas_bond.py:1150-1232) and ``bond_step_dp`` a bond on a data-parallel
-mesh (the JAX bond step with ``axis_name``): K1a per tile or shard, one sum
-of their gradients, K1b -> QR -> K2-split once per device, K2-env per tile
-or shard.  Each kernel dispatches on the device of the tensors it is given:
+runs K12.  On the split-tail route (``split_tail=``, by default where
+``splits_tail`` says so) a refresh bond runs K1 without its power step, then
+``power_iters`` K1-tail launches at q=1 over the stored bond tensor, then the
+QR under orth="qr", then K2 (pallas_bond.py:1332-1351); the dp and
+batch-tiled steps split K1b the same way.  ``bond_step(stream_tile=)`` runs
+the batch in row tiles (pallas_bond.py:1150-1232) and ``bond_step_dp`` a
+bond on a data-parallel mesh (the JAX bond step with ``axis_name``): K1a per
+tile or shard, one sum of their gradients, K1b -> QR -> K2-split once per
+device, K2-env per tile or shard.  Each kernel dispatches on the device of
+the tensors it is given:
 
   * CUDA tensors launch the hand-written kernel (csrc/bond_step.cu), built
     at first use, or raise.  There is no fallback.
   * CPU tensors take the kernel's plain PyTorch version (``k12_plain``,
     ``k12m_plain``, ``k1_plain``, ``k2_plain``, ``k1a_plain``,
-    ``k1b_plain``, ``k2_split_plain``, ``k2_env_plain``), built from the
-    ported gradient, split and environment functions.
+    ``k1b_plain``, ``k2_split_plain``, ``k2_env_plain``,
+    ``k1_tail_plain``), built from the ported gradient, split and
+    environment functions.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the dispatches to the
 plain versions, so a run can show which path it took.  Operand layouts are
@@ -41,9 +48,16 @@ from .env import env_step_left_scaled, env_step_right_scaled
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr",
      "k1a", "k1b", "k2_split", "k2_env", "k1c_grad", "k1c_update",
-     "k2c_split", "k2c_env"), 0)
+     "k2c_split", "k2c_env", "k1_tail", "k1c_tail"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
+
+#: Refresh bonds with chi >= SPLIT_TAIL_CHI take the split-tail route unless
+#: the caller passes ``split_tail=``; None: never by default.  The port's
+#: counterpart of pallas_bond.SPLIT_TAIL_FOOTPRINT, keyed on chi (the card
+#: has no VMEM gate); its value is the large-chi timing of chip_smoke.py's
+#: [split-tail-kernels] phase (PERF.md).
+SPLIT_TAIL_CHI: Optional[int] = None
 
 Out5 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
              torch.Tensor]
@@ -54,6 +68,14 @@ def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+
+
+def splits_tail(chi: int, split_tail: Optional[bool] = None) -> bool:
+    """Whether a refresh bond of bond dimension ``chi`` takes the split-tail
+    route: ``split_tail`` when given, else chi >= SPLIT_TAIL_CHI."""
+    if split_tail is not None:
+        return bool(split_tail)
+    return SPLIT_TAIL_CHI is not None and chi >= SPLIT_TAIL_CHI
 
 
 # --------------------------------------------------------------------------
@@ -109,6 +131,17 @@ def _power(BT, V0, *, forward: bool, emit_y: bool, power_iters: int,
     M = BT.permute(0, 1, 4, 2, 3).reshape(chi * d * C, d * chi)
     return warm_iterate(lambda Yp: M.conj().T @ (M @ Yp), V0, power_iters,
                         orth)
+
+
+def k1_tail_plain(BT, V0, *, forward: bool, power_iters: int = 1,
+                  orth: str = "qr") -> torch.Tensor:
+    """K1-tail in plain PyTorch, real or complex: ``power_iters`` warm power
+    steps of the stored bond tensor BT [C, chi*d, d, chi] (K1's, stepped)
+    from V0, as K1's own tail (``_power``).  Returns Y [chi*d, chi]."""
+    C, P, d, chi = BT.shape
+    BT5 = BT.reshape(C, chi, d, d, chi).permute(1, 2, 3, 4, 0).contiguous()
+    return _power(BT5, V0, forward=forward, emit_y=True,
+                  power_iters=power_iters, orth=orth).contiguous()
 
 
 def k1a_plain(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
@@ -466,6 +499,30 @@ def _launch_k1b(A_or_B, center_c, G, V0, eta, *, forward: bool,
     return BT, Y
 
 
+def _launch_k1_tail(BT, V0, *, forward: bool, power_iters: int, orth: str,
+                    launch: Callable[..., None],
+                    workspace_floats: Callable[[int, int, int, int], int],
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Check K1-tail's operands, allocate Y and the workspace (no batch
+    terms), and hand everything to ``launch`` in the kernel's C argument
+    order."""
+    if BT.dim() != 4:
+        raise ValueError(f"BT must be [C, chi*d, d, chi], got "
+                         f"{tuple(BT.shape)}")
+    C, P, d, chi = BT.shape
+    dev = BT.device
+    _check_operands(dev, {"BT": (BT, (C, chi * d, d, chi)),
+                          "V0": (V0, (P, chi))}, dtype)
+    if power_iters < 1 or orth not in ("qr", "ns"):
+        raise ValueError(f"need power_iters >= 1 and orth 'qr' or 'ns', got "
+                         f"{power_iters}, {orth!r}")
+    Y = _empty(dev, P, chi, dtype=dtype)
+    ws = _empty(dev, workspace_floats(C, chi, d, 0))
+    launch(BT.data_ptr(), V0.data_ptr(), Y.data_ptr(), ws.data_ptr(), C, chi,
+           d, int(forward), int(power_iters), int(orth == "qr"))
+    return Y
+
+
 def _launch_k2_split(BT, Q, cutoff, *, forward: bool, max_rank,
                      launch: Callable[..., None],
                      workspace_floats: Callable[[int, int, int, int], int],
@@ -615,6 +672,16 @@ def k1b_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
     return out
 
 
+def k1_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
+                 orth: str = "qr") -> torch.Tensor:
+    """K1-tail as one launch; operands and result as ``k1_tail_plain``'s."""
+    launch, wsf = _cuda_launch(BT.device, "mpst_k1_tail_launch")
+    Y = _launch_k1_tail(BT, V0, forward=forward, power_iters=power_iters,
+                        orth=orth, launch=launch, workspace_floats=wsf)
+    LAUNCHES["k1_tail"] += 1
+    return Y
+
+
 def k2_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2-split as one launch; operands and results as
@@ -657,18 +724,20 @@ def _device_of(t: torch.Tensor) -> str:
     return t.device.type
 
 
-#: The four pieces of the dp and batch-tiled bond steps: (counter, plain,
-#: CUDA).  Their complex twins are ``bond_kernels_c.PIECES``.
+#: The four pieces of the dp and batch-tiled bond steps and the split
+#: tail: (counter, plain, CUDA).  Their complex twins are
+#: ``bond_kernels_c.PIECES``.
 _PIECES = {"k1a": ("k1a", k1a_plain, k1a_cuda),
            "k1b": ("k1b", k1b_plain, k1b_cuda),
            "k2_split": ("k2_split", k2_split_plain, k2_split_cuda),
-           "k2_env": ("k2_env", k2_env_plain, k2_env_cuda)}
+           "k2_env": ("k2_env", k2_env_plain, k2_env_cuda),
+           "k1_tail": ("k1_tail", k1_tail_plain, k1_tail_cuda)}
 
 
-def _piece(name: str, t: torch.Tensor) -> Callable:
+def _piece(name: str, t: torch.Tensor, calls: int = 1) -> Callable:
     """The kernel ``name`` for operands like ``t``: the real piece or, for a
     complex ``t``, its complex twin; the CUDA wrapper on the card, or on the
-    CPU the plain version (counted in PLAIN_CALLS)."""
+    CPU the plain version (counted in PLAIN_CALLS as ``calls`` calls)."""
     if t.is_complex():
         from .bond_kernels_c import PIECES as table
     else:
@@ -676,25 +745,45 @@ def _piece(name: str, t: torch.Tensor) -> Callable:
     counter, plain, cuda = table[name]
     if _device_of(t) == "cuda":
         return cuda
-    PLAIN_CALLS[counter] += 1
+    PLAIN_CALLS[counter] += calls
     return plain
+
+
+def split_tail_basis(tail: Callable, BT, V0, *, forward: bool,
+                     power_iters: int, orth: str) -> torch.Tensor:
+    """The basis Q of a refresh bond on the split-tail route, from its
+    stepped bond tensor BT: ``power_iters`` calls of ``tail`` (K1-tail or
+    K1c-tail, or a plain version) at q=1 chained from V0, each one power
+    step as K1's, then the thin QR under orth="qr"
+    (pallas_bond.py:1332-1363)."""
+    Y = V0
+    for _ in range(power_iters):
+        Y = tail(BT, Y, forward=forward, power_iters=1, orth=orth)
+    return _qr_orth(Y).contiguous() if orth == "qr" else Y
 
 
 def qr_bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
                  eta, cutoff, *, forward: bool, plain: bool,
                  power_iters: int = 1, max_rank=None, loss: str = "KLD",
-                 bbopt: str = "TSGO", opp_ls=None) -> Out5:
-    """A refresh bond under orth="qr": K1, the thin QR of its Y, then K2
-    against Q (pallas_bond.py:1320-1372, without the split tail and dp).
-    ``plain`` selects the kernels' plain versions instead of the CUDA
-    kernels; both orthonormalise with the same ``torch.linalg.qr``.
-    Returns (center_c', core', env', env_ls', Q')."""
+                 bbopt: str = "TSGO", opp_ls=None, orth: str = "qr",
+                 split_tail: bool = False) -> Out5:
+    """A refresh bond through K1 and K2 (pallas_bond.py:1320-1372 without
+    dp): K1, the thin QR of its Y (orth="qr"), then K2 against Q; with
+    ``split_tail``, K1 without its power step and ``split_tail_basis``
+    (orth "qr" or "ns").  ``plain`` selects the kernels' plain versions
+    instead of the CUDA kernels; both orthonormalise with the same
+    ``torch.linalg.qr``.  Returns (center_c', core', env', env_ls', Q')."""
     k1, k2 = (k1_plain, k2_plain) if plain else (k1_cuda, k2_cuda)
     gls = env_ls + opp_ls if loss == "MSE" else env_ls
     BT, Y = k1(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta,
-               forward=forward, power_iters=power_iters, orth="qr",
-               loss=loss, bbopt=bbopt)
-    Q = _qr_orth(Y).contiguous()
+               forward=forward, emit_y=not split_tail,
+               power_iters=power_iters, orth=orth, loss=loss, bbopt=bbopt)
+    if split_tail:
+        Q = split_tail_basis(k1_tail_plain if plain else k1_tail_cuda, BT,
+                             V0, forward=forward, power_iters=power_iters,
+                             orth=orth)
+    else:
+        Q = _qr_orth(Y).contiguous()
     env, phi = (le, phil) if forward else (re, phir)
     return k2(BT, Q, env, env_ls, phi, cutoff, forward=forward,
               max_rank=max_rank) + (Q,)
@@ -704,9 +793,12 @@ def bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
               eta, cutoff, *, forward: bool, refresh: bool = True,
               axis_name: str = None, power_iters: int = 1, orth: str = "qr",
               max_rank=None, stream_tile: Optional[int] = None,
-              loss: str = "KLD", bbopt: str = "TSGO", opp_ls=None) -> Out5:
+              loss: str = "KLD", bbopt: str = "TSGO", opp_ls=None,
+              split_tail: Optional[bool] = None) -> Out5:
     """One bond step: K1 -> QR -> K2 for a refresh bond under orth="qr",
-    else one K12.
+    else one K12; on the split-tail route a refresh bond runs K1 without its
+    power step, ``power_iters`` K1-tail launches, the QR under orth="qr",
+    then K2.
 
     backward (forward=False): A_or_B = cores[j]; advances the right
     environment (re, env_ls) through the new V with phir.  forward:
@@ -721,7 +813,11 @@ def bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     order, one K1b (-> QR) -> K2-split follows, then K2-env on each tile;
     the pad rows' environments are dropped.  The data-parallel bond step is
     ``bond_step_dp``: the port has no shard_map, so ``axis_name`` is
-    refused."""
+    refused.
+
+    ``split_tail``: True takes the split-tail route on a refresh bond
+    (pallas_bond.py:1332-1351), False never, None where ``splits_tail``
+    says so (chi >= SPLIT_TAIL_CHI); a frozen bond ignores it."""
     if axis_name is not None:
         raise ValueError("the port's data-parallel bond step is "
                          "bond_step_dp(mesh, ...), one process driving the "
@@ -733,13 +829,18 @@ def bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
               loss=loss, bbopt=bbopt, opp_ls=opp_ls)
     if stream_tile is not None:
         return _bond_step_streamed(*args, refresh=refresh, orth=orth,
-                                   stream_tile=stream_tile, **kw)
+                                   stream_tile=stream_tile,
+                                   split_tail=split_tail, **kw)
     cuda = _device_of(center_c) == "cuda"
-    if refresh and orth == "qr":
+    tail = refresh and splits_tail(center_c.shape[1], split_tail)
+    if refresh and (orth == "qr" or tail):
         if not cuda:
             PLAIN_CALLS["k1"] += 1
             PLAIN_CALLS["k2"] += 1
-        return qr_bond_step(*args, plain=not cuda, **kw)
+            if tail:
+                PLAIN_CALLS["k1_tail"] += power_iters
+        return qr_bond_step(*args, plain=not cuda, orth=orth, split_tail=tail,
+                            **kw)
     if cuda:
         return k12_cuda(*args, refresh=refresh, **kw)
     PLAIN_CALLS["k12"] += 1
@@ -749,7 +850,8 @@ def bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
 def bond_step_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir, y1h,
                  w, V0, eta, cutoff, *, forward: bool, refresh: bool = True,
                  power_iters: int = 1, orth: str = "qr", max_rank=None,
-                 loss: str = "KLD", bbopt: str = "TSGO", opp_ls=None):
+                 loss: str = "KLD", bbopt: str = "TSGO", opp_ls=None,
+                 split_tail: Optional[bool] = None):
     """One bond step on a data-parallel ``mesh`` (parallel/mesh.py), the
     JAX bond step with ``axis_name`` (pallas_bond.py:1320-1372), real or
     complex: complex64 operands run the complex pieces (K1c-grad,
@@ -761,7 +863,9 @@ def bond_step_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir, y1h,
     lists with one tensor per shard, operands as ``bond_step``'s.  K1a runs
     on every shard, ``mesh.all_reduce`` sums the gradients (the one
     cross-device transfer of the bond), K1b, the QR of Y under orth="qr"
-    and K2-split run once per replica, K2-env on every shard.  Returns
+    and K2-split run once per replica, K2-env on every shard.  On the
+    split-tail route (``split_tail`` as ``bond_step``'s) K1b runs without
+    its power step and ``power_iters`` K1-tail launches follow it.  Returns
     (center_c', core', env', env_ls', Q'): center_c', core' and Q' per
     replica, env' and env_ls' per shard."""
     _check_route(orth, loss, bbopt)
@@ -776,12 +880,19 @@ def bond_step_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir, y1h,
             env_ls[s] + opp_ls[s] if loss == "MSE" else env_ls[s],
             forward=forward, loss=loss)
         for s in range(len(mesh))])
+    tail = refresh and splits_tail(center_c[0].shape[1], split_tail)
     reps = []
     for A, center, g, v0 in zip(A_or_B, center_c, G, V0):
         BT, Y = _piece("k1b", center)(
-            A, center, g, v0, eta, forward=forward, emit_y=refresh,
-            power_iters=power_iters, orth=orth, bbopt=bbopt)
-        Q = _qr_orth(Y).contiguous() if refresh and orth == "qr" else Y
+            A, center, g, v0, eta, forward=forward,
+            emit_y=refresh and not tail, power_iters=power_iters, orth=orth,
+            bbopt=bbopt)
+        if tail:
+            Q = split_tail_basis(_piece("k1_tail", BT, calls=power_iters),
+                                 BT, v0, forward=forward,
+                                 power_iters=power_iters, orth=orth)
+        else:
+            Q = _qr_orth(Y).contiguous() if refresh and orth == "qr" else Y
         reps.append(_piece("k2_split", BT)(BT, Q, cutoff, forward=forward,
                                            max_rank=max_rank) + (Q,))
     center2, core, Qm, Q = (list(r) for r in zip(*reps))

@@ -1,4 +1,5 @@
-"""The complex bond-step kernels K12c, K12mc, K1c, K2c and K12cr
+"""The complex bond-step kernels K12c, K12mc, K1c, K2c, K12cr, the four
+complex pieces of the dp and batch-tiled bond step and K1c-tail
 (counterpart of ``mpstime_tpu/ops/pallas_bond_c.py``).
 
 ``bond_step_c``, ``bond_block_steps_c`` and ``bond_step_c_ritz`` keep the
@@ -14,7 +15,10 @@ and ``bond_step_c(stream_tile=)`` the batch in row tiles
 (pallas_bond_c.py:1228-1412): K1c-grad per shard or tile, one sum of the
 gradients, K1c-update -> the realified QR (orth="qr") -> K2c-split once per
 replica, K2c-env per shard or tile, the real pieces' chain
-(``bond_kernels.bond_step_dp``) over the complex pieces.  As in the JAX
+(``bond_kernels.bond_step_dp``) over the complex pieces.  On the split-tail
+route (``split_tail=``, as ``bond_kernels.bond_step``'s) a refresh bond runs
+K1c or K1c-update without its power step, then ``power_iters`` K1c-tail
+launches at q=1 (pallas_bond_c.py:1363-1391, :1274-1284).  As in the JAX
 package the complex kernels cover KLD + TSGO only; the wrappers refuse any
 other loss or optimiser with a ValueError.
 
@@ -23,12 +27,13 @@ other loss or optimiser with a ValueError.
     is no fallback.
   * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
     ``k1c_plain``, ``k2c_plain``, ``k12cr_plain``, ``k1c_grad_plain``,
-    ``k1c_update_plain``, ``k2c_split_plain``, ``k2c_env_plain``), built
+    ``k1c_update_plain``, ``k2c_split_plain``, ``k2c_env_plain``,
+    ``k1c_tail_plain``), built
     from the ported update, splits, rotations and environment steps, which
     are dtype-generic.
 
 Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c",
-"k12cr", "k1c_grad", "k1c_update", "k2c_split" and "k2c_env" in
+"k12cr", "k1c_grad", "k1c_update", "k2c_split", "k2c_env" and "k1c_tail" in
 ``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS``.  Operand layouts
 are the real kernels': phil / phir are the conjugated encoded states, the
 center is class-major [C, chi, d, chi], environments [N, chi] with real
@@ -85,6 +90,10 @@ k2c_env_plain = bk.k2_env_plain
 #: against the summed gradient with q power steps.
 k1c_grad_plain = bk.k1a_plain
 k1c_update_plain = bk.k1b_plain
+#: K1c-tail: the complex power step of a stored bond tensor
+#: (_k1c_power, pallas_bond_c.py:250-317), BT^H BT backward and BT BT^H
+#: forward.
+k1c_tail_plain = bk.k1_tail_plain
 
 
 def k12cr_plain(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
@@ -266,12 +275,25 @@ def k2c_env_cuda(Qm, env, env_ls, phi, *, forward: bool
     return out
 
 
-#: The complex pieces of ``bond_kernels.bond_step_dp``'s chain, under the
-#: real pieces' names: (counter, plain, CUDA).
+def k1c_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
+                  orth: str = "qr") -> torch.Tensor:
+    """K1c-tail as one launch; operands and result as ``k1c_tail_plain``'s
+    (orth "ns" or "qr")."""
+    launch, wsf = _launcher(BT.device, "mpst_k1c_tail_launch")
+    Y = bk._launch_k1_tail(BT, V0, forward=forward, power_iters=power_iters,
+                           orth=orth, launch=launch, workspace_floats=wsf,
+                           dtype=torch.complex64)
+    bk.LAUNCHES["k1c_tail"] += 1
+    return Y
+
+
+#: The complex pieces of ``bond_kernels.bond_step_dp``'s chain and the split
+#: tail, under the real pieces' names: (counter, plain, CUDA).
 PIECES = {"k1a": ("k1c_grad", k1c_grad_plain, k1c_grad_cuda),
           "k1b": ("k1c_update", k1c_update_plain, k1c_update_cuda),
           "k2_split": ("k2c_split", k2c_split_plain, k2c_split_cuda),
-          "k2_env": ("k2c_env", k2c_env_plain, k2c_env_cuda)}
+          "k2_env": ("k2c_env", k2c_env_plain, k2c_env_cuda),
+          "k1_tail": ("k1c_tail", k1c_tail_plain, k1c_tail_cuda)}
 
 
 # --------------------------------------------------------------------------
@@ -289,16 +311,25 @@ def _check_route(orth: str, axis_name=None) -> None:
 
 def qr_bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
                    eta, cutoff, *, forward: bool, plain: bool,
-                   power_iters: int = 1, max_rank=None) -> Out5:
-    """A complex refresh bond under orth="qr": K1c, the realified QR of its
-    Y (``_qr_orth``, pallas_bond_c.py:1216-1225), then K2c against Q.
+                   power_iters: int = 1, max_rank=None, orth: str = "qr",
+                   split_tail: bool = False) -> Out5:
+    """A complex refresh bond through K1c and K2c: K1c, the realified QR of
+    its Y (orth="qr"; ``_qr_orth``, pallas_bond_c.py:1216-1225), then K2c
+    against Q; with ``split_tail``, K1c without its power step and
+    ``bond_kernels.split_tail_basis`` over K1c-tail (orth "qr" or "ns").
     ``plain`` selects the plain versions instead of the CUDA kernels; both
     orthonormalise with the same QR.  Returns (center_c', core', env',
     env_ls', Q')."""
     k1, k2 = (k1c_plain, k2c_plain) if plain else (k1c_cuda, k2c_cuda)
     BT, Y = k1(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta,
-               forward=forward, power_iters=power_iters, orth="qr")
-    Q = _qr_orth(Y).contiguous()
+               forward=forward, emit_y=not split_tail,
+               power_iters=power_iters, orth=orth)
+    if split_tail:
+        Q = bk.split_tail_basis(k1c_tail_plain if plain else k1c_tail_cuda,
+                                BT, V0, forward=forward,
+                                power_iters=power_iters, orth=orth)
+    else:
+        Q = _qr_orth(Y).contiguous()
     env, phi = (le, phil) if forward else (re, phir)
     return k2(BT, Q, env, env_ls, phi, cutoff, forward=forward,
               max_rank=max_rank) + (Q,)
@@ -308,9 +339,13 @@ def bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
                 eta, cutoff, *, forward: bool, refresh: bool = True,
                 axis_name: str = None, power_iters: int = 1,
                 orth: str = "qr", max_rank=None,
-                stream_tile: Optional[int] = None) -> Out5:
+                stream_tile: Optional[int] = None,
+                split_tail: Optional[bool] = None) -> Out5:
     """One complex bond step (KLD + TSGO): K1c -> QR -> K2c for a refresh
-    bond under orth="qr", else one K12c.  Operands and results as
+    bond under orth="qr", else one K12c; on the split-tail route
+    (``split_tail`` as ``bond_kernels.bond_step``'s) a refresh bond runs K1c
+    without its power step, ``power_iters`` K1c-tail launches, the QR under
+    orth="qr", then K2c.  Operands and results as
     ``bond_kernels.bond_step``'s, complex; env_ls stays real.
 
     ``stream_tile``: run the batch in tiles of this many rows
@@ -324,13 +359,18 @@ def bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     kw = dict(forward=forward, power_iters=power_iters, max_rank=max_rank)
     if stream_tile is not None:
         return bk._bond_step_streamed(*args, refresh=refresh, orth=orth,
-                                      stream_tile=stream_tile, **kw)
+                                      stream_tile=stream_tile,
+                                      split_tail=split_tail, **kw)
     cuda = bk._device_of(center_c) == "cuda"
-    if refresh and orth == "qr":
+    tail = refresh and bk.splits_tail(center_c.shape[1], split_tail)
+    if refresh and (orth == "qr" or tail):
         if not cuda:
             bk.PLAIN_CALLS["k1c"] += 1
             bk.PLAIN_CALLS["k2c"] += 1
-        return qr_bond_step_c(*args, plain=not cuda, **kw)
+            if tail:
+                bk.PLAIN_CALLS["k1c_tail"] += power_iters
+        return qr_bond_step_c(*args, plain=not cuda, orth=orth,
+                              split_tail=tail, **kw)
     if cuda:
         return k12c_cuda(*args, refresh=refresh, **kw)
     bk.PLAIN_CALLS["k12c"] += 1
@@ -339,17 +379,21 @@ def bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
 
 def bond_step_c_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir, y1h,
                    w, V0, eta, cutoff, *, forward: bool, refresh: bool = True,
-                   power_iters: int = 1, orth: str = "qr", max_rank=None):
+                   power_iters: int = 1, orth: str = "qr", max_rank=None,
+                   split_tail: Optional[bool] = None):
     """One complex bond step (KLD + TSGO) on a data-parallel ``mesh``, the
     JAX ``bond_step_c`` with ``axis_name`` (pallas_bond_c.py:1308-1412):
     K1c-grad on every shard, ``mesh.all_reduce`` of the gradients, K1c-update,
     the realified QR under orth="qr" and K2c-split once per replica (a
-    frozen bond keeps Q = V0), K2c-env on every shard.  Operands (lists per
-    replica and per shard) and results as ``bond_kernels.bond_step_dp``'s."""
+    frozen bond keeps Q = V0), K2c-env on every shard; on the split-tail
+    route K1c-update runs without its power step and ``power_iters``
+    K1c-tail launches follow it.  Operands (lists per replica and per
+    shard) and results as ``bond_kernels.bond_step_dp``'s."""
     return bk.bond_step_dp(mesh, A_or_B, center_c, le, re, env_ls, phil, phir,
                            y1h, w, V0, eta, cutoff, forward=forward,
                            refresh=refresh, power_iters=power_iters,
-                           orth=orth, max_rank=max_rank)
+                           orth=orth, max_rank=max_rank,
+                           split_tail=split_tail)
 
 
 def bond_step_c_ritz(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w,

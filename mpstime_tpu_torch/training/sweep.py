@@ -20,7 +20,9 @@ its Pallas kernels and XLA (``_ineligible_reasons``, ``_ritz_fused``):
     Newton-Schulz refresh or frozen sweeps, and for complex no refresh
     block at q > 1), else one ``bond_step`` (``bond_step_c``) per bond,
     which runs K12 (K12c) or, for a refresh bond under orth="qr", K1 -> QR
-    -> K2 (K1c -> QR -> K2c).  On CUDA tensors these are the hand-written
+    -> K2 (K1c -> QR -> K2c); a refresh sweep whose chi takes the split-tail
+    route (``bond_kernels.SPLIT_TAIL_CHI``) runs bond by bond, K1 ->
+    K1-tail launches (-> QR) -> K2.  On CUDA tensors these are the hand-written
     kernels; on CPU tensors their plain versions (ops/bond_kernels.py,
     ops/bond_kernels_c.py), the counterpart of Pallas interpret mode;
   * the fused ritz route (svd_alg "randomized_warm_ritz" on the same
@@ -53,7 +55,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..options import torch_dtype
-from ..ops.bond_kernels import bond_block_steps, bond_step, bond_step_dp
+from ..ops.bond_kernels import (bond_block_steps, bond_step, bond_step_dp,
+                                splits_tail)
 from ..ops.bond_kernels_c import (bond_block_steps_c, bond_step_c,
                                   bond_step_c_dp, bond_step_c_ritz)
 from ..ops.bond_update import apply_update
@@ -376,9 +379,12 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
         # K12m blocks carry no per-bond opposite-side log-scales (MSE) and
         # refresh with the Newton-Schulz polar only; complex blocks hold at
         # most 4 bonds and refresh only at q = 1 (sweep.py:467-475); K12cr
-        # runs bond by bond, and a mesh's bonds one bond_step_dp each
+        # runs bond by bond, a mesh's bonds one bond_step_dp each, and a
+        # refresh sweep on the split-tail route (chi >= SPLIT_TAIL_CHI)
+        # bond_step by bond_step, as the JAX sweep's blocks of 1 there
         blocks = (loss == "KLD" and (orth == "ns" or not refresh)
                   and not (cplx and refresh and power_iters > 1)
+                  and not (refresh and splits_tail(chi))
                   and not ritz_fused and mesh is None)
         BB = _auto_block(T, cap=4 if cplx else 8) if blocks else 1
         steps = fused_steps

@@ -1,7 +1,8 @@
 """The port's CUDA bond kernels (K12, K12m, K1, K2, the dp pieces K1a,
-K1b, K2-split, K2-env, the complex K12c, K12mc, K1c, K2c, K12cr and the
-complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env) held against
-their plain PyTorch versions on the card.  These tests need an NVIDIA GPU
+K1b, K2-split, K2-env, the complex K12c, K12mc, K1c, K2c, K12cr, the
+complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env and the split
+tails K1-tail, K1c-tail) held against their plain PyTorch versions on the
+card.  These tests need an NVIDIA GPU
 with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
@@ -703,3 +704,113 @@ def test_complex_mesh_fit_on_one_card_runs_the_complex_dp_kernels(bk, n):
     assert trained.mps.center.dtype == torch.complex64
     assert bool(torch.isfinite(trained.mps.center).all())
     assert len(mt.classify(trained, data["X_test"][:, :24])) == 100
+
+
+# ---- the split-tail route: K1-tail and K1c-tail ----------------------------
+
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("orth,q", [("ns", 1), ("ns", 3), ("qr", 1),
+                                    ("qr", 3)])
+def test_k1_tail_kernels_match_plain(bk, bkc, cplx, forward, orth, q):
+    """K1-tail (K1c-tail) over the plain K1's stepped bond tensor."""
+    if cplx:
+        x = _inputs_c(80, 1, **SHAPE)
+        le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                           x["env0"])
+        BT, _ = bkc.k1c_plain(x["A"][0], x["center"], le, re, x["phil"][0],
+                              x["phir"][0], x["y1h"], x["w"], x["V0"][0],
+                              0.05, forward=forward, emit_y=False)
+        cuda, plain, key = bkc.k1c_tail_cuda, bkc.k1c_tail_plain, "k1c_tail"
+    else:
+        x = _inputs(80, 1, **SHAPE)
+        le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                           x["env0"])
+        BT, _ = bk.k1_plain(x["A"][0], x["center"], le, re, x["phil"][0],
+                            x["phir"][0], x["y1h"], x["w"], x["ls0"],
+                            x["V0"][0], 0.05, forward=forward, emit_y=False)
+        cuda, plain, key = bk.k1_tail_cuda, bk.k1_tail_plain, "k1_tail"
+    kw = dict(forward=forward, power_iters=q, orth=orth)
+    n0 = bk.LAUNCHES[key]
+    got = cuda(BT, x["V0"][0], **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == n0 + 1
+    _close([got], [plain(BT, x["V0"][0], **kw)])
+
+
+@pytest.mark.parametrize("forward", [False, True])
+def test_split_tail_routes_are_the_fused_ones_on_the_card(bk, bkc, forward):
+    """The split tail runs K1's power step over the same BT with the same
+    block: bond_step against K12 (ns) and K1 -> QR -> K2 (qr), bond_step_c
+    (q 3) against K12c and K1c -> QR -> K2c, and the batch-tiled steps
+    without it."""
+    args = _single(_inputs(81, 1, **SHAPE), forward)
+    bk.reset_counts()
+    got = bk.bond_step(*args, forward=forward, orth="ns", power_iters=3,
+                       split_tail=True)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), "k1": 1,
+                           "k1_tail": 3, "k2": 1}
+    _close(got, bk.k12_cuda(*args, forward=forward, power_iters=3), rtol=0,
+           atol=1e-6)
+    _close(bk.bond_step(*args, forward=forward, orth="qr", split_tail=True),
+           bk.qr_bond_step(*args, forward=forward, plain=False), rtol=0,
+           atol=1e-6)
+    _close(bk.bond_step(*args, forward=forward, orth="ns", stream_tile=32,
+                        split_tail=True),
+           bk.bond_step(*args, forward=forward, orth="ns", stream_tile=32,
+                        split_tail=False), rtol=0, atol=1e-6)
+    args = _single(_inputs_c(82, 1, **SHAPE), forward)
+    kw = dict(forward=forward, power_iters=3)
+    bk.reset_counts()
+    got = bkc.bond_step_c(*args, orth="ns", split_tail=True, **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), "k1c": 1,
+                           "k1c_tail": 3, "k2c": 1}
+    _close(got, bkc.k12c_cuda(*args, **kw), rtol=0, atol=1e-6)
+    _close(bkc.bond_step_c(*args, orth="qr", split_tail=True, **kw),
+           bkc.qr_bond_step_c(*args, plain=False, **kw), rtol=0, atol=1e-6)
+    _close(bkc.bond_step_c(*args, orth="qr", stream_tile=32, split_tail=True,
+                           **kw),
+           bkc.bond_step_c(*args, orth="qr", stream_tile=32,
+                           split_tail=False, **kw), rtol=0, atol=1e-6)
+
+
+def test_k1_tail_wrappers_check_operands_before_launching(bk, bkc):
+    x = _inputs(83, 1, **SHAPE)
+    P, chi = x["V0"].shape[1:]
+    BT = torch.zeros(2, P, 5, chi, device="cuda")
+    V0 = x["V0"][0]
+    bk.reset_counts()
+    for fn, bt, v0, match in (
+            (bk.k1_tail_cuda, BT, V0[:, :3], "shape"),
+            (bk.k1_tail_cuda, BT.cpu(), V0, "cpu"),
+            (bk.k1_tail_cuda, BT.double(), V0, "float32"),
+            (bk.k1_tail_cuda, BT, V0.T.contiguous().T, "contiguous"),
+            (bkc.k1c_tail_cuda, BT, V0, "complex64")):
+        with pytest.raises(ValueError, match=match):
+            fn(bt, v0, forward=False)
+    with pytest.raises(ValueError, match="orth"):
+        bkc.k1c_tail_cuda(BT.to(torch.complex64), V0.to(torch.complex64),
+                          forward=False, orth="tri")
+    assert sum(bk.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("encoding,want", [
+    ("legendre_no_norm", {"k1": 46, "k1_tail": 46, "k2": 46}),
+    ("fourier", {"k1c": 46, "k1c_tail": 138, "k2c": 46})])
+def test_fit_on_the_split_tail_runs_the_tail_kernels(bk, monkeypatch,
+                                                     encoding, want):
+    """With SPLIT_TAIL_CHI = 0 every refresh bond of a fit on the card runs
+    K1 -> K1-tail -> K2 (K1c -> 3 K1c-tail -> K2c)."""
+    import mpstime_tpu_torch as mt
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    monkeypatch.setattr(bk, "SPLIT_TAIL_CHI", 0)
+    bk.reset_counts()
+    trained, _, _ = mt.fit_mps(
+        data["X_train"][:40, :24], data["y_train"][:40],
+        opts=mt.MPSOptions(encoding=encoding, nsweeps=1, chi_max=12, d=3,
+                           verbosity=-1, log_level=-1))
+    assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), **want}
+    assert sum(bk.PLAIN_CALLS.values()) == 0
+    assert bool(torch.isfinite(trained.mps.center).all())
