@@ -90,7 +90,16 @@ Phases, one status line each; any failure exits non-zero:
      refresh bond K1 -> K1-tail -> K2, K1c -> 3 K1c-tail -> K2c), counts
      read from each run, sweep-1 train KLD against the fused fits', accuracy
      held as theirs; one sweep of the real fit under torch.profiler.
-Then the ptxas line (registers and spills of each kernel), one JSON line of
+ 17. cluster kernels: K12c (one bond over a thread-block cluster) against
+     K12mc at Bb = 1 (the one-block kernel) bit for bit over the complex
+     grid at the main-path shape and at chi 128 and 192, K12cr bit for bit
+     across cluster sizes 1-16 (those the card can place) over its ritz grid
+     at chi 64 and chi 8, a cluster of 32 blocks refused with RuntimeError,
+     the occupancy of clusters, per-call ms of K12c against K12mc at Bb = 1
+     in turns and of K12cr at each cluster size, and a bond's time by part
+     (frozen, each power step, the Jacobi rounds).
+Then the ptxas line (registers, static shared memory and spills of each
+kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
 bound, the least time the card could take for the work of the timed call:
 bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is
@@ -217,24 +226,29 @@ def bond_inputs_c(seed: int, Bb: int, C: int, chi: int, d: int, N: int):
 
 
 def ptxas_summary(log: str) -> str:
-    """Registers and spill bytes of each kernel entry in nvcc's -Xptxas -v
-    output."""
+    """Registers, shared memory and spill bytes of each kernel entry in
+    nvcc's -Xptxas -v output (dynamic shared memory is not in it)."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            kern = next((k for k in ("k12cr_kernel", "k12m_kernel",
-                                     "k1_kernel", "k2_kernel", "k1a_kernel",
-                                     "k1b_kernel", "k2_split_kernel",
-                                     "k2_env_kernel", "k1_tail_kernel")
-                         if k in mangled), mangled)
+            kern = next((k for k in ("k12cr_kernel", "k12c_kernel",
+                                     "k12m_kernel", "k1_kernel", "k2_kernel",
+                                     "k1a_kernel", "k1b_kernel",
+                                     "k2_split_kernel", "k2_env_kernel",
+                                     "k1_tail_kernel") if k in mangled),
+                        mangled)
             name = f"{kern}<{'cfloat' if 'cfloat' in mangled else 'float'}>"
-            spill = "0"
+            stores = loads = "0"
         elif name and "spill stores" in line:
-            spill = line.split("bytes spill stores")[0].split(",")[-1].strip()
+            stores = line.split("bytes spill stores")[0].split(",")[-1].strip()
+            loads = line.split("bytes spill loads")[0].split(",")[-1].strip()
         elif name and "Used" in line and "registers" in line:
             regs = line.split("Used")[1].split("registers")[0].strip()
-            out.append(f"{name} {regs} registers, {spill} B spill stores")
+            smem = (line.split("bytes smem")[0].split(",")[-1].strip()
+                    if "bytes smem" in line else "0")
+            out.append(f"{name} {regs} registers, {smem} B static smem, "
+                       f"{stores} B spill stores, {loads} B spill loads")
             name = None
     return "; ".join(out) if out else "(library built earlier: no log)"
 
@@ -566,6 +580,135 @@ def tie_break_inputs():
     return (t(A), t(center), t(env), t(env), t(np.zeros(N, np.float32)),
             t(phi), t(phi), t(np.ones((N, C), np.float32)),
             t(np.full(N, 1.0 / N, np.float32)), t(V0), 0.0, cutoff)
+
+
+def cluster_phase(card: str) -> None:
+    """K12c and K12cr, one bond over a thread-block cluster, against the
+    one-block designs bit for bit: K12c against K12mc at Bb = 1 (the one-block
+    k12m_kernel) over the complex grid at the main-path shape and at chi 128
+    and 192; K12cr equal across cluster sizes over its ritz grid at chi 64
+    and chi 8; a cluster the card refuses raises; the occupancy of clusters;
+    per-call ms of K12c and K12mc at Bb = 1 in turns and of K12cr at each
+    cluster size."""
+    from mpstime_tpu_torch.ops import bond_kernels_c as bkc
+    sizes = (1, 2, 4, 8, 16)
+    occ = {(ritz, n): bkc.cluster_occupancy(ritz, n, 64 if ritz else 25)
+           for ritz in (False, True) for n in sizes}
+    check(occ[(False, bkc.CLUSTER)] >= 1 and occ[(True, bkc.CLUSTER)] >= 1,
+          f"the chosen cluster of {bkc.CLUSTER} blocks cannot be placed: "
+          f"{occ}")
+    print(f"[k12c-k12cr-cluster] cluster size {bkc.CLUSTER} (blocks of 512 "
+          "threads); clusters the card holds at once (cudaOccupancyMax"
+          "ActiveClusters), K12c at chi 25: " + ", ".join(
+              f"{n}: {occ[(False, n)]}" for n in sizes) + "; K12cr at chi 64: "
+          + ", ".join(f"{n}: {occ[(True, n)]}" for n in sizes)
+          + f" ({card})", flush=True)
+
+    def equal(name, got, ref):
+        for label, g, r in zip(("center", "core", "env", "env_ls", "Q"), got,
+                               ref):
+            check(bool(torch.isfinite(g).all()), f"{name}: {label} not "
+                  "finite")
+            check(bool(torch.equal(g, r)), f"{name}: {label} differs, max "
+                  f"|diff| {float((g - r).abs().max()):.3e}")
+
+    def k12mc_one(x, **kw):
+        out = bkc.k12mc_cuda(*k12m_args(x), **kw)
+        return (out[0],) + tuple(t[0] for t in out[1:])
+
+    n_k12c = 0
+    grid = [(f, r, q, mr) for f in (False, True)
+            for r, q, mr in ((True, 1, None), (True, 3, None),
+                             (False, 1, None), (True, 3, 17))]
+    cases = [(SHAPE, g, 600 + i) for i, g in enumerate(grid)]
+    cases += [(dict(SHAPE, chi=chi), (f, True, 3, None), 2100 + chi + f)
+              for chi in (128, 192) for f in (False, True)]
+    for shape, (forward, refresh, q, mr), seed in cases:
+        x = bond_inputs_c(seed, 1, **shape)
+        kw = dict(forward=forward, refresh=refresh, power_iters=q,
+                  max_rank=mr)
+        got = bkc.k12c_cuda(*k12_args(x, forward), **kw)
+        torch.cuda.synchronize()
+        equal(f"K12c chi={shape['chi']} {kw} vs K12mc Bb=1", got,
+              k12mc_one(x, **kw))
+        n_k12c += 1
+    try:
+        x = bond_inputs_c(17, 1, **SHAPE)
+        bkc.k12c_cuda(*k12_args(x, False), forward=False, cluster=32)
+        torch.cuda.synchronize()
+        refused = "launched"
+    except RuntimeError as exc:
+        refused = str(exc).split(": ", 1)[-1]
+    check(refused != "launched", "K12c: a cluster of 32 blocks launched")
+    print(f"[k12c-k12cr-cluster] K12c (cluster {bkc.CLUSTER}) vs K12mc at "
+          f"Bb = 1 (one block), {n_k12c} cases (the complex grid at chi 25, "
+          "q 3 at chi 128 and 192, both directions): torch.equal on all five "
+          f"outputs; a cluster of 32 blocks raises ({refused})", flush=True)
+
+    ritz_grid = [(f, r, q, n, mr) for f in (False, True)
+                 for r, q, n, mr in ((True, 1, 6, None), (False, 1, 6, None),
+                                     (True, 3, 24, None), (True, 1, 6, 17))]
+    placed = [n for n in sizes if occ[(True, n)] >= 1]
+    n_k12cr = 0
+    for shape, seed0 in ((RITZ_SHAPE, 1000), (dict(C=2, chi=8, d=3, N=16),
+                                              1100)):
+        for i, (forward, refresh, q, rounds, mr) in enumerate(ritz_grid):
+            x = bond_inputs_c(seed0 + i, 1, **shape)
+            kw = dict(forward=forward, refresh=refresh, power_iters=q,
+                      rounds=rounds, max_rank=mr)
+            ref = bkc.k12cr_cuda(*k12_args(x, forward), cluster=placed[0],
+                                 **kw)
+            for n in placed[1:]:
+                equal(f"K12cr chi={shape['chi']} {kw} cluster {n} vs "
+                      f"{placed[0]}", bkc.k12cr_cuda(*k12_args(x, forward),
+                                                     cluster=n, **kw), ref)
+            n_k12cr += 1
+    print(f"[k12c-k12cr-cluster] K12cr equal across cluster sizes {placed}, "
+          f"{n_k12cr} cases (the ritz grid at chi 64 and chi 8): torch.equal "
+          "on all five outputs", flush=True)
+
+    xc = bond_inputs_c(17, 1, **SHAPE)
+    kw3 = dict(forward=False, refresh=True, power_iters=3)
+    t_new, t_one = time_turns(
+        lambda: bkc.k12c_cuda(*k12_args(xc, False), **kw3),
+        lambda: k12mc_one(xc, **kw3), rounds=3, iters=20)
+    xr = bond_inputs_c(19, 1, **RITZ_SHAPE)
+    kwr = dict(forward=False, refresh=True, power_iters=1, rounds=6)
+    t_ritz = {n: time_ms(lambda: bkc.k12cr_cuda(*k12_args(xr, False),
+                                                cluster=n, **kwr))
+              for n in placed}
+    k12c_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
+    check(k12c_ms < one_ms, f"K12c {k12c_ms:.3f} ms is not below K12mc at "
+          f"Bb = 1 ({one_ms:.3f} ms)")
+    check(t_ritz[bkc.CLUSTER] < t_ritz[1], f"K12cr at cluster "
+          f"{bkc.CLUSTER} {t_ritz[bkc.CLUSTER]:.3f} ms is not below cluster "
+          f"1 ({t_ritz[1]:.3f} ms)")
+    print(f"[k12c-k12cr-cluster] per call, a backward refresh bond: K12c "
+          f"(chi 25, q 3, cluster {bkc.CLUSTER}) "
+          f"{[round(t, 4) for t in t_new]} ms vs K12mc at Bb = 1 (one block) "
+          f"{[round(t, 4) for t in t_one]} ms, in turns (median {k12c_ms:.4f}"
+          f" vs {one_ms:.4f}, {one_ms / k12c_ms:.2f}x); K12cr (chi 64, q 1, 6 "
+          "rounds) by cluster size: " + ", ".join(
+              f"{n}: {t:.4f} ms" for n, t in t_ritz.items())
+          + f" ({card})", flush=True)
+    # where a bond's time goes: the frozen bond, then each power step (K12c)
+    # or the Jacobi rounds and the tri-Newton step (K12cr)
+    parts = {
+        f"K12c {label}": time_ms(lambda: bkc.k12c_cuda(
+            *k12_args(xc, False), forward=False, **kw))
+        for label, kw in (("frozen", dict(refresh=False)),
+                          ("q 1", dict(power_iters=1)),
+                          ("q 3", dict(power_iters=3)))}
+    parts.update({
+        f"K12cr {label}": time_ms(lambda: bkc.k12cr_cuda(
+            *k12_args(xr, False), forward=False, **kw))
+        for label, kw in (("frozen, 0 rounds", dict(refresh=False, rounds=0)),
+                          ("frozen, 6 rounds", dict(refresh=False, rounds=6)),
+                          ("q 1, 6 rounds", dict(rounds=6)))})
+    print(f"[k12c-k12cr-cluster] a backward bond by part (cluster "
+          f"{bkc.CLUSTER}): " + "; ".join(f"{k} {v:.4f} ms"
+                                          for k, v in parts.items())
+          + f" ({card})", flush=True)
 
 
 def main() -> int:
@@ -1864,6 +2007,9 @@ def main() -> int:
               for c, v in zip(("K1", "K1-tail", "K2"), parts.values()))
           + f"; the rest {busy - sum(parts.values()):.1f} ms ({card})",
           flush=True)
+
+    # ---- 17. K12c and K12cr over a thread-block cluster --------------------
+    cluster_phase(card)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

@@ -2,11 +2,12 @@
 // its two halves around an outside QR (K1, K2), its four pieces for data-
 // parallel and batch-tiled bond steps (K1a, K1b, K2-split, K2-env), the
 // stand-alone power step of the split-tail route (K1-tail), real
-// (float) and complex (cfloat), and the tracked-ritz bond step (K12cr,
-// instantiated at cfloat).
+// (float) and complex (cfloat), and two kernels that run one bond over a
+// thread-block cluster, the complex bond step (K12c) and the tracked-ritz
+// bond step (K12cr), instantiated at cfloat.
 // See bond_step.cu and bond_step_c.cu for what the kernels replace and how
 // they are bounded; this header holds the math, phase by phase, written once
-// for both scalar types.
+// for both scalar types and both teams.
 //
 // Layouts (row-major, contiguous; T = float or cfloat):
 //   lhs      [Bb, chi, d, chi]  T  the static core of each bond
@@ -34,15 +35,31 @@
 //   backward and Qm forward.
 // Energies, norms, the cutoff mask and the log-scales are real.
 //
-// The code uses only __syncthreads() and shared memory, no warp intrinsics,
-// and every loop is strided by blockDim.x, so one block of any power-of-two
-// size up to kMaxThreads computes the same result.  The host launchers at
-// the end need <cuda_runtime.h>, included first by the .cu sources.
+// Every device function takes a team, the threads that share one bond:
+// BlockTeam, one thread block (the kernels of one block: K12, K12m, K12mc,
+// K1, K2, the pieces and the tails), or ClusterTeam, every block of a
+// thread-block cluster (K12c and K12cr).  A thread's index in the team is
+// rank * blockDim.x + threadIdx.x, loops stride over the team's threads, and
+// team.sync() separates the phases (__syncthreads() or the cluster barrier).
+// The arithmetic of every output does not depend on the team:
+//   * each product output is one thread's sequential chain over k = 0..Kd-1
+//     (no split-K), by one-element-per-thread loads (BlockTeam) or from
+//     shared-memory tiles with a register micro-tile (ClusterTeam, gemm_tiles);
+//   * each team-wide sum keeps kParts partials: partial t is the ordered sum
+//     over the elements e = t (mod kParts), computed by the team's thread t,
+//     and one fixed tree combines them (block_sum);
+//   * each epilogue is one expression in one function (gemm_out).
+// So a cluster of any size computes the one-block kernels' bits.  The host
+// launchers at the end need <cuda_runtime.h>, included first by the .cu
+// sources.
 #pragma once
+
+#include <cooperative_groups.h>
 
 namespace mpst {
 
 constexpr int kMaxThreads = 512;
+constexpr int kParts = kMaxThreads;          // partials of a team-wide sum
 constexpr float kTiny = 1.17549435e-38f;     // FLT_MIN (finfo(float32).tiny)
 constexpr float kNsA = 3.4445f, kNsB = -4.7750f, kNsC = 2.0315f;
 constexpr int kNsQuintic = 8, kNsCubic = 6;
@@ -189,15 +206,14 @@ __host__ __device__ inline long workspace_floats(int C, int chi, int d,
               + (long)C * P * K      // MV / projected blocks
               + 3 * P * K            // Ya, Yb, Yc
               + 3 * K * K)           // Gm, G2, Mq
-         + 3 * K;                    // wv, mask, nrm
+         + 3 * K                     // wv, mask, nrm
+         + kParts;                   // a cluster's sum partials
 }
 
 template <class T>
 struct Work {
   T *BT, *G, *T1, *L, *R, *yhat, *wc, *MV, *Ya, *Yb, *Yc, *Gm, *G2, *Mq;
-  float *wv, *mask, *nrm;
-  T *Sq, *Wq;              // tri_newton's two [K, K] squares: Gm and G2,
-                           // or K12cr's rotation buffers in shared memory
+  float *wv, *mask, *nrm, *parts;
 };
 
 template <class T>
@@ -222,9 +238,8 @@ __device__ inline Work<T> carve(float* wsf, int C, int chi, int d, int N) {
   float* f = reinterpret_cast<float*>(ws);
   w.wv = f;             f += K;
   w.mask = f;           f += K;
-  w.nrm = f;
-  w.Sq = w.Gm;
-  w.Wq = w.G2;
+  w.nrm = f;            f += K;
+  w.parts = f;
   return w;
 }
 
@@ -240,14 +255,67 @@ __device__ inline View<T> vw(const T* p, long sb, long sr, long sc) {
   return View<T>{p, sb, sr, sc};
 }
 
+// ---- teams ------------------------------------------------------------------
+
+// One thread block.
+struct BlockTeam {
+  static constexpr bool kCluster = false;
+  __device__ int tid() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+  // a sum's partials: every thread holds one (blockDim.x == kParts)
+  __device__ bool holds_part() const { return true; }
+  __device__ int part_stride() const { return blockDim.x; }
+};
+
+// Every block of a thread-block cluster, kMaxThreads threads each.  parts
+// is the workspace's [kParts] floats, stage the block's dynamic shared
+// memory (gemm_tiles' tiles).
+struct ClusterTeam {
+  static constexpr bool kCluster = true;
+  int rank, ctas;
+  float* parts;
+  void* stage;
+  __device__ int tid() const { return rank * blockDim.x + threadIdx.x; }
+  __device__ int size() const { return ctas * blockDim.x; }
+  __device__ void sync() const { cooperative_groups::this_cluster().sync(); }
+  // a sum's partials: the team's threads t < kParts hold one each
+  __device__ bool holds_part() const { return tid() < kParts; }
+  __device__ int part_stride() const { return kParts; }
+};
+
+__device__ inline ClusterTeam cluster_team(float* parts, void* stage) {
+  const cooperative_groups::cluster_group c =
+      cooperative_groups::this_cluster();
+  return ClusterTeam{(int)c.block_rank(), (int)c.num_blocks(), parts, stage};
+}
+
+// A load through L2 only: what another block of the cluster wrote in an
+// earlier phase is read past this SM's L1.
+__device__ inline float ldcg(const float* p) { return __ldcg(p); }
+__device__ inline cfloat ldcg(const cfloat* p) {
+  const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+  return {v.x, v.y};
+}
+
+// ---- products and sums ------------------------------------------------------
+
+// A product output: alpha * acc + beta * src[o] (src may be out itself), the
+// one expression both gemm forms contract.
+template <class T>
+__device__ inline T gemm_out(T acc, float alpha, float beta, const T* src,
+                             long o) {
+  return (src != nullptr) ? alpha * acc + beta * src[o] : alpha * acc;
+}
+
 // out[b, m, n] = alpha * sum_k A[b, m, k] * B[b, k, n] + beta * src[b, m, n]
 // (src shares out's strides and may be out itself), with A conjugated when
-// CA and B when CB.  One output element per thread, n fastest, so a warp
-// reads B along n and broadcasts A.
+// CA and B when CB.  One block: one output element per thread, n fastest,
+// so a warp reads B along n and broadcasts A.
 template <bool CA = false, bool CB = false, class T>
-__device__ inline void gemm(int batch, int M, int Nc, int Kd, View<T> A,
-                            View<T> B, T* out, long ob, long orow, long ocol,
-                            float alpha = 1.f, float beta = 0.f,
+__device__ inline void gemm(BlockTeam, int batch, int M, int Nc, int Kd,
+                            View<T> A, View<T> B, T* out, long ob, long orow,
+                            long ocol, float alpha = 1.f, float beta = 0.f,
                             const T* src = nullptr) {
   const int total = batch * M * Nc;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
@@ -261,12 +329,143 @@ __device__ inline void gemm(int batch, int M, int Nc, int Kd, View<T> A,
     for (int k = 0; k < Kd; ++k)
       acc = mac(cj<CA>(a[k * A.sc]), cj<CB>(bb[k * B.sr]), acc);
     const long o = b * ob + m * orow + n * ocol;
-    out[o] = (src != nullptr) ? alpha * acc + beta * src[o] : alpha * acc;
+    out[o] = gemm_out(acc, alpha, beta, src, o);
   }
 }
 
-// Deterministic block-wide sum (fixed tree over blockDim.x partials).
-__device__ inline float block_sum(float v, float* red) {
+// K-chunk of a staged tile.
+constexpr int kBK = 64;
+
+// The shared memory gemm_tiles<2, 2> stages: A [kBK, 32 + 1] and B [kBK,
+// 64 + 1] (a padded row each against bank conflicts).
+template <class T>
+__host__ __device__ inline long stage_smem_bytes() {
+  return (long)kBK * (32 + 1 + 64 + 1) * (long)sizeof(T);
+}
+
+// The cluster's gemm: output tiles of (16 TM) x (32 TN) dealt to the blocks
+// in turn; each block stages the tile's A and B K-chunks in shared memory
+// (conjugated as they land, through L2) and each of its 16 x 32 threads
+// keeps a TM x TN register micro-tile, rows ty + 16 i and columns tx + 32 j,
+// so a shared load feeds TM or TN multiply-adds.  A thread loads its share
+// of the next chunk into registers while the block computes this one, all
+// its loads in flight at once.  Each output is still one chain over
+// k = 0..Kd-1 in order, with gemm's mac.  Needs blockDim.x == kMaxThreads.
+template <int TM, int TN, bool CA, bool CB, class T>
+__device__ inline void gemm_tiles(const ClusterTeam& tm, int batch, int M,
+                                  int Nc, int Kd, View<T> A, View<T> B,
+                                  T* out, long ob, long orow, long ocol,
+                                  float alpha, float beta, const T* src) {
+  constexpr int BM = 16 * TM, BN = 32 * TN, LA = BM + 1, LB = BN + 1;
+  constexpr int NA = BM * kBK / kMaxThreads, NB = BN * kBK / kMaxThreads;
+  static_assert(NA * kMaxThreads == BM * kBK && NB * kMaxThreads == BN * kBK,
+                "a chunk is a whole number of loads a thread");
+  T* As = static_cast<T*>(tm.stage);      // [kBK, LA]: As[k * LA + m]
+  T* Bs = As + kBK * LA;                  // [kBK, LB]: Bs[k * LB + n]
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int mt = (M + BM - 1) / BM, nt = (Nc + BN - 1) / BN;
+  // stage along the operand's unit stride, so a warp's loads coalesce
+  const bool a_m_fast = A.sc != 1 && A.sr == 1;
+  const bool b_k_fast = B.sc != 1 && B.sr == 1;
+  for (int tile = tm.rank; tile < batch * mt * nt; tile += tm.ctas) {
+    const int b = tile / (mt * nt), r = tile % (mt * nt);
+    const int m0 = (r / nt) * BM, n0 = (r % nt) * BN;
+    const T* Ab = A.p + b * A.sb;
+    const T* Bb = B.p + b * B.sb;
+    T ra[NA], rb[NB];
+    // this thread's elements of the chunk from k0 into ra, rb
+    auto load = [&](int k0) {
+      const int kc = min(kBK, Kd - k0);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int e = i * kMaxThreads + threadIdx.x;
+        const int m = a_m_fast ? e % BM : e / kBK;
+        const int k = a_m_fast ? e / BM : e % kBK;
+        ra[i] = (m0 + m < M && k < kc)
+                    ? cj<CA>(ldcg(Ab + (m0 + m) * A.sr + (k0 + k) * A.sc))
+                    : T{};
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int e = i * kMaxThreads + threadIdx.x;
+        const int n = b_k_fast ? e / kBK : e % BN;
+        const int k = b_k_fast ? e % kBK : e / BN;
+        rb[i] = (n0 + n < Nc && k < kc)
+                    ? cj<CB>(ldcg(Bb + (k0 + k) * B.sr + (n0 + n) * B.sc))
+                    : T{};
+      }
+    };
+    T acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = T{};
+    load(0);
+    for (int k0 = 0; k0 < Kd; k0 += kBK) {
+      const int kc = min(kBK, Kd - k0);
+      __syncthreads();                    // the last chunk's reads are done
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int e = i * kMaxThreads + threadIdx.x;
+        As[(a_m_fast ? e / BM : e % kBK) * LA + (a_m_fast ? e % BM : e / kBK)]
+            = ra[i];
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int e = i * kMaxThreads + threadIdx.x;
+        Bs[(b_k_fast ? e % kBK : e / BN) * LB + (b_k_fast ? e / kBK : e % BN)]
+            = rb[i];
+      }
+      __syncthreads();
+      if (k0 + kBK < Kd) load(k0 + kBK);
+      for (int kk = 0; kk < kc; ++kk) {
+        T av[TM], bv[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) av[i] = As[kk * LA + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) bv[j] = Bs[kk * LB + tx + 32 * j];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = mac(av[i], bv[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + tx + 32 * j;
+        if (m < M && n < Nc) {
+          const long o = b * ob + m * orow + n * ocol;
+          out[o] = gemm_out(acc[i][j], alpha, beta, src, o);
+        }
+      }
+    }
+  }
+}
+
+// The cluster's gemm: 32 x 64 tiles (2 x 2 micro-tiles) when there are at
+// least as many of them as blocks, else 16 x 32 (1 x 1), which spreads a
+// small product over more blocks.  Both give every output the same bits.
+template <bool CA = false, bool CB = false, class T>
+__device__ inline void gemm(const ClusterTeam& tm, int batch, int M, int Nc,
+                            int Kd, View<T> A, View<T> B, T* out, long ob,
+                            long orow, long ocol, float alpha = 1.f,
+                            float beta = 0.f, const T* src = nullptr) {
+  const long tiles = (long)batch * ((M + 31) / 32) * ((Nc + 63) / 64);
+  if (tiles >= tm.ctas)
+    gemm_tiles<2, 2, CA, CB>(tm, batch, M, Nc, Kd, A, B, out, ob, orow, ocol,
+                             alpha, beta, src);
+  else
+    gemm_tiles<1, 1, CA, CB>(tm, batch, M, Nc, Kd, A, B, out, ob, orow, ocol,
+                             alpha, beta, src);
+}
+
+// Deterministic block-wide sum: v is partial threadIdx.x of blockDim.x ==
+// kParts, combined by a fixed tree.
+__device__ inline float block_sum(BlockTeam, float v, float* red) {
   red[threadIdx.x] = v;
   __syncthreads();
   for (int s = blockDim.x / 2; s > 0; s >>= 1) {
@@ -275,6 +474,25 @@ __device__ inline float block_sum(float v, float* red) {
   }
   const float r = red[0];
   __syncthreads();
+  return r;
+}
+
+// The same sum over a cluster: the team's threads t < kParts hold the
+// partials; every block gathers all kParts of them and runs the same tree
+// on its own copy, so every block gets the same bits.
+__device__ inline float block_sum(const ClusterTeam& tm, float v,
+                                  float* red) {
+  if (tm.holds_part()) tm.parts[tm.tid()] = v;
+  tm.sync();
+  for (int i = threadIdx.x; i < kParts; i += blockDim.x)
+    red[i] = ldcg(tm.parts + i);
+  __syncthreads();
+  for (int s = kParts / 2; s > 0; s >>= 1) {
+    for (int i = threadIdx.x; i < s; i += blockDim.x) red[i] += red[i + s];
+    __syncthreads();
+  }
+  const float r = red[0];
+  tm.sync();                              // parts and red free again
   return r;
 }
 
@@ -295,12 +513,12 @@ __device__ inline float block_max(float v, float* red) {
 // ---- K1 body: kron factors, bond tensor, yhat, gradient, step --------------
 
 // L[n, a*d+i] = conj(le[n,a]) phil[n,i];  R[n, k*chi+b] = phir[n,k] conj(re[n,b]).
-template <class T>
-__device__ inline void kron_factors(const T* le, const T* re, const T* phil,
-                                    const T* phir, Work<T> w, int chi, int d,
-                                    int N) {
+template <class Tm, class T>
+__device__ inline void kron_factors(const Tm& tm, const T* le, const T* re,
+                                    const T* phil, const T* phir, Work<T> w,
+                                    int chi, int d, int N) {
   const int P = chi * d;
-  for (int e = threadIdx.x; e < N * P; e += blockDim.x) {
+  for (int e = tm.tid(); e < N * P; e += tm.size()) {
     const int n = e / P, p = e % P;
     w.L[e] = conj(le[n * chi + p / d]) * phil[n * d + p % d];
     w.R[e] = phir[n * d + p / chi] * conj(re[n * chi + p % chi]);
@@ -309,27 +527,29 @@ __device__ inline void kron_factors(const T* le, const T* re, const T* phil,
 
 // BT[c] = X_c @ Y_c: backward X = core [P, chi], Y_c = center[c] [chi, P];
 // forward X_c = center[c] [P, chi], Y = core [chi, P].
-template <class T>
-__device__ inline void bond_tensor(const T* core, const T* center, Work<T> w,
-                                   int C, int chi, int d, bool forward) {
+template <class Tm, class T>
+__device__ inline void bond_tensor(const Tm& tm, const T* core,
+                                   const T* center, Work<T> w, int C, int chi,
+                                   int d, bool forward) {
   const long P = (long)chi * d;
   View<T> X = forward ? vw(center, P * chi, chi, 1) : vw(core, 0, chi, 1);
   View<T> Y = forward ? vw(core, 0, P, 1) : vw(center, chi * P, P, 1);
-  gemm(C, P, P, chi, X, Y, w.BT, P * P, P, 1);
+  gemm(tm, C, P, P, chi, X, Y, w.BT, P * P, P, 1);
 }
 
 // yhat, the loss weights and the loss gradient of the batch into w.G (the
 // KLD sign folded in: w.G is the gradient itself, as K1a emits it).
-template <class T>
-__device__ inline void k1_grad(const K12Args<T>& a, const float* ls,
-                               Work<T> w) {
+template <class Tm, class T>
+__device__ inline void k1_grad(const Tm& tm, const K12Args<T>& a,
+                               const float* ls, Work<T> w) {
   const int C = a.C, N = a.N;
   const long P = (long)a.chi * a.d, PP = P * P;
   // T1[c, n, q] = sum_p L[n,p] BT[c,p,q]
-  gemm(C, N, P, P, vw(w.L, 0, P, 1), vw(w.BT, PP, P, 1), w.T1, N * P, P, 1);
-  __syncthreads();
+  gemm(tm, C, N, P, P, vw(w.L, 0, P, 1), vw(w.BT, PP, P, 1), w.T1, N * P, P,
+       1);
+  tm.sync();
   // yhat[n, c] = sum_q T1[c,n,q] R[n,q]
-  for (int e = threadIdx.x; e < N * C; e += blockDim.x) {
+  for (int e = tm.tid(); e < N * C; e += tm.size()) {
     const int n = e / C, c = e % C;
     const T* t = w.T1 + (c * (long)N + n) * P;
     const T* r = w.R + n * P;
@@ -337,9 +557,9 @@ __device__ inline void k1_grad(const K12Args<T>& a, const float* ls,
     for (int q = 0; q < P; ++q) acc = mac(t[q], r[q], acc);
     w.yhat[e] = acc;
   }
-  __syncthreads();
+  tm.sync();
   // per-sample, per-class weights (the KLD sign folded in)
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+  for (int n = tm.tid(); n < N; n += tm.size()) {
     const float* y1 = a.y1h + n * C;
     const T* yh = w.yhat + n * C;
     if (!a.mse) {
@@ -354,50 +574,60 @@ __device__ inline void k1_grad(const K12Args<T>& a, const float* ls,
       for (int c = 0; c < C; ++c) w.wc[n * C + c] = (yh[c] * s - y1[c]) * ws;
     }
   }
-  __syncthreads();
+  tm.sync();
   // U[c, n, q] = conj(R[n,q]) wc[n,c]  (into T1)
-  for (int e = threadIdx.x; e < C * N * P; e += blockDim.x) {
+  for (int e = tm.tid(); e < C * N * P; e += tm.size()) {
     const int q = e % P, n = (e / P) % N, c = e / (P * N);
     w.T1[e] = conj(w.R[n * P + q]) * w.wc[n * C + c];
   }
-  __syncthreads();
+  tm.sync();
   // G[c, p, q] = sum_n conj(L[n,p]) U[c,n,q]
-  gemm<true>(C, P, P, N, vw(w.L, 0, 1, P), vw(w.T1, N * P, P, 1), w.G, PP, P,
-             1);
-  __syncthreads();
+  gemm<true>(tm, C, P, P, N, vw(w.L, 0, 1, P), vw(w.T1, N * P, P, 1), w.G, PP,
+             P, 1);
+  tm.sync();
 }
 
 // The optimiser step on w.BT against the gradient w.G (TSGO: normalised by
 // the norm of the whole w.G, the reduced gradient in K1b), then
-// post-normalisation; BT leaves updated in place.
-template <class T>
-__device__ inline void k1_step(const K12Args<T>& a, Work<T> w, float* red) {
+// post-normalisation; BT leaves updated in place.  A cluster steps every
+// element, then sums the kParts partials of the stepped values.
+template <class Tm, class T>
+__device__ inline void k1_step(const Tm& tm, const K12Args<T>& a, Work<T> w,
+                               float* red) {
   const long P = (long)a.chi * a.d, PP = P * P;
-  const int C = a.C;
+  const long n = a.C * PP;
   float step = a.eta;
   if (!a.gd) {                       // TSGO: normalised-gradient step
     float part = 0.f;
-    for (long e = threadIdx.x; e < C * PP; e += blockDim.x)
+    for (long e = tm.tid(); tm.holds_part() && e < n; e += tm.part_stride())
       part = abs2_add(w.G[e], part);
-    step = a.eta / sqrtf(fmaxf(block_sum(part, red), kTiny));
+    step = a.eta / sqrtf(fmaxf(block_sum(tm, part, red), kTiny));
   }
   float part = 0.f;
-  for (long e = threadIdx.x; e < C * PP; e += blockDim.x) {
-    const T v = w.BT[e] - step * w.G[e];
-    w.BT[e] = v;
-    part = abs2_add(v, part);
+  if constexpr (Tm::kCluster) {
+    for (long e = tm.tid(); e < n; e += tm.size())
+      w.BT[e] = w.BT[e] - step * w.G[e];
+    tm.sync();
+    for (long e = tm.tid(); tm.holds_part() && e < n; e += tm.part_stride())
+      part = abs2_add(w.BT[e], part);
+  } else {
+    for (long e = tm.tid(); e < n; e += tm.size()) {
+      const T v = w.BT[e] - step * w.G[e];
+      w.BT[e] = v;
+      part = abs2_add(v, part);
+    }
   }
-  const float bn = 1.f / sqrtf(fmaxf(block_sum(part, red), kTiny));
-  for (long e = threadIdx.x; e < C * PP; e += blockDim.x) w.BT[e] *= bn;
-  __syncthreads();
+  const float bn = 1.f / sqrtf(fmaxf(block_sum(tm, part, red), kTiny));
+  for (long e = tm.tid(); e < n; e += tm.size()) w.BT[e] *= bn;
+  tm.sync();
 }
 
 // The gradient of the whole batch and the step on it (K1, K12, K12cr).
-template <class T>
-__device__ inline void k1_update(const K12Args<T>& a, const float* ls,
-                                 Work<T> w, float* red) {
-  k1_grad(a, ls, w);
-  k1_step(a, w, red);
+template <class Tm, class T>
+__device__ inline void k1_update(const Tm& tm, const K12Args<T>& a,
+                                 const float* ls, Work<T> w, float* red) {
+  k1_grad(tm, a, ls, w);
+  k1_step(tm, a, w, red);
 }
 
 // ---- warm power step with Newton-Schulz polar ------------------------------
@@ -405,28 +635,30 @@ __device__ inline void k1_update(const K12Args<T>& a, const float* ls,
 // X <- polar(X) by 8 quintic + 6 cubic Newton-Schulz steps; X is the
 // pre-scaled input in *x, *xn is scratch; returns the buffer holding the
 // result.
-template <class T>
-__device__ inline T* ns_polar(T* x, T* xn, Work<T> w, int P, int K) {
+template <class Tm, class T>
+__device__ inline T* ns_polar(const Tm& tm, T* x, T* xn, Work<T> w, int P,
+                              int K) {
   for (int it = 0; it < kNsQuintic + kNsCubic; ++it) {
     const bool quintic = it < kNsQuintic;
     // Gm = X^H X
-    gemm<true>(1, K, K, P, vw(x, 0, 1, K), vw(x, 0, K, 1), w.Gm, 0, K, 1);
-    __syncthreads();
+    gemm<true>(tm, 1, K, K, P, vw(x, 0, 1, K), vw(x, 0, K, 1), w.Gm, 0, K, 1);
+    tm.sync();
     if (quintic) {
-      gemm(1, K, K, K, vw(w.Gm, 0, K, 1), vw(w.Gm, 0, K, 1), w.G2, 0, K, 1);
-      __syncthreads();
-      for (int e = threadIdx.x; e < K * K; e += blockDim.x)
+      gemm(tm, 1, K, K, K, vw(w.Gm, 0, K, 1), vw(w.Gm, 0, K, 1), w.G2, 0, K,
+           1);
+      tm.sync();
+      for (int e = tm.tid(); e < K * K; e += tm.size())
         w.Mq[e] = kNsB * w.Gm[e] + kNsC * w.G2[e];
-      __syncthreads();
+      tm.sync();
       // X' = a X + X (b G + c G^2)
-      gemm(1, P, K, K, vw(x, 0, K, 1), vw(w.Mq, 0, K, 1), xn, 0, K, 1, 1.f,
-           kNsA, x);
+      gemm(tm, 1, P, K, K, vw(x, 0, K, 1), vw(w.Mq, 0, K, 1), xn, 0, K, 1,
+           1.f, kNsA, x);
     } else {
       // X' = 1.5 X - 0.5 X G
-      gemm(1, P, K, K, vw(x, 0, K, 1), vw(w.Gm, 0, K, 1), xn, 0, K, 1, -0.5f,
-           1.5f, x);
+      gemm(tm, 1, P, K, K, vw(x, 0, K, 1), vw(w.Gm, 0, K, 1), xn, 0, K, 1,
+           -0.5f, 1.5f, x);
     }
-    __syncthreads();
+    tm.sync();
     T* t = x; x = xn; xn = t;
   }
   return x;
@@ -438,30 +670,33 @@ __device__ inline T* ns_polar(T* x, T* xn, Work<T> w, int P, int K) {
 // correction is upper triangular, so the limit is the thin-QR Q of X with a
 // positive real R diagonal.  xn is scratch [P, K], E and Tm scratch [K, K];
 // the result is left in x.
-template <class T>
-__device__ inline void tri_newton(T* x, T* xn, T* E, T* Tm, int P, int K,
-                                  float* red) {
+template <class Tm, class T>
+__device__ inline void tri_newton(const Tm& tm, T* x, T* xn, T* E, T* Tmat,
+                                  int P, int K, float* red) {
   for (int it = 0; it < kTriNewton; ++it) {
-    gemm<true>(1, K, K, P, vw(x, 0, 1, K), vw(x, 0, K, 1), E, 0, K, 1);
-    __syncthreads();
+    gemm<true>(tm, 1, K, K, P, vw(x, 0, 1, K), vw(x, 0, K, 1), E, 0, K, 1);
+    tm.sync();
+    // partial t's thread shifts the diagonal of its own elements
     float part = 0.f;
-    for (int e = threadIdx.x; e < K * K; e += blockDim.x) {
+    for (int e = tm.tid(); tm.holds_part() && e < K * K;
+         e += tm.part_stride()) {
       T v = E[e];
       if (e / K == e % K) v = v - from_real<T>(1.f);
       E[e] = v;
       part = abs2_add(v, part);
     }
-    const float s = rsqrtf(fmaxf(block_sum(part, red), 1.f));
+    const float s = rsqrtf(fmaxf(block_sum(tm, part, red), 1.f));
     // diag(E) is real (hermitian), so Tm's diagonal is real
-    for (int e = threadIdx.x; e < K * K; e += blockDim.x) {
+    for (int e = tm.tid(); e < K * K; e += tm.size()) {
       const int r = e / K, c = e % K;
-      Tm[e] = r < c ? -(s * E[e])
+      Tmat[e] = r < c
+                    ? -(s * E[e])
                     : (r == c ? from_real<T>(1.f - s * (0.5f * real_part(E[e])))
                               : T{});
     }
-    __syncthreads();
-    gemm(1, P, K, K, vw(x, 0, K, 1), vw(Tm, 0, K, 1), xn, 0, K, 1);
-    __syncthreads();
+    tm.sync();
+    gemm(tm, 1, P, K, K, vw(x, 0, K, 1), vw(Tmat, 0, K, 1), xn, 0, K, 1);
+    tm.sync();
     T* t = x; x = xn; xn = t;
   }
 }
@@ -472,65 +707,67 @@ __device__ inline void tri_newton(T* x, T* xn, T* E, T* Tm, int P, int K,
 // With a.qr set, each step only normalises the columns (no revival, no
 // polar) and the returned iterate is orthonormalised by the caller's QR;
 // with a.tri set, each normalised step is orthonormalised by tri_newton.
-template <class T>
-__device__ inline const T* power_tail(const K12Args<T>& a, const T* v0,
-                                      Work<T> w, float* red) {
+template <class Tm, class T>
+__device__ inline const T* power_tail(const Tm& tm, const K12Args<T>& a,
+                                      const T* v0, Work<T> w, float* red) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d, PP = P * P;
   const T* yprev = v0;
   for (int it = 0; it < a.q_iters; ++it) {
     if (!a.forward) {
       // MV[c, p, j] = sum_q BT[c,p,q] Y[q,j]
-      gemm(C, P, K, P, vw(w.BT, PP, P, 1), vw(yprev, 0, K, 1), w.MV, P * K, K,
-           1);
-      __syncthreads();
+      gemm(tm, C, P, K, P, vw(w.BT, PP, P, 1), vw(yprev, 0, K, 1), w.MV,
+           P * K, K, 1);
+      tm.sync();
       // Ynew[q, j] = sum_c sum_p conj(BT[c,p,q]) MV[c,p,j]  (class by class;
       // the same thread owns each element in every pass)
       for (int c = 0; c < C; ++c)
-        gemm<true>(1, P, K, P, vw(w.BT + c * PP, 0, 1, P),
+        gemm<true>(tm, 1, P, K, P, vw(w.BT + c * PP, 0, 1, P),
                    vw(w.MV + c * P * K, 0, K, 1), w.Yb, 0, K, 1, 1.f,
                    c ? 1.f : 0.f, c ? w.Yb : nullptr);
     } else {
       // MtU[c, q, j] = sum_p conj(BT[c,p,q]) Y[p,j]
-      gemm<true>(C, P, K, P, vw(w.BT, PP, 1, P), vw(yprev, 0, K, 1), w.MV,
+      gemm<true>(tm, C, P, K, P, vw(w.BT, PP, 1, P), vw(yprev, 0, K, 1), w.MV,
                  P * K, K, 1);
-      __syncthreads();
+      tm.sync();
       // Ynew[p, j] = sum_c sum_q BT[c,p,q] MtU[c,q,j]
       for (int c = 0; c < C; ++c)
-        gemm(1, P, K, P, vw(w.BT + c * PP, 0, P, 1),
+        gemm(tm, 1, P, K, P, vw(w.BT + c * PP, 0, P, 1),
              vw(w.MV + c * P * K, 0, K, 1), w.Yb, 0, K, 1, 1.f,
              c ? 1.f : 0.f, c ? w.Yb : nullptr);
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < K; j += blockDim.x) {
+    tm.sync();
+    for (int j = tm.tid(); j < K; j += tm.size()) {
       float s = 0.f;
       for (int r = 0; r < P; ++r) s = abs2_add(w.Yb[r * K + j], s);
       w.nrm[j] = fmaxf(sqrtf(s), kTiny);
     }
-    __syncthreads();
+    tm.sync();
     if (a.qr || a.tri) {
-      for (int e = threadIdx.x; e < P * K; e += blockDim.x)
+      for (int e = tm.tid(); e < P * K; e += tm.size())
         w.Ya[e] = w.Yb[e] / w.nrm[e % K];
-      __syncthreads();
-      if (a.tri) tri_newton(w.Ya, w.Yc, w.Sq, w.Wq, P, K, red);
+      tm.sync();
+      if (a.tri) tri_newton(tm, w.Ya, w.Yc, w.Gm, w.G2, P, K, red);
       yprev = w.Ya;
       continue;
     }
-    // X = Ynew / ||col|| + eps * Yprev, then pre-scale by ||X||_F (1 + 1e-3)
+    // X = Ynew / ||col|| + eps * Yprev, then pre-scale by ||X||_F (1 + 1e-3);
+    // partial t's thread forms its own elements
     float part = 0.f;
-    for (int e = threadIdx.x; e < P * K; e += blockDim.x) {
+    for (int e = tm.tid(); tm.holds_part() && e < P * K;
+         e += tm.part_stride()) {
       const T v = w.Yb[e] / w.nrm[e % K] + kNsRevive * yprev[e];
       w.Yb[e] = v;
       part = abs2_add(v, part);
     }
     const float grow = 1.f + 1e-3f;
-    const float sc = 1.f / sqrtf(fmaxf(block_sum(part, red) * (grow * grow),
-                                       kTiny));
-    for (int e = threadIdx.x; e < P * K; e += blockDim.x) w.Yb[e] *= sc;
-    __syncthreads();
-    const T* y = ns_polar(w.Yb, w.Yc, w, P, K);
-    for (int e = threadIdx.x; e < P * K; e += blockDim.x) w.Ya[e] = y[e];
-    __syncthreads();
+    const float sc =
+        1.f / sqrtf(fmaxf(block_sum(tm, part, red) * (grow * grow), kTiny));
+    for (int e = tm.tid(); e < P * K; e += tm.size()) w.Yb[e] *= sc;
+    tm.sync();
+    const T* y = ns_polar(tm, w.Yb, w.Yc, w, P, K);
+    for (int e = tm.tid(); e < P * K; e += tm.size()) w.Ya[e] = y[e];
+    tm.sync();
     yprev = w.Ya;
   }
   return yprev;
@@ -543,10 +780,11 @@ __device__ inline const T* power_tail(const K12Args<T>& a, const T* v0,
 // w_j < w_i, or w_j == w_i and j >= i (the stable descending order), and is
 // kept iff that suffix's energy exceeds cutoff * total, w_i > 0, and its
 // sorted position is below max_rank (cnt_i > K - max_rank).
-template <class T>
-__device__ inline void cutoff_mask(const K12Args<T>& a, Work<T> w) {
+template <class Tm, class T>
+__device__ inline void cutoff_mask(const Tm& tm, const K12Args<T>& a,
+                                   Work<T> w) {
   const int K = a.chi;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+  for (int i = tm.tid(); i < K; i += tm.size()) {
     const float wi = w.wv[i];
     float total = 0.f, suffix = 0.f;
     int cnt = 0;
@@ -562,32 +800,34 @@ __device__ inline void cutoff_mask(const K12Args<T>& a, Work<T> w) {
                       (float)cnt > (float)K - a.max_rank;
     w.mask[i] = keep ? 1.f : 0.f;
   }
-  __syncthreads();
+  tm.sync();
 }
 
 // The projected blocks of BT onto Q into w.MV: backward B_c = BT_c Q
 // [C, P, K], forward B_c = Q^H BT_c [C, K, P].
-template <class T>
-__device__ inline void project(const K12Args<T>& a, const T* Q, Work<T> w) {
+template <class Tm, class T>
+__device__ inline void project(const Tm& tm, const K12Args<T>& a, const T* Q,
+                               Work<T> w) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d, PP = P * P;
   if (!a.forward)
-    gemm(C, P, K, P, vw(w.BT, PP, P, 1), vw(Q, 0, K, 1), w.MV, P * K, K, 1);
+    gemm(tm, C, P, K, P, vw(w.BT, PP, P, 1), vw(Q, 0, K, 1), w.MV, P * K, K,
+         1);
   else
-    gemm<true>(C, K, P, P, vw(Q, 0, 1, K), vw(w.BT, PP, P, 1), w.MV, K * P, P,
-               1);
-  __syncthreads();
+    gemm<true>(tm, C, K, P, P, vw(Q, 0, 1, K), vw(w.BT, PP, P, 1), w.MV,
+               K * P, P, 1);
+  tm.sync();
 }
 
 // The projected blocks, the direction energies w.wv [K] and their cutoff
 // mask.
-template <class T>
-__device__ inline void project_mask(const K12Args<T>& a, const T* Q,
-                                    Work<T> w) {
+template <class Tm, class T>
+__device__ inline void project_mask(const Tm& tm, const K12Args<T>& a,
+                                    const T* Q, Work<T> w) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d;
-  project(a, Q, w);
-  for (int j = threadIdx.x; j < K; j += blockDim.x) {
+  project(tm, a, Q, w);
+  for (int j = tm.tid(); j < K; j += tm.size()) {
     float wv = 0.f;
     for (int c = 0; c < C; ++c) {
       float s = 0.f;
@@ -600,25 +840,25 @@ __device__ inline void project_mask(const K12Args<T>& a, const T* Q,
     }
     w.wv[j] = wv;
   }
-  __syncthreads();
-  cutoff_mask(a, w);
+  tm.sync();
+  cutoff_mask(tm, a, w);
 }
 
 // Emit the masked split factors in their final core layouts, the unmasked
 // subspace cache (unless q_out is null), and the masked isometry Qm (into
 // w.Yb).
-template <class T>
-__device__ inline void emit(const K12Args<T>& a, const T* Q, T* core_out,
-                            T* q_out, Work<T> w) {
+template <class Tm, class T>
+__device__ inline void emit(const Tm& tm, const K12Args<T>& a, const T* Q,
+                            T* core_out, T* q_out, Work<T> w) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d;
   // backward center[c, a, i, m] = B[c, p, m] mask[m];
   // forward  center[c, m, k, b] = B[c, m, q] mask[m]
-  for (long e = threadIdx.x; e < C * P * K; e += blockDim.x) {
+  for (long e = tm.tid(); e < C * P * K; e += tm.size()) {
     const int m = a.forward ? (int)((e / P) % K) : (int)(e % K);
     a.center_out[e] = w.MV[e] * w.mask[m];
   }
-  for (long e = threadIdx.x; e < P * K; e += blockDim.x) {
+  for (long e = tm.tid(); e < P * K; e += tm.size()) {
     const int m = (int)(e % K);
     const T qm = Q[e] * w.mask[m];
     w.Yb[e] = qm;
@@ -629,7 +869,7 @@ __device__ inline void emit(const K12Args<T>& a, const T* Q, T* core_out,
       core_out[m * P + e / K] = conj(qm);     // V[m, k, b] = conj(Qm[(k, b), m])
     }
   }
-  __syncthreads();
+  tm.sync();
 }
 
 // env'[n, m] = sum_r F[n, r] Qm[r, m] with F = L forward, R backward; then
@@ -637,31 +877,33 @@ __device__ inline void emit(const K12Args<T>& a, const T* Q, T* core_out,
 // factor takes the stored environment ``env`` and features ``phi`` without
 // the conjugation K1 puts on the environment, and the backward advance
 // reads conj(Qm).
-template <class T>
-__device__ inline void env_advance(const K12Args<T>& a, const T* env,
-                                   const T* phi, const float* ls,
-                                   T* env_out, float* ls_out, Work<T> w) {
+template <class Tm, class T>
+__device__ inline void env_advance(const Tm& tm, const K12Args<T>& a,
+                                   const T* env, const T* phi,
+                                   const float* ls, T* env_out, float* ls_out,
+                                   Work<T> w) {
   const int N = a.N, K = a.chi, d = a.d;
   const long P = (long)a.chi * a.d;
   T* F = a.forward ? w.L : w.R;
   if constexpr (IsComplex<T>::value) {
-    for (long e = threadIdx.x; e < N * P; e += blockDim.x) {
+    for (long e = tm.tid(); e < N * P; e += tm.size()) {
       const long n = e / P, p = e % P;
       F[e] = a.forward ? env[n * K + p / d] * phi[n * d + p % d]
                        : phi[n * d + p / K] * env[n * K + p % K];
     }
-    __syncthreads();
+    tm.sync();
     if (!a.forward) {
-      gemm<false, true>(1, N, K, P, vw(F, 0, P, 1), vw(w.Yb, 0, K, 1), env_out,
-                        0, K, 1);
+      gemm<false, true>(tm, 1, N, K, P, vw(F, 0, P, 1), vw(w.Yb, 0, K, 1),
+                        env_out, 0, K, 1);
     } else {
-      gemm(1, N, K, P, vw(F, 0, P, 1), vw(w.Yb, 0, K, 1), env_out, 0, K, 1);
+      gemm(tm, 1, N, K, P, vw(F, 0, P, 1), vw(w.Yb, 0, K, 1), env_out, 0, K,
+           1);
     }
   } else {
-    gemm(1, N, K, P, vw(F, 0, P, 1), vw(w.Yb, 0, K, 1), env_out, 0, K, 1);
+    gemm(tm, 1, N, K, P, vw(F, 0, P, 1), vw(w.Yb, 0, K, 1), env_out, 0, K, 1);
   }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+  tm.sync();
+  for (int n = tm.tid(); n < N; n += tm.size()) {
     float s = 0.f;
     for (int m = 0; m < K; ++m) s = abs2_add(env_out[n * K + m], s);
     const float nrm = sqrtf(s);
@@ -670,7 +912,32 @@ __device__ inline void env_advance(const K12Args<T>& a, const T* env,
     for (int m = 0; m < K; ++m) env_out[n * K + m] /= div;
     ls_out[n] = ls[n] + (nrm > 0.f ? logf(safe) : 0.f);
   }
-  __syncthreads();
+  tm.sync();
+}
+
+// One bond step (bond b of a block): the kron factors, the bond tensor, the
+// step, the power step (a refresh bond), the split and the env advance.
+template <class Tm, class T>
+__device__ inline void bond_step(const Tm& tm, const K12Args<T>& a, int b,
+                                 const T* env, const float* ls,
+                                 const T* center, Work<T> w, float* red) {
+  const int chi = a.chi, d = a.d, N = a.N;
+  const long P = (long)chi * d;
+  const T* core = a.lhs + b * P * chi;
+  const T* envx = a.envx + (long)b * N * chi;
+  const T* v0 = a.v0 + b * P * chi;
+  const T* phil = a.phil + (long)b * N * d;
+  const T* phir = a.phir + (long)b * N * d;
+  kron_factors(tm, a.forward ? env : envx, a.forward ? envx : env, phil, phir,
+               w, chi, d, N);
+  bond_tensor(tm, core, center, w, a.C, chi, d, a.forward);
+  tm.sync();
+  k1_update(tm, a, ls, w, red);
+  const T* Q = a.refresh ? power_tail(tm, a, v0, w, red) : v0;
+  project_mask(tm, a, Q, w);
+  emit(tm, a, Q, a.core_out + b * P * chi, a.q_out + b * P * chi, w);
+  env_advance(tm, a, env, a.forward ? phil : phir, ls,
+              a.env_out + (long)b * N * chi, a.ls_out + (long)b * N, w);
 }
 
 // Bb consecutive bond steps in one block; the center, environment and
@@ -678,33 +945,26 @@ __device__ inline void env_advance(const K12Args<T>& a, const T* env,
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k12m_kernel(K12Args<T> a) {
   __shared__ float red[kMaxThreads];
-  const int chi = a.chi, d = a.d, N = a.N;
-  const long P = (long)chi * d;
-  Work<T> w = carve<T>(a.ws, a.C, chi, d, N);
-  const T* env = a.env0;
-  const float* ls = a.ls0;
-  const T* center = a.center0;
+  const BlockTeam tm;
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
   for (int b = 0; b < a.Bb; ++b) {
-    const T* core = a.lhs + b * P * chi;
-    const T* envx = a.envx + (long)b * N * chi;
-    const T* v0 = a.v0 + b * P * chi;
-    const T* phil = a.phil + (long)b * N * d;
-    const T* phir = a.phir + (long)b * N * d;
-    T* env_out = a.env_out + (long)b * N * chi;
-    float* ls_out = a.ls_out + (long)b * N;
-    kron_factors(a.forward ? env : envx, a.forward ? envx : env, phil, phir,
-                 w, chi, d, N);
-    bond_tensor(core, center, w, a.C, chi, d, a.forward);
-    __syncthreads();
-    k1_update(a, ls, w, red);
-    const T* Q = a.refresh ? power_tail(a, v0, w, red) : v0;
-    project_mask(a, Q, w);
-    emit(a, Q, a.core_out + b * P * chi, a.q_out + b * P * chi, w);
-    env_advance(a, env, a.forward ? phil : phir, ls, env_out, ls_out, w);
-    env = env_out;
-    ls = ls_out;
-    center = a.center_out;
+    const long off = (long)(b - 1) * a.N;
+    bond_step(tm, a, b, b ? a.env_out + off * a.chi : a.env0,
+              b ? a.ls_out + off : a.ls0, b ? a.center_out : a.center0, w,
+              red);
   }
+}
+
+// K12c: one bond step (K12m's at Bb = 1) over a thread-block cluster.  The
+// launch bound's one block a SM lets ptxas keep 128 registers (without it,
+// ptxas for sm_90a gave these kernels 64 and spilled).
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads, 1) k12c_kernel(K12Args<T> a) {
+  __shared__ float red[kMaxThreads];
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
+  const ClusterTeam tm = cluster_team(w.parts, dyn_smem);
+  bond_step(tm, a, 0, a.env0, a.ls0, a.center0, w, red);
 }
 
 // K1: one bond step up to its orthogonalisation.  The bond tensor is built,
@@ -719,13 +979,14 @@ __global__ void __launch_bounds__(kMaxThreads) k1_kernel(K12Args<T> a,
                                                          T* bt_out,
                                                          T* y_out) {
   __shared__ float red[kMaxThreads];
+  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
   w.BT = bt_out;
-  kron_factors(le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
-  bond_tensor(a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  kron_factors(tm, le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
+  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
   __syncthreads();
-  k1_update(a, a.ls0, w, red);
-  const T* y = a.refresh ? power_tail(a, a.v0, w, red) : a.v0;
+  k1_update(tm, a, a.ls0, w, red);
+  const T* y = a.refresh ? power_tail(tm, a, a.v0, w, red) : a.v0;
   const long PK = (long)a.chi * a.d * a.chi;
   for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
 }
@@ -739,16 +1000,17 @@ template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k2_kernel(K12Args<T> a,
                                                          const T* bt,
                                                          const T* Q) {
+  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
   w.BT = const_cast<T*>(bt);                // read only
   // one side's factor is all the advance needs: L (forward) or R (backward)
   if constexpr (!IsComplex<T>::value) {
-    kron_factors(a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
+    kron_factors(tm, a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
     __syncthreads();
   }
-  project_mask(a, Q, w);
-  emit(a, Q, a.core_out, static_cast<T*>(nullptr), w);
-  env_advance(a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
+  project_mask(tm, a, Q, w);
+  emit(tm, a, Q, a.core_out, static_cast<T*>(nullptr), w);
+  env_advance(tm, a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
 }
 
 // ---- K1a, K1b, K2-split, K2-env: the bond step in four pieces ------------
@@ -767,12 +1029,13 @@ __global__ void __launch_bounds__(kMaxThreads) k1a_kernel(K12Args<T> a,
                                                           const T* le,
                                                           const T* re,
                                                           T* g_out) {
+  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
   w.G = g_out;
-  kron_factors(le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
-  bond_tensor(a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  kron_factors(tm, le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
+  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
   __syncthreads();
-  k1_grad(a, a.ls0, w);
+  k1_grad(tm, a, a.ls0, w);
 }
 
 // K1b: the bond tensor, the step against the reduced gradient g, and the
@@ -783,14 +1046,15 @@ __global__ void __launch_bounds__(kMaxThreads) k1b_kernel(K12Args<T> a,
                                                           const T* g,
                                                           T* bt_out,
                                                           T* y_out) {
+  const BlockTeam tm;
   __shared__ float red[kMaxThreads];
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
   w.BT = bt_out;
   w.G = const_cast<T*>(g);                  // read only
-  bond_tensor(a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
   __syncthreads();
-  k1_step(a, w, red);
-  const T* y = a.refresh ? power_tail(a, a.v0, w, red) : a.v0;
+  k1_step(tm, a, w, red);
+  const T* y = a.refresh ? power_tail(tm, a, a.v0, w, red) : a.v0;
   const long PK = (long)a.chi * a.d * a.chi;
   for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
 }
@@ -804,10 +1068,11 @@ template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k1_tail_kernel(K12Args<T> a,
                                                               const T* bt,
                                                               T* y_out) {
+  const BlockTeam tm;
   __shared__ float red[kMaxThreads];
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
   w.BT = const_cast<T*>(bt);                // read only
-  const T* y = power_tail(a, a.v0, w, red);
+  const T* y = power_tail(tm, a, a.v0, w, red);
   const long PK = (long)a.chi * a.d * a.chi;
   for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
 }
@@ -820,11 +1085,12 @@ __global__ void __launch_bounds__(kMaxThreads) k2_split_kernel(K12Args<T> a,
                                                                const T* bt,
                                                                const T* Q,
                                                                T* qm_out) {
+  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
   w.BT = const_cast<T*>(bt);                // read only
   w.Yb = qm_out;
-  project_mask(a, Q, w);
-  emit(a, Q, a.core_out, static_cast<T*>(nullptr), w);
+  project_mask(tm, a, Q, w);
+  emit(tm, a, Q, a.core_out, static_cast<T*>(nullptr), w);
 }
 
 // K2-env: the advance of this shard's environment env0 / ls0 through the
@@ -833,21 +1099,23 @@ __global__ void __launch_bounds__(kMaxThreads) k2_split_kernel(K12Args<T> a,
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k2_env_kernel(K12Args<T> a,
                                                              const T* qm) {
+  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, 0, a.chi, a.d, a.N);
   w.Yb = const_cast<T*>(qm);                // read only
   if constexpr (!IsComplex<T>::value) {
-    kron_factors(a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
+    kron_factors(tm, a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
     __syncthreads();
   }
-  env_advance(a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
+  env_advance(tm, a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
 }
 
 // ---- K12cr: the tracked-ritz bond step ------------------------------------
 
 // K12cr's rotation buffers: S and W [K, K], and one round's rotations of the
-// K/2 adjacent pairs, (x, y) and liveness.  In dynamic shared memory when
-// they fit (rot_smem_bytes <= kMaxDynSmem), else in the global workspace's
-// Gm, G2, Mq and nrm, which K12cr does not otherwise need by then.
+// K/2 adjacent pairs, (x, y) and liveness.  In the leader block's dynamic
+// shared memory when they fit (rot_smem_bytes <= kMaxDynSmem), else in the
+// global workspace's Gm, G2, Mq and nrm, which K12cr does not otherwise need
+// by then.
 template <class T>
 struct Rot {
   T *S, *W, *x, *y;
@@ -882,23 +1150,23 @@ __device__ inline Rot<T> rot_buffers(Work<T> w, unsigned char* dyn, int smem,
 
 // The projected blocks (project) and their Gram S [K, K]: sum_c B_c^H B_c
 // backward, sum_c B_c B_c^H forward (pallas_bond_c.py:942-965).
-template <class T>
-__device__ inline void ritz_gram(const K12Args<T>& a, const T* Q, Work<T> w,
-                                 T* S) {
+template <class Tm, class T>
+__device__ inline void ritz_gram(const Tm& tm, const K12Args<T>& a,
+                                 const T* Q, Work<T> w, T* S) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d;
-  project(a, Q, w);
+  project(tm, a, Q, w);
   // class by class; the same thread owns each element of S in every pass
   for (int c = 0; c < C; ++c) {
     const T* B = w.MV + c * P * K;
     if (!a.forward)
-      gemm<true>(1, K, K, P, vw(B, 0, 1, K), vw(B, 0, K, 1), S, 0, K, 1, 1.f,
-                 c ? 1.f : 0.f, c ? S : nullptr);
+      gemm<true>(tm, 1, K, K, P, vw(B, 0, 1, K), vw(B, 0, K, 1), S, 0, K, 1,
+                 1.f, c ? 1.f : 0.f, c ? S : nullptr);
     else
-      gemm<false, true>(1, K, K, P, vw(B, 0, P, 1), vw(B, 0, 1, P), S, 0, K,
-                        1, 1.f, c ? 1.f : 0.f, c ? S : nullptr);
+      gemm<false, true>(tm, 1, K, K, P, vw(B, 0, P, 1), vw(B, 0, 1, P), S, 0,
+                        K, 1, 1.f, c ? 1.f : 0.f, c ? S : nullptr);
   }
-  __syncthreads();
+  tm.sync();
 }
 
 // rounds odd-even rounds of exact 2x2 Jacobi rotations on the adjacent
@@ -991,68 +1259,145 @@ __device__ inline void jacobi_rounds(Rot<T> r, int K, int rounds, float* wv,
 // into q_out, W masked in place to Wm, the masked isometry Qm = Q Wm into
 // w.Yb, the center through Wm (backward B_c Wm, forward Wm^H B_c) and the
 // core from Qm (backward Qm^H, forward Qm) in their final layouts.
-template <class T>
-__device__ inline void ritz_emit(const K12Args<T>& a, const T* Q, T* W,
-                                 Work<T> w) {
+template <class Tm, class T>
+__device__ inline void ritz_emit(const Tm& tm, const K12Args<T>& a,
+                                 const T* Q, T* W, Work<T> w) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d;
-  gemm(1, P, K, K, vw(Q, 0, K, 1), vw(W, 0, K, 1), a.q_out, 0, K, 1);
-  __syncthreads();
-  for (int e = threadIdx.x; e < K * K; e += blockDim.x) W[e] *= w.mask[e % K];
-  __syncthreads();
-  gemm(1, P, K, K, vw(Q, 0, K, 1), vw(W, 0, K, 1), w.Yb, 0, K, 1);
+  gemm(tm, 1, P, K, K, vw(Q, 0, K, 1), vw(W, 0, K, 1), a.q_out, 0, K, 1);
+  tm.sync();
+  for (int e = tm.tid(); e < K * K; e += tm.size()) W[e] *= w.mask[e % K];
+  tm.sync();
+  gemm(tm, 1, P, K, K, vw(Q, 0, K, 1), vw(W, 0, K, 1), w.Yb, 0, K, 1);
   if (!a.forward)
-    gemm(C, P, K, K, vw(w.MV, P * K, K, 1), vw(W, 0, K, 1), a.center_out,
+    gemm(tm, C, P, K, K, vw(w.MV, P * K, K, 1), vw(W, 0, K, 1), a.center_out,
          P * K, K, 1);
   else
-    gemm<true>(C, K, P, K, vw(W, 0, 1, K), vw(w.MV, K * P, P, 1),
+    gemm<true>(tm, C, K, P, K, vw(W, 0, 1, K), vw(w.MV, K * P, P, 1),
                a.center_out, K * P, P, 1);
-  __syncthreads();
-  for (long e = threadIdx.x; e < P * K; e += blockDim.x) {
+  tm.sync();
+  for (long e = tm.tid(); e < P * K; e += tm.size()) {
     const int m = (int)(e % K);
     if (a.forward)
       a.core_out[e] = w.Yb[e];                     // U[a, i, m]
     else
       a.core_out[m * P + e / K] = conj(w.Yb[e]);   // V[m, k, b]
   }
-  __syncthreads();
+  tm.sync();
 }
 
-// K12cr: one tracked-ritz bond step (Bb = 1): the K1 body, q power steps
-// with tri_newton (a frozen bond keeps Q = v0), the Ritz Gram, rounds
-// Jacobi rounds, the cutoff mask on the round-order energies, the emission
-// and the env advance.  env0/ls0 are the advancing environment, envx the
-// opposite one; smem says whether the rotation buffers are in the dynamic
-// shared memory.
+// K12cr: one tracked-ritz bond step (Bb = 1) over a thread-block cluster:
+// the K1 body, q power steps with tri_newton (a frozen bond keeps Q = v0),
+// the Ritz Gram S (into w.Gm), rounds Jacobi rounds on the leader block
+// alone (S and W in its dynamic shared memory when smem is set, else in the
+// workspace's Gm and G2; W leaves in G2), the cutoff mask on the round-order
+// energies, the emission and the env advance.  env0/ls0 are the advancing
+// environment, envx the opposite one.
 template <class T>
-__global__ void __launch_bounds__(kMaxThreads) k12cr_kernel(K12Args<T> a,
-                                                            int rounds,
-                                                            int smem) {
+__global__ void __launch_bounds__(kMaxThreads, 1) k12cr_kernel(K12Args<T> a,
+                                                               int rounds,
+                                                               int smem) {
   __shared__ float red[kMaxThreads];
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
-  const Rot<T> r = rot_buffers(w, dyn_smem, smem, a.chi);
-  w.Sq = r.S;                      // tri_newton's squares, free until the Gram
-  w.Wq = r.W;
-  kron_factors(a.forward ? a.env0 : a.envx, a.forward ? a.envx : a.env0,
+  const ClusterTeam tm = cluster_team(w.parts, dyn_smem);
+  const int K = a.chi;
+  kron_factors(tm, a.forward ? a.env0 : a.envx, a.forward ? a.envx : a.env0,
                a.phil, a.phir, w, a.chi, a.d, a.N);
-  bond_tensor(a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
-  __syncthreads();
-  k1_update(a, a.ls0, w, red);
-  const T* Q = a.refresh ? power_tail(a, a.v0, w, red) : a.v0;
-  ritz_gram(a, Q, w, r.S);
-  jacobi_rounds(r, a.chi, rounds, w.wv, red);
-  cutoff_mask(a, w);
-  ritz_emit(a, Q, r.W, w);
-  env_advance(a, a.env0, a.forward ? a.phil : a.phir, a.ls0, a.env_out,
+  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  tm.sync();
+  k1_update(tm, a, a.ls0, w, red);
+  const T* Q = a.refresh ? power_tail(tm, a, a.v0, w, red) : a.v0;
+  ritz_gram(tm, a, Q, w, w.Gm);
+  if (tm.rank == 0) {              // the gemm tiles are free until the emission
+    const Rot<T> r = rot_buffers(w, dyn_smem, smem, K);
+    if (smem) {
+      for (int e = threadIdx.x; e < K * K; e += blockDim.x)
+        r.S[e] = ldcg(w.Gm + e);
+      __syncthreads();
+    }
+    jacobi_rounds(r, K, rounds, w.wv, red);
+    if (smem)
+      for (int e = threadIdx.x; e < K * K; e += blockDim.x) w.G2[e] = r.W[e];
+  }
+  tm.sync();
+  cutoff_mask(tm, a, w);
+  ritz_emit(tm, a, Q, w.G2, w);
+  env_advance(tm, a, a.env0, a.forward ? a.phil : a.phir, a.ls0, a.env_out,
               a.ls_out, w);
 }
 
 // ---- host launchers ---------------------------------------------------------
 // The C entry points of bond_step.cu (T = float) and bond_step_c.cu
 // (T = cfloat) forward to these, so one argument list per kernel serves
-// both scalar types.  Each launches one block of kMaxThreads on the caller's
+// both scalar types.  Each launches one block of kMaxThreads (K12c and
+// K12cr: one cluster of `cluster` blocks of kMaxThreads) on the caller's
 // stream and returns cudaGetLastError().
+
+// A launch configuration of one cluster of `cluster` blocks with smem bytes
+// of dynamic shared memory, the kernel's attributes set to allow both.
+template <class Kernel>
+inline cudaError_t cluster_config(Kernel kernel, int cluster, long smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr,
+                                  cudaLaunchConfig_t* cfg) {
+  if (cluster < 1) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster);
+  cfg->blockDim = dim3(kMaxThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Launch one cluster; a launch the card refuses (a cluster it cannot
+// place) returns its error, and the error is cleared so that it does not
+// surface at a later launch.
+template <class Kernel, class... Args>
+inline int launch_cluster(Kernel kernel, int cluster, long smem,
+                          void* stream, Args... args) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = cluster_config(kernel, cluster, smem,
+                                 static_cast<cudaStream_t>(stream), &attr,
+                                 &cfg);
+  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// How many clusters of `cluster` blocks the card can hold at once (0: it
+// cannot place one) into *n.
+template <class Kernel>
+inline int cluster_occupancy(Kernel kernel, int cluster, long smem, int* n) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = cluster_config(kernel, cluster, smem, nullptr, &attr, &cfg);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// K12cr's dynamic shared memory: the gemm tiles, or the leader's rotation
+// buffers where they are larger and fit.
+template <class T>
+inline long k12cr_smem_bytes(int chi) {
+  const long rot = rot_smem_bytes<T>(chi);
+  const long stage = stage_smem_bytes<T>();
+  return rot <= kMaxDynSmem && rot > stage ? rot : stage;
+}
 
 // The operands of a K12m (K12cr: Bb = 1) launch.
 template <class T>
@@ -1118,8 +1463,27 @@ inline int launch_k12m(const void* lhs, const void* center0, const void* envx,
   return (int)cudaGetLastError();
 }
 
-// K12cr: K12m's operands at Bb = 1 (KLD + TSGO) plus the Jacobi round count;
-// the rotation buffers go to dynamic shared memory when they fit.
+// K12c: K12m's operands at Bb = 1 over one cluster of `cluster` blocks.
+template <class T>
+inline int launch_k12c(const void* lhs, const void* center0, const void* envx,
+                       const void* env0, const void* ls0, const void* phil,
+                       const void* phir, const void* y1h, const void* w,
+                       const void* v0, void* center_out, void* core_out,
+                       void* env_out, void* ls_out, void* q_out, void* ws,
+                       int C, int chi, int d, int N, int forward, int refresh,
+                       int q_iters, float eta, float cutoff, float max_rank,
+                       int cluster, void* stream) {
+  const K12Args<T> a = k12m_args<T>(
+      lhs, center0, envx, env0, ls0, nullptr, phil, phir, y1h, w, v0,
+      center_out, core_out, env_out, ls_out, q_out, ws, 1, C, chi, d, N,
+      forward, refresh, q_iters, 0, 0, eta, cutoff, max_rank);
+  return launch_cluster(k12c_kernel<T>, cluster, stage_smem_bytes<T>(),
+                        stream, a);
+}
+
+// K12cr: K12m's operands at Bb = 1 (KLD + TSGO) plus the Jacobi round count,
+// over one cluster of `cluster` blocks; the leader's rotation buffers go to
+// its dynamic shared memory when they fit.
 template <class T>
 inline int launch_k12cr(const void* lhs, const void* center0,
                         const void* envx, const void* env0, const void* ls0,
@@ -1128,24 +1492,16 @@ inline int launch_k12cr(const void* lhs, const void* center0,
                         void* core_out, void* env_out, void* ls_out,
                         void* q_out, void* ws, int C, int chi, int d, int N,
                         int forward, int refresh, int q_iters, float eta,
-                        float cutoff, float max_rank, int rounds,
+                        float cutoff, float max_rank, int rounds, int cluster,
                         void* stream) {
   K12Args<T> a = k12m_args<T>(
       lhs, center0, envx, env0, ls0, nullptr, phil, phir, y1h, w, v0,
       center_out, core_out, env_out, ls_out, q_out, ws, 1, C, chi, d, N,
       forward, refresh, q_iters, 0, 0, eta, cutoff, max_rank);
   a.tri = 1;
-  const long bytes = rot_smem_bytes<T>(chi);
-  const int smem = bytes <= kMaxDynSmem;
-  if (smem && bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k12cr_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  k12cr_kernel<T><<<1, kMaxThreads, smem ? bytes : 0,
-                    static_cast<cudaStream_t>(stream)>>>(a, rounds, smem);
-  return (int)cudaGetLastError();
+  const int smem = rot_smem_bytes<T>(chi) <= kMaxDynSmem;
+  return launch_cluster(k12cr_kernel<T>, cluster, k12cr_smem_bytes<T>(chi),
+                        stream, a, rounds, smem);
 }
 
 // K1: gls [N] is the total log-scale (MSE only, else null); emit_y = 0

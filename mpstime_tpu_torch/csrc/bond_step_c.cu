@@ -14,7 +14,7 @@
 // complex product into four real ones.  Here the operands stay torch.complex64
 // tensors, read interleaved as cfloat, and the kernels are the real
 // kernels' device functions (bond_step.cuh) instantiated at cfloat: no
-// second copy of the math.  K12c is the K12mc launch at Bb = 1.  They cover
+// second copy of the math.  They cover
 // what the TPU kernels cover: KLD loss, TSGO step, one update iteration,
 // Newton-Schulz refresh (or the column-normalised iterate for an outside
 // QR), frozen bonds, and the runtime max_rank cap.
@@ -47,20 +47,40 @@
 // (bond_step.cuh): the power step orthonormalised by damped triangular
 // Newton (the QR gauge, no Householder factorisation), the Ritz Gram
 // S [chi, chi] of the projected blocks, and odd-even Jacobi rounds that
-// rotate two rows and columns of S and two columns of W per adjacent pair,
-// with S and W in dynamic shared memory (2 x 32 KB at chi = 64); the mask,
-// the emission through the rotation and the env advance follow.  At the
-// ritz cell (C = 2, chi = 64, d = 5, N = 100, q = 1, 6 rounds) a bond is
-// ~130 M complex multiply-adds on one block, latency-bound like the rest.
+// rotate two rows and columns of S and two columns of W per adjacent pair;
+// the mask, the emission through the rotation and the env advance follow.
+// At the ritz cell (C = 2, chi = 64, d = 5, N = 100, q = 1, 6 rounds) a
+// bond is ~125 M complex multiply-adds.
 //
 // What bounds them on this card: at the complex main-path shape (C = 2,
 // chi = 25, d = 5, N = 100, q = 3) a refresh bond is a chain of ~20 M
 // complex multiply-adds (four real ones each) in ~170 dependent phases (the
 // batch products, q power steps of fourteen Newton-Schulz steps each, the
-// projection, the mask).  Like the real kernels they are latency-bound on
-// one thread block.  BT and its gradient (2 x C*chi*d*d*chi complex values,
-// 500 KB) live in the L2-resident global workspace.  Arithmetic is plain
-// f32 FMA; the block sums use a fixed tree, so results are deterministic.
+// projection, the mask).  On one thread block (K12mc, K1c, K2c and the
+// pieces) every phase is latency-bound on one SM of 132, its products
+// reading both operands from L1/L2 per multiply-add.  BT and its gradient
+// (2 x C*chi*d*d*chi complex values, 500 KB) live in the L2-resident global
+// workspace.  Arithmetic is plain f32 FMA; the block sums use a fixed tree,
+// so results are deterministic.
+//
+// K12c and K12cr (the two kernels with the most time lost, PERF.md) run one
+// bond over a thread-block cluster of up to 16 blocks of 512 threads (the
+// wrapper's CLUSTER), launched with cudaLaunchKernelEx: ClusterTeam deals
+// each product's 32 x 64 (or 16 x 32) output tiles to the blocks, which
+// stage the operands' K-chunks in shared memory through L2 (the next
+// chunk's loads in flight during this one's products) and keep 2 x 2
+// (1 x 1) register micro-tiles; the cluster barrier separates the phases;
+// the TSGO, renormalisation, pre-scale and tri-Newton sums keep their 512
+// partials, so both compute the one-block kernels' bits (K12c equals K12mc
+// at Bb = 1).  K12cr's Jacobi rounds, O(chi) work a round, run on the
+// leader block alone with S and W in its dynamic shared memory (2 x 32 KB
+// at chi 64; the workspace past 200 KB).  They replace the one-block K12c
+// (k12m_kernel at Bb = 1) and K12cr of PRs 3-4 (2.291 ms and 13.494 ms a
+// bond, PERF.md).  A cluster the card cannot place is refused at launch and
+// raised by the wrapper; nothing falls back to one block.  Still bounding
+// them: the dependent chain of phases (a cluster barrier and a tile staging
+// through L2 each) and the products' sequential K chains, kept for the
+// bits.
 //
 // C interface (ctypes): pointers as void*, the stream as a void* handle; the
 // launch goes to the caller's current device and returns cudaGetLastError().
@@ -123,8 +143,28 @@ int mpst_k2c_launch(const void* bt, const void* q, const void* env,
                                  forward, cutoff, max_rank, stream);
 }
 
+// K12c: K12mc's argument list at Bb = 1 over one cluster of `cluster`
+// blocks (KLD + TSGO).  Scratch: mpst_c_workspace_floats.
+int mpst_k12c_launch(const void* lhs, const void* center0, const void* envx,
+                     const void* env0, const void* ls0, const void* opp_ls,
+                     const void* phil, const void* phir, const void* y1h,
+                     const void* w, const void* v0, void* center_out,
+                     void* core_out, void* env_out, void* ls_out, void* q_out,
+                     void* ws, int Bb, int C, int chi, int d, int N,
+                     int forward, int refresh, int q_iters, int mse, int gd,
+                     float eta, float cutoff, float max_rank, int cluster,
+                     void* stream) {
+  (void)opp_ls;
+  if (Bb != 1 || mse || gd) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k12c<cfloat>(
+      lhs, center0, envx, env0, ls0, phil, phir, y1h, w, v0, center_out,
+      core_out, env_out, ls_out, q_out, ws, C, chi, d, N, forward, refresh,
+      q_iters, eta, cutoff, max_rank, cluster, stream);
+}
+
 // K12cr: K12mc's argument list at Bb = 1 (KLD + TSGO; the refresh is always
-// tri-Newton) plus the Jacobi round count.  Scratch: mpst_c_workspace_floats.
+// tri-Newton) plus the Jacobi round count, over one cluster of `cluster`
+// blocks.  Scratch: mpst_c_workspace_floats.
 int mpst_k12cr_launch(const void* lhs, const void* center0, const void* envx,
                       const void* env0, const void* ls0, const void* opp_ls,
                       const void* phil, const void* phir, const void* y1h,
@@ -133,13 +173,25 @@ int mpst_k12cr_launch(const void* lhs, const void* center0, const void* envx,
                       void* q_out, void* ws, int Bb, int C, int chi, int d,
                       int N, int forward, int refresh, int q_iters, int mse,
                       int gd, float eta, float cutoff, float max_rank,
-                      int rounds, void* stream) {
+                      int rounds, int cluster, void* stream) {
   (void)opp_ls;
   if (Bb != 1 || mse || gd || rounds < 0) return (int)cudaErrorInvalidValue;
   return mpst::launch_k12cr<cfloat>(
       lhs, center0, envx, env0, ls0, phil, phir, y1h, w, v0, center_out,
       core_out, env_out, ls_out, q_out, ws, C, chi, d, N, forward, refresh,
-      q_iters, eta, cutoff, max_rank, rounds, stream);
+      q_iters, eta, cutoff, max_rank, rounds, cluster, stream);
+}
+
+// How many clusters of `cluster` blocks of K12c (ritz = 0) or K12cr
+// (ritz = 1) at bond width chi the card holds at once, into *n (0: it
+// cannot place one).  Returns the CUDA error of the query.
+int mpst_k12c_cluster_occupancy(int ritz, int cluster, int chi, int* n) {
+  *n = 0;
+  if (ritz)
+    return mpst::cluster_occupancy(mpst::k12cr_kernel<cfloat>, cluster,
+                                   mpst::k12cr_smem_bytes<cfloat>(chi), n);
+  return mpst::cluster_occupancy(mpst::k12c_kernel<cfloat>, cluster,
+                                 mpst::stage_smem_bytes<cfloat>(), n);
 }
 
 // K1c-grad (K1a at complex64): this shard's (or tile's) KLD gradient of

@@ -112,8 +112,9 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # each complex launcher takes its real twin's argument list; K12cr
-        # takes K12mc's and the Jacobi round count
+        # each complex launcher takes its real twin's argument list; K12c
+        # takes K12mc's and the cluster size, K12cr K12mc's, the Jacobi
+        # round count and the cluster size
         for ws in ("mpst_k12_workspace_floats", "mpst_c_workspace_floats"):
             getattr(lib, ws).argtypes = [i, i, i, i]
             getattr(lib, ws).restype = ctypes.c_long
@@ -124,8 +125,10 @@ def load_library() -> ctypes.CDLL:
                  [p] * 13 + [i] * 10 + [f] + [p]),
                 (("mpst_k2_launch", "mpst_k2c_launch"),
                  [p] * 10 + [i] * 5 + [f] * 2 + [p]),
-                (("mpst_k12cr_launch",), [p] * 17 + [i] * 10 + [f] * 3
+                (("mpst_k12c_launch",), [p] * 17 + [i] * 10 + [f] * 3
                  + [i, p]),
+                (("mpst_k12cr_launch",), [p] * 17 + [i] * 10 + [f] * 3
+                 + [i, i, p]),
                 (("mpst_k1a_launch", "mpst_k1c_grad_launch"),
                  [p] * 11 + [i] * 6 + [p]),
                 (("mpst_k1b_launch", "mpst_k1c_update_launch"),
@@ -139,6 +142,9 @@ def load_library() -> ctypes.CDLL:
             for name in names:
                 getattr(lib, name).argtypes = argtypes
                 getattr(lib, name).restype = i
+        lib.mpst_k12c_cluster_occupancy.argtypes = [i, i, i,
+                                                    ctypes.POINTER(i)]
+        lib.mpst_k12c_cluster_occupancy.restype = i
         lib.mpst_error_string.argtypes = [i]
         lib.mpst_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -24,7 +24,8 @@ other loss or optimiser with a ValueError.
 
   * CUDA tensors launch the hand-written kernels (csrc/bond_step_c.cu, the
     real kernels' device functions at a complex scalar), or raise.  There
-    is no fallback.
+    is no fallback.  K12c and K12cr run one bond over a thread-block
+    cluster of ``CLUSTER`` blocks; K12mc and the rest over one block.
   * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
     ``k1c_plain``, ``k2c_plain``, ``k12cr_plain``, ``k1c_grad_plain``,
     ``k1c_update_plain``, ``k2c_split_plain``, ``k2c_env_plain``,
@@ -42,6 +43,7 @@ log-scales [N], labels [N, C] and weights [N] real float32.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -140,21 +142,42 @@ def _launcher(device: torch.device, entry: str):
     return bk._cuda_launch(device, entry, "mpst_c_workspace_floats")
 
 
+#: Thread blocks in the cluster that runs one bond of K12c or K12cr.
+CLUSTER = 16
+
+
+def cluster_occupancy(ritz: bool, cluster: int, chi: int) -> int:
+    """How many clusters of ``cluster`` blocks of K12cr (``ritz``) or K12c at
+    bond width ``chi`` the current card holds at once (0: it cannot place
+    one), from ``cudaOccupancyMaxActiveClusters``."""
+    from ..kernels.build import load_library
+    lib = load_library()
+    n = ctypes.c_int(0)
+    rc = lib.mpst_k12c_cluster_occupancy(int(ritz), int(cluster), int(chi),
+                                         ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cluster occupancy query failed: CUDA error {rc} "
+                           f"({lib.mpst_error_string(rc).decode()})")
+    return n.value
+
+
 def k12c_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
               eta, cutoff, *, forward: bool, refresh: bool = True,
               power_iters: int = 1, max_rank=None, loss: str = "KLD",
-              bbopt: str = "TSGO") -> Out5:
-    """K12c: one complex bond step as one launch of the block kernel at
-    Bb = 1."""
+              bbopt: str = "TSGO", cluster: Optional[int] = None) -> Out5:
+    """K12c: one complex bond step as one launch of a thread-block cluster
+    of ``cluster`` blocks (default ``CLUSTER``); a cluster the card cannot
+    place raises RuntimeError."""
     _check_kld_tsgo(loss, bbopt)
-    launch, wsf = _launcher(center_c.device, "mpst_k12mc_launch")
+    launch, wsf = _launcher(center_c.device, "mpst_k12c_launch")
+    n = CLUSTER if cluster is None else int(cluster)
     env, envx = (le, re) if forward else (re, le)
     center2, core, env2, ls2, Q = bk._launch_k12m(
         A_or_B[None], center_c, envx[None], env, env_ls, None, phil[None],
         phir[None], y1h, w, V0[None], eta, cutoff, forward=forward,
         refresh=refresh, power_iters=power_iters, max_rank=max_rank,
-        loss="KLD", bbopt="TSGO", launch=launch, workspace_floats=wsf,
-        dtype=torch.complex64)
+        loss="KLD", bbopt="TSGO", launch=lambda *a: launch(*a, n),
+        workspace_floats=wsf, dtype=torch.complex64)
     bk.LAUNCHES["k12c"] += 1
     return center2, core[0], env2[0], ls2[0], Q[0]
 
@@ -205,19 +228,24 @@ def k2c_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
 def k12cr_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
                eta, cutoff, *, forward: bool, refresh: bool = True,
                power_iters: int = 1, max_rank=None,
-               rounds: int = _JACOBI_ROUNDS) -> Out5:
-    """K12cr as one launch; operands and results as ``k12cr_plain``'s.  The
+               rounds: int = _JACOBI_ROUNDS,
+               cluster: Optional[int] = None) -> Out5:
+    """K12cr as one launch of a thread-block cluster of ``cluster`` blocks
+    (default ``CLUSTER``); operands and results as ``k12cr_plain``'s.  The
     operands are checked and the outputs allocated as for K12c (a block of
-    one bond); the launch adds the Jacobi round count."""
+    one bond); the launch adds the Jacobi round count.  A cluster the card
+    cannot place raises RuntimeError."""
     if rounds < 0:
         raise ValueError(f"rounds must be >= 0, got {rounds}")
     launch, wsf = _launcher(center_c.device, "mpst_k12cr_launch")
+    n = CLUSTER if cluster is None else int(cluster)
     env, envx = (le, re) if forward else (re, le)
     center2, core, env2, ls2, Q = bk._launch_k12m(
         A_or_B[None], center_c, envx[None], env, env_ls, None, phil[None],
         phir[None], y1h, w, V0[None], eta, cutoff, forward=forward,
         refresh=refresh, power_iters=power_iters, max_rank=max_rank,
-        loss="KLD", bbopt="TSGO", launch=lambda *a: launch(*a, int(rounds)),
+        loss="KLD", bbopt="TSGO",
+        launch=lambda *a: launch(*a, int(rounds), n),
         workspace_floats=wsf, dtype=torch.complex64)
     bk.LAUNCHES["k12cr"] += 1
     return center2, core[0], env2[0], ls2[0], Q[0]

@@ -2,7 +2,8 @@
 K1b, K2-split, K2-env, the complex K12c, K12mc, K1c, K2c, K12cr, the
 complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env and the split
 tails K1-tail, K1c-tail) held against their plain PyTorch versions on the
-card.  These tests need an NVIDIA GPU
+card, and K12c and K12cr, one bond over a thread-block cluster, held bit for
+bit against the one-block kernel and across cluster sizes.  These tests need an NVIDIA GPU
 with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
@@ -593,6 +594,57 @@ def test_ritz_fit_on_cuda_runs_k12cr_on_jacobi_sweeps(bk, kw, want):
     assert sum(bk.PLAIN_CALLS.values()) == 0
     assert trained.mps.center.dtype == torch.complex64
     assert bool(torch.isfinite(trained.mps.center).all())
+
+
+# ---- K12c and K12cr over a thread-block cluster ------------------------------
+
+def _equal(got, ref):
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, r), float((g - r).abs().max())
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh,q,mr", [(True, 3, None), (True, 1, None),
+                                          (False, 1, None), (True, 3, 17)])
+def test_k12c_cluster_equals_k12mc_at_one_block(bkc, forward, refresh, q,
+                                                mr):
+    # K12c runs one bond over a cluster; K12mc at Bb = 1 is the one-block
+    # kernel over the same device functions: the same bits
+    x = _inputs_c(31, 1, **SHAPE)
+    kw = dict(forward=forward, refresh=refresh, power_iters=q, max_rank=mr)
+    got = bkc.k12c_cuda(*_single(x, forward), **kw)
+    one = bkc.k12mc_cuda(*_block(x), **kw)
+    torch.cuda.synchronize()
+    _equal(got, (one[0],) + tuple(t[0] for t in one[1:]))
+
+
+@pytest.mark.parametrize("shape", [RITZ_SHAPE, dict(C=2, chi=8, d=3, N=16)],
+                         ids=["chi64", "chi8"])
+@pytest.mark.parametrize("forward", [False, True])
+def test_k12cr_is_equal_across_cluster_sizes(bkc, shape, forward):
+    x = _inputs_c(32, 1, **shape)
+    kw = dict(forward=forward, refresh=True, power_iters=1, rounds=6)
+    ref = bkc.k12cr_cuda(*_single(x, forward), cluster=1, **kw)
+    for n in (2, 4, 8, 16):
+        if bkc.cluster_occupancy(True, n, shape["chi"]) >= 1:
+            _equal(bkc.k12cr_cuda(*_single(x, forward), cluster=n, **kw), ref)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ritz", [False, True])
+def test_a_cluster_the_card_refuses_raises(bk, bkc, ritz):
+    x = _inputs_c(33, 1, **(RITZ_SHAPE if ritz else SHAPE))
+    step = bkc.k12cr_cuda if ritz else bkc.k12c_cuda
+    key = "k12cr" if ritz else "k12c"
+    n0 = bk.LAUNCHES[key]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        step(*_single(x, False), forward=False, cluster=32)
+    assert bk.LAUNCHES[key] == n0
+    # the refusal leaves no error behind for the next launch
+    step(*_single(x, False), forward=False)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == n0 + 1
 
 
 # ---- the complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env --------
