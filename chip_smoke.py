@@ -98,6 +98,16 @@ Phases, one status line each; any failure exits non-zero:
      the occupancy of clusters, per-call ms of K12c against K12mc at Bb = 1
      in turns and of K12cr at each cluster size, and a bond's time by part
      (frozen, each power step, the Jacobi rounds).
+ 18. cluster K1c and K1c-update: each (one complex bond update over a
+     thread-block cluster) against its one-block kernel bit for bit, both
+     outputs (BT, Y), over both directions x (emit_y, q, orth) in (1, 1,
+     qr), (1, 3, qr), (0, 1, qr), (1, 1, ns), (1, 3, ns) at the main-path
+     shape and q 3 (qr and ns) at chi 128, K1c-update's gradient from
+     K1c-grad on the same inputs, and equal across every cluster size the
+     card places; a cluster of 32 blocks refused by the wrapper and, past
+     it, by the card, with nothing launched; the occupancy of clusters;
+     their ptxas entries; per-call ms of each against its one-block kernel
+     in turns, and by cluster size over 5 interleaved rounds.
 Then the ptxas line (registers, static shared memory and spills of each
 kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
@@ -236,7 +246,8 @@ def ptxas_summary(log: str) -> str:
                                      "k12m_kernel", "k1_kernel", "k2_kernel",
                                      "k1a_kernel", "k1b_kernel",
                                      "k2_split_kernel", "k2_env_kernel",
-                                     "k1_tail_kernel") if k in mangled),
+                                     "k1_tail_kernel", "k1_cluster_kernel",
+                                     "k1b_cluster_kernel") if k in mangled),
                         mangled)
             name = f"{kern}<{'cfloat' if 'cfloat' in mangled else 'float'}>"
             stores = loads = "0"
@@ -290,13 +301,13 @@ def k2_args(bk, x, forward: bool):
     return BT, Q, env, x["ls0"], phi, 1e-10
 
 
-def dp_args(seed: int, forward: bool, cplx: bool = False):
-    """One bond's operands at the main-path shape with unit environment
-    rows, as a sweep hands them over: (A, center, le, re, phil, phir, y1h,
-    w, gls, V0, env, env_ls, phi), env / phi the advancing side's;
-    complex64 ones (gls, unread by the KLD gradient, the log-scales) when
-    ``cplx``."""
-    x = (bond_inputs_c if cplx else bond_inputs)(seed, 1, **SHAPE)
+def dp_args(seed: int, forward: bool, cplx: bool = False, shape=SHAPE):
+    """One bond's operands at ``shape`` (the main-path shape) with unit
+    environment rows, as a sweep hands them over: (A, center, le, re, phil,
+    phir, y1h, w, gls, V0, env, env_ls, phi), env / phi the advancing
+    side's; complex64 ones (gls, unread by the KLD gradient, the
+    log-scales) when ``cplx``."""
+    x = (bond_inputs_c if cplx else bond_inputs)(seed, 1, **shape)
     le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
                                                        x["env0"])
     le, re = (t / t.norm(dim=1, keepdim=True) for t in (le, re))
@@ -592,7 +603,8 @@ def cluster_phase(card: str) -> None:
     cluster size."""
     from mpstime_tpu_torch.ops import bond_kernels_c as bkc
     sizes = (1, 2, 4, 8, 16)
-    occ = {(ritz, n): bkc.cluster_occupancy(ritz, n, 64 if ritz else 25)
+    occ = {(ritz, n): bkc.cluster_occupancy("k12cr" if ritz else "k12c", n,
+                                            64 if ritz else 25)
            for ritz in (False, True) for n in sizes}
     check(occ[(False, bkc.CLUSTER)] >= 1 and occ[(True, bkc.CLUSTER)] >= 1,
           f"the chosen cluster of {bkc.CLUSTER} blocks cannot be placed: "
@@ -709,6 +721,152 @@ def cluster_phase(card: str) -> None:
           f"{bkc.CLUSTER}): " + "; ".join(f"{k} {v:.4f} ms"
                                           for k, v in parts.items())
           + f" ({card})", flush=True)
+
+
+def k1c_cluster_phase(card: str, ptxas: str) -> None:
+    """K1c and K1c-update, one complex bond update over a thread-block
+    cluster, against their one-block kernels bit for bit (both outputs) over
+    both directions x (emit_y, q, orth) at the main-path shape and q 3 at
+    chi 128, and across every cluster size the card places; a cluster of
+    32 blocks refused by the wrapper and, past it, by the card, with
+    nothing launched; the occupancy of clusters; their ptxas entries;
+    per-call ms of each cluster kernel and its one-block kernel in turns,
+    and by cluster size."""
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    from mpstime_tpu_torch.ops import bond_kernels_c as bkc
+    tag = "[k1c-k1c-update-cluster]"
+    sizes = (1, 2, 4, 8, 16)
+    names = {"k1c": "K1c", "k1c_update": "K1c-update"}
+    cluster_fn = {"k1c": bkc.k1c_cuda, "k1c_update": bkc.k1c_update_cuda}
+    block_fn = {"k1c": bkc.k1c_block_cuda,
+                "k1c_update": bkc.k1c_update_block_cuda}
+    default = {"k1c": bkc.K1C_CLUSTER, "k1c_update": bkc.K1C_UPDATE_CLUSTER}
+    occ = {(k, n): bkc.cluster_occupancy(k, n, SHAPE["chi"])
+           for k in names for n in sizes}
+    placed = {k: [n for n in sizes if occ[(k, n)] >= 1] for k in names}
+    for k in names:
+        check(default[k] in placed[k], f"{names[k]}: the chosen cluster of "
+              f"{default[k]} blocks cannot be placed: {occ}")
+    print(f"{tag} cluster sizes K1c {bkc.K1C_CLUSTER}, K1c-update "
+          f"{bkc.K1C_UPDATE_CLUSTER} (blocks of 512 threads); clusters the "
+          "card holds at once (cudaOccupancyMaxActiveClusters) at chi 25, "
+          + "; ".join(f"{names[k]}: " + ", ".join(
+              f"{n}: {occ[(k, n)]}" for n in sizes) for k in names)
+          + f" ({card})", flush=True)
+    if "no log" not in ptxas:
+        mine = [e for e in ptxas.split("; ")
+                if e.startswith(("k1_cluster_kernel", "k1b_cluster_kernel"))]
+        check(len(mine) == 2, f"ptxas: no entry for the cluster kernels "
+              f"({ptxas})")
+        print(f"{tag} ptxas: " + "; ".join(mine), flush=True)
+
+    def operands(key, seed, shape, forward):
+        """K1c's operands, or K1c-update's with K1c-grad's gradient."""
+        if key == "k1c":
+            return k1c_args(bond_inputs_c(seed, 1, **shape), forward)
+        a = dp_args(seed, forward, cplx=True, shape=shape)
+        return (a[0], a[1], bkc.k1c_grad_cuda(*a[:9], forward=forward),
+                a[9], 0.05)
+
+    def equal(name, got, ref):
+        for label, g, r in zip(("BT", "Y"), got, ref):
+            check(bool(torch.isfinite(g).all()), f"{name}: {label} not "
+                  "finite")
+            check(bool(torch.equal(g, r)), f"{name}: {label} differs, max "
+                  f"|diff| {float((g - r).abs().max()):.3e}")
+
+    grid = [(f, e, q, o) for f in (False, True)
+            for e, q, o in ((True, 1, "qr"), (True, 3, "qr"),
+                            (False, 1, "qr"), (True, 1, "ns"),
+                            (True, 3, "ns"))]
+    cases = [(SHAPE, g) for g in grid]
+    cases += [(dict(SHAPE, chi=128), (f, True, 3, o)) for f in (False, True)
+              for o in ("qr", "ns")]
+    for key, name in names.items():
+        for i, (shape, (forward, emit_y, q, orth)) in enumerate(cases):
+            args = operands(key, 2200 + i, shape, forward)
+            kw = dict(forward=forward, emit_y=emit_y, power_iters=q,
+                      orth=orth)
+            ref = block_fn[key](*args, **kw)
+            label = f"{name} chi={shape['chi']} {kw}"
+            equal(f"{label} vs one block", cluster_fn[key](*args, **kw), ref)
+            for n in placed[key]:
+                equal(f"{label} cluster {n} vs one block",
+                      cluster_fn[key](*args, cluster=n, **kw), ref)
+    torch.cuda.synchronize()
+    refused = {}
+    for key, name in names.items():
+        args = operands(key, 2290, SHAPE, False)
+        before = dict(bk.LAUNCHES)
+        try:
+            cluster_fn[key](*args, forward=False, cluster=32)
+            wrapper = "launched"
+        except ValueError as exc:
+            wrapper = f"ValueError ({exc})"
+        # past the wrapper's check, the card refuses the launch itself
+        raw = bkc._k1c if key == "k1c" else bkc._k1c_update
+        entry = ("mpst_k1c_cluster_launch" if key == "k1c"
+                 else "mpst_k1c_update_cluster_launch")
+        try:
+            raw(entry, (32,), *args, forward=False, emit_y=True,
+                power_iters=1, orth="qr")
+            torch.cuda.synchronize()
+            card_says = "launched"
+        except RuntimeError as exc:
+            card_says = f"RuntimeError ({str(exc).split(': ', 1)[-1]})"
+        check("launched" not in (wrapper, card_says), f"{name}: a cluster "
+              f"of 32 blocks launched (wrapper: {wrapper}; card: "
+              f"{card_says})")
+        check(dict(bk.LAUNCHES) == before, f"{name}: a refused cluster "
+              f"launched a kernel: {bk.LAUNCHES} vs {before}")
+        # the refusal leaves no error behind for the next launch
+        equal(f"{name} after a refusal", cluster_fn[key](*args,
+                                                         forward=False),
+              block_fn[key](*args, forward=False))
+        refused[name] = f"wrapper {wrapper}; card {card_says}"
+    print(f"{tag} cluster vs one block, {len(cases)} cases each (both "
+          "directions x (emit_y, q, orth) in (1, 1, qr), (1, 3, qr), (0, 1, "
+          "qr), (1, 1, ns), (1, 3, ns) at chi 25; q 3, qr and ns at chi 128; "
+          "K1c-update's gradient from K1c-grad): torch.equal on BT and Y "
+          "for K1c and K1c-update, at the default cluster and at every size "
+          f"placed ({placed['k1c']}, {placed['k1c_update']}); a cluster of "
+          "32 blocks raises, nothing launched: " + "; ".join(
+              f"{k}: {v}" for k, v in refused.items()), flush=True)
+
+    x = bond_inputs_c(17, 1, **SHAPE)
+    xd = dp_args(22, False, cplx=True)
+    G = bkc.k1c_grad_cuda(*xd[:9], forward=False)
+    timed = {"k1c": (k1c_args(x, False), dict(forward=False, power_iters=3)),
+             "k1c_update": ((xd[0], xd[1], G, xd[9], 0.05),
+                            dict(forward=False, orth="ns", power_iters=3))}
+    lines = []
+    for key, (args, kw) in timed.items():
+        t_new, t_one = time_turns(lambda: cluster_fn[key](*args, **kw),
+                                  lambda: block_fn[key](*args, **kw),
+                                  rounds=3, iters=20)
+        # each size timed in 5 interleaved rounds: the sizes' medians and
+        # spreads decide the default, not one timing each
+        rounds = {n: [] for n in placed[key]}
+        for _ in range(5):
+            for n in placed[key]:
+                rounds[n].append(time_ms(lambda: cluster_fn[key](
+                    *args, cluster=n, **kw)))
+        by_size = {n: statistics.median(t) for n, t in rounds.items()}
+        new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
+        check(new_ms < one_ms, f"{names[key]} (cluster {default[key]}) "
+              f"{new_ms:.3f} ms is not below its one-block kernel "
+              f"({one_ms:.3f} ms)")
+        lines.append(
+            f"{names[key]} ({kw.get('orth', 'qr')}, q 3, cluster "
+            f"{default[key]}) {[round(t, 4) for t in t_new]} ms vs one block "
+            f"{[round(t, 4) for t in t_one]} ms in turns (median "
+            f"{new_ms:.4f} vs {one_ms:.4f}, {one_ms / new_ms:.2f}x); by "
+            "cluster size, median (min-max) of 5 interleaved rounds " +
+            ", ".join(f"{n}: {by_size[n]:.4f} ({min(t):.4f}-{max(t):.4f})"
+                      for n, t in rounds.items())
+            + f" ms (fastest {min(by_size, key=by_size.get)})")
+    print(f"{tag} per call, a backward refresh bond at chi 25: "
+          + "; ".join(lines) + f" ({card})", flush=True)
 
 
 def main() -> int:
@@ -1226,11 +1384,15 @@ def main() -> int:
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA}
         top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+        # a fit launches K1c over a cluster only, never the one-block K1c
+        check(not any("k1_kernel" in k for k in dev),
+              f"{label}: a one-block K1c ran: {list(dev)}")
+        k1c_ms = sum(v for k, v in dev.items() if "k1_cluster_kernel" in k)
         print(f"[profile] {label} on cuda: device busy "
               f"{sum(dev.values()):.1f} ms of "
               f"{1e3 * sum(p_info['sweep_seconds']):.1f} ms sweep wall time; "
-              "by kernel: " + "; ".join(f"{k[:60]} {v:.1f} ms"
-                                        for k, v in top)
+              f"K1c (cluster) {k1c_ms:.1f} ms; by kernel: " + "; ".join(
+                  f"{k[:60]} {v:.1f} ms" for k, v in top)
               + f" ({card})", flush=True)
 
     # ---- 9. ritz kernel ---------------------------------------------------
@@ -1773,8 +1935,12 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     check(busy > 0, "complex-dp-profile: no device time traced")
-    parts = {k: sum(v for n, v in dev.items() if k + "_kernel" in n)
-             for k in ("k1a", "k1b", "k2_split", "k2_env")}
+    # K1c-update runs over a cluster, never on one block
+    check(not any("k1b_kernel" in n for n in dev),
+          f"complex-dp-profile: a one-block K1c-update ran: {list(dev)}")
+    parts = {k: sum(v for n, v in dev.items() if k in n)
+             for k in ("k1a_kernel", "k1b_cluster_kernel", "k2_split_kernel",
+                       "k2_env_kernel")}
     print(f"[complex-dp-profile] one fourier sweep on make_mesh(1): device "
           f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
           f"({100 * busy / wall:.1f} %); " + "; ".join(
@@ -2010,6 +2176,9 @@ def main() -> int:
 
     # ---- 17. K12c and K12cr over a thread-block cluster --------------------
     cluster_phase(card)
+
+    # ---- 18. K1c and K1c-update over a thread-block cluster ----------------
+    k1c_cluster_phase(card, ptxas)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

@@ -2,9 +2,10 @@
 // its two halves around an outside QR (K1, K2), its four pieces for data-
 // parallel and batch-tiled bond steps (K1a, K1b, K2-split, K2-env), the
 // stand-alone power step of the split-tail route (K1-tail), real
-// (float) and complex (cfloat), and two kernels that run one bond over a
-// thread-block cluster, the complex bond step (K12c) and the tracked-ritz
-// bond step (K12cr), instantiated at cfloat.
+// (float) and complex (cfloat), and four kernels that run one bond over a
+// thread-block cluster, the complex bond step (K12c), the tracked-ritz bond
+// step (K12cr) and the complex K1 and K1b (K1c, K1c-update), instantiated
+// at cfloat.
 // See bond_step.cu and bond_step_c.cu for what the kernels replace and how
 // they are bounded; this header holds the math, phase by phase, written once
 // for both scalar types and both teams.
@@ -38,9 +39,10 @@
 // Every device function takes a team, the threads that share one bond:
 // BlockTeam, one thread block (the kernels of one block: K12, K12m, K12mc,
 // K1, K2, the pieces and the tails), or ClusterTeam, every block of a
-// thread-block cluster (K12c and K12cr).  A thread's index in the team is
-// rank * blockDim.x + threadIdx.x, loops stride over the team's threads, and
-// team.sync() separates the phases (__syncthreads() or the cluster barrier).
+// thread-block cluster (K12c, K12cr and the cluster K1c and K1c-update).  A
+// thread's index in the team is rank * blockDim.x + threadIdx.x, loops
+// stride over the team's threads, and team.sync() separates the phases
+// (__syncthreads() or the cluster barrier).
 // The arithmetic of every output does not depend on the team:
 //   * each product output is one thread's sequential chain over k = 0..Kd-1
 //     (no split-K), by one-element-per-thread loads (BlockTeam) or from
@@ -967,6 +969,28 @@ __global__ void __launch_bounds__(kMaxThreads, 1) k12c_kernel(K12Args<T> a) {
   bond_step(tm, a, 0, a.env0, a.ls0, a.center0, w, red);
 }
 
+// y_out [P, chi] <- y, the last phase of K1, K1b and K1-tail (y is v0, or
+// the power iterate, which power_tail leaves behind a team barrier).
+template <class Tm, class T>
+__device__ inline void store_y(const Tm& tm, const K12Args<T>& a,
+                               const T* y, T* y_out) {
+  const long PK = (long)a.chi * a.d * a.chi;
+  for (long e = tm.tid(); e < PK; e += tm.size()) y_out[e] = y[e];
+}
+
+// K1 on a team: the bond tensor is built, stepped and emitted in place in
+// w.BT (the caller's bt_out), then the power iterate into y_out.
+template <class Tm, class T>
+__device__ inline void k1_body(const Tm& tm, const K12Args<T>& a,
+                               const T* le, const T* re, Work<T> w,
+                               T* y_out, float* red) {
+  kron_factors(tm, le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
+  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  tm.sync();
+  k1_update(tm, a, a.ls0, w, red);
+  store_y(tm, a, a.refresh ? power_tail(tm, a, a.v0, w, red) : a.v0, y_out);
+}
+
 // K1: one bond step up to its orthogonalisation.  The bond tensor is built,
 // stepped and emitted in place in bt_out ([C, P, P], i.e. [C, chi*d, d,
 // chi]); y_out [P, chi] gets the q-step power iterate (a.qr: column-
@@ -979,16 +1003,24 @@ __global__ void __launch_bounds__(kMaxThreads) k1_kernel(K12Args<T> a,
                                                          T* bt_out,
                                                          T* y_out) {
   __shared__ float red[kMaxThreads];
-  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
   w.BT = bt_out;
-  kron_factors(tm, le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
-  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
-  __syncthreads();
-  k1_update(tm, a, a.ls0, w, red);
-  const T* y = a.refresh ? power_tail(tm, a, a.v0, w, red) : a.v0;
-  const long PK = (long)a.chi * a.d * a.chi;
-  for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
+  k1_body(BlockTeam{}, a, le, re, w, y_out, red);
+}
+
+// K1c over a thread-block cluster: K1's body and operands under
+// ClusterTeam, bt_out written by every block (its gemm tiles), the same
+// bits as k1_kernel.  The launch bound's one block a SM keeps ptxas from
+// capping the registers at 64, as for K12c.
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    k1_cluster_kernel(K12Args<T> a, const T* le, const T* re, T* bt_out,
+                      T* y_out) {
+  __shared__ float red[kMaxThreads];
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
+  w.BT = bt_out;
+  k1_body(cluster_team(w.parts, dyn_smem), a, le, re, w, y_out, red);
 }
 
 // K2: the split of a stepped bond tensor bt against the orthonormal basis
@@ -1041,22 +1073,39 @@ __global__ void __launch_bounds__(kMaxThreads) k1a_kernel(K12Args<T> a,
 // K1b: the bond tensor, the step against the reduced gradient g, and the
 // q-step power iterate (a.qr: column-normalised only) into y_out, or v0 for
 // a frozen bond (a.refresh == 0); the stepped bond tensor into bt_out.
+// The body on a team, then the kernel of one block.
+template <class Tm, class T>
+__device__ inline void k1b_body(const Tm& tm, const K12Args<T>& a, Work<T> w,
+                                T* y_out, float* red) {
+  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  tm.sync();
+  k1_step(tm, a, w, red);
+  store_y(tm, a, a.refresh ? power_tail(tm, a, a.v0, w, red) : a.v0, y_out);
+}
+
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k1b_kernel(K12Args<T> a,
                                                           const T* g,
                                                           T* bt_out,
                                                           T* y_out) {
-  const BlockTeam tm;
   __shared__ float red[kMaxThreads];
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
   w.BT = bt_out;
   w.G = const_cast<T*>(g);                  // read only
-  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
-  __syncthreads();
-  k1_step(tm, a, w, red);
-  const T* y = a.refresh ? power_tail(tm, a, a.v0, w, red) : a.v0;
-  const long PK = (long)a.chi * a.d * a.chi;
-  for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
+  k1b_body(BlockTeam{}, a, w, y_out, red);
+}
+
+// K1c-update over a thread-block cluster: K1b's body and operands under
+// ClusterTeam, the same bits as k1b_kernel (launch bound as K1c's).
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    k1b_cluster_kernel(K12Args<T> a, const T* g, T* bt_out, T* y_out) {
+  __shared__ float red[kMaxThreads];
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
+  w.BT = bt_out;
+  w.G = const_cast<T*>(g);                  // read only
+  k1b_body(cluster_team(w.parts, dyn_smem), a, w, y_out, red);
 }
 
 // K1-tail: a.q_iters warm power steps of a stored, stepped bond tensor bt
@@ -1072,9 +1121,7 @@ __global__ void __launch_bounds__(kMaxThreads) k1_tail_kernel(K12Args<T> a,
   __shared__ float red[kMaxThreads];
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
   w.BT = const_cast<T*>(bt);                // read only
-  const T* y = power_tail(tm, a, a.v0, w, red);
-  const long PK = (long)a.chi * a.d * a.chi;
-  for (long e = threadIdx.x; e < PK; e += blockDim.x) y_out[e] = y[e];
+  store_y(tm, a, power_tail(tm, a, a.v0, w, red), y_out);
 }
 
 // K2-split: the split of bt against the orthonormal basis Q: projection,
@@ -1330,9 +1377,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) k12cr_kernel(K12Args<T> a,
 // ---- host launchers ---------------------------------------------------------
 // The C entry points of bond_step.cu (T = float) and bond_step_c.cu
 // (T = cfloat) forward to these, so one argument list per kernel serves
-// both scalar types.  Each launches one block of kMaxThreads (K12c and
-// K12cr: one cluster of `cluster` blocks of kMaxThreads) on the caller's
-// stream and returns cudaGetLastError().
+// both scalar types.  Each launches one block of kMaxThreads (K12c, K12cr
+// and the cluster K1 and K1b: one cluster of `cluster` blocks of
+// kMaxThreads) on the caller's stream and returns cudaGetLastError().
 
 // A launch configuration of one cluster of `cluster` blocks with smem bytes
 // of dynamic shared memory, the kernel's attributes set to allow both.
@@ -1504,16 +1551,15 @@ inline int launch_k12cr(const void* lhs, const void* center0,
                         stream, a, rounds, smem);
 }
 
-// K1: gls [N] is the total log-scale (MSE only, else null); emit_y = 0
-// passes v0 through as Y (frozen bond).
+// The operands of a K1 launch: gls [N] is the total log-scale (MSE only,
+// else null); emit_y = 0 passes v0 through as Y (frozen bond).
 template <class T>
-inline int launch_k1(const void* lhs, const void* center0, const void* le,
-                     const void* re, const void* gls, const void* phil,
-                     const void* phir, const void* y1h, const void* w,
-                     const void* v0, void* bt_out, void* y_out, void* ws,
-                     int C, int chi, int d, int N, int forward, int emit_y,
-                     int q_iters, int qr, int mse, int gd, float eta,
-                     void* stream) {
+inline K12Args<T> k1_args(const void* lhs, const void* center0,
+                          const void* gls, const void* phil, const void* phir,
+                          const void* y1h, const void* w, const void* v0,
+                          void* ws, int C, int chi, int d, int N, int forward,
+                          int emit_y, int q_iters, int qr, int mse, int gd,
+                          float eta) {
   K12Args<T> a{};
   a.lhs = static_cast<const T*>(lhs);
   a.center0 = static_cast<const T*>(center0);
@@ -1536,10 +1582,43 @@ inline int launch_k1(const void* lhs, const void* center0, const void* le,
   a.mse = mse;
   a.gd = gd;
   a.eta = eta;
+  return a;
+}
+
+template <class T>
+inline int launch_k1(const void* lhs, const void* center0, const void* le,
+                     const void* re, const void* gls, const void* phil,
+                     const void* phir, const void* y1h, const void* w,
+                     const void* v0, void* bt_out, void* y_out, void* ws,
+                     int C, int chi, int d, int N, int forward, int emit_y,
+                     int q_iters, int qr, int mse, int gd, float eta,
+                     void* stream) {
+  const K12Args<T> a =
+      k1_args<T>(lhs, center0, gls, phil, phir, y1h, w, v0, ws, C, chi, d,
+                 N, forward, emit_y, q_iters, qr, mse, gd, eta);
   k1_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const T*>(le), static_cast<const T*>(re),
       static_cast<T*>(bt_out), static_cast<T*>(y_out));
   return (int)cudaGetLastError();
+}
+
+// K1 (K1c) over one cluster of `cluster` blocks: K1's operands.
+template <class T>
+inline int launch_k1_cluster(const void* lhs, const void* center0,
+                             const void* le, const void* re, const void* gls,
+                             const void* phil, const void* phir,
+                             const void* y1h, const void* w, const void* v0,
+                             void* bt_out, void* y_out, void* ws, int C,
+                             int chi, int d, int N, int forward, int emit_y,
+                             int q_iters, int qr, int mse, int gd, float eta,
+                             int cluster, void* stream) {
+  const K12Args<T> a =
+      k1_args<T>(lhs, center0, gls, phil, phir, y1h, w, v0, ws, C, chi, d,
+                 N, forward, emit_y, q_iters, qr, mse, gd, eta);
+  return launch_cluster(k1_cluster_kernel<T>, cluster, stage_smem_bytes<T>(),
+                        stream, a, static_cast<const T*>(le),
+                        static_cast<const T*>(re), static_cast<T*>(bt_out),
+                        static_cast<T*>(y_out));
 }
 
 // K2: env / env_ls / phi are the advancing side's environment, log-scales
@@ -1602,13 +1681,14 @@ inline int launch_k1a(const void* lhs, const void* center0, const void* le,
   return (int)cudaGetLastError();
 }
 
-// K1b: g [C, P, P] is the reduced gradient; emit_y = 0 passes v0 through as
-// Y (frozen bond).  Scratch: workspace_floats(C, chi, d, 0).
+// The operands of a K1b launch: g [C, P, P] (passed to the kernel) is the
+// reduced gradient; emit_y = 0 passes v0 through as Y (frozen bond).
+// Scratch: workspace_floats(C, chi, d, 0).
 template <class T>
-inline int launch_k1b(const void* lhs, const void* center0, const void* g,
-                      const void* v0, void* bt_out, void* y_out, void* ws,
-                      int C, int chi, int d, int forward, int emit_y,
-                      int q_iters, int qr, int gd, float eta, void* stream) {
+inline K12Args<T> k1b_args(const void* lhs, const void* center0,
+                           const void* v0, void* ws, int C, int chi, int d,
+                           int forward, int emit_y, int q_iters, int qr,
+                           int gd, float eta) {
   K12Args<T> a{};
   a.lhs = static_cast<const T*>(lhs);
   a.center0 = static_cast<const T*>(center0);
@@ -1624,10 +1704,35 @@ inline int launch_k1b(const void* lhs, const void* center0, const void* g,
   a.qr = qr;
   a.gd = gd;
   a.eta = eta;
+  return a;
+}
+
+template <class T>
+inline int launch_k1b(const void* lhs, const void* center0, const void* g,
+                      const void* v0, void* bt_out, void* y_out, void* ws,
+                      int C, int chi, int d, int forward, int emit_y,
+                      int q_iters, int qr, int gd, float eta, void* stream) {
+  const K12Args<T> a = k1b_args<T>(lhs, center0, v0, ws, C, chi, d, forward,
+                                   emit_y, q_iters, qr, gd, eta);
   k1b_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const T*>(g), static_cast<T*>(bt_out),
       static_cast<T*>(y_out));
   return (int)cudaGetLastError();
+}
+
+// K1b (K1c-update) over one cluster of `cluster` blocks: K1b's operands.
+template <class T>
+inline int launch_k1b_cluster(const void* lhs, const void* center0,
+                              const void* g, const void* v0, void* bt_out,
+                              void* y_out, void* ws, int C, int chi, int d,
+                              int forward, int emit_y, int q_iters, int qr,
+                              int gd, float eta, int cluster, void* stream) {
+  const K12Args<T> a = k1b_args<T>(lhs, center0, v0, ws, C, chi, d, forward,
+                                   emit_y, q_iters, qr, gd, eta);
+  return launch_cluster(k1b_cluster_kernel<T>, cluster,
+                        stage_smem_bytes<T>(), stream, a,
+                        static_cast<const T*>(g), static_cast<T*>(bt_out),
+                        static_cast<T*>(y_out));
 }
 
 // K1-tail: bt [C, P, P] is a stepped bond tensor; q_iters power steps from

@@ -28,10 +28,11 @@
 // k1b_kernel, k2_split_kernel, k2_env_kernel) at cfloat, so one shard
 // computes K12c's (ns) and K1c -> QR -> K2c's (qr) arithmetic in the same
 // order.  At the complex main-path shape (N = 100 per shard, q = 3, ns)
-// K1c-grad is ~7.1 M complex multiply-adds and K1c-update ~13 M (three
-// power steps of fourteen Newton-Schulz steps each): latency-bound on one
-// thread block like the rest.  The gradient G (C*chi*d*d*chi complex
-// values, 500 KB) is the one operand that crosses devices.
+// K1c-grad is ~7.1 M complex multiply-adds, latency-bound on one thread
+// block like the rest, and K1c-update ~13 M (three power steps of fourteen
+// Newton-Schulz steps each, ~150 dependent phases), run over a cluster (see
+// below).  The gradient G (C*chi*d*d*chi complex values, 500 KB) is the one
+// operand that crosses devices.
 //
 // K1c-tail replaces _k1c_tail_kernel of the same file (_k1c_power,
 // pallas_bond_c.py:250-317): the complex split-tail route runs K1c or
@@ -82,6 +83,16 @@
 // through L2 each) and the products' sequential K chains, kept for the
 // bits.
 //
+// K1c and K1c-update run the same way (mpst_k1c_cluster_launch,
+// mpst_k1c_update_cluster_launch, with the wrappers' K1C_CLUSTER and
+// K1C_UPDATE_CLUSTER): k1_cluster_kernel and k1b_cluster_kernel are K1's and
+// K1b's bodies under ClusterTeam, so a fourier qr refresh bond's K1c (~30
+// phases, its batch products C*N*P^2 ~3.1 M complex multiply-adds each) and
+// a complex dp bond's K1c-update (~150 phases) spread their products over
+// the cluster's SMs.  Their one-block launchers, mpst_k1c_launch and
+// mpst_k1c_update_launch, stay as the reference the cluster kernels are
+// held against bit for bit; no route of the package launches them.
+//
 // C interface (ctypes): pointers as void*, the stream as a void* handle; the
 // launch goes to the caller's current device and returns cudaGetLastError().
 
@@ -130,6 +141,23 @@ int mpst_k1c_launch(const void* lhs, const void* center0, const void* le,
                                  y1h, w, v0, bt_out, y_out, ws, C, chi, d, N,
                                  forward, emit_y, q_iters, qr, 0, 0, eta,
                                  stream);
+}
+
+// K1c over one cluster of `cluster` blocks: mpst_k1c_launch's arguments and
+// the cluster size, the same bits.  Scratch: mpst_c_workspace_floats.
+int mpst_k1c_cluster_launch(const void* lhs, const void* center0,
+                            const void* le, const void* re, const void* gls,
+                            const void* phil, const void* phir,
+                            const void* y1h, const void* w, const void* v0,
+                            void* bt_out, void* y_out, void* ws, int C,
+                            int chi, int d, int N, int forward, int emit_y,
+                            int q_iters, int qr, int mse, int gd, float eta,
+                            int cluster, void* stream) {
+  if (mse || gd) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k1_cluster<cfloat>(
+      lhs, center0, le, re, nullptr, phil, phir, y1h, w, v0, bt_out, y_out,
+      ws, C, chi, d, N, forward, emit_y, q_iters, qr, 0, 0, eta, cluster,
+      stream);
 }
 
 // K2c.  Scratch: mpst_c_workspace_floats.
@@ -182,16 +210,29 @@ int mpst_k12cr_launch(const void* lhs, const void* center0, const void* envx,
       q_iters, eta, cutoff, max_rank, rounds, cluster, stream);
 }
 
-// How many clusters of `cluster` blocks of K12c (ritz = 0) or K12cr
-// (ritz = 1) at bond width chi the card holds at once, into *n (0: it
-// cannot place one).  Returns the CUDA error of the query.
-int mpst_k12c_cluster_occupancy(int ritz, int cluster, int chi, int* n) {
+// How many clusters of `cluster` blocks of a cluster kernel at bond width
+// chi the card holds at once, into *n (0: it cannot place one): kernel 0
+// K12c, 1 K12cr, 2 K1c, 3 K1c-update.  Returns the CUDA error of the query
+// (cudaErrorInvalidValue for another kernel).
+int mpst_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
   *n = 0;
-  if (ritz)
-    return mpst::cluster_occupancy(mpst::k12cr_kernel<cfloat>, cluster,
-                                   mpst::k12cr_smem_bytes<cfloat>(chi), n);
-  return mpst::cluster_occupancy(mpst::k12c_kernel<cfloat>, cluster,
-                                 mpst::stage_smem_bytes<cfloat>(), n);
+  const long stage = mpst::stage_smem_bytes<cfloat>();
+  switch (kernel) {
+    case 0:
+      return mpst::cluster_occupancy(mpst::k12c_kernel<cfloat>, cluster,
+                                     stage, n);
+    case 1:
+      return mpst::cluster_occupancy(mpst::k12cr_kernel<cfloat>, cluster,
+                                     mpst::k12cr_smem_bytes<cfloat>(chi), n);
+    case 2:
+      return mpst::cluster_occupancy(mpst::k1_cluster_kernel<cfloat>,
+                                     cluster, stage, n);
+    case 3:
+      return mpst::cluster_occupancy(mpst::k1b_cluster_kernel<cfloat>,
+                                     cluster, stage, n);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K1c-grad (K1a at complex64): this shard's (or tile's) KLD gradient of
@@ -222,6 +263,22 @@ int mpst_k1c_update_launch(const void* lhs, const void* center0,
   return mpst::launch_k1b<cfloat>(lhs, center0, g, v0, bt_out, y_out, ws, C,
                                   chi, d, forward, emit_y, q_iters, qr, 0,
                                   eta, stream);
+}
+
+// K1c-update over one cluster of `cluster` blocks: mpst_k1c_update_launch's
+// arguments and the cluster size, the same bits.  Scratch:
+// mpst_c_workspace_floats(C, chi, d, 0).
+int mpst_k1c_update_cluster_launch(const void* lhs, const void* center0,
+                                   const void* g, const void* v0,
+                                   void* bt_out, void* y_out, void* ws, int C,
+                                   int chi, int d, int forward, int emit_y,
+                                   int q_iters, int qr, int gd, float eta,
+                                   int cluster, void* stream) {
+  if (gd) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k1b_cluster<cfloat>(lhs, center0, g, v0, bt_out, y_out,
+                                          ws, C, chi, d, forward, emit_y,
+                                          q_iters, qr, 0, eta, cluster,
+                                          stream);
 }
 
 // K2c-split (K2-split at complex64): the center, the core (backward:

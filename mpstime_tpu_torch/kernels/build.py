@@ -114,7 +114,8 @@ def load_library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # each complex launcher takes its real twin's argument list; K12c
         # takes K12mc's and the cluster size, K12cr K12mc's, the Jacobi
-        # round count and the cluster size
+        # round count and the cluster size, and the cluster K1c and
+        # K1c-update their one-block launchers' and the cluster size
         for ws in ("mpst_k12_workspace_floats", "mpst_c_workspace_floats"):
             getattr(lib, ws).argtypes = [i, i, i, i]
             getattr(lib, ws).restype = ctypes.c_long
@@ -131,8 +132,12 @@ def load_library() -> ctypes.CDLL:
                  + [i, i, p]),
                 (("mpst_k1a_launch", "mpst_k1c_grad_launch"),
                  [p] * 11 + [i] * 6 + [p]),
+                (("mpst_k1c_cluster_launch",), [p] * 13 + [i] * 10 + [f]
+                 + [i, p]),
                 (("mpst_k1b_launch", "mpst_k1c_update_launch"),
                  [p] * 7 + [i] * 8 + [f, p]),
+                (("mpst_k1c_update_cluster_launch",), [p] * 7 + [i] * 8
+                 + [f, i, p]),
                 (("mpst_k1_tail_launch", "mpst_k1c_tail_launch"),
                  [p] * 4 + [i] * 6 + [p]),
                 (("mpst_k2_split_launch", "mpst_k2c_split_launch"),
@@ -142,9 +147,8 @@ def load_library() -> ctypes.CDLL:
             for name in names:
                 getattr(lib, name).argtypes = argtypes
                 getattr(lib, name).restype = i
-        lib.mpst_k12c_cluster_occupancy.argtypes = [i, i, i,
-                                                    ctypes.POINTER(i)]
-        lib.mpst_k12c_cluster_occupancy.restype = i
+        lib.mpst_cluster_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.mpst_cluster_occupancy.restype = i
         lib.mpst_error_string.argtypes = [i]
         lib.mpst_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -44,11 +44,14 @@ from .decomp import _qr_orth, warm_iterate, warm_split_left, warm_split_right
 from .env import env_step_left_scaled, env_step_right_scaled
 
 #: Kernel launches per kernel since the last reset_counts().
-#: The complex kernels (ops/bond_kernels_c.py) count here too.
+#: The complex kernels (ops/bond_kernels_c.py) count here too; "k1c_block"
+#: and "k1c_update_block" count the one-block K1c and K1c-update, which no
+#: route launches (their cluster kernels count under "k1c", "k1c_update").
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr",
      "k1a", "k1b", "k2_split", "k2_env", "k1c_grad", "k1c_update",
-     "k2c_split", "k2c_env", "k1_tail", "k1c_tail"), 0)
+     "k2c_split", "k2c_env", "k1_tail", "k1c_tail", "k1c_block",
+     "k1c_update_block"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 

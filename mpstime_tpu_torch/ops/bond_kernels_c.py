@@ -25,7 +25,11 @@ other loss or optimiser with a ValueError.
   * CUDA tensors launch the hand-written kernels (csrc/bond_step_c.cu, the
     real kernels' device functions at a complex scalar), or raise.  There
     is no fallback.  K12c and K12cr run one bond over a thread-block
-    cluster of ``CLUSTER`` blocks; K12mc and the rest over one block.
+    cluster of ``CLUSTER`` blocks, K1c of ``K1C_CLUSTER`` and K1c-update of
+    ``K1C_UPDATE_CLUSTER``; K12mc and the rest over one block.  The
+    one-block K1c and K1c-update (``k1c_block_cuda``,
+    ``k1c_update_block_cuda``) stay as the reference their cluster kernels
+    are held against bit for bit; no route calls them.
   * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
     ``k1c_plain``, ``k2c_plain``, ``k12cr_plain``, ``k1c_grad_plain``,
     ``k1c_update_plain``, ``k2c_split_plain``, ``k2c_env_plain``,
@@ -35,7 +39,8 @@ other loss or optimiser with a ValueError.
 
 Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c",
 "k12cr", "k1c_grad", "k1c_update", "k2c_split", "k2c_env" and "k1c_tail" in
-``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS``.  Operand layouts
+``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS`` (the one-block K1c and
+K1c-update under "k1c_block" and "k1c_update_block").  Operand layouts
 are the real kernels': phil / phir are the conjugated encoded states, the
 center is class-major [C, chi, d, chi], environments [N, chi] with real
 log-scales [N], labels [N, C] and weights [N] real float32.
@@ -44,6 +49,7 @@ log-scales [N], labels [N, C] and weights [N] real float32.
 from __future__ import annotations
 
 import ctypes
+import numbers
 from typing import Optional, Tuple
 
 import torch
@@ -144,17 +150,40 @@ def _launcher(device: torch.device, entry: str):
 
 #: Thread blocks in the cluster that runs one bond of K12c or K12cr.
 CLUSTER = 16
+#: Thread blocks in the cluster of K1c and of K1c-update, from their times
+#: by cluster size on the card (chip_smoke.py's [k1c-k1c-update-cluster]).
+K1C_CLUSTER = 16
+K1C_UPDATE_CLUSTER = 16
+#: The largest cluster a launch may ask for (Hopper's non-portable limit).
+MAX_CLUSTER = 16
+#: The cluster kernels, in the order of mpst_cluster_occupancy's index.
+CLUSTER_KERNELS = ("k12c", "k12cr", "k1c", "k1c_update")
 
 
-def cluster_occupancy(ritz: bool, cluster: int, chi: int) -> int:
-    """How many clusters of ``cluster`` blocks of K12cr (``ritz``) or K12c at
-    bond width ``chi`` the current card holds at once (0: it cannot place
-    one), from ``cudaOccupancyMaxActiveClusters``."""
+def _cluster_size(cluster) -> int:
+    """``cluster`` if it is an integer from 1 to MAX_CLUSTER, else
+    ValueError (before any library load)."""
+    if (isinstance(cluster, bool) or not isinstance(cluster, numbers.Integral)
+            or not 1 <= cluster <= MAX_CLUSTER):
+        raise ValueError(f"cluster must be an integer from 1 to "
+                         f"{MAX_CLUSTER}, got {cluster!r}")
+    return int(cluster)
+
+
+def cluster_occupancy(kernel: str, cluster: int, chi: int) -> int:
+    """How many clusters of ``cluster`` blocks of the cluster kernel
+    ``kernel`` (one of CLUSTER_KERNELS) at bond width ``chi`` the current
+    card holds at once (0: it cannot place one), from
+    ``cudaOccupancyMaxActiveClusters``."""
+    if kernel not in CLUSTER_KERNELS:
+        raise ValueError(f"kernel must be one of {CLUSTER_KERNELS}, got "
+                         f"{kernel!r}")
+    n_blocks = _cluster_size(cluster)
     from ..kernels.build import load_library
     lib = load_library()
     n = ctypes.c_int(0)
-    rc = lib.mpst_k12c_cluster_occupancy(int(ritz), int(cluster), int(chi),
-                                         ctypes.byref(n))
+    rc = lib.mpst_cluster_occupancy(CLUSTER_KERNELS.index(kernel), n_blocks,
+                                    int(chi), ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"cluster occupancy query failed: CUDA error {rc} "
                            f"({lib.mpst_error_string(rc).decode()})")
@@ -198,19 +227,44 @@ def k12mc_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
     return out
 
 
+def _k1c(entry, extra, A_or_B, center_c, le, re, phil, phir, y1h, w, V0,
+         eta, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1c's operands checked and launched through ``entry``, with
+    ``extra`` after K1c's C arguments (the cluster size)."""
+    launch, wsf = _launcher(center_c.device, entry)
+    return bk._launch_k1(A_or_B, center_c, le, re, phil, phir, y1h, w, None,
+                         V0, eta, loss="KLD", bbopt="TSGO",
+                         launch=lambda *a: launch(*a, *extra),
+                         workspace_floats=wsf, dtype=torch.complex64, **kw)
+
+
 def k1c_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
              forward: bool, emit_y: bool = True, power_iters: int = 1,
-             orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO"
+             orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO",
+             cluster: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1c as one launch; operands and results as ``k1c_plain``'s."""
+    """K1c as one launch of a thread-block cluster of ``cluster`` blocks
+    (default ``K1C_CLUSTER``); operands and results as ``k1c_plain``'s.  A
+    cluster the card cannot place raises RuntimeError."""
     _check_kld_tsgo(loss, bbopt)
-    launch, wsf = _launcher(center_c.device, "mpst_k1c_launch")
-    out = bk._launch_k1(A_or_B, center_c, le, re, phil, phir, y1h, w, None,
-                        V0, eta, forward=forward, emit_y=emit_y,
-                        power_iters=power_iters, orth=orth, loss="KLD",
-                        bbopt="TSGO", launch=launch, workspace_floats=wsf,
-                        dtype=torch.complex64)
+    n = _cluster_size(K1C_CLUSTER if cluster is None else cluster)
+    out = _k1c("mpst_k1c_cluster_launch", (n,), A_or_B, center_c, le, re,
+               phil, phir, y1h, w, V0, eta, forward=forward, emit_y=emit_y,
+               power_iters=power_iters, orth=orth)
     bk.LAUNCHES["k1c"] += 1
+    return out
+
+
+def k1c_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
+                   forward: bool, emit_y: bool = True, power_iters: int = 1,
+                   orth: str = "qr") -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1c on one thread block, the reference ``k1c_cuda`` is held against
+    bit for bit (no route calls it); operands and results as
+    ``k1c_plain``'s."""
+    out = _k1c("mpst_k1c_launch", (), A_or_B, center_c, le, re, phil, phir,
+               y1h, w, V0, eta, forward=forward, emit_y=emit_y,
+               power_iters=power_iters, orth=orth)
+    bk.LAUNCHES["k1c_block"] += 1
     return out
 
 
@@ -264,19 +318,45 @@ def k1c_grad_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
     return G
 
 
+def _k1c_update(entry, extra, A_or_B, center_c, G, V0, eta, **kw
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1c-update's operands checked and launched through ``entry``, with
+    ``extra`` after K1c-update's C arguments (the cluster size)."""
+    launch, wsf = _launcher(center_c.device, entry)
+    return bk._launch_k1b(A_or_B, center_c, G, V0, eta, bbopt="TSGO",
+                          launch=lambda *a: launch(*a, *extra),
+                          workspace_floats=wsf, dtype=torch.complex64, **kw)
+
+
 def k1c_update_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
                     emit_y: bool = True, power_iters: int = 1,
-                    orth: str = "qr", bbopt: str = "TSGO"
+                    orth: str = "qr", bbopt: str = "TSGO",
+                    cluster: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1c-update as one launch; operands and results as
-    ``k1c_update_plain``'s."""
+    """K1c-update as one launch of a thread-block cluster of ``cluster``
+    blocks (default ``K1C_UPDATE_CLUSTER``); operands and results as
+    ``k1c_update_plain``'s.  A cluster the card cannot place raises
+    RuntimeError."""
     _check_kld_tsgo("KLD", bbopt)
-    launch, wsf = _launcher(center_c.device, "mpst_k1c_update_launch")
-    out = bk._launch_k1b(A_or_B, center_c, G, V0, eta, forward=forward,
-                         emit_y=emit_y, power_iters=power_iters, orth=orth,
-                         bbopt="TSGO", launch=launch, workspace_floats=wsf,
-                         dtype=torch.complex64)
+    n = _cluster_size(K1C_UPDATE_CLUSTER if cluster is None else cluster)
+    out = _k1c_update("mpst_k1c_update_cluster_launch", (n,), A_or_B,
+                      center_c, G, V0, eta, forward=forward, emit_y=emit_y,
+                      power_iters=power_iters, orth=orth)
     bk.LAUNCHES["k1c_update"] += 1
+    return out
+
+
+def k1c_update_block_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
+                          emit_y: bool = True, power_iters: int = 1,
+                          orth: str = "qr"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1c-update on one thread block, the reference ``k1c_update_cuda`` is
+    held against bit for bit (no route calls it); operands and results as
+    ``k1c_update_plain``'s."""
+    out = _k1c_update("mpst_k1c_update_launch", (), A_or_B, center_c, G, V0,
+                      eta, forward=forward, emit_y=emit_y,
+                      power_iters=power_iters, orth=orth)
+    bk.LAUNCHES["k1c_update_block"] += 1
     return out
 
 

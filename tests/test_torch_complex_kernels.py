@@ -352,3 +352,89 @@ def test_k12mc_plain_matches_pallas_k12mc(interpret):
     got = bkc.bond_block_steps_c(*_torch(x[k] for k in keys), 0.05, 1e-10,
                                  forward=True, refresh=False, orth="qr")
     _close(got, ref)
+
+
+# ---- the cluster K1c and K1c-update: argument checks and entry points -------
+
+def _no_library(monkeypatch):
+    """Make any load of the kernel library fail the test."""
+    from mpstime_tpu_torch.kernels import build
+
+    def load_library():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(build, "load_library", load_library)
+
+
+def _k1c_ops(key, forward=False):
+    """K1c's operands, or K1c-update's with the plain K1c-grad gradient."""
+    A, center, le, re, ls, phil, phir, y1h, w, V0 = _torch(
+        _single(_bond(95), forward))
+    if key == "k1c":
+        return (A, center, le, re, phil, phir, y1h, w, V0, 0.05)
+    G = bkc.k1c_grad_plain(A, center, le, re, phil, phir, y1h, w, ls,
+                           forward=forward)
+    return (A, center, G, V0, 0.05)
+
+
+@pytest.mark.parametrize("cluster", [0, 17, 32, 4.0, "8", True])
+@pytest.mark.parametrize("call", ["k1c", "k1c_update", "occupancy"])
+def test_cluster_sizes_are_checked_before_the_library_loads(monkeypatch,
+                                                            call, cluster):
+    _no_library(monkeypatch)
+    with pytest.raises(ValueError, match="from 1 to 16"):
+        if call == "occupancy":
+            bkc.cluster_occupancy("k1c", cluster, CHI)
+        else:
+            cuda = bkc.k1c_cuda if call == "k1c" else bkc.k1c_update_cuda
+            cuda(*_k1c_ops(call), forward=False, cluster=cluster)
+
+
+def test_cluster_occupancy_names_its_kernel(monkeypatch):
+    _no_library(monkeypatch)
+    assert bkc.CLUSTER_KERNELS == ("k12c", "k12cr", "k1c", "k1c_update")
+    with pytest.raises(ValueError, match="one of"):
+        bkc.cluster_occupancy("k12mc", 4, CHI)
+
+
+def test_default_cluster_sizes_lie_in_range():
+    assert bkc.MAX_CLUSTER == 16
+    for n in (bkc.CLUSTER, bkc.K1C_CLUSTER, bkc.K1C_UPDATE_CLUSTER):
+        assert type(n) is int and 1 <= n <= bkc.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 8])
+@pytest.mark.parametrize("key", ["k1c", "k1c_update"])
+def test_k1c_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
+    """k1c_cuda / k1c_update_cuda launch the cluster entry with the one-block
+    entry's arguments and the cluster size (default K1C_CLUSTER /
+    K1C_UPDATE_CLUSTER), counted under the kernel's name; the one-block
+    wrappers launch the one-block entry, counted apart.  The dp route's
+    K1b piece is the cluster wrapper."""
+    calls = []
+
+    def launcher(device, entry):
+        return (lambda *args: calls.append((entry, args))), (lambda *s: 16)
+
+    monkeypatch.setattr(bkc, "_launcher", launcher)
+    ops = _k1c_ops(key)
+    if key == "k1c":
+        cuda, block, n_in = bkc.k1c_cuda, bkc.k1c_block_cuda, 10
+        default = bkc.K1C_CLUSTER
+    else:
+        cuda, block, n_in = bkc.k1c_update_cuda, bkc.k1c_update_block_cuda, 4
+        default = bkc.K1C_UPDATE_CLUSTER
+        assert bkc.PIECES["k1b"][2] is cuda
+    kw = dict(forward=False, power_iters=3, orth="ns")
+    bk.reset_counts()
+    BT, Y = cuda(*ops, cluster=cluster, **kw)
+    block(*ops, **kw)
+    assert BT.shape == (C, CHI * D, D, CHI) and Y.shape == (CHI * D, CHI)
+    assert BT.dtype == Y.dtype == torch.complex64
+    (e1, a1), (e2, a2) = calls
+    assert (e1, e2) == (f"mpst_{key}_cluster_launch", f"mpst_{key}_launch")
+    assert a1[:n_in] == a2[:n_in]                  # the same operands
+    assert a1[n_in + 3:-1] == a2[n_in + 3:]        # the same sizes and flags
+    assert a1[-1] == (default if cluster is None else cluster)
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
+        key: 1, f"{key}_block": 1}

@@ -2,9 +2,10 @@
 K1b, K2-split, K2-env, the complex K12c, K12mc, K1c, K2c, K12cr, the
 complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env and the split
 tails K1-tail, K1c-tail) held against their plain PyTorch versions on the
-card, and K12c and K12cr, one bond over a thread-block cluster, held bit for
-bit against the one-block kernel and across cluster sizes.  These tests need an NVIDIA GPU
-with nvcc and skip without one.
+card, and K12c, K12cr, K1c and K1c-update, one bond over a thread-block
+cluster, held bit for bit against their one-block kernels and across
+cluster sizes.  These tests need an NVIDIA GPU with nvcc and skip without
+one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
 
@@ -627,7 +628,7 @@ def test_k12cr_is_equal_across_cluster_sizes(bkc, shape, forward):
     kw = dict(forward=forward, refresh=True, power_iters=1, rounds=6)
     ref = bkc.k12cr_cuda(*_single(x, forward), cluster=1, **kw)
     for n in (2, 4, 8, 16):
-        if bkc.cluster_occupancy(True, n, shape["chi"]) >= 1:
+        if bkc.cluster_occupancy("k12cr", n, shape["chi"]) >= 1:
             _equal(bkc.k12cr_cuda(*_single(x, forward), cluster=n, **kw), ref)
     torch.cuda.synchronize()
 
@@ -645,6 +646,111 @@ def test_a_cluster_the_card_refuses_raises(bk, bkc, ritz):
     step(*_single(x, False), forward=False)
     torch.cuda.synchronize()
     assert bk.LAUNCHES[key] == n0 + 1
+
+
+# ---- K1c and K1c-update over a thread-block cluster -------------------------
+
+K1C_GRID = [(True, 1, "qr"), (True, 3, "qr"), (False, 1, "qr"),
+            (True, 1, "ns"), (True, 3, "ns")]
+
+
+def _k1c_operands(bkc, key, seed, forward):
+    """K1c's operands, or K1c-update's with K1c-grad's gradient of the same
+    inputs, at the main-path shape."""
+    if key == "k1c":
+        x = _inputs_c(seed, 1, **SHAPE)
+        le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                           x["env0"])
+        return (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+                x["y1h"], x["w"], x["V0"][0], 0.05)
+    a = _dp_inputs_c(seed, forward)
+    return (a[0], a[1], bkc.k1c_grad_cuda(*a[:9], forward=forward), a[9],
+            0.05)
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("emit_y,q,orth", K1C_GRID)
+def test_k1c_cluster_equals_one_block(bk, bkc, forward, emit_y, q, orth):
+    # K1c runs one bond update over a cluster; k1c_block_cuda is the
+    # one-block kernel over the same device functions: the same bits
+    args = _k1c_operands(bkc, "k1c", 34, forward)
+    kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth)
+    n0, b0 = bk.LAUNCHES["k1c"], bk.LAUNCHES["k1c_block"]
+    got = bkc.k1c_cuda(*args, **kw)
+    one = bkc.k1c_block_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES["k1c"], bk.LAUNCHES["k1c_block"]) == (n0 + 1, b0 + 1)
+    _equal(got, one)
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("emit_y,q,orth", K1C_GRID)
+def test_k1c_update_cluster_equals_one_block(bk, bkc, forward, emit_y, q,
+                                             orth):
+    args = _k1c_operands(bkc, "k1c_update", 35, forward)
+    kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth)
+    n0 = bk.LAUNCHES["k1c_update"]
+    b0 = bk.LAUNCHES["k1c_update_block"]
+    got = bkc.k1c_update_cuda(*args, **kw)
+    one = bkc.k1c_update_block_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES["k1c_update"],
+            bk.LAUNCHES["k1c_update_block"]) == (n0 + 1, b0 + 1)
+    _equal(got, one)
+
+
+@pytest.mark.parametrize("key", ["k1c", "k1c_update"])
+@pytest.mark.parametrize("forward", [False, True])
+def test_k1c_kernels_equal_across_cluster_sizes(bkc, key, forward):
+    cuda = bkc.k1c_cuda if key == "k1c" else bkc.k1c_update_cuda
+    args = _k1c_operands(bkc, key, 36, forward)
+    kw = dict(forward=forward, power_iters=3, orth="ns")
+    ref = cuda(*args, cluster=1, **kw)
+    for n in (2, 4, 8, 16):
+        if bkc.cluster_occupancy(key, n, SHAPE["chi"]) >= 1:
+            _equal(cuda(*args, cluster=n, **kw), ref)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("key", ["k1c", "k1c_update"])
+def test_a_k1c_cluster_past_the_limit_is_refused(bk, bkc, key):
+    """A cluster of 32 blocks: the wrapper refuses it (ValueError), and the
+    card refuses the launch itself (RuntimeError); nothing launches, no
+    one-block kernel stands in, and the next launch runs."""
+    cuda = bkc.k1c_cuda if key == "k1c" else bkc.k1c_update_cuda
+    raw, entry = ((bkc._k1c, "mpst_k1c_cluster_launch") if key == "k1c" else
+                  (bkc._k1c_update, "mpst_k1c_update_cluster_launch"))
+    args = _k1c_operands(bkc, key, 37, False)
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError, match="from 1 to 16"):
+        cuda(*args, forward=False, cluster=32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        raw(entry, (32,), *args, forward=False, emit_y=True, power_iters=1,
+            orth="qr")
+    assert dict(bk.LAUNCHES) == before
+    cuda(*args, forward=False)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == before[key] + 1
+
+
+def test_complex_fits_launch_no_one_block_k1c(bk):
+    """The fourier qr fit and the complex dp fit launch K1c and K1c-update
+    over a cluster only."""
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.parallel import make_mesh
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40, :24], data["y_train"][:40]
+    opts = mt.MPSOptions(encoding="fourier", nsweeps=2, chi_max=12, d=3,
+                         verbosity=-1, log_level=-1)
+    bk.reset_counts()
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(orth_alg="qr",
+                                           subspace_refresh_every=2),
+               device="cuda")
+    mt.fit_mps(Xtr, ytr, opts=opts, mesh=make_mesh(1))
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1c"] == 2 * 23
+    assert bk.LAUNCHES["k1c_update"] == 2 * 2 * 23
+    assert bk.LAUNCHES["k1c_block"] == bk.LAUNCHES["k1c_update_block"] == 0
 
 
 # ---- the complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env --------
