@@ -17,8 +17,9 @@ Phases, one status line each; any failure exits non-zero:
      d 5, 10 sweeps, KLD -> K12m), device="cuda", then classify; checks
      the launch counts, the plain-version counts and the test accuracy.
      Then a 2-sweep MSE fit (-> K12) through the same entry point, its
-     counts read from its own run, and the default fit at two more init
-     seeds (accuracy reported, not held to the floor).
+     counts read from its own run, the default fit at two more init
+     seeds (accuracy reported, not held to the floor), and two default
+     sweeps under torch.profiler (device time by kernel).
   5. qr path: fit_mps with orth_alg="qr", subspace_refresh_every=2 (refresh
      sweeps -> K1 -> QR -> K2 per bond, frozen sweeps -> K12m), counts read
      from its own run, then classify; then a refresh and a frozen sweep of
@@ -91,13 +92,14 @@ Phases, one status line each; any failure exits non-zero:
      read from each run, sweep-1 train KLD against the fused fits', accuracy
      held as theirs; one sweep of the real fit under torch.profiler.
  17. cluster kernels: K12c (one bond over a thread-block cluster) against
-     K12mc at Bb = 1 (the one-block kernel) bit for bit over the complex
-     grid at the main-path shape and at chi 128 and 192, K12cr bit for bit
-     across cluster sizes 1-16 (those the card can place) over its ritz grid
-     at chi 64 and chi 8, a cluster of 32 blocks refused with RuntimeError,
-     the occupancy of clusters, per-call ms of K12c against K12mc at Bb = 1
-     in turns and of K12cr at each cluster size, and a bond's time by part
-     (frozen, each power step, the Jacobi rounds).
+     the one-block K12mc at Bb = 1 bit for bit over the complex grid at the
+     main-path shape and at chi 128 and 192, K12cr bit for bit across
+     cluster sizes 1-16 (those the card can place) over its ritz grid at
+     chi 64 and chi 8, a cluster of 32 blocks refused by the wrapper and,
+     past it, by the card, the occupancy of clusters, per-call ms of K12c
+     against the one-block K12mc at Bb = 1 in turns and of K12cr at each
+     cluster size, and a bond's time by part (frozen, each power step, the
+     Jacobi rounds).
  18. cluster K1c and K1c-update: each (one complex bond update over a
      thread-block cluster) against its one-block kernel bit for bit, both
      outputs (BT, Y), over both directions x (emit_y, q, orth) in (1, 1,
@@ -108,6 +110,18 @@ Phases, one status line each; any failure exits non-zero:
      it, by the card, with nothing launched; the occupancy of clusters;
      their ptxas entries; per-call ms of each against its one-block kernel
      in turns, and by cluster size over 5 interleaved rounds.
+ 19. cluster K12, K12m and K12mc: each (a block of bonds over a thread-block
+     cluster) against its one-block kernel bit for bit, all five outputs:
+     K12 and K12m at Bb 1, 2, 4 and 8 over both directions x (refresh q 1,
+     refresh q 3, frozen) with TSGO, and GD, a rank cap of 17, MSE at
+     Bb = 1 and the cutoff tie-break; K12mc at Bb 1-4 over both directions x
+     (refresh q 1, q 3, frozen) and a rank cap; real and complex at chi 128;
+     at the default cluster and at every size the card places; a cluster of
+     32 blocks refused by the wrapper and, past it, by the card, with
+     nothing launched; the occupancy of clusters; their ptxas entries;
+     per-call ms of K12 (a refresh bond, q 1), K12m (an 8-bond refresh
+     block) and K12mc (a frozen 4-bond block) against their one-block
+     kernels in turns, and by cluster size over 5 interleaved rounds.
 Then the ptxas line (registers, static shared memory and spills of each
 kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
@@ -243,7 +257,8 @@ def ptxas_summary(log: str) -> str:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             kern = next((k for k in ("k12cr_kernel", "k12c_kernel",
-                                     "k12m_kernel", "k1_kernel", "k2_kernel",
+                                     "k12m_cluster_kernel", "k12m_kernel",
+                                     "k1_kernel", "k2_kernel",
                                      "k1a_kernel", "k1b_kernel",
                                      "k2_split_kernel", "k2_env_kernel",
                                      "k1_tail_kernel", "k1_cluster_kernel",
@@ -593,14 +608,60 @@ def tie_break_inputs():
             t(np.full(N, 1.0 / N, np.float32)), t(V0), 0.0, cutoff)
 
 
+#: The outputs of K1 and K1b (K1c, K1c-update), for equal()'s labels.
+BT_Y = ("BT", "Y")
+
+
+def equal(name, got, ref, labels=("center", "core", "env", "env_ls", "Q")):
+    """Bit-for-bit equality of a cluster kernel's outputs ``got`` with its
+    one-block kernel's ``ref``, output by output (named by ``labels``)."""
+    for label, g, r in zip(labels, got, ref):
+        check(bool(torch.isfinite(g).all()), f"{name}: {label} not finite")
+        check(bool(torch.equal(g, r)), f"{name}: {label} differs, max "
+              f"|diff| {float((g - r).abs().max()):.3e}")
+
+
+def k12m_raw(x, opp_ls=None):
+    """K12m's operands from bond_inputs in the launch helpers' order
+    (bond_kernels._k12m, bond_kernels_c._k12mc)."""
+    a = k12m_args(x)
+    return a[:5] + (opp_ls,) + a[5:]
+
+
+def refusal(name, wrapper, raw) -> str:
+    """How kernel ``name`` refuses a cluster of 32 blocks: ``wrapper`` (the
+    public call, or the checked cluster launch where the wrapper takes no
+    size) must raise ValueError and ``raw`` (the same launch past that
+    check) the card's RuntimeError, with no launch counted; returns what
+    each said."""
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    before = dict(bk.LAUNCHES)
+    try:
+        wrapper()
+        said = "wrapper launched"
+    except ValueError as exc:
+        said = f"wrapper ValueError ({exc})"
+    try:
+        raw()
+        torch.cuda.synchronize()
+        said += "; card launched"
+    except RuntimeError as exc:
+        said += f"; card RuntimeError ({str(exc).split(': ', 1)[-1]})"
+    check("launched" not in said, f"{name}: a cluster of 32 blocks "
+          f"launched ({said})")
+    check(dict(bk.LAUNCHES) == before, f"{name}: a refused cluster launched "
+          f"a kernel: {bk.LAUNCHES} vs {before}")
+    return said
+
+
 def cluster_phase(card: str) -> None:
     """K12c and K12cr, one bond over a thread-block cluster, against the
-    one-block designs bit for bit: K12c against K12mc at Bb = 1 (the one-block
-    k12m_kernel) over the complex grid at the main-path shape and at chi 128
-    and 192; K12cr equal across cluster sizes over its ritz grid at chi 64
-    and chi 8; a cluster the card refuses raises; the occupancy of clusters;
-    per-call ms of K12c and K12mc at Bb = 1 in turns and of K12cr at each
-    cluster size."""
+    one-block designs bit for bit: K12c against the one-block K12mc at
+    Bb = 1 (k12m_kernel) over the complex grid at the main-path shape and
+    at chi 128 and 192; K12cr equal across cluster sizes over its ritz grid
+    at chi 64 and chi 8; a cluster the card refuses raises; the occupancy of
+    clusters; per-call ms of K12c and the one-block K12mc at Bb = 1 in turns
+    and of K12cr at each cluster size."""
     from mpstime_tpu_torch.ops import bond_kernels_c as bkc
     sizes = (1, 2, 4, 8, 16)
     occ = {(ritz, n): bkc.cluster_occupancy("k12cr" if ritz else "k12c", n,
@@ -616,16 +677,8 @@ def cluster_phase(card: str) -> None:
           + ", ".join(f"{n}: {occ[(True, n)]}" for n in sizes)
           + f" ({card})", flush=True)
 
-    def equal(name, got, ref):
-        for label, g, r in zip(("center", "core", "env", "env_ls", "Q"), got,
-                               ref):
-            check(bool(torch.isfinite(g).all()), f"{name}: {label} not "
-                  "finite")
-            check(bool(torch.equal(g, r)), f"{name}: {label} differs, max "
-                  f"|diff| {float((g - r).abs().max()):.3e}")
-
     def k12mc_one(x, **kw):
-        out = bkc.k12mc_cuda(*k12m_args(x), **kw)
+        out = bkc.k12mc_block_cuda(*k12m_args(x), **kw)
         return (out[0],) + tuple(t[0] for t in out[1:])
 
     n_k12c = 0
@@ -644,17 +697,18 @@ def cluster_phase(card: str) -> None:
         equal(f"K12c chi={shape['chi']} {kw} vs K12mc Bb=1", got,
               k12mc_one(x, **kw))
         n_k12c += 1
-    try:
-        x = bond_inputs_c(17, 1, **SHAPE)
-        bkc.k12c_cuda(*k12_args(x, False), forward=False, cluster=32)
-        torch.cuda.synchronize()
-        refused = "launched"
-    except RuntimeError as exc:
-        refused = str(exc).split(": ", 1)[-1]
-    check(refused != "launched", "K12c: a cluster of 32 blocks launched")
-    print(f"[k12c-k12cr-cluster] K12c (cluster {bkc.CLUSTER}) vs K12mc at "
-          f"Bb = 1 (one block), {n_k12c} cases (the complex grid at chi 25, "
-          "q 3 at chi 128 and 192, both directions): torch.equal on all five "
+    x = bond_inputs_c(17, 1, **SHAPE)
+    refused = refusal(
+        "K12c",
+        lambda: bkc.k12c_cuda(*k12_args(x, False), forward=False,
+                              cluster=32),
+        lambda: bkc._k12mc("mpst_k12c_launch", (32,), *k12m_raw(x),
+                           forward=False, refresh=True, power_iters=1,
+                           max_rank=None))
+    print(f"[k12c-k12cr-cluster] K12c (cluster {bkc.CLUSTER}) vs the "
+          f"one-block K12mc at Bb = 1, {n_k12c} cases (the complex grid at "
+          "chi 25, q 3 at chi 128 and 192, both directions): torch.equal on "
+          "all five "
           f"outputs; a cluster of 32 blocks raises ({refused})", flush=True)
 
     ritz_grid = [(f, r, q, n, mr) for f in (False, True)
@@ -690,19 +744,43 @@ def cluster_phase(card: str) -> None:
                                                 cluster=n, **kwr))
               for n in placed}
     k12c_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
-    check(k12c_ms < one_ms, f"K12c {k12c_ms:.3f} ms is not below K12mc at "
-          f"Bb = 1 ({one_ms:.3f} ms)")
+    check(k12c_ms < one_ms, f"K12c {k12c_ms:.3f} ms is not below the "
+          f"one-block K12mc at Bb = 1 ({one_ms:.3f} ms)")
     check(t_ritz[bkc.CLUSTER] < t_ritz[1], f"K12cr at cluster "
           f"{bkc.CLUSTER} {t_ritz[bkc.CLUSTER]:.3f} ms is not below cluster "
           f"1 ({t_ritz[1]:.3f} ms)")
     print(f"[k12c-k12cr-cluster] per call, a backward refresh bond: K12c "
           f"(chi 25, q 3, cluster {bkc.CLUSTER}) "
-          f"{[round(t, 4) for t in t_new]} ms vs K12mc at Bb = 1 (one block) "
-          f"{[round(t, 4) for t in t_one]} ms, in turns (median {k12c_ms:.4f}"
-          f" vs {one_ms:.4f}, {one_ms / k12c_ms:.2f}x); K12cr (chi 64, q 1, 6 "
-          "rounds) by cluster size: " + ", ".join(
+          f"{[round(t, 4) for t in t_new]} ms vs the one-block K12mc at Bb "
+          f"= 1 {[round(t, 4) for t in t_one]} ms, in turns (median "
+          f"{k12c_ms:.4f} vs {one_ms:.4f}, {one_ms / k12c_ms:.2f}x); "
+          "K12cr (chi 64, q 1, 6 rounds) by cluster size: " + ", ".join(
               f"{n}: {t:.4f} ms" for n, t in t_ritz.items())
           + f" ({card})", flush=True)
+    # K12c's own kernel against the cluster K12mc at Bb = 1 (the same bits):
+    # both through the same launch helper, in turns
+    same = []
+    for label, kw in (("frozen", dict(refresh=False, power_iters=1)),
+                      ("q 1", dict(refresh=True, power_iters=1)),
+                      ("q 3", dict(refresh=True, power_iters=3))):
+        kw = dict(kw, forward=False, max_rank=None)
+        ref = bkc._k12mc("mpst_k12c_launch", (bkc.CLUSTER,), *k12m_raw(xc),
+                         **kw)
+        equal(f"K12c {label} vs the cluster K12mc at Bb = 1",
+              bkc._k12mc_cluster(bkc.CLUSTER, *k12m_raw(xc), **kw), ref)
+        t_c, t_m = time_turns(
+            lambda: bkc._k12mc("mpst_k12c_launch", (bkc.CLUSTER,),
+                               *k12m_raw(xc), **kw),
+            lambda: bkc._k12mc_cluster(bkc.CLUSTER, *k12m_raw(xc), **kw),
+            rounds=5, iters=20)
+        same.append(f"{label} {statistics.median(t_c):.4f} "
+                    f"({min(t_c):.4f}-{max(t_c):.4f}) vs "
+                    f"{statistics.median(t_m):.4f} "
+                    f"({min(t_m):.4f}-{max(t_m):.4f})")
+    print(f"[k12c-k12cr-cluster] K12c (k12c_kernel) vs the cluster K12mc at "
+          f"Bb = 1 (k12m_cluster_kernel), equal bits, a backward bond at chi "
+          f"25, cluster {bkc.CLUSTER}, median (min-max) of 10 in turns: "
+          + "; ".join(same) + f" ms ({card})", flush=True)
     # where a bond's time goes: the frozen bond, then each power step (K12c)
     # or the Jacobi rounds and the tri-Newton step (K12cr)
     parts = {
@@ -732,7 +810,6 @@ def k1c_cluster_phase(card: str, ptxas: str) -> None:
     nothing launched; the occupancy of clusters; their ptxas entries;
     per-call ms of each cluster kernel and its one-block kernel in turns,
     and by cluster size."""
-    from mpstime_tpu_torch.ops import bond_kernels as bk
     from mpstime_tpu_torch.ops import bond_kernels_c as bkc
     tag = "[k1c-k1c-update-cluster]"
     sizes = (1, 2, 4, 8, 16)
@@ -768,13 +845,6 @@ def k1c_cluster_phase(card: str, ptxas: str) -> None:
         return (a[0], a[1], bkc.k1c_grad_cuda(*a[:9], forward=forward),
                 a[9], 0.05)
 
-    def equal(name, got, ref):
-        for label, g, r in zip(("BT", "Y"), got, ref):
-            check(bool(torch.isfinite(g).all()), f"{name}: {label} not "
-                  "finite")
-            check(bool(torch.equal(g, r)), f"{name}: {label} differs, max "
-                  f"|diff| {float((g - r).abs().max()):.3e}")
-
     grid = [(f, e, q, o) for f in (False, True)
             for e, q, o in ((True, 1, "qr"), (True, 3, "qr"),
                             (False, 1, "qr"), (True, 1, "ns"),
@@ -789,41 +859,27 @@ def k1c_cluster_phase(card: str, ptxas: str) -> None:
                       orth=orth)
             ref = block_fn[key](*args, **kw)
             label = f"{name} chi={shape['chi']} {kw}"
-            equal(f"{label} vs one block", cluster_fn[key](*args, **kw), ref)
+            equal(f"{label} vs one block", cluster_fn[key](*args, **kw), ref,
+                  BT_Y)
             for n in placed[key]:
                 equal(f"{label} cluster {n} vs one block",
-                      cluster_fn[key](*args, cluster=n, **kw), ref)
+                      cluster_fn[key](*args, cluster=n, **kw), ref, BT_Y)
     torch.cuda.synchronize()
     refused = {}
     for key, name in names.items():
         args = operands(key, 2290, SHAPE, False)
-        before = dict(bk.LAUNCHES)
-        try:
-            cluster_fn[key](*args, forward=False, cluster=32)
-            wrapper = "launched"
-        except ValueError as exc:
-            wrapper = f"ValueError ({exc})"
         # past the wrapper's check, the card refuses the launch itself
         raw = bkc._k1c if key == "k1c" else bkc._k1c_update
         entry = ("mpst_k1c_cluster_launch" if key == "k1c"
                  else "mpst_k1c_update_cluster_launch")
-        try:
-            raw(entry, (32,), *args, forward=False, emit_y=True,
-                power_iters=1, orth="qr")
-            torch.cuda.synchronize()
-            card_says = "launched"
-        except RuntimeError as exc:
-            card_says = f"RuntimeError ({str(exc).split(': ', 1)[-1]})"
-        check("launched" not in (wrapper, card_says), f"{name}: a cluster "
-              f"of 32 blocks launched (wrapper: {wrapper}; card: "
-              f"{card_says})")
-        check(dict(bk.LAUNCHES) == before, f"{name}: a refused cluster "
-              f"launched a kernel: {bk.LAUNCHES} vs {before}")
+        refused[name] = refusal(
+            name, lambda: cluster_fn[key](*args, forward=False, cluster=32),
+            lambda: raw(entry, (32,), *args, forward=False, emit_y=True,
+                        power_iters=1, orth="qr"))
         # the refusal leaves no error behind for the next launch
         equal(f"{name} after a refusal", cluster_fn[key](*args,
                                                          forward=False),
-              block_fn[key](*args, forward=False))
-        refused[name] = f"wrapper {wrapper}; card {card_says}"
+              block_fn[key](*args, forward=False), BT_Y)
     print(f"{tag} cluster vs one block, {len(cases)} cases each (both "
           "directions x (emit_y, q, orth) in (1, 1, qr), (1, 3, qr), (0, 1, "
           "qr), (1, 1, ns), (1, 3, ns) at chi 25; q 3, qr and ns at chi 128; "
@@ -867,6 +923,235 @@ def k1c_cluster_phase(card: str, ptxas: str) -> None:
             + f" ms (fastest {min(by_size, key=by_size.get)})")
     print(f"{tag} per call, a backward refresh bond at chi 25: "
           + "; ".join(lines) + f" ({card})", flush=True)
+
+
+def k12m_cluster_phase(card: str, ptxas: str) -> None:
+    """K12, K12m and K12mc, a block of bonds over a thread-block cluster,
+    against their one-block kernels bit for bit (all five outputs) over
+    their grids, at the default cluster and at every size the card places;
+    a cluster of 32 blocks refused by the wrapper and, past it, by the
+    card; the occupancy of clusters; their ptxas entries; per-call ms of
+    each against its one-block kernel in turns, and by cluster size."""
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    from mpstime_tpu_torch.ops import bond_kernels_c as bkc
+    tag = "[k12m-k12mc-cluster]"
+    sizes = (1, 2, 4, 8, 16)
+    occ = {(k, n): bkc.cluster_occupancy(k, n, SHAPE["chi"])
+           for k in ("k12m", "k12mc") for n in sizes}
+    placed = {k: [n for n in sizes if occ[(k, n)] >= 1]
+              for k in ("k12m", "k12mc")}
+    default = {"K12": bk.K12M_CLUSTER, "K12m": bk.K12M_CLUSTER,
+               "K12mc": bkc.K12MC_CLUSTER}
+    for name, n in default.items():
+        kern = "k12mc" if name == "K12mc" else "k12m"
+        check(n in placed[kern], f"{name}: the chosen cluster of {n} blocks "
+              f"cannot be placed: {occ}")
+    print(f"{tag} cluster sizes K12 and K12m {bk.K12M_CLUSTER}, K12mc "
+          f"{bkc.K12MC_CLUSTER} (blocks of 512 "
+          "threads); clusters the card holds at once (cudaOccupancyMax"
+          "ActiveClusters) at chi 25, " + "; ".join(
+              f"{k}: " + ", ".join(f"{n}: {occ[(k, n)]}" for n in sizes)
+              for k in ("k12m", "k12mc")) + f" ({card})", flush=True)
+    if "no log" not in ptxas:
+        mine = [e for e in ptxas.split("; ")
+                if e.startswith("k12m_cluster_kernel")]
+        check(len(mine) == 2, f"ptxas: no entry for the cluster K12m "
+              f"({ptxas})")
+        print(f"{tag} ptxas: " + "; ".join(mine), flush=True)
+
+    def first(out):
+        return (out[0],) + tuple(t[0] for t in out[1:])
+
+    def real_at(n, raw, **kw):
+        """K12m's launch over a cluster of n blocks, past the wrappers (a
+        bond's outputs at Bb = 1, as K12's)."""
+        kw = dict(dict(refresh=True, power_iters=1, max_rank=None,
+                       loss="KLD", bbopt="TSGO"), **kw)
+        out = bk._k12m_cluster(n, *raw, **kw)
+        return first(out) if raw[0].shape[0] == 1 else out
+
+    def run_real(x, n=None, **kw):
+        """K12 (Bb = 1) or K12m through its wrapper, or over a cluster of n
+        blocks."""
+        if n is not None:
+            return real_at(n, k12m_raw(x), **kw)
+        if x["A"].shape[0] == 1:
+            return bk.k12_cuda(*k12_args(x, kw["forward"]), **kw)
+        return bk.k12m_cuda(*k12m_args(x), **kw)
+
+    # (inputs, kwargs, cluster wrapper, one-block wrapper, one-block output
+    # as the wrapper's)
+    cases = []
+    real_grid = [(Bb, f, r, q, "TSGO", None) for Bb in (1, 2, 4, 8)
+                 for f in (False, True)
+                 for r, q in ((True, 1), (True, 3), (False, 1))]
+    real_grid += [(Bb, f, True, 1, "GD", None) for Bb in (1, 8)
+                  for f in (False, True)]
+    real_grid += [(Bb, f, True, 3, "TSGO", 17) for Bb in (1, 8)
+                  for f in (False, True)]
+    for i, (Bb, f, r, q, bbopt, mr) in enumerate(real_grid):
+        cases.append(("real", bond_inputs(3000 + i, Bb, **SHAPE),
+                      dict(forward=f, refresh=r, power_iters=q, bbopt=bbopt,
+                           max_rank=mr)))
+    for f in (False, True):
+        cases.append(("real", bond_inputs(3100 + f, 2, **dict(SHAPE, chi=128)),
+                      dict(forward=f, refresh=True, power_iters=3)))
+    cplx_grid = [(Bb, f, r, q, None) for Bb in (1, 2, 3, 4)
+                 for f in (False, True)
+                 for r, q in ((True, 1), (True, 3), (False, 1))]
+    cplx_grid += [(4, f, True, 3, 17) for f in (False, True)]
+    for i, (Bb, f, r, q, mr) in enumerate(cplx_grid):
+        cases.append(("cplx", bond_inputs_c(3200 + i, Bb, **SHAPE),
+                      dict(forward=f, refresh=r, power_iters=q, max_rank=mr)))
+    for f in (False, True):
+        cases.append(("cplx", bond_inputs_c(3300 + f, 2,
+                                            **dict(SHAPE, chi=128)),
+                      dict(forward=f, refresh=True, power_iters=3)))
+    n_cases = {"real": 0, "cplx": 0}
+    for kind, x, kw in cases:
+        Bb, chi = x["A"].shape[0], x["A"].shape[1]
+        label = f"{kind} Bb={Bb} chi={chi} {kw}"
+        if kind == "real":
+            ref = bk.k12m_block_cuda(*k12m_args(x), **kw)
+            ref = first(ref) if Bb == 1 else ref
+
+            def run(n=None):
+                return run_real(x, n, **kw)
+        else:
+            ref = bkc.k12mc_block_cuda(*k12m_args(x), **kw)
+
+            def run(n=None):
+                if n is None:
+                    return bkc.k12mc_cuda(*k12m_args(x), **kw)
+                return bkc._k12mc_cluster(n, *k12m_raw(x), **dict(
+                    dict(refresh=True, power_iters=1, max_rank=None), **kw))
+        equal(f"{label} vs one block", run(), ref)
+        for n in placed["k12mc" if kind == "cplx" else "k12m"]:
+            equal(f"{label} cluster {n} vs one block", run(n), ref)
+        n_cases[kind] += 1
+    # MSE (K12 only) and the cutoff tie-break, at every size placed
+    n_mse = 0
+    for i, (f, bbopt) in enumerate((f, o) for f in (False, True)
+                                   for o in ("TSGO", "GD")):
+        x = bond_inputs(3400 + i, 1, **SHAPE)
+        kw = dict(forward=f, loss="MSE", bbopt=bbopt)
+        ref = first(bk.k12m_block_cuda(*k12m_args(x), opp_ls=x["opp"], **kw))
+        equal(f"K12 MSE {kw} vs one block",
+              bk.k12_cuda(*k12_args(x, f), opp_ls=x["opp"], **kw), ref)
+        for n in placed["k12m"]:
+            equal(f"K12 MSE {kw} cluster {n} vs one block",
+                  real_at(n, k12m_raw(x, x["opp"]), **kw), ref)
+        n_mse += 1
+    tb = tie_break_inputs()
+    A, center, le, re, ls, phil, phir, y1h, w, V0, eta, cutoff = tb
+    kw = dict(forward=False, refresh=False)
+    ref = first(bk.k12m_block_cuda(A[None], center, le[None], re, ls,
+                                   phil[None], phir[None], y1h, w, V0[None],
+                                   eta, cutoff, **kw))
+    for n in [None] + placed["k12m"]:
+        got = (bk.k12_cuda(*tb, **kw) if n is None else real_at(
+            n, (A[None], center, le[None], re, ls, None, phil[None],
+                phir[None], y1h, w, V0[None], eta, cutoff), **kw))
+        equal(f"K12 tie-break cluster {n} vs one block", got, ref)
+        kept_dirs = kept(got[1], False).tolist()
+        check(kept_dirs == [True] * 3 + [False] * 3,
+              f"K12 tie-break cluster {n} kept {kept_dirs}")
+    torch.cuda.synchronize()
+    refused = {}
+    x1 = bond_inputs(3502, 1, **SHAPE)
+    xr, xc = bond_inputs(3500, 4, **SHAPE), bond_inputs_c(3501, 4, **SHAPE)
+    raw_kw = dict(forward=False, refresh=True, power_iters=1, max_rank=None)
+    for name, wrapper, raw, after, block in (
+            ("K12",
+             lambda: real_at(32, k12m_raw(x1), forward=False),
+             lambda: bk._k12m("mpst_k12m_cluster_launch", (32,),
+                              *k12m_raw(x1), loss="KLD", bbopt="TSGO",
+                              **raw_kw),
+             lambda: bk.k12_cuda(*k12_args(x1, False), forward=False),
+             lambda: first(bk.k12m_block_cuda(*k12m_args(x1),
+                                              forward=False))),
+            ("K12m",
+             lambda: real_at(32, k12m_raw(xr), forward=False),
+             lambda: bk._k12m("mpst_k12m_cluster_launch", (32,),
+                              *k12m_raw(xr), loss="KLD", bbopt="TSGO",
+                              **raw_kw),
+             lambda: bk.k12m_cuda(*k12m_args(xr), forward=False),
+             lambda: bk.k12m_block_cuda(*k12m_args(xr), forward=False)),
+            ("K12mc",
+             lambda: bkc._k12mc_cluster(32, *k12m_raw(xc), **raw_kw),
+             lambda: bkc._k12mc("mpst_k12mc_cluster_launch", (32,),
+                                *k12m_raw(xc), **raw_kw),
+             lambda: bkc.k12mc_cuda(*k12m_args(xc), forward=False),
+             lambda: bkc.k12mc_block_cuda(*k12m_args(xc), forward=False))):
+        refused[name] = refusal(name, wrapper, raw)
+        # the refusal leaves no error behind for the next launch
+        equal(f"{name} after a refusal", after(), block())
+    print(f"{tag} cluster vs one block, torch.equal on all five outputs at "
+          f"the default cluster and at every size placed ({placed['k12m']}, "
+          f"{placed['k12mc']}): K12 and K12m {n_cases['real']} cases (Bb 1, "
+          "2, 4, 8 x both directions x (refresh q 1, refresh q 3, frozen), "
+          "TSGO; GD and max_rank 17 at Bb 1 and 8; q 3 at chi 128, Bb 2), "
+          f"K12 MSE {n_mse} cases (TSGO, GD), the tie-break (kept directions "
+          f"0..2); K12mc {n_cases['cplx']} cases (Bb 1-4 x both directions x "
+          "(refresh q 1, refresh q 3, frozen); max_rank 17 at Bb 4; q 3 at "
+          "chi 128, Bb 2); a cluster of 32 blocks raises, nothing launched: "
+          + "; ".join(f"{k}: {v}" for k, v in refused.items()), flush=True)
+
+    x1, x8 = bond_inputs(7, 1, **SHAPE), bond_inputs(8, 8, **SHAPE)
+    xc4 = bond_inputs_c(18, 4, **SHAPE)
+    kw1 = dict(forward=False, refresh=True, power_iters=1)
+    kwf = dict(forward=False, refresh=False, power_iters=1)
+    # (the wrapper, the launch at cluster size n, the one-block kernel)
+    timed = {
+        "K12": (lambda: bk.k12_cuda(*k12_args(x1, False), **kw1),
+                lambda n: real_at(n, k12m_raw(x1), **kw1),
+                lambda: bk.k12m_block_cuda(*k12m_args(x1), **kw1),
+                "k12m", "a backward refresh bond, q 1"),
+        "K12m": (lambda: bk.k12m_cuda(*k12m_args(x8), **kw1),
+                 lambda n: real_at(n, k12m_raw(x8), **kw1),
+                 lambda: bk.k12m_block_cuda(*k12m_args(x8), **kw1),
+                 "k12m", "an 8-bond backward refresh block, q 1"),
+        "K12mc": (lambda: bkc.k12mc_cuda(*k12m_args(xc4), **kwf),
+                  lambda n: bkc._k12mc_cluster(n, *k12m_raw(xc4),
+                                               max_rank=None, **kwf),
+                  lambda: bkc.k12mc_block_cuda(*k12m_args(xc4), **kwf),
+                  "k12mc", "a frozen 4-bond backward block")}
+    lines = []
+    for name, (wrapper_fn, sized_fn, block_fn, kern, what) in timed.items():
+        # in turns, 5 rounds: cluster, block, block, cluster
+        t_new, t_one = time_turns(wrapper_fn, block_fn, rounds=5, iters=20)
+        # each size timed in 5 interleaved rounds: the sizes' medians and
+        # spreads decide the default, not one timing each
+        rounds = {n: [] for n in placed[kern]}
+        for _ in range(5):
+            for n in placed[kern]:
+                rounds[n].append(time_ms(lambda: sized_fn(n)))
+        by_size = {n: statistics.median(t) for n, t in rounds.items()}
+        new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
+        check(new_ms < one_ms, f"{name} (cluster {default[name]}) "
+              f"{new_ms:.3f} ms is not below its one-block kernel "
+              f"({one_ms:.3f} ms)")
+        # the default must be the fastest size, within the two sizes'
+        # spread over their rounds
+        fast, mine = min(by_size, key=by_size.get), rounds[default[name]]
+        spread = max(max(mine) - min(mine),
+                     max(rounds[fast]) - min(rounds[fast]))
+        check(by_size[default[name]] - by_size[fast] <= spread,
+              f"{name}: the default cluster of {default[name]} blocks "
+              f"({by_size[default[name]]:.4f} ms) is slower than {fast} "
+              f"({by_size[fast]:.4f} ms) by more than the spread "
+              f"{spread:.4f} ms")
+        lines.append(
+            f"{name}, {what} (cluster {default[name]}): median "
+            f"{new_ms:.4f} ({min(t_new):.4f}-{max(t_new):.4f}) ms vs one "
+            f"block {one_ms:.4f} ({min(t_one):.4f}-{max(t_one):.4f}) ms "
+            f"in turns ({one_ms / new_ms:.2f}x); by cluster size, median "
+            "(min-max) of 5 interleaved rounds " +
+            ", ".join(f"{n}: {by_size[n]:.4f} ({min(t):.4f}-{max(t):.4f})"
+                      for n, t in rounds.items())
+            + f" ms (fastest {min(by_size, key=by_size.get)})")
+    print(f"{tag} per call at chi 25: " + "; ".join(lines) + f" ({card})",
+          flush=True)
 
 
 def main() -> int:
@@ -1065,7 +1350,9 @@ def main() -> int:
     check(tuple(m.center.shape) == (25, 5, 25, 2), f"center {m.center.shape}")
     for t in (m.cores, m.center):
         check(bool(torch.isfinite(t).all()), "non-finite model weights")
-    check(launches["k12m"] > 0, f"default fit: kernel launches {launches}")
+    # one cluster K12m a block of bonds: 24 a sweep, never the one-block one
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k12m": 10 * 24}
+    check(launches == want, f"default fit: launches {launches} != {want}")
     check(sum(plain.values()) == 0,
           f"default fit: plain-version calls on the card {plain}")
     check(acc >= ACC_FLOOR, f"test accuracy {acc} < {ACC_FLOOR}")
@@ -1078,7 +1365,7 @@ def main() -> int:
     # an MSE fit through the same entry point runs one K12 per bond; its
     # counts are read from its own run alone
     bk.reset_counts()
-    mse_trained, _, _ = mt.fit_mps(
+    mse_trained, mse_info, _ = mt.fit_mps(
         Xtr, ytr, opts=mt.MPSOptions(verbosity=-1, log_level=-1,
                                      loss_grad="MSE", nsweeps=2),
         device="cuda")
@@ -1089,11 +1376,14 @@ def main() -> int:
           "MSE fit: non-finite model weights")
     check(set(np.unique(mse_preds)) <= set(np.unique(ytr)),
           "MSE-fit predictions outside the label set")
-    check(mse_launches["k12"] > 0, f"MSE fit: kernel launches {mse_launches}")
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k12": 2 * 190}
+    check(mse_launches == want, f"MSE fit: launches {mse_launches} != "
+          f"{want}")
     check(sum(mse_plain.values()) == 0,
           f"MSE fit: plain-version calls on the card {mse_plain}")
     print(f"[main-path] ECG200 MPSOptions(loss_grad='MSE', nsweeps=2) on "
           f"cuda: test accuracy {float(np.mean(mse_preds == yte)):.4f}; "
+          f"sweeps {[round(t, 4) for t in mse_info['sweep_seconds']]} s; "
           f"launches {mse_launches}; plain calls {mse_plain} ({card})",
           flush=True)
 
@@ -1109,6 +1399,28 @@ def main() -> int:
     print("[seeds] ECG200 default MPSOptions on cuda, init_rng: test accuracy, "
           "median sweep s: " + "; ".join(
               f"{s}: {a:.4f}, {t:.4f}" for s, (a, t) in seed_acc.items())
+          + f" ({card})", flush=True)
+
+    # where a default sweep's device time goes: two sweeps under
+    # torch.profiler (sums of each device kernel's own time)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, prof_info, _ = mt.fit_mps(
+            Xtr, ytr, opts=mt.MPSOptions(verbosity=-1, log_level=-1,
+                                         nsweeps=2), device="cuda")
+        torch.cuda.synchronize()
+    dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA}
+    busy, wall = sum(dev.values()), 1e3 * sum(prof_info["sweep_seconds"])
+    check(not any("k12m_kernel" in k for k in dev),
+          f"default fit profile: a one-block K12m ran: {list(dev)}")
+    k12m_ms = sum(v for k, v in dev.items() if "k12m_cluster_kernel" in k)
+    print(f"[profile] default fit, two sweeps on cuda: device busy "
+          f"{busy:.1f} ms of {wall:.1f} ms sweep wall time "
+          f"({100 * busy / wall:.1f} %); K12m (cluster) {k12m_ms:.1f} ms; "
+          "by kernel: " + "; ".join(
+              f"{k[:60]} {v:.1f} ms"
+              for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:5])
           + f" ({card})", flush=True)
 
     # ---- 5. qr path ------------------------------------------------------
@@ -1158,8 +1470,14 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(prof_info["sweep_seconds"])
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+    # a fit launches K12m over a cluster only, never the one-block K12m
+    check(not any("k12m_kernel" in k for k in dev),
+          f"qr fit profile: a one-block K12m ran: {list(dev)}")
     print(f"[profile] qr fit, one refresh + one frozen sweep on cuda: device "
-          f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time; by kernel: "
+          f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time; K12m "
+          f"(cluster) "
+          f"{sum(v for k, v in dev.items() if 'k12m_cluster_kernel' in k):.1f}"
+          " ms; by kernel: "
           + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top)
           + f" ({card})", flush=True)
 
@@ -1384,14 +1702,18 @@ def main() -> int:
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA}
         top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
-        # a fit launches K1c over a cluster only, never the one-block K1c
-        check(not any("k1_kernel" in k for k in dev),
-              f"{label}: a one-block K1c ran: {list(dev)}")
+        # a fit launches K1c and K12mc over a cluster only, never their
+        # one-block kernels
+        check(not any("k1_kernel" in k or "k12m_kernel" in k for k in dev),
+              f"{label}: a one-block K1c or K12mc ran: {list(dev)}")
         k1c_ms = sum(v for k, v in dev.items() if "k1_cluster_kernel" in k)
+        k12mc_ms = sum(v for k, v in dev.items()
+                       if "k12m_cluster_kernel" in k)
         print(f"[profile] {label} on cuda: device busy "
               f"{sum(dev.values()):.1f} ms of "
               f"{1e3 * sum(p_info['sweep_seconds']):.1f} ms sweep wall time; "
-              f"K1c (cluster) {k1c_ms:.1f} ms; by kernel: " + "; ".join(
+              f"K1c (cluster) {k1c_ms:.1f} ms, K12mc (cluster) "
+              f"{k12mc_ms:.1f} ms; by kernel: " + "; ".join(
                   f"{k[:60]} {v:.1f} ms" for k, v in top)
               + f" ({card})", flush=True)
 
@@ -2179,6 +2501,9 @@ def main() -> int:
 
     # ---- 18. K1c and K1c-update over a thread-block cluster ----------------
     k1c_cluster_phase(card, ptxas)
+
+    # ---- 19. K12, K12m and K12mc over a thread-block cluster ---------------
+    k12m_cluster_phase(card, ptxas)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

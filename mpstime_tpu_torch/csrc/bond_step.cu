@@ -34,13 +34,20 @@
 // fill 132 SMs, and each phase needs the previous one's result.
 //
 // What the design does about it: the whole block of bonds runs in ONE
-// thread block, phases separated by __syncthreads(), so a block of 8 bonds
-// costs one launch instead of hundreds of small library kernels.  BT and its
-// gradient (2 x C*chi*d*d*chi floats, 250 KB at the main-path shape, more
-// than a block's 227 KB of shared memory) live in a global workspace that
-// stays resident in L2.  Arithmetic is plain f32 FMA (no TF32).  The
-// block-wide sums use a fixed tree, so results are deterministic.  Spreading
-// a bond over several SMs, wgmma and TMA are left for later work.
+// launch, phases separated by a team barrier, so a block of 8 bonds costs
+// one launch instead of hundreds of small library kernels.  K12 and K12m
+// (mpst_k12m_cluster_launch, over the wrappers' K12M_CLUSTER blocks)
+// run it over a thread-block cluster of up to 16 blocks of 512 threads:
+// k12m_cluster_kernel is k12m_kernel's loop of bond steps under
+// ClusterTeam, whose products deal 32 x 64 (or 16 x 32) output tiles to the
+// blocks through shared memory and whose sums keep their 512 partials, so
+// it computes the one-block kernel's bits.  The one-block launcher,
+// mpst_k12m_launch, stays as that reference; no route of the package
+// launches it.  BT and its gradient (2 x C*chi*d*d*chi floats, 250 KB at
+// the main-path shape, more than a block's 227 KB of shared memory) live in
+// a global workspace that stays resident in L2.  Arithmetic is plain f32
+// FMA (no TF32).  The sums use a fixed tree, so results are deterministic.
+// wgmma and TMA are left for later work.
 //
 // K1a, K1b, K2-split and K2-env replace _k1_grad_kernel, _k1_update_kernel,
 // _k2_split_kernel and _k2_env_kernel of the same file: the bond step of a
@@ -94,6 +101,40 @@ int mpst_k12m_launch(const void* lhs, const void* center0, const void* envx,
       lhs, center0, envx, env0, ls0, opp_ls, phil, phir, y1h, w, v0,
       center_out, core_out, env_out, ls_out, q_out, ws, Bb, C, chi, d, N,
       forward, refresh, q_iters, mse, gd, eta, cutoff, max_rank, stream);
+}
+
+// K12m (K12 at Bb = 1) over one cluster of `cluster` blocks:
+// mpst_k12m_launch's arguments and the cluster size, the same bits.
+// Scratch: mpst_k12_workspace_floats.
+int mpst_k12m_cluster_launch(const void* lhs, const void* center0,
+                             const void* envx, const void* env0,
+                             const void* ls0, const void* opp_ls,
+                             const void* phil, const void* phir,
+                             const void* y1h, const void* w, const void* v0,
+                             void* center_out, void* core_out, void* env_out,
+                             void* ls_out, void* q_out, void* ws, int Bb,
+                             int C, int chi, int d, int N, int forward,
+                             int refresh, int q_iters, int mse, int gd,
+                             float eta, float cutoff, float max_rank,
+                             int cluster, void* stream) {
+  return mpst::launch_k12m_cluster<float>(
+      lhs, center0, envx, env0, ls0, opp_ls, phil, phir, y1h, w, v0,
+      center_out, core_out, env_out, ls_out, q_out, ws, Bb, C, chi, d, N,
+      forward, refresh, q_iters, mse, gd, eta, cutoff, max_rank, cluster,
+      stream);
+}
+
+// How many clusters of `cluster` blocks of a real cluster kernel the card
+// holds at once, into *n (0: it cannot place one): kernel 0 K12m (and K12,
+// its Bb = 1); chi is unused.  Returns the CUDA error of the query
+// (cudaErrorInvalidValue for another kernel); bond_step_c.cu's
+// mpst_c_cluster_occupancy answers for the complex ones.
+int mpst_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
+  (void)chi;
+  *n = 0;
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
+  return mpst::cluster_occupancy(mpst::k12m_cluster_kernel<float>, cluster,
+                                 mpst::stage_smem_bytes<float>(), n);
 }
 
 // K1.  gls: [N] total log-scales (MSE only, else null); emit_y = 0 passes

@@ -2,10 +2,10 @@
 // its two halves around an outside QR (K1, K2), its four pieces for data-
 // parallel and batch-tiled bond steps (K1a, K1b, K2-split, K2-env), the
 // stand-alone power step of the split-tail route (K1-tail), real
-// (float) and complex (cfloat), and four kernels that run one bond over a
-// thread-block cluster, the complex bond step (K12c), the tracked-ritz bond
-// step (K12cr) and the complex K1 and K1b (K1c, K1c-update), instantiated
-// at cfloat.
+// (float) and complex (cfloat), and the kernels that run a bond over a
+// thread-block cluster: the multi-bond block (K12m, K12 and K12mc) at both
+// scalar types, and the complex bond step (K12c), the tracked-ritz bond step
+// (K12cr) and the complex K1 and K1b (K1c, K1c-update) at cfloat.
 // See bond_step.cu and bond_step_c.cu for what the kernels replace and how
 // they are bounded; this header holds the math, phase by phase, written once
 // for both scalar types and both teams.
@@ -37,9 +37,9 @@
 // Energies, norms, the cutoff mask and the log-scales are real.
 //
 // Every device function takes a team, the threads that share one bond:
-// BlockTeam, one thread block (the kernels of one block: K12, K12m, K12mc,
-// K1, K2, the pieces and the tails), or ClusterTeam, every block of a
-// thread-block cluster (K12c, K12cr and the cluster K1c and K1c-update).  A
+// BlockTeam, one thread block (the kernels of one block: the reference
+// K12m, K1, K2, the pieces and the tails), or ClusterTeam, every block of a
+// thread-block cluster (the cluster K12m, K12c, K12cr, K1c and K1c-update).  A
 // thread's index in the team is rank * blockDim.x + threadIdx.x, loops
 // stride over the team's threads, and team.sync() separates the phases
 // (__syncthreads() or the cluster barrier).
@@ -942,13 +942,13 @@ __device__ inline void bond_step(const Tm& tm, const K12Args<T>& a, int b,
               a.env_out + (long)b * N * chi, a.ls_out + (long)b * N, w);
 }
 
-// Bb consecutive bond steps in one block; the center, environment and
-// log-scales carry from bond to bond through the outputs.
-template <class T>
-__global__ void __launch_bounds__(kMaxThreads) k12m_kernel(K12Args<T> a) {
-  __shared__ float red[kMaxThreads];
-  const BlockTeam tm;
-  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
+// Bb consecutive bond steps on a team; the center, environment and
+// log-scales carry from bond to bond through the outputs.  Bond b + 1 reads
+// what every block of a cluster wrote in bond b only after env_advance's
+// closing team barrier.
+template <class Tm, class T>
+__device__ inline void block_steps(const Tm& tm, const K12Args<T>& a,
+                                   Work<T> w, float* red) {
   for (int b = 0; b < a.Bb; ++b) {
     const long off = (long)(b - 1) * a.N;
     bond_step(tm, a, b, b ? a.env_out + off * a.chi : a.env0,
@@ -957,9 +957,31 @@ __global__ void __launch_bounds__(kMaxThreads) k12m_kernel(K12Args<T> a) {
   }
 }
 
+// K12m (K12 at Bb = 1, K12mc at cfloat) in one block: the reference the
+// cluster kernel is held against bit for bit.
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads) k12m_kernel(K12Args<T> a) {
+  __shared__ float red[kMaxThreads];
+  block_steps(BlockTeam{}, a, carve<T>(a.ws, a.C, a.chi, a.d, a.N), red);
+}
+
+// K12m over a thread-block cluster: the same Bb bond steps under
+// ClusterTeam, the same bits as k12m_kernel (launch bound as K12c's).
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    k12m_cluster_kernel(K12Args<T> a) {
+  __shared__ float red[kMaxThreads];
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
+  block_steps(cluster_team(w.parts, dyn_smem), a, w, red);
+}
+
 // K12c: one bond step (K12m's at Bb = 1) over a thread-block cluster.  The
 // launch bound's one block a SM lets ptxas keep 128 registers (without it,
-// ptxas for sm_90a gave these kernels 64 and spilled).
+// ptxas for sm_90a gave these kernels 64 and spilled).  k12m_cluster_kernel
+// at Bb = 1 computes the same bits, but with b a constant 0 here ptxas
+// spills less (1052 B of stores, not 1888), which keeps this kernel the
+// faster of the two (chip_smoke.py's [k12c-k12cr-cluster] times both).
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads, 1) k12c_kernel(K12Args<T> a) {
   __shared__ float red[kMaxThreads];
@@ -1377,8 +1399,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) k12cr_kernel(K12Args<T> a,
 // ---- host launchers ---------------------------------------------------------
 // The C entry points of bond_step.cu (T = float) and bond_step_c.cu
 // (T = cfloat) forward to these, so one argument list per kernel serves
-// both scalar types.  Each launches one block of kMaxThreads (K12c, K12cr
-// and the cluster K1 and K1b: one cluster of `cluster` blocks of
+// both scalar types.  Each launches one block of kMaxThreads (the cluster
+// K12m, K12c, K12cr, K1 and K1b: one cluster of `cluster` blocks of
 // kMaxThreads) on the caller's stream and returns cudaGetLastError().
 
 // A launch configuration of one cluster of `cluster` blocks with smem bytes
@@ -1508,6 +1530,24 @@ inline int launch_k12m(const void* lhs, const void* center0, const void* envx,
       forward, refresh, q_iters, mse, gd, eta, cutoff, max_rank);
   k12m_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// K12m (K12, K12mc) over one cluster of `cluster` blocks: K12m's operands.
+template <class T>
+inline int launch_k12m_cluster(
+    const void* lhs, const void* center0, const void* envx, const void* env0,
+    const void* ls0, const void* opp_ls, const void* phil, const void* phir,
+    const void* y1h, const void* w, const void* v0, void* center_out,
+    void* core_out, void* env_out, void* ls_out, void* q_out, void* ws,
+    int Bb, int C, int chi, int d, int N, int forward, int refresh,
+    int q_iters, int mse, int gd, float eta, float cutoff, float max_rank,
+    int cluster, void* stream) {
+  const K12Args<T> a = k12m_args<T>(
+      lhs, center0, envx, env0, ls0, opp_ls, phil, phir, y1h, w, v0,
+      center_out, core_out, env_out, ls_out, q_out, ws, Bb, C, chi, d, N,
+      forward, refresh, q_iters, mse, gd, eta, cutoff, max_rank);
+  return launch_cluster(k12m_cluster_kernel<T>, cluster,
+                        stage_smem_bytes<T>(), stream, a);
 }
 
 // K12c: K12m's operands at Bb = 1 over one cluster of `cluster` blocks.

@@ -57,9 +57,10 @@
 // chi = 25, d = 5, N = 100, q = 3) a refresh bond is a chain of ~20 M
 // complex multiply-adds (four real ones each) in ~170 dependent phases (the
 // batch products, q power steps of fourteen Newton-Schulz steps each, the
-// projection, the mask).  On one thread block (K12mc, K1c, K2c and the
-// pieces) every phase is latency-bound on one SM of 132, its products
-// reading both operands from L1/L2 per multiply-add.  BT and its gradient
+// projection, the mask).  On one thread block (K2c and the pieces, and
+// the one-block references of the cluster kernels) every phase is
+// latency-bound on one SM of 132, its products reading both operands from
+// L1/L2 per multiply-add.  BT and its gradient
 // (2 x C*chi*d*d*chi complex values, 500 KB) live in the L2-resident global
 // workspace.  Arithmetic is plain f32 FMA; the block sums use a fixed tree,
 // so results are deterministic.
@@ -93,6 +94,15 @@
 // mpst_k1c_update_launch, stay as the reference the cluster kernels are
 // held against bit for bit; no route of the package launches them.
 //
+// K12mc runs the same way too (mpst_k12mc_cluster_launch, the wrapper's
+// K12MC_CLUSTER): k12m_cluster_kernel at cfloat is the one-block
+// k12m_kernel's loop of Bb bond steps under ClusterTeam, the center,
+// environment and log-scales carried from bond to bond through the outputs
+// behind a cluster barrier, so a frozen block of 4 bonds of the fourier qr
+// fit spreads over the cluster's SMs.  mpst_k12mc_launch stays as its
+// one-block reference.  At Bb = 1 it computes K12c's bits, but slower a
+// bond than k12c_kernel (bond_step.cuh), so K12c keeps its own.
+//
 // C interface (ctypes): pointers as void*, the stream as a void* handle; the
 // launch goes to the caller's current device and returns cudaGetLastError().
 
@@ -125,6 +135,29 @@ int mpst_k12mc_launch(const void* lhs, const void* center0, const void* envx,
       lhs, center0, envx, env0, ls0, nullptr, phil, phir, y1h, w, v0,
       center_out, core_out, env_out, ls_out, q_out, ws, Bb, C, chi, d, N,
       forward, refresh, q_iters, 0, 0, eta, cutoff, max_rank, stream);
+}
+
+// K12mc over one cluster of `cluster` blocks: mpst_k12mc_launch's
+// arguments and the cluster size, the same bits (KLD + TSGO).  Scratch:
+// mpst_c_workspace_floats.
+int mpst_k12mc_cluster_launch(const void* lhs, const void* center0,
+                              const void* envx, const void* env0,
+                              const void* ls0, const void* opp_ls,
+                              const void* phil, const void* phir,
+                              const void* y1h, const void* w, const void* v0,
+                              void* center_out, void* core_out,
+                              void* env_out, void* ls_out, void* q_out,
+                              void* ws, int Bb, int C, int chi, int d, int N,
+                              int forward, int refresh, int q_iters, int mse,
+                              int gd, float eta, float cutoff, float max_rank,
+                              int cluster, void* stream) {
+  (void)opp_ls;
+  if (mse || gd) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k12m_cluster<cfloat>(
+      lhs, center0, envx, env0, ls0, nullptr, phil, phir, y1h, w, v0,
+      center_out, core_out, env_out, ls_out, q_out, ws, Bb, C, chi, d, N,
+      forward, refresh, q_iters, 0, 0, eta, cutoff, max_rank, cluster,
+      stream);
 }
 
 // K1c: emit_y = 0 passes v0 through as Y (frozen bond); qr = 1 leaves Y
@@ -210,11 +243,12 @@ int mpst_k12cr_launch(const void* lhs, const void* center0, const void* envx,
       q_iters, eta, cutoff, max_rank, rounds, cluster, stream);
 }
 
-// How many clusters of `cluster` blocks of a cluster kernel at bond width
-// chi the card holds at once, into *n (0: it cannot place one): kernel 0
-// K12c, 1 K12cr, 2 K1c, 3 K1c-update.  Returns the CUDA error of the query
-// (cudaErrorInvalidValue for another kernel).
-int mpst_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
+// How many clusters of `cluster` blocks of a complex cluster kernel at bond
+// width chi the card holds at once, into *n (0: it cannot place one):
+// kernel 0 K12c, 1 K12cr, 2 K1c, 3 K1c-update, 4 K12mc.
+// Returns the CUDA error of the query (cudaErrorInvalidValue for another
+// kernel); bond_step.cu's mpst_cluster_occupancy answers for the real ones.
+int mpst_c_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
   *n = 0;
   const long stage = mpst::stage_smem_bytes<cfloat>();
   switch (kernel) {
@@ -229,6 +263,9 @@ int mpst_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
                                      cluster, stage, n);
     case 3:
       return mpst::cluster_occupancy(mpst::k1b_cluster_kernel<cfloat>,
+                                     cluster, stage, n);
+    case 4:
+      return mpst::cluster_occupancy(mpst::k12m_cluster_kernel<cfloat>,
                                      cluster, stage, n);
     default:
       return (int)cudaErrorInvalidValue;

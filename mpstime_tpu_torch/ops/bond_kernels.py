@@ -19,7 +19,10 @@ device, K2-env per tile or shard.  Each kernel dispatches on the device of
 the tensors it is given:
 
   * CUDA tensors launch the hand-written kernel (csrc/bond_step.cu), built
-    at first use, or raise.  There is no fallback.
+    at first use, or raise.  There is no fallback.  K12 and K12m run their
+    block of bonds over a thread-block cluster of ``K12M_CLUSTER`` blocks;
+    the one-block K12m (``k12m_block_cuda``) stays as the reference they are
+    held against bit for bit, and no route calls it.
   * CPU tensors take the kernel's plain PyTorch version (``k12_plain``,
     ``k12m_plain``, ``k1_plain``, ``k2_plain``, ``k1a_plain``,
     ``k1b_plain``, ``k2_split_plain``, ``k2_env_plain``,
@@ -27,7 +30,8 @@ the tensors it is given:
     environment functions.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the dispatches to the
-plain versions, so a run can show which path it took.  Operand layouts are
+plain versions, so a run can show which path it took (the one-block K12m
+under "k12m_block").  Operand layouts are
 the JAX kernels': the class-major center [C, chi, d, chi], environments
 [N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and the
 bond tensor and its gradient [C, chi*d, d, chi].
@@ -35,6 +39,8 @@ bond tensor and its gradient [C, chi*d, d, chi].
 
 from __future__ import annotations
 
+import ctypes
+import numbers
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -44,14 +50,15 @@ from .decomp import _qr_orth, warm_iterate, warm_split_left, warm_split_right
 from .env import env_step_left_scaled, env_step_right_scaled
 
 #: Kernel launches per kernel since the last reset_counts().
-#: The complex kernels (ops/bond_kernels_c.py) count here too; "k1c_block"
-#: and "k1c_update_block" count the one-block K1c and K1c-update, which no
-#: route launches (their cluster kernels count under "k1c", "k1c_update").
+#: The complex kernels (ops/bond_kernels_c.py) count here too; "k12m_block",
+#: "k12mc_block", "k1c_block" and "k1c_update_block" count the one-block
+#: K12m, K12mc, K1c and K1c-update, which no route launches (their cluster
+#: kernels count under "k12" and "k12m", "k12mc", "k1c", "k1c_update").
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr",
      "k1a", "k1b", "k2_split", "k2_env", "k1c_grad", "k1c_update",
      "k2c_split", "k2c_env", "k1_tail", "k1c_tail", "k1c_block",
-     "k1c_update_block"), 0)
+     "k1c_update_block", "k12m_block", "k12mc_block"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
@@ -597,18 +604,84 @@ def _cuda_launch(device: torch.device, entry: str,
     return launch, getattr(lib, workspace)
 
 
+#: Thread blocks in the cluster that runs K12m, and K12 (its Bb = 1), from
+#: its times by cluster size on the card (chip_smoke.py's
+#: [k12m-k12mc-cluster]).
+K12M_CLUSTER = 16
+#: The largest cluster a launch may ask for (Hopper's non-portable limit).
+MAX_CLUSTER = 16
+#: Each cluster kernel's occupancy query: the library entry and the kernel's
+#: index there (csrc/bond_step.cu answers for the real cluster K12m, which
+#: K12 launches too, csrc/bond_step_c.cu for the complex kernels).
+_OCCUPANCY = {"k12c": ("mpst_c_cluster_occupancy", 0),
+              "k12cr": ("mpst_c_cluster_occupancy", 1),
+              "k1c": ("mpst_c_cluster_occupancy", 2),
+              "k1c_update": ("mpst_c_cluster_occupancy", 3),
+              "k12m": ("mpst_cluster_occupancy", 0),
+              "k12mc": ("mpst_c_cluster_occupancy", 4)}
+#: The cluster kernels cluster_occupancy answers for.
+CLUSTER_KERNELS = tuple(_OCCUPANCY)
+
+
+def _cluster_size(cluster) -> int:
+    """``cluster`` if it is an integer from 1 to MAX_CLUSTER, else
+    ValueError (before any library load)."""
+    if (isinstance(cluster, bool) or not isinstance(cluster, numbers.Integral)
+            or not 1 <= cluster <= MAX_CLUSTER):
+        raise ValueError(f"cluster must be an integer from 1 to "
+                         f"{MAX_CLUSTER}, got {cluster!r}")
+    return int(cluster)
+
+
+def cluster_occupancy(kernel: str, cluster: int, chi: int) -> int:
+    """How many clusters of ``cluster`` blocks of the cluster kernel
+    ``kernel`` (one of CLUSTER_KERNELS) at bond width ``chi`` the current
+    card holds at once (0: it cannot place one), from
+    ``cudaOccupancyMaxActiveClusters``."""
+    if kernel not in CLUSTER_KERNELS:
+        raise ValueError(f"kernel must be one of {CLUSTER_KERNELS}, got "
+                         f"{kernel!r}")
+    n_blocks = _cluster_size(cluster)
+    from ..kernels.build import load_library
+    lib = load_library()
+    entry, index = _OCCUPANCY[kernel]
+    n = ctypes.c_int(0)
+    rc = getattr(lib, entry)(index, n_blocks, int(chi), ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cluster occupancy query failed: CUDA error {rc} "
+                           f"({lib.mpst_error_string(rc).decode()})")
+    return n.value
+
+
+def _k12m(entry: str, extra: tuple, *args, **kw) -> Out5:
+    """K12m's operands (``_launch_k12m``'s) checked and launched through the
+    library's ``entry``, with ``extra`` after K12m's C arguments (the
+    cluster size)."""
+    launch, wsf = _cuda_launch(args[1].device, entry)
+    return _launch_k12m(*args, launch=lambda *a: launch(*a, *extra),
+                        workspace_floats=wsf, **kw)
+
+
+def _k12m_cluster(cluster, *args, **kw) -> Out5:
+    """K12m's operands (``_launch_k12m``'s) launched over a thread-block
+    cluster of ``cluster`` blocks, checked before the library loads; a
+    cluster the card cannot place raises RuntimeError."""
+    return _k12m("mpst_k12m_cluster_launch", (_cluster_size(cluster),),
+                 *args, **kw)
+
+
 def k12_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
              cutoff, *, forward: bool, refresh: bool = True,
              power_iters: int = 1, max_rank=None, loss: str = "KLD",
              bbopt: str = "TSGO", opp_ls=None) -> Out5:
-    """K12: one bond step as one launch of the block kernel at Bb = 1."""
-    launch, wsf = _cuda_launch(center_c.device, "mpst_k12m_launch")
+    """K12: one bond step as one launch of the cluster K12m at Bb = 1, over
+    ``K12M_CLUSTER`` blocks."""
     env, envx = (le, re) if forward else (re, le)
-    center2, core, env2, ls2, Q = _launch_k12m(
-        A_or_B[None], center_c, envx[None], env, env_ls, opp_ls, phil[None],
-        phir[None], y1h, w, V0[None], eta, cutoff, forward=forward,
-        refresh=refresh, power_iters=power_iters, max_rank=max_rank,
-        loss=loss, bbopt=bbopt, launch=launch, workspace_floats=wsf)
+    center2, core, env2, ls2, Q = _k12m_cluster(
+        K12M_CLUSTER, A_or_B[None], center_c, envx[None], env, env_ls,
+        opp_ls, phil[None], phir[None], y1h, w, V0[None], eta, cutoff,
+        forward=forward, refresh=refresh, power_iters=power_iters,
+        max_rank=max_rank, loss=loss, bbopt=bbopt)
     LAUNCHES["k12"] += 1
     return center2, core[0], env2[0], ls2[0], Q[0]
 
@@ -617,14 +690,31 @@ def k12m_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,
               y1h, w, V0_blk, eta, cutoff, *, forward: bool,
               refresh: bool = True, power_iters: int = 1, max_rank=None,
               bbopt: str = "TSGO") -> Out5:
-    """K12m: Bb consecutive bond steps (KLD) as one launch."""
-    launch, wsf = _cuda_launch(center_c.device, "mpst_k12m_launch")
-    out = _launch_k12m(
-        A_blk, center_c, envx_blk, env0, env_ls0, None, phil_blk, phir_blk,
-        y1h, w, V0_blk, eta, cutoff, forward=forward, refresh=refresh,
-        power_iters=power_iters, max_rank=max_rank, loss="KLD", bbopt=bbopt,
-        launch=launch, workspace_floats=wsf)
+    """K12m: Bb consecutive bond steps (KLD) as one launch of a
+    thread-block cluster of ``K12M_CLUSTER`` blocks."""
+    out = _k12m_cluster(
+        K12M_CLUSTER, A_blk, center_c, envx_blk, env0, env_ls0, None,
+        phil_blk, phir_blk, y1h, w, V0_blk, eta, cutoff, forward=forward,
+        refresh=refresh, power_iters=power_iters, max_rank=max_rank,
+        loss="KLD", bbopt=bbopt)
     LAUNCHES["k12m"] += 1
+    return out
+
+
+def k12m_block_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
+                    phir_blk, y1h, w, V0_blk, eta, cutoff, *, forward: bool,
+                    refresh: bool = True, power_iters: int = 1,
+                    max_rank=None, loss: str = "KLD", bbopt: str = "TSGO",
+                    opp_ls=None) -> Out5:
+    """K12m on one thread block, the reference ``k12_cuda`` and
+    ``k12m_cuda`` are held against bit for bit (no route calls it); K12m's
+    operands, and the MSE loss with ``opp_ls`` as K12's."""
+    out = _k12m(
+        "mpst_k12m_launch", (), A_blk, center_c, envx_blk, env0, env_ls0,
+        opp_ls, phil_blk, phir_blk, y1h, w, V0_blk, eta, cutoff,
+        forward=forward, refresh=refresh, power_iters=power_iters,
+        max_rank=max_rank, loss=loss, bbopt=bbopt)
+    LAUNCHES["k12m_block"] += 1
     return out
 
 

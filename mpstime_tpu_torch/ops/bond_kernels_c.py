@@ -25,9 +25,10 @@ other loss or optimiser with a ValueError.
   * CUDA tensors launch the hand-written kernels (csrc/bond_step_c.cu, the
     real kernels' device functions at a complex scalar), or raise.  There
     is no fallback.  K12c and K12cr run one bond over a thread-block
-    cluster of ``CLUSTER`` blocks, K1c of ``K1C_CLUSTER`` and K1c-update of
-    ``K1C_UPDATE_CLUSTER``; K12mc and the rest over one block.  The
-    one-block K1c and K1c-update (``k1c_block_cuda``,
+    cluster of ``CLUSTER`` blocks, K12mc a block of bonds over
+    ``K12MC_CLUSTER``, K1c over ``K1C_CLUSTER`` and K1c-update over
+    ``K1C_UPDATE_CLUSTER``; the rest over one block.  The one-block K12mc,
+    K1c and K1c-update (``k12mc_block_cuda``, ``k1c_block_cuda``,
     ``k1c_update_block_cuda``) stay as the reference their cluster kernels
     are held against bit for bit; no route calls them.
   * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
@@ -39,22 +40,23 @@ other loss or optimiser with a ValueError.
 
 Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c",
 "k12cr", "k1c_grad", "k1c_update", "k2c_split", "k2c_env" and "k1c_tail" in
-``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS`` (the one-block K1c and
-K1c-update under "k1c_block" and "k1c_update_block").  Operand layouts
-are the real kernels': phil / phir are the conjugated encoded states, the
-center is class-major [C, chi, d, chi], environments [N, chi] with real
-log-scales [N], labels [N, C] and weights [N] real float32.
+``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS`` (the one-block K12mc, K1c and
+K1c-update under "k12mc_block", "k1c_block" and "k1c_update_block").
+Operand layouts are the real kernels': phil / phir are the conjugated
+encoded states, the center is class-major [C, chi, d, chi], environments
+[N, chi] with real log-scales [N], labels [N, C] and weights [N] real
+float32.
 """
 
 from __future__ import annotations
 
-import ctypes
-import numbers
 from typing import Optional, Tuple
 
 import torch
 
 from . import bond_kernels as bk
+from .bond_kernels import (CLUSTER_KERNELS, MAX_CLUSTER,  # noqa: F401
+                           _cluster_size, cluster_occupancy)
 from .decomp import (_JACOBI_ROUNDS, _JACOBI_WARM_ROUNDS, _pairwise_mask,
                      _qr_orth, _ritz_rot_jacobi)
 from .env import env_step_left_scaled, env_step_right_scaled
@@ -150,44 +152,30 @@ def _launcher(device: torch.device, entry: str):
 
 #: Thread blocks in the cluster that runs one bond of K12c or K12cr.
 CLUSTER = 16
-#: Thread blocks in the cluster of K1c and of K1c-update, from their times
-#: by cluster size on the card (chip_smoke.py's [k1c-k1c-update-cluster]).
+#: Thread blocks in the cluster of K1c, of K1c-update and of K12mc, from
+#: their times by cluster size on the card (chip_smoke.py's
+#: [k1c-k1c-update-cluster] and [k12m-k12mc-cluster]).
 K1C_CLUSTER = 16
 K1C_UPDATE_CLUSTER = 16
-#: The largest cluster a launch may ask for (Hopper's non-portable limit).
-MAX_CLUSTER = 16
-#: The cluster kernels, in the order of mpst_cluster_occupancy's index.
-CLUSTER_KERNELS = ("k12c", "k12cr", "k1c", "k1c_update")
+K12MC_CLUSTER = 16
 
 
-def _cluster_size(cluster) -> int:
-    """``cluster`` if it is an integer from 1 to MAX_CLUSTER, else
-    ValueError (before any library load)."""
-    if (isinstance(cluster, bool) or not isinstance(cluster, numbers.Integral)
-            or not 1 <= cluster <= MAX_CLUSTER):
-        raise ValueError(f"cluster must be an integer from 1 to "
-                         f"{MAX_CLUSTER}, got {cluster!r}")
-    return int(cluster)
+def _k12mc(entry, extra, *args, **kw) -> Out5:
+    """K12mc's operands (KLD + TSGO) checked and launched through
+    ``entry``, with ``extra`` after K12mc's C arguments (the Jacobi round
+    count, the cluster size)."""
+    launch, wsf = _launcher(args[1].device, entry)
+    return bk._launch_k12m(*args, loss="KLD", bbopt="TSGO",
+                           launch=lambda *a: launch(*a, *extra),
+                           workspace_floats=wsf, dtype=torch.complex64, **kw)
 
 
-def cluster_occupancy(kernel: str, cluster: int, chi: int) -> int:
-    """How many clusters of ``cluster`` blocks of the cluster kernel
-    ``kernel`` (one of CLUSTER_KERNELS) at bond width ``chi`` the current
-    card holds at once (0: it cannot place one), from
-    ``cudaOccupancyMaxActiveClusters``."""
-    if kernel not in CLUSTER_KERNELS:
-        raise ValueError(f"kernel must be one of {CLUSTER_KERNELS}, got "
-                         f"{kernel!r}")
-    n_blocks = _cluster_size(cluster)
-    from ..kernels.build import load_library
-    lib = load_library()
-    n = ctypes.c_int(0)
-    rc = lib.mpst_cluster_occupancy(CLUSTER_KERNELS.index(kernel), n_blocks,
-                                    int(chi), ctypes.byref(n))
-    if rc != 0:
-        raise RuntimeError(f"cluster occupancy query failed: CUDA error {rc} "
-                           f"({lib.mpst_error_string(rc).decode()})")
-    return n.value
+def _k12mc_cluster(cluster, *args, **kw) -> Out5:
+    """K12mc's operands launched over a thread-block cluster of ``cluster``
+    blocks, checked before the library loads; a cluster the card cannot
+    place raises RuntimeError."""
+    return _k12mc("mpst_k12mc_cluster_launch", (_cluster_size(cluster),),
+                  *args, **kw)
 
 
 def k12c_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
@@ -198,15 +186,13 @@ def k12c_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     of ``cluster`` blocks (default ``CLUSTER``); a cluster the card cannot
     place raises RuntimeError."""
     _check_kld_tsgo(loss, bbopt)
-    launch, wsf = _launcher(center_c.device, "mpst_k12c_launch")
-    n = CLUSTER if cluster is None else int(cluster)
+    n = _cluster_size(CLUSTER if cluster is None else cluster)
     env, envx = (le, re) if forward else (re, le)
-    center2, core, env2, ls2, Q = bk._launch_k12m(
-        A_or_B[None], center_c, envx[None], env, env_ls, None, phil[None],
-        phir[None], y1h, w, V0[None], eta, cutoff, forward=forward,
-        refresh=refresh, power_iters=power_iters, max_rank=max_rank,
-        loss="KLD", bbopt="TSGO", launch=lambda *a: launch(*a, n),
-        workspace_floats=wsf, dtype=torch.complex64)
+    center2, core, env2, ls2, Q = _k12mc(
+        "mpst_k12c_launch", (n,), A_or_B[None], center_c, envx[None], env,
+        env_ls, None, phil[None], phir[None], y1h, w, V0[None], eta, cutoff,
+        forward=forward, refresh=refresh, power_iters=power_iters,
+        max_rank=max_rank)
     bk.LAUNCHES["k12c"] += 1
     return center2, core[0], env2[0], ls2[0], Q[0]
 
@@ -215,15 +201,29 @@ def k12mc_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
                phir_blk, y1h, w, V0_blk, eta, cutoff, *, forward: bool,
                refresh: bool = True, power_iters: int = 1, max_rank=None,
                loss: str = "KLD", bbopt: str = "TSGO") -> Out5:
-    """K12mc: Bb consecutive complex bond steps as one launch."""
+    """K12mc: Bb consecutive complex bond steps as one launch of a
+    thread-block cluster of ``K12MC_CLUSTER`` blocks."""
     _check_kld_tsgo(loss, bbopt)
-    launch, wsf = _launcher(center_c.device, "mpst_k12mc_launch")
-    out = bk._launch_k12m(
-        A_blk, center_c, envx_blk, env0, env_ls0, None, phil_blk, phir_blk,
-        y1h, w, V0_blk, eta, cutoff, forward=forward, refresh=refresh,
-        power_iters=power_iters, max_rank=max_rank, loss="KLD", bbopt="TSGO",
-        launch=launch, workspace_floats=wsf, dtype=torch.complex64)
+    out = _k12mc_cluster(K12MC_CLUSTER, A_blk, center_c, envx_blk, env0,
+                         env_ls0, None, phil_blk, phir_blk, y1h, w, V0_blk,
+                         eta, cutoff, forward=forward, refresh=refresh,
+                         power_iters=power_iters, max_rank=max_rank)
     bk.LAUNCHES["k12mc"] += 1
+    return out
+
+
+def k12mc_block_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
+                     phir_blk, y1h, w, V0_blk, eta, cutoff, *,
+                     forward: bool, refresh: bool = True,
+                     power_iters: int = 1, max_rank=None) -> Out5:
+    """K12mc on one thread block, the reference ``k12mc_cuda`` and
+    ``k12c_cuda`` are held against bit for bit (no route calls it);
+    operands and results as ``k12mc_plain``'s."""
+    out = _k12mc("mpst_k12mc_launch", (), A_blk, center_c, envx_blk, env0,
+                 env_ls0, None, phil_blk, phir_blk, y1h, w, V0_blk, eta,
+                 cutoff, forward=forward, refresh=refresh,
+                 power_iters=power_iters, max_rank=max_rank)
+    bk.LAUNCHES["k12mc_block"] += 1
     return out
 
 
@@ -291,16 +291,13 @@ def k12cr_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     cannot place raises RuntimeError."""
     if rounds < 0:
         raise ValueError(f"rounds must be >= 0, got {rounds}")
-    launch, wsf = _launcher(center_c.device, "mpst_k12cr_launch")
-    n = CLUSTER if cluster is None else int(cluster)
+    n = _cluster_size(CLUSTER if cluster is None else cluster)
     env, envx = (le, re) if forward else (re, le)
-    center2, core, env2, ls2, Q = bk._launch_k12m(
-        A_or_B[None], center_c, envx[None], env, env_ls, None, phil[None],
-        phir[None], y1h, w, V0[None], eta, cutoff, forward=forward,
-        refresh=refresh, power_iters=power_iters, max_rank=max_rank,
-        loss="KLD", bbopt="TSGO",
-        launch=lambda *a: launch(*a, int(rounds), n),
-        workspace_floats=wsf, dtype=torch.complex64)
+    center2, core, env2, ls2, Q = _k12mc(
+        "mpst_k12cr_launch", (int(rounds), n), A_or_B[None], center_c,
+        envx[None], env, env_ls, None, phil[None], phir[None], y1h, w,
+        V0[None], eta, cutoff, forward=forward, refresh=refresh,
+        power_iters=power_iters, max_rank=max_rank)
     bk.LAUNCHES["k12cr"] += 1
     return center2, core[0], env2[0], ls2[0], Q[0]
 

@@ -339,3 +339,76 @@ def test_kernel_eligibility_matches_pallas_conditions():
     assert "track_cost" in note
     assert tsweep.pallas_route_notice(torch.float32, "KLD", "TSGO", 2,
                                       (False, True), "svd", "cpu") is None
+
+
+# ---- the cluster K12 and K12m: entry points ---------------------------------
+
+def _record_launches(monkeypatch):
+    """Replace the library's launchers with ones that record (entry, C
+    arguments) and launch nothing."""
+    calls = []
+
+    def cuda_launch(device, entry, workspace="mpst_k12_workspace_floats"):
+        return (lambda *args: calls.append((entry, args))), (lambda *s: 16)
+
+    monkeypatch.setattr(bk, "_cuda_launch", cuda_launch)
+    return calls
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 8])
+@pytest.mark.parametrize("key", ["k12", "k12m"])
+def test_k12_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
+    """k12_cuda / k12m_cuda (cluster None; 1 and 8 through the cluster
+    launch the checks at other sizes call) launch the cluster entry with
+    the one-block entry's arguments and the cluster size (default
+    K12M_CLUSTER), counted under the kernel's name; k12m_block_cuda
+    launches the one-block entry, counted apart."""
+    calls = _record_launches(monkeypatch)
+    x = _block(71, Bb=1 if key == "k12" else 3)
+    blk = _blk_args(x, torch.from_numpy) + (0.05, 1e-10)
+    kw = dict(forward=True, power_iters=3, max_rank=4, bbopt="GD")
+    if key == "k12":
+        kw.update(loss="MSE", opp_ls=torch.from_numpy(x["opp"]))
+    bk.reset_counts()
+    if cluster is not None:
+        raw = dict(kw, refresh=True, loss=kw.get("loss", "KLD"))
+        opp = raw.pop("opp_ls", None)
+        bk._k12m_cluster(cluster, *blk[:5], opp, *blk[5:], **raw)
+    elif key == "k12":
+        out = bk.k12_cuda(*_single_args(x, True, torch.from_numpy), 0.05,
+                          1e-10, **kw)
+        assert [tuple(o.shape) for o in out] == [(2, 6, 3, 6), (6, 3, 6),
+                                                 (12, 6), (12,), (18, 6)]
+    else:
+        bk.k12m_cuda(*blk, **kw)
+    bk.k12m_block_cuda(*blk, **kw)
+    (e1, a1), (e2, a2) = calls
+    assert (e1, e2) == ("mpst_k12m_cluster_launch", "mpst_k12m_launch")
+    assert a1[:11] == a2[:11]                      # the same operands
+    assert a1[17:-1] == a2[17:]                    # the same sizes and flags
+    assert a1[-1] == (bk.K12M_CLUSTER if cluster is None else cluster)
+    assert (a1[5] is not None) == (key == "k12")   # opp_ls, MSE only
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
+        **({key: 1} if cluster is None else {}), "k12m_block": 1}
+
+
+@pytest.mark.parametrize("route", ["bond_step", "bond_block_steps"])
+def test_routes_on_the_card_reach_the_cluster_k12m(monkeypatch, route):
+    """The fused routes' CUDA dispatch runs the cluster K12m: one K12 for
+    a bond_step off the qr route, one K12m for a block; nothing plain, no
+    one-block launch."""
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(bk, "_device_of", lambda t: "cuda")
+    bk.reset_counts()
+    if route == "bond_step":
+        bk.bond_step(*_single_args(_block(72), False, torch.from_numpy),
+                     0.05, 1e-10, forward=False, orth="ns")
+        key = "k12"
+    else:
+        bk.bond_block_steps(*_blk_args(_block(72, Bb=2), torch.from_numpy),
+                            0.05, 1e-10, forward=False)
+        key = "k12m"
+    assert [(e, a[-1]) for e, a in calls] == [
+        ("mpst_k12m_cluster_launch", bk.K12M_CLUSTER)]
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {key: 1}
+    assert sum(bk.PLAIN_CALLS.values()) == 0

@@ -377,29 +377,71 @@ def _k1c_ops(key, forward=False):
     return (A, center, G, V0, 0.05)
 
 
+def _k12_ops(key):
+    """A bond's operands (K12c, K12cr) or a block of 2 bonds' (K12m,
+    K12mc), complex, or real for the real K12m."""
+    x = _bond(96, Bb=1 if key in ("k12c", "k12cr") else 2)
+    if key == "k12m":
+        x = {k: np.ascontiguousarray(v.real) for k, v in x.items()}
+    if key in ("k12m", "k12mc"):
+        return _torch(x[k] for k in ("A", "center", "envx", "env0", "ls0",
+                                     "phil", "phir", "y1h", "w", "V0"))
+    return _torch(_single(x, False))
+
+
+def _k12m_raw(ops):
+    """A block's operands in the launch helpers' order (opp_ls None, eta,
+    cutoff)."""
+    return ops[:5] + (None,) + ops[5:] + (0.05, 1e-10)
+
+
+#: The keywords of a raw K12m / K12mc launch.
+RAW_KW = dict(forward=False, refresh=True, power_iters=1, max_rank=None)
+
+#: Each cluster wrapper (and the K12m / K12mc cluster launches the checks at
+#: other sizes call) and how it is called with a cluster size.
+CLUSTER_CALLS = {
+    "k1c": lambda n: bkc.k1c_cuda(*_k1c_ops("k1c"), forward=False,
+                                  cluster=n),
+    "k1c_update": lambda n: bkc.k1c_update_cuda(*_k1c_ops("k1c_update"),
+                                                forward=False, cluster=n),
+    "occupancy": lambda n: bkc.cluster_occupancy("k1c", n, CHI),
+    "k12c": lambda n: bkc.k12c_cuda(*_k12_ops("k12c"), 0.05, 1e-10,
+                                    forward=False, cluster=n),
+    "k12cr": lambda n: bkc.k12cr_cuda(*_k12_ops("k12cr"), 0.05, 1e-10,
+                                      forward=False, cluster=n),
+    "k12m": lambda n: bk._k12m_cluster(n, *_k12m_raw(_k12_ops("k12m")),
+                                       loss="KLD", bbopt="TSGO", **RAW_KW),
+    "k12mc": lambda n: bkc._k12mc_cluster(
+        n, *_k12m_raw(_k12_ops("k12mc")), **RAW_KW),
+}
+
+
 @pytest.mark.parametrize("cluster", [0, 17, 32, 4.0, "8", True])
-@pytest.mark.parametrize("call", ["k1c", "k1c_update", "occupancy"])
+@pytest.mark.parametrize("call", list(CLUSTER_CALLS))
 def test_cluster_sizes_are_checked_before_the_library_loads(monkeypatch,
                                                             call, cluster):
     _no_library(monkeypatch)
+    bk.reset_counts()
     with pytest.raises(ValueError, match="from 1 to 16"):
-        if call == "occupancy":
-            bkc.cluster_occupancy("k1c", cluster, CHI)
-        else:
-            cuda = bkc.k1c_cuda if call == "k1c" else bkc.k1c_update_cuda
-            cuda(*_k1c_ops(call), forward=False, cluster=cluster)
+        CLUSTER_CALLS[call](cluster)
+    assert sum(bk.LAUNCHES.values()) == 0
 
 
 def test_cluster_occupancy_names_its_kernel(monkeypatch):
     _no_library(monkeypatch)
-    assert bkc.CLUSTER_KERNELS == ("k12c", "k12cr", "k1c", "k1c_update")
+    assert bkc.CLUSTER_KERNELS == ("k12c", "k12cr", "k1c", "k1c_update",
+                                   "k12m", "k12mc")
     with pytest.raises(ValueError, match="one of"):
-        bkc.cluster_occupancy("k12mc", 4, CHI)
+        bkc.cluster_occupancy("k12m_block", 4, CHI)
 
 
 def test_default_cluster_sizes_lie_in_range():
-    assert bkc.MAX_CLUSTER == 16
-    for n in (bkc.CLUSTER, bkc.K1C_CLUSTER, bkc.K1C_UPDATE_CLUSTER):
+    assert bkc.MAX_CLUSTER == bk.MAX_CLUSTER == 16
+    assert bkc._cluster_size is bk._cluster_size
+    assert bkc.cluster_occupancy is bk.cluster_occupancy
+    for n in (bkc.CLUSTER, bkc.K1C_CLUSTER, bkc.K1C_UPDATE_CLUSTER,
+              bkc.K12MC_CLUSTER, bk.K12M_CLUSTER):
         assert type(n) is int and 1 <= n <= bkc.MAX_CLUSTER
 
 
@@ -438,3 +480,69 @@ def test_k1c_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
     assert a1[-1] == (default if cluster is None else cluster)
     assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
         key: 1, f"{key}_block": 1}
+
+
+# ---- the cluster K12mc: entry points ----------------------------------------
+
+def _record_launches(monkeypatch):
+    """Replace the complex kernels' launcher with one that records (entry,
+    C arguments) and launches nothing."""
+    calls = []
+
+    def launcher(device, entry):
+        return (lambda *args: calls.append((entry, args))), (lambda *s: 16)
+
+    monkeypatch.setattr(bkc, "_launcher", launcher)
+    return calls
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 8])
+@pytest.mark.parametrize("key", ["k12mc", "k12c"])
+def test_k12mc_wrapper_launches_the_cluster_entry(monkeypatch, key, cluster):
+    """k12mc_cuda (cluster None; 1 and 8 through the cluster launch the
+    checks at other sizes call) launches the cluster K12mc entry, and
+    k12c_cuda (a bond, Bb = 1) its own, each with the one-block K12mc
+    entry's arguments and the cluster size (default K12MC_CLUSTER /
+    CLUSTER), counted under the kernel's name; k12mc_block_cuda launches
+    the one-block entry, counted apart."""
+    calls = _record_launches(monkeypatch)
+    kw = dict(forward=True, refresh=False, power_iters=3, max_rank=4)
+    bk.reset_counts()
+    if key == "k12c":
+        ops = _k12_ops("k12c")
+        A, center, le, re, ls, phil, phir, y1h, w, V0 = ops
+        out = bkc.k12c_cuda(*ops, 0.05, 1e-10, cluster=cluster, **kw)
+        ops = (A[None], center, re[None], le, ls, phil[None], phir[None],
+               y1h, w, V0[None])
+        default = bkc.CLUSTER
+    else:
+        ops = _k12_ops("k12mc")
+        out = (bkc.k12mc_cuda(*ops, 0.05, 1e-10, **kw) if cluster is None
+               else bkc._k12mc_cluster(cluster, *_k12m_raw(ops), **kw))
+        default = bkc.K12MC_CLUSTER
+    bkc.k12mc_block_cuda(*ops, 0.05, 1e-10, **kw)
+    assert [t.dtype for t in out] == [torch.complex64] * 3 + [
+        torch.float32, torch.complex64]
+    (e1, a1), (e2, a2) = calls
+    assert (e1, e2) == ("mpst_k12c_launch" if key == "k12c" else
+                        "mpst_k12mc_cluster_launch", "mpst_k12mc_launch")
+    assert a1[:11] == a2[:11]                      # the same operands
+    assert a1[17:-1] == a2[17:]                    # the same sizes and flags
+    assert a1[17] == (1 if key == "k12c" else 2)   # Bb
+    assert a1[-1] == (default if cluster is None else cluster)
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
+        **({key: 1} if key == "k12c" or cluster is None else {}),
+        "k12mc_block": 1}
+
+
+def test_bond_block_steps_c_on_the_card_reaches_the_cluster_k12mc(
+        monkeypatch):
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(bk, "_device_of", lambda t: "cuda")
+    bk.reset_counts()
+    bkc.bond_block_steps_c(*_k12_ops("k12mc"), 0.05, 1e-10, forward=False,
+                           refresh=False, orth="qr")
+    assert [(e, a[-1]) for e, a in calls] == [
+        ("mpst_k12mc_cluster_launch", bkc.K12MC_CLUSTER)]
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {"k12mc": 1}
+    assert sum(bk.PLAIN_CALLS.values()) == 0

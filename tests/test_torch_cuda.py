@@ -2,10 +2,10 @@
 K1b, K2-split, K2-env, the complex K12c, K12mc, K1c, K2c, K12cr, the
 complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env and the split
 tails K1-tail, K1c-tail) held against their plain PyTorch versions on the
-card, and K12c, K12cr, K1c and K1c-update, one bond over a thread-block
-cluster, held bit for bit against their one-block kernels and across
-cluster sizes.  These tests need an NVIDIA GPU with nvcc and skip without
-one.
+card, and the cluster kernels (K12c, K12cr, K1c and K1c-update, one bond
+over a thread-block cluster; K12, K12m and K12mc, a block of bonds) held
+bit for bit against their one-block kernels and across cluster sizes.
+These tests need an NVIDIA GPU with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
 
@@ -610,12 +610,12 @@ def _equal(got, ref):
                                           (False, 1, None), (True, 3, 17)])
 def test_k12c_cluster_equals_k12mc_at_one_block(bkc, forward, refresh, q,
                                                 mr):
-    # K12c runs one bond over a cluster; K12mc at Bb = 1 is the one-block
-    # kernel over the same device functions: the same bits
+    # K12c runs one bond over a cluster; the one-block K12mc at Bb = 1 is
+    # the one-block kernel over the same device functions: the same bits
     x = _inputs_c(31, 1, **SHAPE)
     kw = dict(forward=forward, refresh=refresh, power_iters=q, max_rank=mr)
     got = bkc.k12c_cuda(*_single(x, forward), **kw)
-    one = bkc.k12mc_cuda(*_block(x), **kw)
+    one = bkc.k12mc_block_cuda(*_block(x), **kw)
     torch.cuda.synchronize()
     _equal(got, (one[0],) + tuple(t[0] for t in one[1:]))
 
@@ -635,12 +635,20 @@ def test_k12cr_is_equal_across_cluster_sizes(bkc, shape, forward):
 
 @pytest.mark.parametrize("ritz", [False, True])
 def test_a_cluster_the_card_refuses_raises(bk, bkc, ritz):
+    """A cluster of 32 blocks: the wrapper refuses it (ValueError), and past
+    the wrapper the card refuses the launch itself (RuntimeError);
+    nothing launches, and the next launch runs."""
     x = _inputs_c(33, 1, **(RITZ_SHAPE if ritz else SHAPE))
     step = bkc.k12cr_cuda if ritz else bkc.k12c_cuda
     key = "k12cr" if ritz else "k12c"
     n0 = bk.LAUNCHES[key]
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(ValueError, match="from 1 to 16"):
         step(*_single(x, False), forward=False, cluster=32)
+    entry, extra = (("mpst_k12cr_launch", (6, 32)) if ritz
+                    else ("mpst_k12c_launch", (32,)))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bkc._k12mc(entry, extra, *_raw_block(x), forward=False,
+                   refresh=True, power_iters=1, max_rank=None)
     assert bk.LAUNCHES[key] == n0
     # the refusal leaves no error behind for the next launch
     step(*_single(x, False), forward=False)
@@ -972,3 +980,185 @@ def test_fit_on_the_split_tail_runs_the_tail_kernels(bk, monkeypatch,
     assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), **want}
     assert sum(bk.PLAIN_CALLS.values()) == 0
     assert bool(torch.isfinite(trained.mps.center).all())
+
+
+# ---- K12, K12m and K12mc over a thread-block cluster ----------------------
+
+K12M_GRID = [(True, 1, "TSGO", None), (True, 3, "TSGO", None),
+             (False, 1, "TSGO", None), (True, 1, "GD", None),
+             (True, 3, "TSGO", 17)]
+
+
+def _first(out):
+    """A block's outputs at Bb = 1 as one bond's."""
+    return (out[0],) + tuple(t[0] for t in out[1:])
+
+
+def _raw_block(x):
+    """_block's operands in the launch helpers' order (opp_ls None)."""
+    b = _block(x)
+    return b[:5] + (None,) + b[5:]
+
+
+@pytest.mark.parametrize("Bb", [1, 2, 4, 8])
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh,q,bbopt,mr", K12M_GRID)
+def test_k12m_cluster_equals_one_block(bk, Bb, forward, refresh, q, bbopt,
+                                       mr):
+    # K12 (Bb = 1) and K12m run their bonds over a cluster;
+    # k12m_block_cuda is the one-block kernel over the same device
+    # functions: the same bits, the carried center, environment and
+    # log-scales included
+    x = _inputs(41 + Bb, Bb, **SHAPE)
+    kw = dict(forward=forward, refresh=refresh, power_iters=q, max_rank=mr,
+              bbopt=bbopt)
+    key = "k12" if Bb == 1 else "k12m"
+    n0, b0 = bk.LAUNCHES[key], bk.LAUNCHES["k12m_block"]
+    one = bk.k12m_block_cuda(*_block(x), **kw)
+    if Bb == 1:
+        got, one = bk.k12_cuda(*_single(x, forward), **kw), _first(one)
+    else:
+        got = bk.k12m_cuda(*_block(x), **kw)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES[key], bk.LAUNCHES["k12m_block"]) == (n0 + 1, b0 + 1)
+    _equal(got, one)
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("bbopt", ["TSGO", "GD"])
+def test_k12_mse_cluster_equals_one_block(bk, forward, bbopt):
+    x = _inputs(46, 1, **SHAPE)
+    kw = dict(forward=forward, loss="MSE", bbopt=bbopt, opp_ls=x["opp"])
+    got = bk.k12_cuda(*_single(x, forward), **kw)
+    _equal(got, _first(bk.k12m_block_cuda(*_block(x), **kw)))
+
+
+def test_k12_cluster_equals_one_block_on_the_tie_break(bk):
+    """tests/test_torch_bond_kernels.py's degenerate-spectrum bond (frozen,
+    eta 0, the cutoff inside a tie group): the same bits, and the stable
+    order keeps directions 0..2."""
+    chi, d, C, N = 6, 2, 1, 4
+    wv = np.array([4.0, 2.0, 2.0, 2.0, 1.0, 0.5], np.float32)
+    A = np.zeros((chi, d, chi), np.float32)
+    A.reshape(chi * d, chi)[:chi] = np.eye(chi)
+    center = np.zeros((C, chi, d, chi), np.float32)
+    center[0, :, 0, :] = np.diag(np.sqrt(wv))
+    V0 = np.zeros((d * chi, chi), np.float32)
+    V0[:chi] = np.eye(chi)
+    env = np.zeros((N, chi), np.float32)
+    env[:, 0] = 1.0
+    phi = np.full((N, d), 0.5, np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    A, center, env, ls, phi, y1h, w, V0 = (t(a) for a in (
+        A, center, env, np.zeros(N, np.float32), phi,
+        np.ones((N, C), np.float32), np.full(N, 1.0 / N, np.float32), V0))
+    cutoff = float(np.float32(4.5 / wv.sum()))
+    kw = dict(forward=False, refresh=False)
+    got = bk.k12_cuda(A, center, env, env, ls, phi, phi, y1h, w, V0, 0.0,
+                      cutoff, **kw)
+    one = bk.k12m_block_cuda(A[None], center, env[None], env, ls, phi[None],
+                             phi[None], y1h, w, V0[None], 0.0, cutoff, **kw)
+    _equal(got, _first(one))
+    assert _kept(got[1], False).tolist() == [True] * 3 + [False] * 3
+
+
+@pytest.mark.parametrize("Bb", [1, 2, 3, 4])
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh,q,mr", [(True, 1, None), (True, 3, None),
+                                          (False, 1, None), (True, 3, 17)])
+def test_k12mc_cluster_equals_one_block(bk, bkc, Bb, forward, refresh, q,
+                                        mr):
+    x = _inputs_c(51 + Bb, Bb, **SHAPE)
+    kw = dict(forward=forward, refresh=refresh, power_iters=q, max_rank=mr)
+    n0, b0 = bk.LAUNCHES["k12mc"], bk.LAUNCHES["k12mc_block"]
+    got = bkc.k12mc_cuda(*_block(x), **kw)
+    one = bkc.k12mc_block_cuda(*_block(x), **kw)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES["k12mc"],
+            bk.LAUNCHES["k12mc_block"]) == (n0 + 1, b0 + 1)
+    _equal(got, one)
+
+
+@pytest.mark.parametrize("key", ["k12", "k12m", "k12mc"])
+@pytest.mark.parametrize("forward", [False, True])
+def test_k12m_kernels_equal_across_cluster_sizes(bk, bkc, key, forward):
+    if key == "k12mc":
+        x, block = _inputs_c(56, 4, **SHAPE), bkc.k12mc_block_cuda
+
+        def cluster(n, **kw):
+            return bkc._k12mc_cluster(n, *_raw_block(x), **kw)
+    else:
+        x, block = _inputs(57, 1 if key == "k12" else 4, **SHAPE), \
+            bk.k12m_block_cuda
+
+        def cluster(n, **kw):
+            return bk._k12m_cluster(n, *_raw_block(x), loss="KLD",
+                                    bbopt="TSGO", **kw)
+    kw = dict(forward=forward, refresh=True, power_iters=3, max_rank=None)
+    ref = block(*_block(x), **kw)
+    for n in range(1, 17):
+        if bkc.cluster_occupancy("k12mc" if key == "k12mc" else "k12m", n,
+                                 SHAPE["chi"]) >= 1:
+            _equal(cluster(n, **kw), ref)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("key", ["k12", "k12m", "k12mc"])
+def test_a_k12m_cluster_past_the_limit_is_refused(bk, bkc, key):
+    """A cluster of 32 blocks: the cluster launch the checks at other sizes
+    call refuses it (ValueError), and past that check the card refuses the
+    launch itself (RuntimeError); nothing launches, no one-block kernel
+    stands in, and the next launch of the wrapper runs."""
+    x = (_inputs_c if key == "k12mc" else _inputs)(58, 1, **SHAPE)
+    kw = dict(forward=False, refresh=True, power_iters=1, max_rank=None)
+    if key == "k12mc":
+        checked, entry = bkc._k12mc_cluster, "mpst_k12mc_cluster_launch"
+
+        def raw(n):
+            return bkc._k12mc(entry, (n,), *_raw_block(x), **kw)
+    else:
+        checked, entry = bk._k12m_cluster, "mpst_k12m_cluster_launch"
+        kw.update(loss="KLD", bbopt="TSGO")
+
+        def raw(n):
+            return bk._k12m(entry, (n,), *_raw_block(x), **kw)
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError, match="from 1 to 16"):
+        checked(32, *_raw_block(x), **kw)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        raw(32)
+    assert dict(bk.LAUNCHES) == before
+    if key == "k12":
+        bk.k12_cuda(*_single(x, False), forward=False)
+    else:
+        (bkc.k12mc_cuda if key == "k12mc" else bk.k12m_cuda)(
+            *_block(x), forward=False)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == before[key] + 1
+
+
+def test_fits_launch_no_one_block_k12m(bk):
+    """The default, qr, MSE and fourier qr fits launch K12, K12m and K12mc
+    over a cluster only."""
+    import mpstime_tpu_torch as mt
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40, :24], data["y_train"][:40]
+    opts = mt.MPSOptions(nsweeps=2, chi_max=12, d=3, verbosity=-1,
+                         log_level=-1)
+    counts = {}
+    for name, o in (("default", opts),
+                    ("qr", opts.replace(orth_alg="qr",
+                                        subspace_refresh_every=2)),
+                    ("mse", opts.replace(loss_grad="MSE")),
+                    ("fourier qr", opts.replace(encoding="fourier",
+                                                orth_alg="qr",
+                                                subspace_refresh_every=2))):
+        bk.reset_counts()
+        mt.fit_mps(Xtr, ytr, opts=o, device="cuda")
+        torch.cuda.synchronize()
+        counts[name] = {k: v for k, v in bk.LAUNCHES.items() if v}
+        assert sum(bk.PLAIN_CALLS.values()) == 0
+    assert set(counts["default"]) == {"k12m"}
+    assert set(counts["qr"]) == {"k12m", "k1", "k2"}
+    assert set(counts["mse"]) == {"k12"}
+    assert set(counts["fourier qr"]) == {"k12mc", "k1c", "k2c"}
