@@ -122,6 +122,15 @@ Phases, one status line each; any failure exits non-zero:
      per-call ms of K12 (a refresh bond, q 1), K12m (an 8-bond refresh
      block) and K12mc (a frozen 4-bond block) against their one-block
      kernels in turns, and by cluster size over 5 interleaved rounds.
+ 20. cluster K1a and K1c-grad: each (one shard's gradient over a
+     thread-block cluster) against its one-block kernel bit for bit over
+     both directions x (chi, N) in (25, 100), (25, 50), (25, 32), (128,
+     100), K1a with KLD and MSE (with its log-scales), at the default
+     cluster and at every size the card places; a cluster of 32 blocks
+     refused by the wrapper and, past it, by the card, with nothing
+     launched; the occupancy of clusters; their ptxas entries; per-call ms
+     of each against its one-block kernel in turns, and by cluster size
+     over 5 interleaved rounds.
 Then the ptxas line (registers, static shared memory and spills of each
 kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
@@ -262,7 +271,8 @@ def ptxas_summary(log: str) -> str:
                                      "k1a_kernel", "k1b_kernel",
                                      "k2_split_kernel", "k2_env_kernel",
                                      "k1_tail_kernel", "k1_cluster_kernel",
-                                     "k1b_cluster_kernel") if k in mangled),
+                                     "k1b_cluster_kernel",
+                                     "k1a_cluster_kernel") if k in mangled),
                         mangled)
             name = f"{kern}<{'cfloat' if 'cfloat' in mangled else 'float'}>"
             stores = loads = "0"
@@ -1152,6 +1162,140 @@ def k12m_cluster_phase(card: str, ptxas: str) -> None:
             + f" ms (fastest {min(by_size, key=by_size.get)})")
     print(f"{tag} per call at chi 25: " + "; ".join(lines) + f" ({card})",
           flush=True)
+
+
+def k1a_cluster_phase(card: str, ptxas: str) -> None:
+    """K1a and K1c-grad, one shard's gradient over a thread-block cluster,
+    against their one-block kernels bit for bit over both directions x
+    (chi, N) in (25, 100), (25, 50), (25, 32), (128, 100), K1a with KLD and
+    MSE, at the default cluster and at every size the card places; a
+    cluster of 32 blocks refused by the wrapper and, past it, by the card,
+    with nothing launched; the occupancy of clusters; their ptxas entries;
+    per-call ms of each against its one-block kernel in turns, and by
+    cluster size."""
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    from mpstime_tpu_torch.ops import bond_kernels_c as bkc
+    tag = "[k1a-k1c-grad-cluster]"
+    sizes = (1, 2, 4, 8, 16)
+    names = {"k1a": "K1a", "k1c_grad": "K1c-grad"}
+    cluster_fn = {"k1a": bk.k1a_cuda, "k1c_grad": bkc.k1c_grad_cuda}
+    block_fn = {"k1a": bk.k1a_block_cuda,
+                "k1c_grad": bkc.k1c_grad_block_cuda}
+    default = {"k1a": bk.K1A_CLUSTER, "k1c_grad": bkc.K1C_GRAD_CLUSTER}
+    occ = {(k, n): bk.cluster_occupancy(k, n, SHAPE["chi"])
+           for k in names for n in sizes}
+    placed = {k: [n for n in sizes if occ[(k, n)] >= 1] for k in names}
+    for k in names:
+        check(default[k] in placed[k], f"{names[k]}: the chosen cluster of "
+              f"{default[k]} blocks cannot be placed: {occ}")
+    print(f"{tag} cluster sizes K1a {bk.K1A_CLUSTER}, K1c-grad "
+          f"{bkc.K1C_GRAD_CLUSTER} (blocks of 512 threads); clusters the "
+          "card holds at once (cudaOccupancyMaxActiveClusters) at chi 25, "
+          + "; ".join(f"{names[k]}: " + ", ".join(
+              f"{n}: {occ[(k, n)]}" for n in sizes) for k in names)
+          + f" ({card})", flush=True)
+    if "no log" not in ptxas:
+        mine = [e for e in ptxas.split("; ")
+                if e.startswith("k1a_cluster_kernel")]
+        check(len(mine) == 2, f"ptxas: no entry for the cluster K1a "
+              f"({ptxas})")
+        print(f"{tag} ptxas: " + "; ".join(mine), flush=True)
+
+    def operands(key, seed, forward, shape=SHAPE):
+        """One shard's (or tile's) operands, unit environment rows."""
+        return dp_args(seed, forward, cplx=key == "k1c_grad",
+                       shape=shape)[:9]
+
+    def loss_kw(key, loss):
+        return dict(loss=loss) if key == "k1a" else {}
+
+    n_cases = {}
+    for key, name in names.items():
+        grid = [(chi, N, f, loss)
+                for chi, N in ((25, 100), (25, 50), (25, 32), (128, 100))
+                for f in (False, True)
+                for loss in (("KLD", "MSE") if key == "k1a" else ("KLD",))]
+        for i, (chi, N, forward, loss) in enumerate(grid):
+            args = operands(key, 2300 + i, forward,
+                            dict(SHAPE, chi=chi, N=N))
+            kw = dict(forward=forward, **loss_kw(key, loss))
+            ref = [block_fn[key](*args, **kw)]
+            label = f"{name} chi={chi} N={N} {kw}"
+            equal(f"{label} vs one block", [cluster_fn[key](*args, **kw)],
+                  ref, ("G",))
+            for n in placed[key]:
+                equal(f"{label} cluster {n} vs one block",
+                      [cluster_fn[key](*args, cluster=n, **kw)], ref, ("G",))
+        n_cases[key] = len(grid)
+    torch.cuda.synchronize()
+    refused = {}
+    for key, name in names.items():
+        args = operands(key, 2390, False)
+        # past the wrapper's check, the card refuses the launch itself
+        if key == "k1a":
+            def raw():
+                return bk._k1a("mpst_k1a_cluster_launch", (32,), *args,
+                               forward=False, loss="KLD")
+        else:
+            def raw():
+                return bkc._k1c_grad("mpst_k1c_grad_cluster_launch", (32,),
+                                     *args[:8], forward=False)
+        refused[name] = refusal(
+            name, lambda: cluster_fn[key](*args, forward=False, cluster=32),
+            raw)
+        # the refusal leaves no error behind for the next launch
+        equal(f"{name} after a refusal",
+              [cluster_fn[key](*args, forward=False)],
+              [block_fn[key](*args, forward=False)], ("G",))
+    print(f"{tag} cluster vs one block, torch.equal on G at the default "
+          f"cluster and at every size placed ({placed['k1a']}, "
+          f"{placed['k1c_grad']}): K1a {n_cases['k1a']} cases (both "
+          "directions x (chi 25, N 100, 50, 32; chi 128, N 100) x KLD, MSE "
+          f"with its log-scales), K1c-grad {n_cases['k1c_grad']} cases (both "
+          "directions x the same shapes); a cluster of 32 blocks raises, "
+          "nothing launched: " + "; ".join(f"{k}: {v}"
+                                            for k, v in refused.items()),
+          flush=True)
+
+    lines = []
+    for key, seed in (("k1a", 21), ("k1c_grad", 22)):
+        args = operands(key, seed, False)
+        t_new, t_one = time_turns(
+            lambda: cluster_fn[key](*args, forward=False),
+            lambda: block_fn[key](*args, forward=False), rounds=5, iters=20)
+        # each size timed in 5 interleaved rounds: the sizes' medians and
+        # spreads decide the default, not one timing each
+        rounds = {n: [] for n in placed[key]}
+        for _ in range(5):
+            for n in placed[key]:
+                rounds[n].append(time_ms(lambda: cluster_fn[key](
+                    *args, forward=False, cluster=n)))
+        by_size = {n: statistics.median(t) for n, t in rounds.items()}
+        new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
+        check(new_ms < one_ms, f"{names[key]} (cluster {default[key]}) "
+              f"{new_ms:.3f} ms is not below its one-block kernel "
+              f"({one_ms:.3f} ms)")
+        # the default must be the fastest size, within the two sizes'
+        # spread over their rounds
+        fast, mine = min(by_size, key=by_size.get), rounds[default[key]]
+        spread = max(max(mine) - min(mine),
+                     max(rounds[fast]) - min(rounds[fast]))
+        check(by_size[default[key]] - by_size[fast] <= spread,
+              f"{names[key]}: the default cluster of {default[key]} blocks "
+              f"({by_size[default[key]]:.4f} ms) is slower than {fast} "
+              f"({by_size[fast]:.4f} ms) by more than the spread "
+              f"{spread:.4f} ms")
+        lines.append(
+            f"{names[key]} (cluster {default[key]}): median {new_ms:.4f} "
+            f"({min(t_new):.4f}-{max(t_new):.4f}) ms vs one block "
+            f"{one_ms:.4f} ({min(t_one):.4f}-{max(t_one):.4f}) ms in turns "
+            f"({one_ms / new_ms:.2f}x); by cluster size, median (min-max) "
+            "of 5 interleaved rounds " +
+            ", ".join(f"{n}: {by_size[n]:.4f} ({min(t):.4f}-{max(t):.4f})"
+                      for n, t in rounds.items())
+            + f" ms (fastest {fast})")
+    print(f"{tag} per call, one shard of a backward bond (chi 25, N 100, "
+          "KLD): " + "; ".join(lines) + f" ({card})", flush=True)
 
 
 def main() -> int:
@@ -2044,8 +2188,14 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA}
         busy = sum(dev.values())
         wall = 1e3 * sum(p_info["sweep_seconds"])
-        parts = {k: sum(v for n, v in dev.items() if k + "_kernel" in n)
-                 for k in ("k1a", "k1b", "k2_split", "k2_env")}
+        # K1a runs over a cluster, never on one block
+        check(not any("k1a_kernel" in n for n in dev),
+              f"dp-profile: a one-block K1a ran: {list(dev)}")
+        parts = {k: sum(v for n, v in dev.items() if kern in n)
+                 for k, kern in (("k1a", "k1a_cluster_kernel"),
+                                 ("k1b", "k1b_kernel"),
+                                 ("k2_split", "k2_split_kernel"),
+                                 ("k2_env", "k2_env_kernel"))}
         copies = {n: v for n, v in dev.items() if "emcpy" in n}
         print(f"[dp-profile] one sweep on {label} (default options): device "
               f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
@@ -2257,12 +2407,13 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     check(busy > 0, "complex-dp-profile: no device time traced")
-    # K1c-update runs over a cluster, never on one block
-    check(not any("k1b_kernel" in n for n in dev),
-          f"complex-dp-profile: a one-block K1c-update ran: {list(dev)}")
+    # K1c-grad and K1c-update run over a cluster, never on one block
+    check(not any("k1a_kernel" in n or "k1b_kernel" in n for n in dev),
+          f"complex-dp-profile: a one-block K1c-grad or K1c-update ran: "
+          f"{list(dev)}")
     parts = {k: sum(v for n, v in dev.items() if k in n)
-             for k in ("k1a_kernel", "k1b_cluster_kernel", "k2_split_kernel",
-                       "k2_env_kernel")}
+             for k in ("k1a_cluster_kernel", "k1b_cluster_kernel",
+                       "k2_split_kernel", "k2_env_kernel")}
     print(f"[complex-dp-profile] one fourier sweep on make_mesh(1): device "
           f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
           f"({100 * busy / wall:.1f} %); " + "; ".join(
@@ -2504,6 +2655,9 @@ def main() -> int:
 
     # ---- 19. K12, K12m and K12mc over a thread-block cluster ---------------
     k12m_cluster_phase(card, ptxas)
+
+    # ---- 20. K1a and K1c-grad over a thread-block cluster ------------------
+    k1a_cluster_phase(card, ptxas)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

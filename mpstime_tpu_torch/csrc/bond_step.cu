@@ -60,9 +60,16 @@
 // with the masked isometry Qm written out, K2-env the environment advance
 // through Qm.  At the main-path shape (C = 2, chi = 25, d = 5, N = 100 per
 // shard) K1a is ~7.1 M multiply-adds, K1b ~4.7 M with the Newton-Schulz
-// power step, K2-split ~0.8 M and K2-env ~0.3 M: latency-bound like K12 and
-// run the same way, one thread block per launch.  The gradient G
-// [C, chi*d, d, chi] (250 KB) is the only operand that crosses devices.
+// power step, K2-split ~0.8 M and K2-env ~0.3 M: latency-bound like K12.
+// K1b, K2-split and K2-env run on one thread block.  K1a's work is almost
+// all batch products (BT = core center, T1 = L BT [C, N, P], G = L^H U
+// [C, P, P], each ~16 output tiles of 32 x 64), with no Newton-Schulz
+// chain, so it runs over a thread-block cluster as K12m does
+// (mpst_k1a_cluster_launch, the wrapper's K1A_CLUSTER blocks):
+// k1a_cluster_kernel is k1a_kernel's body under ClusterTeam, the same bits.
+// mpst_k1a_launch stays as that one-block reference; no route of the
+// package launches it.  The gradient G [C, chi*d, d, chi] (250 KB) is the
+// only operand that crosses devices.
 //
 // K1-tail replaces _k1_tail_kernel of the same file: the warm power step of
 // the split-tail route (pallas_bond.py:1320-1372), where K1 or K1b runs with
@@ -126,15 +133,23 @@ int mpst_k12m_cluster_launch(const void* lhs, const void* center0,
 
 // How many clusters of `cluster` blocks of a real cluster kernel the card
 // holds at once, into *n (0: it cannot place one): kernel 0 K12m (and K12,
-// its Bb = 1); chi is unused.  Returns the CUDA error of the query
+// its Bb = 1), 1 K1a; chi is unused.  Returns the CUDA error of the query
 // (cudaErrorInvalidValue for another kernel); bond_step_c.cu's
 // mpst_c_cluster_occupancy answers for the complex ones.
 int mpst_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
   (void)chi;
   *n = 0;
-  if (kernel != 0) return (int)cudaErrorInvalidValue;
-  return mpst::cluster_occupancy(mpst::k12m_cluster_kernel<float>, cluster,
-                                 mpst::stage_smem_bytes<float>(), n);
+  const long stage = mpst::stage_smem_bytes<float>();
+  switch (kernel) {
+    case 0:
+      return mpst::cluster_occupancy(mpst::k12m_cluster_kernel<float>,
+                                     cluster, stage, n);
+    case 1:
+      return mpst::cluster_occupancy(mpst::k1a_cluster_kernel<float>,
+                                     cluster, stage, n);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K1.  gls: [N] total log-scales (MSE only, else null); emit_y = 0 passes
@@ -174,6 +189,21 @@ int mpst_k1a_launch(const void* lhs, const void* center0, const void* le,
   return mpst::launch_k1a<float>(lhs, center0, le, re, gls, phil, phir, y1h,
                                  w, g_out, ws, C, chi, d, N, forward, mse,
                                  stream);
+}
+
+// K1a over one cluster of `cluster` blocks: mpst_k1a_launch's arguments and
+// the cluster size, the same bits (MSE allowed, as K1a takes it).  Scratch:
+// mpst_k12_workspace_floats(C, chi, d, N).
+int mpst_k1a_cluster_launch(const void* lhs, const void* center0,
+                            const void* le, const void* re, const void* gls,
+                            const void* phil, const void* phir,
+                            const void* y1h, const void* w, void* g_out,
+                            void* ws, int C, int chi, int d, int N,
+                            int forward, int mse, int cluster,
+                            void* stream) {
+  return mpst::launch_k1a_cluster<float>(lhs, center0, le, re, gls, phil,
+                                         phir, y1h, w, g_out, ws, C, chi, d,
+                                         N, forward, mse, cluster, stream);
 }
 
 // K1b.  g: the reduced gradient [C, chi*d, d, chi].  Scratch:

@@ -3,9 +3,10 @@
 // parallel and batch-tiled bond steps (K1a, K1b, K2-split, K2-env), the
 // stand-alone power step of the split-tail route (K1-tail), real
 // (float) and complex (cfloat), and the kernels that run a bond over a
-// thread-block cluster: the multi-bond block (K12m, K12 and K12mc) at both
-// scalar types, and the complex bond step (K12c), the tracked-ritz bond step
-// (K12cr) and the complex K1 and K1b (K1c, K1c-update) at cfloat.
+// thread-block cluster: the multi-bond block (K12m, K12 and K12mc) and the
+// batch gradient (K1a, K1c-grad) at both scalar types, and the complex bond
+// step (K12c), the tracked-ritz bond step (K12cr) and the complex K1 and K1b
+// (K1c, K1c-update) at cfloat.
 // See bond_step.cu and bond_step_c.cu for what the kernels replace and how
 // they are bounded; this header holds the math, phase by phase, written once
 // for both scalar types and both teams.
@@ -39,10 +40,10 @@
 // Every device function takes a team, the threads that share one bond:
 // BlockTeam, one thread block (the kernels of one block: the reference
 // K12m, K1, K2, the pieces and the tails), or ClusterTeam, every block of a
-// thread-block cluster (the cluster K12m, K12c, K12cr, K1c and K1c-update).  A
-// thread's index in the team is rank * blockDim.x + threadIdx.x, loops
-// stride over the team's threads, and team.sync() separates the phases
-// (__syncthreads() or the cluster barrier).
+// thread-block cluster (the cluster K12m, K1a, K12c, K12cr, K1c and
+// K1c-update).  A thread's index in the team is rank * blockDim.x +
+// threadIdx.x, loops stride over the team's threads, and team.sync()
+// separates the phases (__syncthreads() or the cluster barrier).
 // The arithmetic of every output does not depend on the team:
 //   * each product output is one thread's sequential chain over k = 0..Kd-1
 //     (no split-K), by one-element-per-thread loads (BlockTeam) or from
@@ -1075,21 +1076,39 @@ __global__ void __launch_bounds__(kMaxThreads) k2_kernel(K12Args<T> a,
 // Only K1a and K2-env touch the batch; K1b and K2-split carve their
 // workspace at N = 0, K2-env at C = 0.
 
-// K1a: the gradient of this shard's batch, G [C, P, P] into g_out, from the
+// K1a: the gradient of this shard's batch, G [C, P, P] into w.G, from the
 // bond tensor of the replicated core and center (left in the workspace).
-// ls0 holds the total log-scales (MSE only).
+// ls0 holds the total log-scales (MSE only).  The body on a team, then the
+// kernel of one block.
+template <class Tm, class T>
+__device__ inline void k1a_body(const Tm& tm, const K12Args<T>& a,
+                                const T* le, const T* re, Work<T> w) {
+  kron_factors(tm, le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
+  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
+  tm.sync();
+  k1_grad(tm, a, a.ls0, w);
+}
+
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k1a_kernel(K12Args<T> a,
                                                           const T* le,
                                                           const T* re,
                                                           T* g_out) {
-  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
   w.G = g_out;
-  kron_factors(tm, le, re, a.phil, a.phir, w, a.chi, a.d, a.N);
-  bond_tensor(tm, a.lhs, a.center0, w, a.C, a.chi, a.d, a.forward);
-  __syncthreads();
-  k1_grad(tm, a, a.ls0, w);
+  k1a_body(BlockTeam{}, a, le, re, w);
+}
+
+// K1a (K1c-grad) over a thread-block cluster: K1a's body and operands under
+// ClusterTeam, g_out written by every block (its gemm tiles), the same bits
+// as k1a_kernel (launch bound as K1c's).
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    k1a_cluster_kernel(K12Args<T> a, const T* le, const T* re, T* g_out) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
+  w.G = g_out;
+  k1a_body(cluster_team(w.parts, dyn_smem), a, le, re, w);
 }
 
 // K1b: the bond tensor, the step against the reduced gradient g, and the
@@ -1400,7 +1419,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) k12cr_kernel(K12Args<T> a,
 // The C entry points of bond_step.cu (T = float) and bond_step_c.cu
 // (T = cfloat) forward to these, so one argument list per kernel serves
 // both scalar types.  Each launches one block of kMaxThreads (the cluster
-// K12m, K12c, K12cr, K1 and K1b: one cluster of `cluster` blocks of
+// K12m, K12c, K12cr, K1, K1a and K1b: one cluster of `cluster` blocks of
 // kMaxThreads) on the caller's stream and returns cudaGetLastError().
 
 // A launch configuration of one cluster of `cluster` blocks with smem bytes
@@ -1691,14 +1710,14 @@ inline int launch_k2(const void* bt, const void* q, const void* env,
   return (int)cudaGetLastError();
 }
 
-// K1a: gls [N] is the total log-scale (MSE only, else null).  Scratch:
-// workspace_floats(C, chi, d, N).
+// The operands of a K1a launch: gls [N] is the total log-scale (MSE only,
+// else null).  Scratch: workspace_floats(C, chi, d, N).
 template <class T>
-inline int launch_k1a(const void* lhs, const void* center0, const void* le,
-                      const void* re, const void* gls, const void* phil,
-                      const void* phir, const void* y1h, const void* w,
-                      void* g_out, void* ws, int C, int chi, int d, int N,
-                      int forward, int mse, void* stream) {
+inline K12Args<T> k1a_args(const void* lhs, const void* center0,
+                           const void* gls, const void* phil,
+                           const void* phir, const void* y1h, const void* w,
+                           void* ws, int C, int chi, int d, int N,
+                           int forward, int mse) {
   K12Args<T> a{};
   a.lhs = static_cast<const T*>(lhs);
   a.center0 = static_cast<const T*>(center0);
@@ -1715,10 +1734,38 @@ inline int launch_k1a(const void* lhs, const void* center0, const void* le,
   a.N = N;
   a.forward = forward;
   a.mse = mse;
+  return a;
+}
+
+template <class T>
+inline int launch_k1a(const void* lhs, const void* center0, const void* le,
+                      const void* re, const void* gls, const void* phil,
+                      const void* phir, const void* y1h, const void* w,
+                      void* g_out, void* ws, int C, int chi, int d, int N,
+                      int forward, int mse, void* stream) {
+  const K12Args<T> a = k1a_args<T>(lhs, center0, gls, phil, phir, y1h, w, ws,
+                                   C, chi, d, N, forward, mse);
   k1a_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const T*>(le), static_cast<const T*>(re),
       static_cast<T*>(g_out));
   return (int)cudaGetLastError();
+}
+
+// K1a (K1c-grad) over one cluster of `cluster` blocks: K1a's operands.
+template <class T>
+inline int launch_k1a_cluster(const void* lhs, const void* center0,
+                              const void* le, const void* re,
+                              const void* gls, const void* phil,
+                              const void* phir, const void* y1h,
+                              const void* w, void* g_out, void* ws, int C,
+                              int chi, int d, int N, int forward, int mse,
+                              int cluster, void* stream) {
+  const K12Args<T> a = k1a_args<T>(lhs, center0, gls, phil, phir, y1h, w, ws,
+                                   C, chi, d, N, forward, mse);
+  return launch_cluster(k1a_cluster_kernel<T>, cluster,
+                        stage_smem_bytes<T>(), stream, a,
+                        static_cast<const T*>(le), static_cast<const T*>(re),
+                        static_cast<T*>(g_out));
 }
 
 // The operands of a K1b launch: g [C, P, P] (passed to the kernel) is the

@@ -28,11 +28,11 @@
 // k1b_kernel, k2_split_kernel, k2_env_kernel) at cfloat, so one shard
 // computes K12c's (ns) and K1c -> QR -> K2c's (qr) arithmetic in the same
 // order.  At the complex main-path shape (N = 100 per shard, q = 3, ns)
-// K1c-grad is ~7.1 M complex multiply-adds, latency-bound on one thread
-// block like the rest, and K1c-update ~13 M (three power steps of fourteen
-// Newton-Schulz steps each, ~150 dependent phases), run over a cluster (see
-// below).  The gradient G (C*chi*d*d*chi complex values, 500 KB) is the one
-// operand that crosses devices.
+// K1c-grad is ~7.1 M complex multiply-adds, almost all batch products, and
+// K1c-update ~13 M (three power steps of fourteen Newton-Schulz steps each,
+// ~150 dependent phases), both run over a cluster (see below).  The
+// gradient G (C*chi*d*d*chi complex values, 500 KB) is the one operand that
+// crosses devices.
 //
 // K1c-tail replaces _k1c_tail_kernel of the same file (_k1c_power,
 // pallas_bond_c.py:250-317): the complex split-tail route runs K1c or
@@ -57,10 +57,10 @@
 // chi = 25, d = 5, N = 100, q = 3) a refresh bond is a chain of ~20 M
 // complex multiply-adds (four real ones each) in ~170 dependent phases (the
 // batch products, q power steps of fourteen Newton-Schulz steps each, the
-// projection, the mask).  On one thread block (K2c and the pieces, and
-// the one-block references of the cluster kernels) every phase is
-// latency-bound on one SM of 132, its products reading both operands from
-// L1/L2 per multiply-add.  BT and its gradient
+// projection, the mask).  On one thread block (K2c, K2c-split, K2c-env,
+// K1c-tail and the one-block references of the cluster kernels) every
+// phase is latency-bound on one SM of 132, its products reading both
+// operands from L1/L2 per multiply-add.  BT and its gradient
 // (2 x C*chi*d*d*chi complex values, 500 KB) live in the L2-resident global
 // workspace.  Arithmetic is plain f32 FMA; the block sums use a fixed tree,
 // so results are deterministic.
@@ -92,7 +92,11 @@
 // a complex dp bond's K1c-update (~150 phases) spread their products over
 // the cluster's SMs.  Their one-block launchers, mpst_k1c_launch and
 // mpst_k1c_update_launch, stay as the reference the cluster kernels are
-// held against bit for bit; no route of the package launches them.
+// held against bit for bit; no route of the package launches them.  So does
+// K1c-grad (mpst_k1c_grad_cluster_launch, the wrapper's K1C_GRAD_CLUSTER):
+// k1a_cluster_kernel at cfloat spreads its three batch products (C*N*P^2
+// and C*P^2*chi complex multiply-adds, ~16 output tiles each) over the
+// cluster's SMs; mpst_k1c_grad_launch stays as its one-block reference.
 //
 // K12mc runs the same way too (mpst_k12mc_cluster_launch, the wrapper's
 // K12MC_CLUSTER): k12m_cluster_kernel at cfloat is the one-block
@@ -245,7 +249,7 @@ int mpst_k12cr_launch(const void* lhs, const void* center0, const void* envx,
 
 // How many clusters of `cluster` blocks of a complex cluster kernel at bond
 // width chi the card holds at once, into *n (0: it cannot place one):
-// kernel 0 K12c, 1 K12cr, 2 K1c, 3 K1c-update, 4 K12mc.
+// kernel 0 K12c, 1 K12cr, 2 K1c, 3 K1c-update, 4 K12mc, 5 K1c-grad.
 // Returns the CUDA error of the query (cudaErrorInvalidValue for another
 // kernel); bond_step.cu's mpst_cluster_occupancy answers for the real ones.
 int mpst_c_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
@@ -267,6 +271,9 @@ int mpst_c_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
     case 4:
       return mpst::cluster_occupancy(mpst::k12m_cluster_kernel<cfloat>,
                                      cluster, stage, n);
+    case 5:
+      return mpst::cluster_occupancy(mpst::k1a_cluster_kernel<cfloat>,
+                                     cluster, stage, n);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -285,6 +292,24 @@ int mpst_k1c_grad_launch(const void* lhs, const void* center0, const void* le,
   return mpst::launch_k1a<cfloat>(lhs, center0, le, re, nullptr, phil, phir,
                                   y1h, w, g_out, ws, C, chi, d, N, forward, 0,
                                   stream);
+}
+
+// K1c-grad over one cluster of `cluster` blocks: mpst_k1c_grad_launch's
+// arguments and the cluster size, the same bits (KLD only).  Scratch:
+// mpst_c_workspace_floats(C, chi, d, N).
+int mpst_k1c_grad_cluster_launch(const void* lhs, const void* center0,
+                                 const void* le, const void* re,
+                                 const void* gls, const void* phil,
+                                 const void* phir, const void* y1h,
+                                 const void* w, void* g_out, void* ws, int C,
+                                 int chi, int d, int N, int forward, int mse,
+                                 int cluster, void* stream) {
+  (void)gls;
+  if (mse) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k1a_cluster<cfloat>(lhs, center0, le, re, nullptr,
+                                          phil, phir, y1h, w, g_out, ws, C,
+                                          chi, d, N, forward, 0, cluster,
+                                          stream);
 }
 
 // K1c-update (K1b at complex64): the TSGO step against the summed gradient

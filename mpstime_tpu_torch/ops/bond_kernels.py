@@ -20,9 +20,10 @@ the tensors it is given:
 
   * CUDA tensors launch the hand-written kernel (csrc/bond_step.cu), built
     at first use, or raise.  There is no fallback.  K12 and K12m run their
-    block of bonds over a thread-block cluster of ``K12M_CLUSTER`` blocks;
-    the one-block K12m (``k12m_block_cuda``) stays as the reference they are
-    held against bit for bit, and no route calls it.
+    block of bonds over a thread-block cluster of ``K12M_CLUSTER`` blocks,
+    K1a its batch gradient over ``K1A_CLUSTER``; the one-block K12m and K1a
+    (``k12m_block_cuda``, ``k1a_block_cuda``) stay as the reference they
+    are held against bit for bit, and no route calls them.
   * CPU tensors take the kernel's plain PyTorch version (``k12_plain``,
     ``k12m_plain``, ``k1_plain``, ``k2_plain``, ``k1a_plain``,
     ``k1b_plain``, ``k2_split_plain``, ``k2_env_plain``,
@@ -31,7 +32,7 @@ the tensors it is given:
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the dispatches to the
 plain versions, so a run can show which path it took (the one-block K12m
-under "k12m_block").  Operand layouts are
+and K1a under "k12m_block" and "k1a_block").  Operand layouts are
 the JAX kernels': the class-major center [C, chi, d, chi], environments
 [N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and the
 bond tensor and its gradient [C, chi*d, d, chi].
@@ -51,14 +52,16 @@ from .env import env_step_left_scaled, env_step_right_scaled
 
 #: Kernel launches per kernel since the last reset_counts().
 #: The complex kernels (ops/bond_kernels_c.py) count here too; "k12m_block",
-#: "k12mc_block", "k1c_block" and "k1c_update_block" count the one-block
-#: K12m, K12mc, K1c and K1c-update, which no route launches (their cluster
-#: kernels count under "k12" and "k12m", "k12mc", "k1c", "k1c_update").
+#: "k12mc_block", "k1c_block", "k1c_update_block", "k1a_block" and
+#: "k1c_grad_block" count the one-block K12m, K12mc, K1c, K1c-update, K1a and
+#: K1c-grad, which no route launches (their cluster kernels count under "k12"
+#: and "k12m", "k12mc", "k1c", "k1c_update", "k1a", "k1c_grad").
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr",
      "k1a", "k1b", "k2_split", "k2_env", "k1c_grad", "k1c_update",
      "k2c_split", "k2c_env", "k1_tail", "k1c_tail", "k1c_block",
-     "k1c_update_block", "k12m_block", "k12mc_block"), 0)
+     "k1c_update_block", "k12m_block", "k12mc_block", "k1a_block",
+     "k1c_grad_block"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
@@ -608,17 +611,22 @@ def _cuda_launch(device: torch.device, entry: str,
 #: its times by cluster size on the card (chip_smoke.py's
 #: [k12m-k12mc-cluster]).
 K12M_CLUSTER = 16
+#: Thread blocks in the cluster of K1a, from its times by cluster size on
+#: the card (chip_smoke.py's [k1a-k1c-grad-cluster]).
+K1A_CLUSTER = 16
 #: The largest cluster a launch may ask for (Hopper's non-portable limit).
 MAX_CLUSTER = 16
 #: Each cluster kernel's occupancy query: the library entry and the kernel's
 #: index there (csrc/bond_step.cu answers for the real cluster K12m, which
-#: K12 launches too, csrc/bond_step_c.cu for the complex kernels).
+#: K12 launches too, and K1a, csrc/bond_step_c.cu for the complex kernels).
 _OCCUPANCY = {"k12c": ("mpst_c_cluster_occupancy", 0),
               "k12cr": ("mpst_c_cluster_occupancy", 1),
               "k1c": ("mpst_c_cluster_occupancy", 2),
               "k1c_update": ("mpst_c_cluster_occupancy", 3),
               "k12m": ("mpst_cluster_occupancy", 0),
-              "k12mc": ("mpst_c_cluster_occupancy", 4)}
+              "k12mc": ("mpst_c_cluster_occupancy", 4),
+              "k1a": ("mpst_cluster_occupancy", 1),
+              "k1c_grad": ("mpst_c_cluster_occupancy", 5)}
 #: The cluster kernels cluster_occupancy answers for.
 CLUSTER_KERNELS = tuple(_OCCUPANCY)
 
@@ -742,14 +750,36 @@ def k2_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
     return out
 
 
+def _k1a(entry: str, extra: tuple, *args, **kw) -> torch.Tensor:
+    """K1a's operands (``_launch_k1a``'s) checked and launched through the
+    library's ``entry``, with ``extra`` after K1a's C arguments (the cluster
+    size)."""
+    launch, wsf = _cuda_launch(args[1].device, entry)
+    return _launch_k1a(*args, launch=lambda *a: launch(*a, *extra),
+                       workspace_floats=wsf, **kw)
+
+
 def k1a_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
-             forward: bool, loss: str = "KLD") -> torch.Tensor:
-    """K1a as one launch; operands and result as ``k1a_plain``'s."""
-    launch, wsf = _cuda_launch(center_c.device, "mpst_k1a_launch")
-    G = _launch_k1a(A_or_B, center_c, le, re, phil, phir, y1h, w, gls,
-                    forward=forward, loss=loss, launch=launch,
-                    workspace_floats=wsf)
+             forward: bool, loss: str = "KLD",
+             cluster: Optional[int] = None) -> torch.Tensor:
+    """K1a as one launch of a thread-block cluster of ``cluster`` blocks
+    (default ``K1A_CLUSTER``); operands and result as ``k1a_plain``'s.  A
+    cluster the card cannot place raises RuntimeError."""
+    n = _cluster_size(K1A_CLUSTER if cluster is None else cluster)
+    G = _k1a("mpst_k1a_cluster_launch", (n,), A_or_B, center_c, le, re, phil,
+             phir, y1h, w, gls, forward=forward, loss=loss)
     LAUNCHES["k1a"] += 1
+    return G
+
+
+def k1a_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
+                   forward: bool, loss: str = "KLD") -> torch.Tensor:
+    """K1a on one thread block, the reference ``k1a_cuda`` is held against
+    bit for bit (no route calls it); operands and result as
+    ``k1a_plain``'s."""
+    G = _k1a("mpst_k1a_launch", (), A_or_B, center_c, le, re, phil, phir, y1h,
+             w, gls, forward=forward, loss=loss)
+    LAUNCHES["k1a_block"] += 1
     return G
 
 

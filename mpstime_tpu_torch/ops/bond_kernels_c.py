@@ -26,10 +26,11 @@ other loss or optimiser with a ValueError.
     real kernels' device functions at a complex scalar), or raise.  There
     is no fallback.  K12c and K12cr run one bond over a thread-block
     cluster of ``CLUSTER`` blocks, K12mc a block of bonds over
-    ``K12MC_CLUSTER``, K1c over ``K1C_CLUSTER`` and K1c-update over
-    ``K1C_UPDATE_CLUSTER``; the rest over one block.  The one-block K12mc,
-    K1c and K1c-update (``k12mc_block_cuda``, ``k1c_block_cuda``,
-    ``k1c_update_block_cuda``) stay as the reference their cluster kernels
+    ``K12MC_CLUSTER``, K1c over ``K1C_CLUSTER``, K1c-update over
+    ``K1C_UPDATE_CLUSTER`` and K1c-grad over ``K1C_GRAD_CLUSTER``; the rest
+    over one block.  The one-block K12mc, K1c, K1c-update and K1c-grad
+    (``k12mc_block_cuda``, ``k1c_block_cuda``, ``k1c_update_block_cuda``,
+    ``k1c_grad_block_cuda``) stay as the reference their cluster kernels
     are held against bit for bit; no route calls them.
   * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
     ``k1c_plain``, ``k2c_plain``, ``k12cr_plain``, ``k1c_grad_plain``,
@@ -40,8 +41,9 @@ other loss or optimiser with a ValueError.
 
 Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c",
 "k12cr", "k1c_grad", "k1c_update", "k2c_split", "k2c_env" and "k1c_tail" in
-``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS`` (the one-block K12mc, K1c and
-K1c-update under "k12mc_block", "k1c_block" and "k1c_update_block").
+``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS`` (the one-block K12mc, K1c,
+K1c-update and K1c-grad under "k12mc_block", "k1c_block",
+"k1c_update_block" and "k1c_grad_block").
 Operand layouts are the real kernels': phil / phir are the conjugated
 encoded states, the center is class-major [C, chi, d, chi], environments
 [N, chi] with real log-scales [N], labels [N, C] and weights [N] real
@@ -152,12 +154,14 @@ def _launcher(device: torch.device, entry: str):
 
 #: Thread blocks in the cluster that runs one bond of K12c or K12cr.
 CLUSTER = 16
-#: Thread blocks in the cluster of K1c, of K1c-update and of K12mc, from
-#: their times by cluster size on the card (chip_smoke.py's
-#: [k1c-k1c-update-cluster] and [k12m-k12mc-cluster]).
+#: Thread blocks in the cluster of K1c, of K1c-update, of K12mc and of
+#: K1c-grad, from their times by cluster size on the card (chip_smoke.py's
+#: [k1c-k1c-update-cluster], [k12m-k12mc-cluster] and
+#: [k1a-k1c-grad-cluster]).
 K1C_CLUSTER = 16
 K1C_UPDATE_CLUSTER = 16
 K12MC_CLUSTER = 16
+K1C_GRAD_CLUSTER = 16
 
 
 def _k12mc(entry, extra, *args, **kw) -> Out5:
@@ -302,16 +306,40 @@ def k12cr_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     return center2, core[0], env2[0], ls2[0], Q[0]
 
 
+def _k1c_grad(entry, extra, A_or_B, center_c, le, re, phil, phir, y1h, w,
+              *, forward: bool) -> torch.Tensor:
+    """K1c-grad's operands checked and launched through ``entry``, with
+    ``extra`` after K1c-grad's C arguments (the cluster size)."""
+    launch, wsf = _launcher(center_c.device, entry)
+    return bk._launch_k1a(A_or_B, center_c, le, re, phil, phir, y1h, w, None,
+                          forward=forward, loss="KLD",
+                          launch=lambda *a: launch(*a, *extra),
+                          workspace_floats=wsf, dtype=torch.complex64)
+
+
 def k1c_grad_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
-                  forward: bool, loss: str = "KLD") -> torch.Tensor:
-    """K1c-grad as one launch; operands and result as ``k1c_grad_plain``'s
-    (``gls`` is not read)."""
+                  forward: bool, loss: str = "KLD",
+                  cluster: Optional[int] = None) -> torch.Tensor:
+    """K1c-grad as one launch of a thread-block cluster of ``cluster``
+    blocks (default ``K1C_GRAD_CLUSTER``); operands and result as
+    ``k1c_grad_plain``'s (``gls`` is not read).  A cluster the card cannot
+    place raises RuntimeError."""
     _check_kld_tsgo(loss, "TSGO")
-    launch, wsf = _launcher(center_c.device, "mpst_k1c_grad_launch")
-    G = bk._launch_k1a(A_or_B, center_c, le, re, phil, phir, y1h, w, None,
-                       forward=forward, loss="KLD", launch=launch,
-                       workspace_floats=wsf, dtype=torch.complex64)
+    n = _cluster_size(K1C_GRAD_CLUSTER if cluster is None else cluster)
+    G = _k1c_grad("mpst_k1c_grad_cluster_launch", (n,), A_or_B, center_c, le,
+                  re, phil, phir, y1h, w, forward=forward)
     bk.LAUNCHES["k1c_grad"] += 1
+    return G
+
+
+def k1c_grad_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls,
+                        *, forward: bool) -> torch.Tensor:
+    """K1c-grad on one thread block, the reference ``k1c_grad_cuda`` is
+    held against bit for bit (no route calls it); operands and result as
+    ``k1c_grad_plain``'s (``gls`` is not read)."""
+    G = _k1c_grad("mpst_k1c_grad_launch", (), A_or_B, center_c, le, re, phil,
+                  phir, y1h, w, forward=forward)
+    bk.LAUNCHES["k1c_grad_block"] += 1
     return G
 
 

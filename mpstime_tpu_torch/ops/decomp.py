@@ -221,7 +221,7 @@ def _pad_rows(X: torch.Tensor, n: int) -> torch.Tensor:
 
 def warm_split_left(M: torch.Tensor, V0: torch.Tensor, keep: int, cutoff,
                     q: int = 1, refresh: bool = True, max_rank=None,
-                    orth: str = "ns"
+                    orth: str = "qr"
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Warm-started eigh-free split (column side) of M [R, C] against the
     previous sweep's subspace V0 [C, keep].  Returns (US, Vh, V_next), where
@@ -241,7 +241,7 @@ def warm_split_left(M: torch.Tensor, V0: torch.Tensor, keep: int, cutoff,
 
 def warm_split_right(M: torch.Tensor, U0: torch.Tensor, keep: int, cutoff,
                      q: int = 1, refresh: bool = True, max_rank=None,
-                     orth: str = "ns"
+                     orth: str = "qr"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Mirror of :func:`warm_split_left` on the row side; U0 [R, keep]."""
     k = min(keep, M.shape[0])

@@ -377,6 +377,16 @@ def _k1c_ops(key, forward=False):
     return (A, center, G, V0, 0.05)
 
 
+def _k1a_ops(key):
+    """K1c-grad's operands, or K1a's (their real parts) with the log-scales
+    as gls."""
+    x = _bond(97)
+    if key == "k1a":
+        x = {k: np.ascontiguousarray(v.real) for k, v in x.items()}
+    A, center, le, re, ls, phil, phir, y1h, w, _ = _torch(_single(x, False))
+    return (A, center, le, re, phil, phir, y1h, w, ls)
+
+
 def _k12_ops(key):
     """A bond's operands (K12c, K12cr) or a block of 2 bonds' (K12m,
     K12mc), complex, or real for the real K12m."""
@@ -405,6 +415,9 @@ CLUSTER_CALLS = {
                                   cluster=n),
     "k1c_update": lambda n: bkc.k1c_update_cuda(*_k1c_ops("k1c_update"),
                                                 forward=False, cluster=n),
+    "k1a": lambda n: bk.k1a_cuda(*_k1a_ops("k1a"), forward=False, cluster=n),
+    "k1c_grad": lambda n: bkc.k1c_grad_cuda(*_k1a_ops("k1c_grad"),
+                                            forward=False, cluster=n),
     "occupancy": lambda n: bkc.cluster_occupancy("k1c", n, CHI),
     "k12c": lambda n: bkc.k12c_cuda(*_k12_ops("k12c"), 0.05, 1e-10,
                                     forward=False, cluster=n),
@@ -431,7 +444,7 @@ def test_cluster_sizes_are_checked_before_the_library_loads(monkeypatch,
 def test_cluster_occupancy_names_its_kernel(monkeypatch):
     _no_library(monkeypatch)
     assert bkc.CLUSTER_KERNELS == ("k12c", "k12cr", "k1c", "k1c_update",
-                                   "k12m", "k12mc")
+                                   "k12m", "k12mc", "k1a", "k1c_grad")
     with pytest.raises(ValueError, match="one of"):
         bkc.cluster_occupancy("k12m_block", 4, CHI)
 
@@ -441,7 +454,8 @@ def test_default_cluster_sizes_lie_in_range():
     assert bkc._cluster_size is bk._cluster_size
     assert bkc.cluster_occupancy is bk.cluster_occupancy
     for n in (bkc.CLUSTER, bkc.K1C_CLUSTER, bkc.K1C_UPDATE_CLUSTER,
-              bkc.K12MC_CLUSTER, bk.K12M_CLUSTER):
+              bkc.K12MC_CLUSTER, bk.K12M_CLUSTER, bk.K1A_CLUSTER,
+              bkc.K1C_GRAD_CLUSTER):
         assert type(n) is int and 1 <= n <= bkc.MAX_CLUSTER
 
 
@@ -478,6 +492,45 @@ def test_k1c_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
     assert a1[:n_in] == a2[:n_in]                  # the same operands
     assert a1[n_in + 3:-1] == a2[n_in + 3:]        # the same sizes and flags
     assert a1[-1] == (default if cluster is None else cluster)
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
+        key: 1, f"{key}_block": 1}
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 8])
+@pytest.mark.parametrize("key", ["k1a", "k1c_grad"])
+def test_k1a_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
+    """k1a_cuda / k1c_grad_cuda launch the cluster entry with the one-block
+    entry's arguments and the cluster size (default K1A_CLUSTER /
+    K1C_GRAD_CLUSTER), counted under the kernel's name; the one-block
+    wrappers launch the one-block entry, counted apart.  The dp route's K1a
+    piece is the cluster wrapper, real and complex."""
+    calls = []
+
+    def launcher(device, entry, workspace=None):
+        return (lambda *args: calls.append((entry, args))), (lambda *s: 16)
+
+    ops = _k1a_ops(key)
+    if key == "k1a":
+        monkeypatch.setattr(bk, "_cuda_launch", launcher)
+        cuda, block, default = bk.k1a_cuda, bk.k1a_block_cuda, bk.K1A_CLUSTER
+        kw = dict(forward=True, loss="MSE")
+        assert bk._PIECES["k1a"][2] is cuda
+    else:
+        monkeypatch.setattr(bkc, "_launcher", launcher)
+        cuda, block = bkc.k1c_grad_cuda, bkc.k1c_grad_block_cuda
+        default, kw = bkc.K1C_GRAD_CLUSTER, dict(forward=True)
+        assert bkc.PIECES["k1a"][2] is cuda
+    bk.reset_counts()
+    G = cuda(*ops, cluster=cluster, **kw)
+    block(*ops, **kw)
+    assert G.shape == (C, CHI * D, D, CHI) and G.dtype == ops[1].dtype
+    (e1, a1), (e2, a2) = calls
+    assert (e1, e2) == (f"mpst_{key}_cluster_launch", f"mpst_{key}_launch")
+    assert a1[:9] == a2[:9]                        # the same operands
+    assert (a1[4] is not None) == (key == "k1a")   # gls, MSE only
+    assert a1[11:-1] == a2[11:]                    # the same sizes and flags
+    assert a1[-2:] == (int(key == "k1a"), default if cluster is None
+                       else cluster)               # mse, cluster size
     assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
         key: 1, f"{key}_block": 1}
 

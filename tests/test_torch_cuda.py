@@ -3,8 +3,9 @@ K1b, K2-split, K2-env, the complex K12c, K12mc, K1c, K2c, K12cr, the
 complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env and the split
 tails K1-tail, K1c-tail) held against their plain PyTorch versions on the
 card, and the cluster kernels (K12c, K12cr, K1c and K1c-update, one bond
-over a thread-block cluster; K12, K12m and K12mc, a block of bonds) held
-bit for bit against their one-block kernels and across cluster sizes.
+over a thread-block cluster; K12, K12m and K12mc, a block of bonds; K1a
+and K1c-grad, one shard's gradient) held bit for bit against their
+one-block kernels and across cluster sizes.
 These tests need an NVIDIA GPU with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
@@ -331,6 +332,8 @@ def test_mesh_fit_on_one_card_runs_the_dp_kernels(bk, n):
     assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0), "k1a": n * bonds,
                            "k1b": bonds, "k2_split": bonds,
                            "k2_env": n * bonds}
+    # K1a and K1c-grad run over a cluster, never on one block
+    assert bk.LAUNCHES["k1a_block"] == bk.LAUNCHES["k1c_grad_block"] == 0
     assert sum(bk.PLAIN_CALLS.values()) == 0
     assert trained.mps.center.is_cuda and len(info["sweep_seconds"]) == 3
     assert np.mean(mt.classify(trained, Xtr) == ytr) >= 0.9
@@ -761,6 +764,89 @@ def test_complex_fits_launch_no_one_block_k1c(bk):
     assert bk.LAUNCHES["k1c_block"] == bk.LAUNCHES["k1c_update_block"] == 0
 
 
+# ---- K1a and K1c-grad over a thread-block cluster ---------------------------
+
+def _k1a_operands(key, seed, forward, N=SHAPE["N"], chi=SHAPE["chi"]):
+    """K1a's (real, gls the total log-scale) or K1c-grad's (complex)
+    operands with N rows of unit environments, as a shard or a stream tile
+    hands them over: (A, center, le, re, phil, phir, y1h, w, gls)."""
+    x = (_inputs if key == "k1a" else _inputs_c)(
+        seed, 1, **dict(SHAPE, N=N, chi=chi))
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    le, re = (t / t.norm(dim=1, keepdim=True) for t in (le, re))
+    gls = x["ls0"] + x["opp"] if key == "k1a" else x["ls0"]
+    return (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+            x["y1h"], x["w"], gls)
+
+
+def _k1a_fns(bk, bkc, key):
+    """(cluster wrapper, one-block wrapper) of K1a or K1c-grad."""
+    if key == "k1a":
+        return bk.k1a_cuda, bk.k1a_block_cuda
+    return bkc.k1c_grad_cuda, bkc.k1c_grad_block_cuda
+
+
+#: (kernel, loss, N): one shard of 100 rows and a stream tile of 32, MSE
+#: (with its log-scales) for the real K1a only
+K1A_CASES = [("k1a", "KLD", 100), ("k1a", "MSE", 100), ("k1a", "KLD", 32),
+             ("k1a", "MSE", 32), ("k1c_grad", "KLD", 100),
+             ("k1c_grad", "KLD", 32)]
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("key,loss,N", K1A_CASES)
+def test_k1a_cluster_equals_one_block(bk, bkc, forward, key, loss, N):
+    # K1a and K1c-grad run one shard's gradient over a cluster; the
+    # one-block kernel is k1a_kernel over the same device functions: the
+    # same bits
+    cuda, block = _k1a_fns(bk, bkc, key)
+    args = _k1a_operands(key, 38, forward, N)
+    kw = dict(forward=forward, loss=loss)
+    n0, b0 = bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]
+    got = cuda(*args, **kw)
+    one = block(*args, **(kw if key == "k1a" else dict(forward=forward)))
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]) == (n0 + 1,
+                                                               b0 + 1)
+    _equal([got], [one])
+
+
+@pytest.mark.parametrize("key", ["k1a", "k1c_grad"])
+@pytest.mark.parametrize("forward", [False, True])
+def test_k1a_kernels_equal_across_cluster_sizes(bk, bkc, key, forward):
+    cuda, block = _k1a_fns(bk, bkc, key)
+    args = _k1a_operands(key, 39, forward)
+    ref = block(*args, forward=forward)
+    for n in range(1, 17):
+        if bkc.cluster_occupancy(key, n, SHAPE["chi"]) >= 1:
+            _equal([cuda(*args, forward=forward, cluster=n)], [ref])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("key", ["k1a", "k1c_grad"])
+def test_a_k1a_cluster_past_the_limit_is_refused(bk, bkc, key):
+    """A cluster of 32 blocks: the wrapper refuses it (ValueError), and the
+    card refuses the launch itself (RuntimeError); nothing launches, no
+    one-block kernel stands in, and the next launch runs."""
+    cuda, _ = _k1a_fns(bk, bkc, key)
+    args = _k1a_operands(key, 40, False)
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError, match="from 1 to 16"):
+        cuda(*args, forward=False, cluster=32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        if key == "k1a":
+            bk._k1a("mpst_k1a_cluster_launch", (32,), *args, forward=False,
+                    loss="KLD")
+        else:
+            bkc._k1c_grad("mpst_k1c_grad_cluster_launch", (32,), *args[:8],
+                          forward=False)
+    assert dict(bk.LAUNCHES) == before
+    cuda(*args, forward=False)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == before[key] + 1
+
+
 # ---- the complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env --------
 
 def _dp_inputs_c(seed, forward):
@@ -866,6 +952,7 @@ def test_complex_mesh_fit_on_one_card_runs_the_complex_dp_kernels(bk, n):
     assert bk.LAUNCHES == {**dict.fromkeys(bk.LAUNCHES, 0),
                            "k1c_grad": n * bonds, "k1c_update": bonds,
                            "k2c_split": bonds, "k2c_env": n * bonds}
+    assert bk.LAUNCHES["k1a_block"] == bk.LAUNCHES["k1c_grad_block"] == 0
     assert sum(bk.PLAIN_CALLS.values()) == 0 and mesh.reductions == bonds
     assert trained.mps.center.dtype == torch.complex64
     assert bool(torch.isfinite(trained.mps.center).all())

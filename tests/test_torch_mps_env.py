@@ -210,3 +210,21 @@ def test_warm_split_matches_jax_f64(side, refresh, q, mr):
     for a, b in zip(outt, outj):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-8,
                                    atol=1e-10)
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_warm_split_defaults_match_jax_f64(side):
+    # both packages at their own defaults (orth, q, refresh, max_rank
+    # omitted): the port's orth default is JAX's "qr"; with "ns" in the port
+    # the outputs differed by up to 6.32 (US) and 0.862 (Vh, V_next)
+    rng = np.random.default_rng(43)
+    M = rng.standard_normal((40, 30))
+    V0 = np.asarray(jdec.warm_sketch_init(30 if side == "left" else 40, 8,
+                                          np.float64))
+    fj = getattr(jdec, f"warm_split_{side}")
+    ft = getattr(tdec, f"warm_split_{side}")
+    outj = fj(jnp.asarray(M), jnp.asarray(V0), 8, 1e-10)
+    outt = ft(_t(M), _t(V0), 8, 1e-10)
+    for a, b in zip(outt, outj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-12)
