@@ -131,6 +131,21 @@ Phases, one status line each; any failure exits non-zero:
      launched; the occupancy of clusters; their ptxas entries; per-call ms
      of each against its one-block kernel in turns, and by cluster size
      over 5 interleaved rounds.
+ 21. cluster K1 and K1b: each (one real bond update over a thread-block
+     cluster) against its one-block kernel bit for bit, both outputs (BT,
+     Y), over both directions x (emit_y, q, orth) in (1, 1, qr), (1, 3,
+     qr), (0, 1, qr), (1, 1, ns), (1, 3, ns) at the main-path shape, GD at
+     (1, 1, qr) and q 3 (qr and ns) at chi 128; K1 also with MSE (its
+     log-scales), N 50 and 32 at (1, 1, qr) and a backward bond at chi 192
+     (q 1, qr); K1b's gradient from the cluster K1a on the same inputs; at
+     the default cluster and at every size the card places; a cluster of
+     32 blocks refused by the wrapper and, past it, by the card, with
+     nothing launched; the occupancy of clusters; their ptxas entries;
+     per-call ms of each against its one-block kernel in turns (K1 the qr
+     refresh bond, K1b the dp bond under ns), and by cluster size over 5
+     interleaved rounds; fails unless each cluster kernel beats its
+     one-block kernel and each default size is the fastest within the
+     spread.
 Then the ptxas line (registers, static shared memory and spills of each
 kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
@@ -564,6 +579,41 @@ def time_turns(fused, split, rounds: int, iters: int):
     return tf, ts
 
 
+def time_cluster(name, cluster_call, block_call, sized_call, sizes,
+                 default: int) -> str:
+    """Per-call ms of the cluster kernel ``name`` (``cluster_call``, at its
+    default size ``default``) against its one-block kernel (``block_call``)
+    in turns over 5 rounds, and at each cluster size in ``sizes``
+    (``sized_call(n)``) over 5 interleaved rounds; fails unless the cluster
+    beats one block and the default is the fastest size within the spread
+    of their rounds.  Returns the report."""
+    t_new, t_one = time_turns(cluster_call, block_call, rounds=5, iters=20)
+    # each size timed in 5 interleaved rounds: the sizes' medians and
+    # spreads decide the default, not one timing each
+    rounds = {n: [] for n in sizes}
+    for _ in range(5):
+        for n in sizes:
+            rounds[n].append(time_ms(lambda: sized_call(n)))
+    by_size = {n: statistics.median(t) for n, t in rounds.items()}
+    new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
+    check(new_ms < one_ms, f"{name} (cluster {default}) {new_ms:.3f} ms is "
+          f"not below its one-block kernel ({one_ms:.3f} ms)")
+    # the default must be the fastest size, within the two sizes' spread
+    # over their rounds
+    fast, mine = min(by_size, key=by_size.get), rounds[default]
+    spread = max(max(mine) - min(mine), max(rounds[fast]) - min(rounds[fast]))
+    check(by_size[default] - by_size[fast] <= spread,
+          f"{name}: the default cluster of {default} blocks "
+          f"({by_size[default]:.4f} ms) is slower than {fast} "
+          f"({by_size[fast]:.4f} ms) by more than the spread {spread:.4f} ms")
+    return (f"median {new_ms:.4f} ({min(t_new):.4f}-{max(t_new):.4f}) ms vs "
+            f"one block {one_ms:.4f} ({min(t_one):.4f}-{max(t_one):.4f}) ms "
+            f"in turns ({one_ms / new_ms:.2f}x); by cluster size, median "
+            "(min-max) of 5 interleaved rounds " +
+            ", ".join(f"{n}: {by_size[n]:.4f} ({min(t):.4f}-{max(t):.4f})"
+                      for n, t in rounds.items()) + f" ms (fastest {fast})")
+
+
 def split_wins_from(timed):
     """The smallest chi from which the split form beats the fused one by
     more than the run-to-run spread (the medians apart by more than either
@@ -842,9 +892,10 @@ def k1c_cluster_phase(card: str, ptxas: str) -> None:
           + f" ({card})", flush=True)
     if "no log" not in ptxas:
         mine = [e for e in ptxas.split("; ")
-                if e.startswith(("k1_cluster_kernel", "k1b_cluster_kernel"))]
-        check(len(mine) == 2, f"ptxas: no entry for the cluster kernels "
-              f"({ptxas})")
+                if e.startswith(("k1_cluster_kernel<cfloat>",
+                                 "k1b_cluster_kernel<cfloat>"))]
+        check(len(mine) == 2, f"ptxas: no entry for the complex cluster "
+              f"kernels ({ptxas})")
         print(f"{tag} ptxas: " + "; ".join(mine), flush=True)
 
     def operands(key, seed, shape, forward):
@@ -1126,40 +1177,11 @@ def k12m_cluster_phase(card: str, ptxas: str) -> None:
                                                max_rank=None, **kwf),
                   lambda: bkc.k12mc_block_cuda(*k12m_args(xc4), **kwf),
                   "k12mc", "a frozen 4-bond backward block")}
-    lines = []
-    for name, (wrapper_fn, sized_fn, block_fn, kern, what) in timed.items():
-        # in turns, 5 rounds: cluster, block, block, cluster
-        t_new, t_one = time_turns(wrapper_fn, block_fn, rounds=5, iters=20)
-        # each size timed in 5 interleaved rounds: the sizes' medians and
-        # spreads decide the default, not one timing each
-        rounds = {n: [] for n in placed[kern]}
-        for _ in range(5):
-            for n in placed[kern]:
-                rounds[n].append(time_ms(lambda: sized_fn(n)))
-        by_size = {n: statistics.median(t) for n, t in rounds.items()}
-        new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
-        check(new_ms < one_ms, f"{name} (cluster {default[name]}) "
-              f"{new_ms:.3f} ms is not below its one-block kernel "
-              f"({one_ms:.3f} ms)")
-        # the default must be the fastest size, within the two sizes'
-        # spread over their rounds
-        fast, mine = min(by_size, key=by_size.get), rounds[default[name]]
-        spread = max(max(mine) - min(mine),
-                     max(rounds[fast]) - min(rounds[fast]))
-        check(by_size[default[name]] - by_size[fast] <= spread,
-              f"{name}: the default cluster of {default[name]} blocks "
-              f"({by_size[default[name]]:.4f} ms) is slower than {fast} "
-              f"({by_size[fast]:.4f} ms) by more than the spread "
-              f"{spread:.4f} ms")
-        lines.append(
-            f"{name}, {what} (cluster {default[name]}): median "
-            f"{new_ms:.4f} ({min(t_new):.4f}-{max(t_new):.4f}) ms vs one "
-            f"block {one_ms:.4f} ({min(t_one):.4f}-{max(t_one):.4f}) ms "
-            f"in turns ({one_ms / new_ms:.2f}x); by cluster size, median "
-            "(min-max) of 5 interleaved rounds " +
-            ", ".join(f"{n}: {by_size[n]:.4f} ({min(t):.4f}-{max(t):.4f})"
-                      for n, t in rounds.items())
-            + f" ms (fastest {min(by_size, key=by_size.get)})")
+    lines = [f"{name}, {what} (cluster {default[name]}): " + time_cluster(
+                 name, wrapper_fn, block_fn, sized_fn, placed[kern],
+                 default[name])
+             for name, (wrapper_fn, sized_fn, block_fn, kern, what)
+             in timed.items()]
     print(f"{tag} per call at chi 25: " + "; ".join(lines) + f" ({card})",
           flush=True)
 
@@ -1260,42 +1282,134 @@ def k1a_cluster_phase(card: str, ptxas: str) -> None:
     lines = []
     for key, seed in (("k1a", 21), ("k1c_grad", 22)):
         args = operands(key, seed, False)
-        t_new, t_one = time_turns(
-            lambda: cluster_fn[key](*args, forward=False),
-            lambda: block_fn[key](*args, forward=False), rounds=5, iters=20)
-        # each size timed in 5 interleaved rounds: the sizes' medians and
-        # spreads decide the default, not one timing each
-        rounds = {n: [] for n in placed[key]}
-        for _ in range(5):
-            for n in placed[key]:
-                rounds[n].append(time_ms(lambda: cluster_fn[key](
-                    *args, forward=False, cluster=n)))
-        by_size = {n: statistics.median(t) for n, t in rounds.items()}
-        new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
-        check(new_ms < one_ms, f"{names[key]} (cluster {default[key]}) "
-              f"{new_ms:.3f} ms is not below its one-block kernel "
-              f"({one_ms:.3f} ms)")
-        # the default must be the fastest size, within the two sizes'
-        # spread over their rounds
-        fast, mine = min(by_size, key=by_size.get), rounds[default[key]]
-        spread = max(max(mine) - min(mine),
-                     max(rounds[fast]) - min(rounds[fast]))
-        check(by_size[default[key]] - by_size[fast] <= spread,
-              f"{names[key]}: the default cluster of {default[key]} blocks "
-              f"({by_size[default[key]]:.4f} ms) is slower than {fast} "
-              f"({by_size[fast]:.4f} ms) by more than the spread "
-              f"{spread:.4f} ms")
-        lines.append(
-            f"{names[key]} (cluster {default[key]}): median {new_ms:.4f} "
-            f"({min(t_new):.4f}-{max(t_new):.4f}) ms vs one block "
-            f"{one_ms:.4f} ({min(t_one):.4f}-{max(t_one):.4f}) ms in turns "
-            f"({one_ms / new_ms:.2f}x); by cluster size, median (min-max) "
-            "of 5 interleaved rounds " +
-            ", ".join(f"{n}: {by_size[n]:.4f} ({min(t):.4f}-{max(t):.4f})"
-                      for n, t in rounds.items())
-            + f" ms (fastest {fast})")
+        lines.append(f"{names[key]} (cluster {default[key]}): "
+                     + time_cluster(
+                         names[key],
+                         lambda: cluster_fn[key](*args, forward=False),
+                         lambda: block_fn[key](*args, forward=False),
+                         lambda n: cluster_fn[key](*args, forward=False,
+                                                   cluster=n),
+                         placed[key], default[key]))
     print(f"{tag} per call, one shard of a backward bond (chi 25, N 100, "
           "KLD): " + "; ".join(lines) + f" ({card})", flush=True)
+
+
+def k1_cluster_phase(card: str, ptxas: str) -> None:
+    """K1 and K1b, one real bond update over a thread-block cluster,
+    against their one-block kernels bit for bit (both outputs) over both
+    directions x (emit_y, q, orth) at the main-path shape, K1 also with MSE
+    (its log-scales), GD, N 50 and 32, q 3 at chi 128 and a backward bond at
+    chi 192, K1b also with GD and q 3 at chi 128, K1b's gradient from the
+    cluster K1a on the same inputs, at the default cluster and at every
+    size the card places; a cluster of 32 blocks refused by the wrapper
+    and, past it, by the card, with nothing launched; the occupancy of
+    clusters; their ptxas entries; per-call ms of each against its
+    one-block kernel in turns, and by cluster size."""
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    tag = "[k1-k1b-cluster]"
+    sizes = (1, 2, 4, 8, 16)
+    names = {"k1": "K1", "k1b": "K1b"}
+    cluster_fn = {"k1": bk.k1_cuda, "k1b": bk.k1b_cuda}
+    block_fn = {"k1": bk.k1_block_cuda, "k1b": bk.k1b_block_cuda}
+    default = {"k1": bk.K1_CLUSTER, "k1b": bk.K1B_CLUSTER}
+    occ = {(k, n): bk.cluster_occupancy(k, n, SHAPE["chi"])
+           for k in names for n in sizes}
+    placed = {k: [n for n in sizes if occ[(k, n)] >= 1] for k in names}
+    for k in names:
+        check(default[k] in placed[k], f"{names[k]}: the chosen cluster of "
+              f"{default[k]} blocks cannot be placed: {occ}")
+    print(f"{tag} cluster sizes K1 {bk.K1_CLUSTER}, K1b {bk.K1B_CLUSTER} "
+          "(blocks of 512 threads); clusters the card holds at once "
+          "(cudaOccupancyMaxActiveClusters) at chi 25, "
+          + "; ".join(f"{names[k]}: " + ", ".join(
+              f"{n}: {occ[(k, n)]}" for n in sizes) for k in names)
+          + f" ({card})", flush=True)
+    if "no log" not in ptxas:
+        mine = [e for e in ptxas.split("; ")
+                if e.startswith(("k1_cluster_kernel<float>",
+                                 "k1b_cluster_kernel<float>"))]
+        check(len(mine) == 2, f"ptxas: no entry for the real cluster K1 "
+              f"and K1b ({ptxas})")
+        print(f"{tag} ptxas: " + "; ".join(mine), flush=True)
+
+    def operands(key, seed, shape, forward):
+        """K1's operands, or K1b's with the cluster K1a's gradient."""
+        if key == "k1":
+            return k1_args(bond_inputs(seed, 1, **shape), forward)
+        a = dp_args(seed, forward, shape=shape)
+        return (a[0], a[1], bk.k1a_cuda(*a[:9], forward=forward), a[9],
+                0.05)
+
+    # (shape, forward, emit_y, q, orth, extra keywords)
+    grid = [(SHAPE, f, e, q, o, {}) for f in (False, True)
+            for e, q, o in ((True, 1, "qr"), (True, 3, "qr"),
+                            (False, 1, "qr"), (True, 1, "ns"),
+                            (True, 3, "ns"))]
+    grid += [(SHAPE, f, True, 1, "qr", dict(bbopt="GD"))
+             for f in (False, True)]
+    grid += [(dict(SHAPE, chi=128), f, True, 3, o, {}) for f in (False, True)
+             for o in ("qr", "ns")]
+    cases = {"k1b": grid, "k1": grid + [
+        (SHAPE, f, True, 1, "qr", dict(loss="MSE")) for f in (False, True)]
+        + [(dict(SHAPE, N=n), f, True, 1, "qr", {}) for n in (50, 32)
+           for f in (False, True)]
+        + [(dict(SHAPE, chi=192), False, True, 1, "qr", {})]}
+    for key, name in names.items():
+        for i, (shape, forward, emit_y, q, orth, extra) in enumerate(
+                cases[key]):
+            args = operands(key, 2400 + i, shape, forward)
+            kw = dict(forward=forward, emit_y=emit_y, power_iters=q,
+                      orth=orth, **extra)
+            ref = block_fn[key](*args, **kw)
+            label = f"{name} chi={shape['chi']} N={shape['N']} {kw}"
+            equal(f"{label} vs one block", cluster_fn[key](*args, **kw), ref,
+                  BT_Y)
+            for n in placed[key]:
+                equal(f"{label} cluster {n} vs one block",
+                      cluster_fn[key](*args, cluster=n, **kw), ref, BT_Y)
+    torch.cuda.synchronize()
+    refused = {}
+    for key, name in names.items():
+        args = operands(key, 2490, SHAPE, False)
+        raw = bk._k1 if key == "k1" else bk._k1b
+        loss = dict(loss="KLD") if key == "k1" else {}
+        # past the wrapper's check, the card refuses the launch itself
+        refused[name] = refusal(
+            name, lambda: cluster_fn[key](*args, forward=False, cluster=32),
+            lambda: raw(f"mpst_{key}_cluster_launch", (32,), *args,
+                        forward=False, emit_y=True, power_iters=1,
+                        orth="qr", bbopt="TSGO", **loss))
+        # the refusal leaves no error behind for the next launch
+        equal(f"{name} after a refusal",
+              cluster_fn[key](*args, forward=False),
+              block_fn[key](*args, forward=False), BT_Y)
+    print(f"{tag} cluster vs one block, torch.equal on BT and Y at the "
+          f"default cluster and at every size placed ({placed['k1']}, "
+          f"{placed['k1b']}): K1 {len(cases['k1'])} cases (both directions "
+          "x (emit_y, q, orth) in (1, 1, qr), (1, 3, qr), (0, 1, qr), (1, 1, "
+          "ns), (1, 3, ns) at chi 25; GD, MSE with its log-scales, N 50 and "
+          "32 at (1, 1, qr); q 3, qr and ns at chi 128; a backward bond at "
+          f"chi 192, q 1, qr), K1b {len(cases['k1b'])} cases (the same "
+          "without MSE, N and chi 192; its gradient from the cluster K1a); "
+          "a cluster of 32 blocks raises, nothing launched: " + "; ".join(
+              f"{k}: {v}" for k, v in refused.items()), flush=True)
+
+    xq = bond_inputs(7, 1, **SHAPE)
+    xd = dp_args(21, False)
+    G = bk.k1a_cuda(*xd[:9], forward=False)
+    timed = {"k1": (k1_args(xq, False), dict(forward=False)),
+             "k1b": ((xd[0], xd[1], G, xd[9], 0.05),
+                     dict(forward=False, orth="ns"))}
+    lines = [f"{names[key]} ({kw.get('orth', 'qr')}, q 1, cluster "
+             f"{default[key]}): " + time_cluster(
+                 names[key], lambda: cluster_fn[key](*args, **kw),
+                 lambda: block_fn[key](*args, **kw),
+                 lambda n: cluster_fn[key](*args, cluster=n, **kw),
+                 placed[key], default[key])
+             for key, (args, kw) in timed.items()]
+    print(f"{tag} per call, a backward refresh bond at chi 25 (K1 the qr "
+          "refresh bond, K1b the dp bond): " + "; ".join(lines)
+          + f" ({card})", flush=True)
 
 
 def main() -> int:
@@ -1614,13 +1728,15 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(prof_info["sweep_seconds"])
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
-    # a fit launches K12m over a cluster only, never the one-block K12m
-    check(not any("k12m_kernel" in k for k in dev),
-          f"qr fit profile: a one-block K12m ran: {list(dev)}")
+    # a fit launches K12m and K1 over a cluster only, never on one block
+    check(not any("k12m_kernel" in k or "k1_kernel" in k for k in dev),
+          f"qr fit profile: a one-block K12m or K1 ran: {list(dev)}")
     print(f"[profile] qr fit, one refresh + one frozen sweep on cuda: device "
           f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time; K12m "
           f"(cluster) "
           f"{sum(v for k, v in dev.items() if 'k12m_cluster_kernel' in k):.1f}"
+          " ms; K1 (cluster) "
+          f"{sum(v for k, v in dev.items() if 'k1_cluster_kernel' in k):.1f}"
           " ms; by kernel: "
           + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top)
           + f" ({card})", flush=True)
@@ -2188,12 +2304,12 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA}
         busy = sum(dev.values())
         wall = 1e3 * sum(p_info["sweep_seconds"])
-        # K1a runs over a cluster, never on one block
-        check(not any("k1a_kernel" in n for n in dev),
-              f"dp-profile: a one-block K1a ran: {list(dev)}")
+        # K1a and K1b run over a cluster, never on one block
+        check(not any("k1a_kernel" in n or "k1b_kernel" in n for n in dev),
+              f"dp-profile: a one-block K1a or K1b ran: {list(dev)}")
         parts = {k: sum(v for n, v in dev.items() if kern in n)
                  for k, kern in (("k1a", "k1a_cluster_kernel"),
-                                 ("k1b", "k1b_kernel"),
+                                 ("k1b", "k1b_cluster_kernel"),
                                  ("k2_split", "k2_split_kernel"),
                                  ("k2_env", "k2_env_kernel"))}
         copies = {n: v for n, v in dev.items() if "emcpy" in n}
@@ -2637,8 +2753,13 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     check(busy > 0, "split-tail-profile: no device time traced")
-    parts = {k: sum(v for n, v in dev.items() if k + "_kernel" in n)
-             for k in ("k1", "k1_tail", "k2")}
+    # K1 runs over a cluster, never on one block
+    check(not any("k1_kernel" in n for n in dev),
+          f"split-tail-profile: a one-block K1 ran: {list(dev)}")
+    parts = {k: sum(v for n, v in dev.items() if kern in n)
+             for k, kern in (("k1", "k1_cluster_kernel"),
+                             ("k1_tail", "k1_tail_kernel"),
+                             ("k2", "k2_kernel"))}
     print(f"[split-tail-profile] one default sweep with SPLIT_TAIL_CHI = 0: "
           f"device busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
           f"({100 * busy / wall:.1f} %); " + "; ".join(
@@ -2658,6 +2779,9 @@ def main() -> int:
 
     # ---- 20. K1a and K1c-grad over a thread-block cluster ------------------
     k1a_cluster_phase(card, ptxas)
+
+    # ---- 21. K1 and K1b over a thread-block cluster ------------------------
+    k1_cluster_phase(card, ptxas)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

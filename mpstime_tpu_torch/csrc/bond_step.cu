@@ -16,8 +16,12 @@
 // They are built from the same device functions as K12, phase for phase, so
 // the three cannot drift apart; K1 writes BT straight into its output.  At
 // the main-path shape K1 is a chain of ~8.6 M multiply-adds and K2 of
-// ~1.1 M, each over ~0.2 MB of operands: latency-bound like K12, and run the
-// same way, one thread block per launch.
+// ~1.1 M, each over ~0.2 MB of operands: latency-bound like K12.  K1 runs
+// over a thread-block cluster (mpst_k1_cluster_launch, the wrapper's
+// K1_CLUSTER blocks): k1_cluster_kernel is k1_kernel's body, k1_body, under
+// ClusterTeam, the same bits, and mpst_k1_launch stays as its one-block
+// reference, which no route of the package launches.  K2 runs on one
+// thread block.
 //
 // Per bond it computes: the bond tensor BT per class, yhat and the KLD or
 // MSE gradient, a TSGO or GD step with renormalisation, q warm power steps
@@ -61,15 +65,18 @@
 // through Qm.  At the main-path shape (C = 2, chi = 25, d = 5, N = 100 per
 // shard) K1a is ~7.1 M multiply-adds, K1b ~4.7 M with the Newton-Schulz
 // power step, K2-split ~0.8 M and K2-env ~0.3 M: latency-bound like K12.
-// K1b, K2-split and K2-env run on one thread block.  K1a's work is almost
-// all batch products (BT = core center, T1 = L BT [C, N, P], G = L^H U
-// [C, P, P], each ~16 output tiles of 32 x 64), with no Newton-Schulz
-// chain, so it runs over a thread-block cluster as K12m does
-// (mpst_k1a_cluster_launch, the wrapper's K1A_CLUSTER blocks):
-// k1a_cluster_kernel is k1a_kernel's body under ClusterTeam, the same bits.
-// mpst_k1a_launch stays as that one-block reference; no route of the
-// package launches it.  The gradient G [C, chi*d, d, chi] (250 KB) is the
-// only operand that crosses devices.
+// K2-split and K2-env run on one thread block.  K1a and K1b run over a
+// thread-block cluster as K12m does (mpst_k1a_cluster_launch and
+// mpst_k1b_cluster_launch, the wrappers' K1A_CLUSTER and K1B_CLUSTER
+// blocks): K1a's work is almost all batch products (BT = core center,
+// T1 = L BT [C, N, P], G = L^H U [C, P, P], each ~16 output tiles of
+// 32 x 64), K1b's the bond tensor, the step's sums and the power step's
+// products, whose Newton-Schulz chain stays a chain of cluster phases.
+// k1a_cluster_kernel and k1b_cluster_kernel are k1a_kernel's and
+// k1b_kernel's bodies under ClusterTeam, the same bits.  mpst_k1a_launch
+// and mpst_k1b_launch stay as the one-block references; no route of the
+// package launches them.  The gradient G [C, chi*d, d, chi] (250 KB) is
+// the only operand that crosses devices.
 //
 // K1-tail replaces _k1_tail_kernel of the same file: the warm power step of
 // the split-tail route (pallas_bond.py:1320-1372), where K1 or K1b runs with
@@ -133,8 +140,8 @@ int mpst_k12m_cluster_launch(const void* lhs, const void* center0,
 
 // How many clusters of `cluster` blocks of a real cluster kernel the card
 // holds at once, into *n (0: it cannot place one): kernel 0 K12m (and K12,
-// its Bb = 1), 1 K1a; chi is unused.  Returns the CUDA error of the query
-// (cudaErrorInvalidValue for another kernel); bond_step_c.cu's
+// its Bb = 1), 1 K1a, 2 K1, 3 K1b; chi is unused.  Returns the CUDA error
+// of the query (cudaErrorInvalidValue for another kernel); bond_step_c.cu's
 // mpst_c_cluster_occupancy answers for the complex ones.
 int mpst_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
   (void)chi;
@@ -146,6 +153,12 @@ int mpst_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
                                      cluster, stage, n);
     case 1:
       return mpst::cluster_occupancy(mpst::k1a_cluster_kernel<float>,
+                                     cluster, stage, n);
+    case 2:
+      return mpst::cluster_occupancy(mpst::k1_cluster_kernel<float>,
+                                     cluster, stage, n);
+    case 3:
+      return mpst::cluster_occupancy(mpst::k1b_cluster_kernel<float>,
                                      cluster, stage, n);
     default:
       return (int)cudaErrorInvalidValue;
@@ -165,6 +178,23 @@ int mpst_k1_launch(const void* lhs, const void* center0, const void* le,
                                 w, v0, bt_out, y_out, ws, C, chi, d, N,
                                 forward, emit_y, q_iters, qr, mse, gd, eta,
                                 stream);
+}
+
+// K1 over one cluster of `cluster` blocks: mpst_k1_launch's arguments and
+// the cluster size, the same bits (MSE and GD allowed, as K1 takes them).
+// Scratch: mpst_k12_workspace_floats.
+int mpst_k1_cluster_launch(const void* lhs, const void* center0,
+                           const void* le, const void* re, const void* gls,
+                           const void* phil, const void* phir,
+                           const void* y1h, const void* w, const void* v0,
+                           void* bt_out, void* y_out, void* ws, int C,
+                           int chi, int d, int N, int forward, int emit_y,
+                           int q_iters, int qr, int mse, int gd, float eta,
+                           int cluster, void* stream) {
+  return mpst::launch_k1_cluster<float>(
+      lhs, center0, le, re, gls, phil, phir, y1h, w, v0, bt_out, y_out, ws,
+      C, chi, d, N, forward, emit_y, q_iters, qr, mse, gd, eta, cluster,
+      stream);
 }
 
 // K2.  env / env_ls / phi: the advancing side's environment, log-scales and
@@ -215,6 +245,20 @@ int mpst_k1b_launch(const void* lhs, const void* center0, const void* g,
   return mpst::launch_k1b<float>(lhs, center0, g, v0, bt_out, y_out, ws, C,
                                  chi, d, forward, emit_y, q_iters, qr, gd,
                                  eta, stream);
+}
+
+// K1b over one cluster of `cluster` blocks: mpst_k1b_launch's arguments and
+// the cluster size, the same bits (GD allowed, as K1b takes it).  Scratch:
+// mpst_k12_workspace_floats(C, chi, d, 0).
+int mpst_k1b_cluster_launch(const void* lhs, const void* center0,
+                            const void* g, const void* v0, void* bt_out,
+                            void* y_out, void* ws, int C, int chi, int d,
+                            int forward, int emit_y, int q_iters, int qr,
+                            int gd, float eta, int cluster, void* stream) {
+  return mpst::launch_k1b_cluster<float>(lhs, center0, g, v0, bt_out, y_out,
+                                         ws, C, chi, d, forward, emit_y,
+                                         q_iters, qr, gd, eta, cluster,
+                                         stream);
 }
 
 // K1-tail.  bt: a stepped bond tensor [C, chi*d, d, chi]; q_iters power

@@ -3,10 +3,11 @@
 // parallel and batch-tiled bond steps (K1a, K1b, K2-split, K2-env), the
 // stand-alone power step of the split-tail route (K1-tail), real
 // (float) and complex (cfloat), and the kernels that run a bond over a
-// thread-block cluster: the multi-bond block (K12m, K12 and K12mc) and the
-// batch gradient (K1a, K1c-grad) at both scalar types, and the complex bond
-// step (K12c), the tracked-ritz bond step (K12cr) and the complex K1 and K1b
-// (K1c, K1c-update) at cfloat.
+// thread-block cluster: the multi-bond block (K12m, K12 and K12mc), the
+// batch gradient (K1a, K1c-grad) and the bond update up to its
+// orthogonalisation (K1 and K1c, K1b and K1c-update) at both scalar types,
+// and the complex bond step (K12c) and the tracked-ritz bond step (K12cr)
+// at cfloat.
 // See bond_step.cu and bond_step_c.cu for what the kernels replace and how
 // they are bounded; this header holds the math, phase by phase, written once
 // for both scalar types and both teams.
@@ -40,8 +41,7 @@
 // Every device function takes a team, the threads that share one bond:
 // BlockTeam, one thread block (the kernels of one block: the reference
 // K12m, K1, K2, the pieces and the tails), or ClusterTeam, every block of a
-// thread-block cluster (the cluster K12m, K1a, K12c, K12cr, K1c and
-// K1c-update).  A thread's index in the team is rank * blockDim.x +
+// thread-block cluster (the cluster K12m, K1a, K1, K1b, K12c and K12cr).  A thread's index in the team is rank * blockDim.x +
 // threadIdx.x, loops stride over the team's threads, and team.sync()
 // separates the phases (__syncthreads() or the cluster barrier).
 // The arithmetic of every output does not depend on the team:
@@ -1031,7 +1031,7 @@ __global__ void __launch_bounds__(kMaxThreads) k1_kernel(K12Args<T> a,
   k1_body(BlockTeam{}, a, le, re, w, y_out, red);
 }
 
-// K1c over a thread-block cluster: K1's body and operands under
+// K1 (K1c) over a thread-block cluster: K1's body and operands under
 // ClusterTeam, bt_out written by every block (its gemm tiles), the same
 // bits as k1_kernel.  The launch bound's one block a SM keeps ptxas from
 // capping the registers at 64, as for K12c.
@@ -1136,8 +1136,8 @@ __global__ void __launch_bounds__(kMaxThreads) k1b_kernel(K12Args<T> a,
   k1b_body(BlockTeam{}, a, w, y_out, red);
 }
 
-// K1c-update over a thread-block cluster: K1b's body and operands under
-// ClusterTeam, the same bits as k1b_kernel (launch bound as K1c's).
+// K1b (K1c-update) over a thread-block cluster: K1b's body and operands
+// under ClusterTeam, the same bits as k1b_kernel (launch bound as K1c's).
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     k1b_cluster_kernel(K12Args<T> a, const T* g, T* bt_out, T* y_out) {

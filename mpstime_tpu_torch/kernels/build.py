@@ -115,8 +115,8 @@ def load_library() -> ctypes.CDLL:
         # each complex launcher takes its real twin's argument list; K12c
         # and the cluster K12m and K12mc take K12m's and the cluster size,
         # K12cr K12mc's, the Jacobi round count and the cluster size, and
-        # the cluster K1a, K1c-grad, K1c and K1c-update their one-block
-        # launchers' and the cluster size
+        # the cluster K1a, K1c-grad, K1, K1c, K1b and K1c-update their
+        # one-block launchers' and the cluster size
         for ws in ("mpst_k12_workspace_floats", "mpst_c_workspace_floats"):
             getattr(lib, ws).argtypes = [i, i, i, i]
             getattr(lib, ws).restype = ctypes.c_long
@@ -136,11 +136,12 @@ def load_library() -> ctypes.CDLL:
                  [p] * 11 + [i] * 6 + [p]),
                 (("mpst_k1a_cluster_launch", "mpst_k1c_grad_cluster_launch"),
                  [p] * 11 + [i] * 7 + [p]),
-                (("mpst_k1c_cluster_launch",), [p] * 13 + [i] * 10 + [f]
-                 + [i, p]),
+                (("mpst_k1_cluster_launch", "mpst_k1c_cluster_launch"),
+                 [p] * 13 + [i] * 10 + [f] + [i, p]),
                 (("mpst_k1b_launch", "mpst_k1c_update_launch"),
                  [p] * 7 + [i] * 8 + [f, p]),
-                (("mpst_k1c_update_cluster_launch",), [p] * 7 + [i] * 8
+                (("mpst_k1b_cluster_launch",
+                  "mpst_k1c_update_cluster_launch"), [p] * 7 + [i] * 8
                  + [f, i, p]),
                 (("mpst_k1_tail_launch", "mpst_k1c_tail_launch"),
                  [p] * 4 + [i] * 6 + [p]),

@@ -21,9 +21,11 @@ the tensors it is given:
   * CUDA tensors launch the hand-written kernel (csrc/bond_step.cu), built
     at first use, or raise.  There is no fallback.  K12 and K12m run their
     block of bonds over a thread-block cluster of ``K12M_CLUSTER`` blocks,
-    K1a its batch gradient over ``K1A_CLUSTER``; the one-block K12m and K1a
-    (``k12m_block_cuda``, ``k1a_block_cuda``) stay as the reference they
-    are held against bit for bit, and no route calls them.
+    K1a its batch gradient over ``K1A_CLUSTER``, K1 and K1b their bond
+    update over ``K1_CLUSTER`` and ``K1B_CLUSTER``; the one-block K12m,
+    K1a, K1 and K1b (``k12m_block_cuda``, ``k1a_block_cuda``,
+    ``k1_block_cuda``, ``k1b_block_cuda``) stay as the reference they are
+    held against bit for bit, and no route calls them.
   * CPU tensors take the kernel's plain PyTorch version (``k12_plain``,
     ``k12m_plain``, ``k1_plain``, ``k2_plain``, ``k1a_plain``,
     ``k1b_plain``, ``k2_split_plain``, ``k2_env_plain``,
@@ -31,8 +33,9 @@ the tensors it is given:
     environment functions.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the dispatches to the
-plain versions, so a run can show which path it took (the one-block K12m
-and K1a under "k12m_block" and "k1a_block").  Operand layouts are
+plain versions, so a run can show which path it took (the one-block K12m,
+K1a, K1 and K1b under "k12m_block", "k1a_block", "k1_block" and
+"k1b_block").  Operand layouts are
 the JAX kernels': the class-major center [C, chi, d, chi], environments
 [N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and the
 bond tensor and its gradient [C, chi*d, d, chi].
@@ -52,16 +55,17 @@ from .env import env_step_left_scaled, env_step_right_scaled
 
 #: Kernel launches per kernel since the last reset_counts().
 #: The complex kernels (ops/bond_kernels_c.py) count here too; "k12m_block",
-#: "k12mc_block", "k1c_block", "k1c_update_block", "k1a_block" and
-#: "k1c_grad_block" count the one-block K12m, K12mc, K1c, K1c-update, K1a and
-#: K1c-grad, which no route launches (their cluster kernels count under "k12"
-#: and "k12m", "k12mc", "k1c", "k1c_update", "k1a", "k1c_grad").
+#: "k12mc_block", "k1c_block", "k1c_update_block", "k1a_block",
+#: "k1c_grad_block", "k1_block" and "k1b_block" count the one-block K12m,
+#: K12mc, K1c, K1c-update, K1a, K1c-grad, K1 and K1b, which no route launches
+#: (their cluster kernels count under "k12" and "k12m", "k12mc", "k1c",
+#: "k1c_update", "k1a", "k1c_grad", "k1", "k1b").
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr",
      "k1a", "k1b", "k2_split", "k2_env", "k1c_grad", "k1c_update",
      "k2c_split", "k2c_env", "k1_tail", "k1c_tail", "k1c_block",
      "k1c_update_block", "k12m_block", "k12mc_block", "k1a_block",
-     "k1c_grad_block"), 0)
+     "k1c_grad_block", "k1_block", "k1b_block"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
@@ -614,11 +618,16 @@ K12M_CLUSTER = 16
 #: Thread blocks in the cluster of K1a, from its times by cluster size on
 #: the card (chip_smoke.py's [k1a-k1c-grad-cluster]).
 K1A_CLUSTER = 16
+#: Thread blocks in the clusters of K1 and K1b, from their times by cluster
+#: size on the card (chip_smoke.py's [k1-k1b-cluster]).
+K1_CLUSTER = 16
+K1B_CLUSTER = 16
 #: The largest cluster a launch may ask for (Hopper's non-portable limit).
 MAX_CLUSTER = 16
 #: Each cluster kernel's occupancy query: the library entry and the kernel's
 #: index there (csrc/bond_step.cu answers for the real cluster K12m, which
-#: K12 launches too, and K1a, csrc/bond_step_c.cu for the complex kernels).
+#: K12 launches too, K1a, K1 and K1b, csrc/bond_step_c.cu for the complex
+#: kernels).
 _OCCUPANCY = {"k12c": ("mpst_c_cluster_occupancy", 0),
               "k12cr": ("mpst_c_cluster_occupancy", 1),
               "k1c": ("mpst_c_cluster_occupancy", 2),
@@ -626,7 +635,9 @@ _OCCUPANCY = {"k12c": ("mpst_c_cluster_occupancy", 0),
               "k12m": ("mpst_cluster_occupancy", 0),
               "k12mc": ("mpst_c_cluster_occupancy", 4),
               "k1a": ("mpst_cluster_occupancy", 1),
-              "k1c_grad": ("mpst_c_cluster_occupancy", 5)}
+              "k1c_grad": ("mpst_c_cluster_occupancy", 5),
+              "k1": ("mpst_cluster_occupancy", 2),
+              "k1b": ("mpst_cluster_occupancy", 3)}
 #: The cluster kernels cluster_occupancy answers for.
 CLUSTER_KERNELS = tuple(_OCCUPANCY)
 
@@ -726,17 +737,43 @@ def k12m_block_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
     return out
 
 
+def _k1(entry: str, extra: tuple, *args, **kw
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's operands (``_launch_k1``'s) checked and launched through the
+    library's ``entry``, with ``extra`` after K1's C arguments (the cluster
+    size)."""
+    launch, wsf = _cuda_launch(args[1].device, entry)
+    return _launch_k1(*args, launch=lambda *a: launch(*a, *extra),
+                      workspace_floats=wsf, **kw)
+
+
 def k1_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
             forward: bool, emit_y: bool = True, power_iters: int = 1,
-            orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO"
+            orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO",
+            cluster: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 as one launch; operands and results as ``k1_plain``'s."""
-    launch, wsf = _cuda_launch(center_c.device, "mpst_k1_launch")
-    out = _launch_k1(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0,
-                     eta, forward=forward, emit_y=emit_y,
-                     power_iters=power_iters, orth=orth, loss=loss,
-                     bbopt=bbopt, launch=launch, workspace_floats=wsf)
+    """K1 as one launch of a thread-block cluster of ``cluster`` blocks
+    (default ``K1_CLUSTER``); operands and results as ``k1_plain``'s.  A
+    cluster the card cannot place raises RuntimeError."""
+    n = _cluster_size(K1_CLUSTER if cluster is None else cluster)
+    out = _k1("mpst_k1_cluster_launch", (n,), A_or_B, center_c, le, re, phil,
+              phir, y1h, w, gls, V0, eta, forward=forward, emit_y=emit_y,
+              power_iters=power_iters, orth=orth, loss=loss, bbopt=bbopt)
     LAUNCHES["k1"] += 1
+    return out
+
+
+def k1_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0,
+                  eta, *, forward: bool, emit_y: bool = True,
+                  power_iters: int = 1, orth: str = "qr", loss: str = "KLD",
+                  bbopt: str = "TSGO") -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on one thread block, the reference ``k1_cuda`` is held against
+    bit for bit (no route calls it); operands and results as
+    ``k1_plain``'s."""
+    out = _k1("mpst_k1_launch", (), A_or_B, center_c, le, re, phil, phir,
+              y1h, w, gls, V0, eta, forward=forward, emit_y=emit_y,
+              power_iters=power_iters, orth=orth, loss=loss, bbopt=bbopt)
+    LAUNCHES["k1_block"] += 1
     return out
 
 
@@ -783,15 +820,42 @@ def k1a_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
     return G
 
 
+def _k1b(entry: str, extra: tuple, *args, **kw
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1b's operands (``_launch_k1b``'s) checked and launched through the
+    library's ``entry``, with ``extra`` after K1b's C arguments (the
+    cluster size)."""
+    launch, wsf = _cuda_launch(args[1].device, entry)
+    return _launch_k1b(*args, launch=lambda *a: launch(*a, *extra),
+                       workspace_floats=wsf, **kw)
+
+
 def k1b_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
              emit_y: bool = True, power_iters: int = 1, orth: str = "qr",
-             bbopt: str = "TSGO") -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1b as one launch; operands and results as ``k1b_plain``'s."""
-    launch, wsf = _cuda_launch(center_c.device, "mpst_k1b_launch")
-    out = _launch_k1b(A_or_B, center_c, G, V0, eta, forward=forward,
-                      emit_y=emit_y, power_iters=power_iters, orth=orth,
-                      bbopt=bbopt, launch=launch, workspace_floats=wsf)
+             bbopt: str = "TSGO", cluster: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1b as one launch of a thread-block cluster of ``cluster`` blocks
+    (default ``K1B_CLUSTER``); operands and results as ``k1b_plain``'s.  A
+    cluster the card cannot place raises RuntimeError."""
+    n = _cluster_size(K1B_CLUSTER if cluster is None else cluster)
+    out = _k1b("mpst_k1b_cluster_launch", (n,), A_or_B, center_c, G, V0, eta,
+               forward=forward, emit_y=emit_y, power_iters=power_iters,
+               orth=orth, bbopt=bbopt)
     LAUNCHES["k1b"] += 1
+    return out
+
+
+def k1b_block_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
+                   emit_y: bool = True, power_iters: int = 1,
+                   orth: str = "qr", bbopt: str = "TSGO"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1b on one thread block, the reference ``k1b_cuda`` is held against
+    bit for bit (no route calls it); operands and results as
+    ``k1b_plain``'s."""
+    out = _k1b("mpst_k1b_launch", (), A_or_B, center_c, G, V0, eta,
+               forward=forward, emit_y=emit_y, power_iters=power_iters,
+               orth=orth, bbopt=bbopt)
+    LAUNCHES["k1b_block"] += 1
     return out
 
 

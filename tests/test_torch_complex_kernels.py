@@ -387,6 +387,18 @@ def _k1a_ops(key):
     return (A, center, le, re, phil, phir, y1h, w, ls)
 
 
+def _k1_ops(key):
+    """K1's real operands (the log-scales as gls), or K1b's with the plain
+    K1a gradient of the same inputs."""
+    x = {k: np.ascontiguousarray(v.real) for k, v in _bond(98).items()}
+    A, center, le, re, ls, phil, phir, y1h, w, V0 = _torch(_single(x, False))
+    if key == "k1":
+        return (A, center, le, re, phil, phir, y1h, w, ls, V0, 0.05)
+    G = bk.k1a_plain(A, center, le, re, phil, phir, y1h, w, ls,
+                     forward=False)
+    return (A, center, G, V0, 0.05)
+
+
 def _k12_ops(key):
     """A bond's operands (K12c, K12cr) or a block of 2 bonds' (K12m,
     K12mc), complex, or real for the real K12m."""
@@ -418,6 +430,8 @@ CLUSTER_CALLS = {
     "k1a": lambda n: bk.k1a_cuda(*_k1a_ops("k1a"), forward=False, cluster=n),
     "k1c_grad": lambda n: bkc.k1c_grad_cuda(*_k1a_ops("k1c_grad"),
                                             forward=False, cluster=n),
+    "k1": lambda n: bk.k1_cuda(*_k1_ops("k1"), forward=False, cluster=n),
+    "k1b": lambda n: bk.k1b_cuda(*_k1_ops("k1b"), forward=False, cluster=n),
     "occupancy": lambda n: bkc.cluster_occupancy("k1c", n, CHI),
     "k12c": lambda n: bkc.k12c_cuda(*_k12_ops("k12c"), 0.05, 1e-10,
                                     forward=False, cluster=n),
@@ -444,7 +458,8 @@ def test_cluster_sizes_are_checked_before_the_library_loads(monkeypatch,
 def test_cluster_occupancy_names_its_kernel(monkeypatch):
     _no_library(monkeypatch)
     assert bkc.CLUSTER_KERNELS == ("k12c", "k12cr", "k1c", "k1c_update",
-                                   "k12m", "k12mc", "k1a", "k1c_grad")
+                                   "k12m", "k12mc", "k1a", "k1c_grad",
+                                   "k1", "k1b")
     with pytest.raises(ValueError, match="one of"):
         bkc.cluster_occupancy("k12m_block", 4, CHI)
 
@@ -455,7 +470,7 @@ def test_default_cluster_sizes_lie_in_range():
     assert bkc.cluster_occupancy is bk.cluster_occupancy
     for n in (bkc.CLUSTER, bkc.K1C_CLUSTER, bkc.K1C_UPDATE_CLUSTER,
               bkc.K12MC_CLUSTER, bk.K12M_CLUSTER, bk.K1A_CLUSTER,
-              bkc.K1C_GRAD_CLUSTER):
+              bkc.K1C_GRAD_CLUSTER, bk.K1_CLUSTER, bk.K1B_CLUSTER):
         assert type(n) is int and 1 <= n <= bkc.MAX_CLUSTER
 
 
@@ -531,6 +546,48 @@ def test_k1a_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
     assert a1[11:-1] == a2[11:]                    # the same sizes and flags
     assert a1[-2:] == (int(key == "k1a"), default if cluster is None
                        else cluster)               # mse, cluster size
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
+        key: 1, f"{key}_block": 1}
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 8])
+@pytest.mark.parametrize("key", ["k1", "k1b"])
+def test_k1_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
+    """k1_cuda / k1b_cuda launch the cluster entry with the one-block
+    entry's arguments and the cluster size (default K1_CLUSTER /
+    K1B_CLUSTER), MSE and GD passed through, counted under the kernel's
+    name; the one-block wrappers launch the one-block entry, counted apart.
+    The dp route's K1b piece is the cluster wrapper."""
+    calls = []
+
+    def launcher(device, entry, workspace=None):
+        return (lambda *args: calls.append((entry, args))), (lambda *s: 16)
+
+    monkeypatch.setattr(bk, "_cuda_launch", launcher)
+    ops = _k1_ops(key)
+    if key == "k1":
+        cuda, block, default = bk.k1_cuda, bk.k1_block_cuda, bk.K1_CLUSTER
+        kw = dict(forward=True, power_iters=3, orth="ns", loss="MSE",
+                  bbopt="GD")
+        n_in, n_ptr, flags = 10, 13, slice(21, 23)     # mse, gd
+    else:
+        cuda, block, default = bk.k1b_cuda, bk.k1b_block_cuda, bk.K1B_CLUSTER
+        kw = dict(forward=True, power_iters=3, orth="ns", bbopt="GD")
+        n_in, n_ptr, flags = 4, 7, slice(14, 15)       # gd
+        assert bk._PIECES["k1b"][2] is cuda
+    bk.reset_counts()
+    BT, Y = cuda(*ops, cluster=cluster, **kw)
+    block(*ops, **kw)
+    assert BT.shape == (C, CHI * D, D, CHI) and Y.shape == (CHI * D, CHI)
+    assert BT.dtype == Y.dtype == torch.float32
+    (e1, a1), (e2, a2) = calls
+    assert (e1, e2) == (f"mpst_{key}_cluster_launch", f"mpst_{key}_launch")
+    assert a1[:n_in] == a2[:n_in]                  # the same operands
+    if key == "k1":
+        assert a1[4] is not None                   # gls, for MSE
+    assert a1[n_ptr:-1] == a2[n_ptr:]              # the same sizes and flags
+    assert all(f == 1 for f in a1[flags])          # MSE and GD passed on
+    assert a1[-1] == (default if cluster is None else cluster)
     assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
         key: 1, f"{key}_block": 1}
 

@@ -2,10 +2,10 @@
 K1b, K2-split, K2-env, the complex K12c, K12mc, K1c, K2c, K12cr, the
 complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env and the split
 tails K1-tail, K1c-tail) held against their plain PyTorch versions on the
-card, and the cluster kernels (K12c, K12cr, K1c and K1c-update, one bond
-over a thread-block cluster; K12, K12m and K12mc, a block of bonds; K1a
-and K1c-grad, one shard's gradient) held bit for bit against their
-one-block kernels and across cluster sizes.
+card, and the cluster kernels (K12c, K12cr, K1c, K1c-update, K1 and K1b,
+one bond over a thread-block cluster; K12, K12m and K12mc, a block of
+bonds; K1a and K1c-grad, one shard's gradient) held bit for bit against
+their one-block kernels and across cluster sizes.
 These tests need an NVIDIA GPU with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
@@ -845,6 +845,113 @@ def test_a_k1a_cluster_past_the_limit_is_refused(bk, bkc, key):
     cuda(*args, forward=False)
     torch.cuda.synchronize()
     assert bk.LAUNCHES[key] == before[key] + 1
+
+
+# ---- K1 and K1b over a thread-block cluster ---------------------------------
+
+def _k1_operands(bk, key, seed, forward, chi=SHAPE["chi"]):
+    """K1's operands (gls the total log-scale), or K1b's with the cluster
+    K1a's gradient of the same inputs (unit environment rows)."""
+    if key == "k1":
+        x = _inputs(seed, 1, **dict(SHAPE, chi=chi))
+        le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                           x["env0"])
+        return (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+                x["y1h"], x["w"], x["ls0"] + x["opp"], x["V0"][0], 0.05)
+    from mpstime_tpu_torch.ops.decomp import warm_sketch_init
+    a = _k1a_operands("k1a", seed, forward, chi=chi)
+    V0 = warm_sketch_init(chi * SHAPE["d"], chi, np.float32, "cuda")
+    return (a[0], a[1], bk.k1a_cuda(*a, forward=forward), V0, 0.05)
+
+
+def _k1_fns(bk, key):
+    """(cluster wrapper, one-block wrapper) of K1 or K1b."""
+    if key == "k1":
+        return bk.k1_cuda, bk.k1_block_cuda
+    return bk.k1b_cuda, bk.k1b_block_cuda
+
+
+#: (kernel, loss, bbopt): K1 with KLD, MSE (its log-scales) and GD; K1b
+#: (the summed gradient: no loss) with TSGO and GD
+K1_CASES = [("k1", "KLD", "TSGO"), ("k1", "MSE", "TSGO"), ("k1", "KLD", "GD"),
+            ("k1", "MSE", "GD"), ("k1b", None, "TSGO"), ("k1b", None, "GD")]
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("emit_y,q,orth", K1C_GRID)
+@pytest.mark.parametrize("key,loss,bbopt", K1_CASES)
+def test_k1_cluster_equals_one_block(bk, forward, emit_y, q, orth, key, loss,
+                                     bbopt):
+    # K1 and K1b run one bond update over a cluster; the one-block kernel is
+    # k1_kernel / k1b_kernel over the same device functions: the same bits
+    cuda, block = _k1_fns(bk, key)
+    args = _k1_operands(bk, key, 41, forward)
+    kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth,
+              bbopt=bbopt, **({"loss": loss} if loss else {}))
+    n0, b0 = bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]
+    got = cuda(*args, **kw)
+    one = block(*args, **kw)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]) == (n0 + 1,
+                                                               b0 + 1)
+    _equal(got, one)
+
+
+@pytest.mark.parametrize("key", ["k1", "k1b"])
+@pytest.mark.parametrize("forward", [False, True])
+def test_k1_kernels_equal_across_cluster_sizes(bk, key, forward):
+    cuda, block = _k1_fns(bk, key)
+    args = _k1_operands(bk, key, 42, forward)
+    kw = dict(forward=forward, power_iters=3, orth="ns")
+    ref = block(*args, **kw)
+    for n in range(1, 17):
+        if bk.cluster_occupancy(key, n, SHAPE["chi"]) >= 1:
+            _equal(cuda(*args, cluster=n, **kw), ref)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("key", ["k1", "k1b"])
+def test_a_k1_cluster_past_the_limit_is_refused(bk, key):
+    """A cluster of 32 blocks: the wrapper refuses it (ValueError), and the
+    card refuses the launch itself (RuntimeError); nothing launches, no
+    one-block kernel stands in, and the next launch runs."""
+    cuda, _ = _k1_fns(bk, key)
+    raw = bk._k1 if key == "k1" else bk._k1b
+    args = _k1_operands(bk, key, 43, False)
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError, match="from 1 to 16"):
+        cuda(*args, forward=False, cluster=32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        raw(f"mpst_{key}_cluster_launch", (32,), *args, forward=False,
+            emit_y=True, power_iters=1, orth="qr", bbopt="TSGO",
+            **({"loss": "KLD"} if key == "k1" else {}))
+    assert dict(bk.LAUNCHES) == before
+    cuda(*args, forward=False)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == before[key] + 1
+
+
+def test_fits_launch_no_one_block_k1(bk, monkeypatch):
+    """The qr fit, the dp fit and a split-tail fit launch K1 and K1b over a
+    cluster only."""
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.parallel import make_mesh
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40, :24], data["y_train"][:40]
+    opts = mt.MPSOptions(nsweeps=2, chi_max=12, d=3, verbosity=-1,
+                         log_level=-1)
+    bk.reset_counts()
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(orth_alg="qr",
+                                           subspace_refresh_every=2),
+               device="cuda")
+    mt.fit_mps(Xtr, ytr, opts=opts, mesh=make_mesh(1))
+    monkeypatch.setattr(bk, "SPLIT_TAIL_CHI", 0)
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(nsweeps=1), device="cuda")
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1"] == 2 * 23 + 2 * 23  # qr refresh, split tail
+    assert bk.LAUNCHES["k1b"] == 2 * 2 * 23
+    assert bk.LAUNCHES["k1_block"] == bk.LAUNCHES["k1b_block"] == 0
+    assert sum(bk.PLAIN_CALLS.values()) == 0
 
 
 # ---- the complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env --------

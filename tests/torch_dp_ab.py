@@ -1,5 +1,5 @@
-"""The data-parallel fits of one or more checkouts of the port, timed on one
-card in the order given, each checkout in a process of its own (two
+"""The data-parallel and qr fits of one or more checkouts of the port, timed
+on one card in the order given, each checkout in a process of its own (two
 packages of one name cannot share a process).  Not a test: run it from the
 repository root with a CUDA card,
 
@@ -8,12 +8,18 @@ repository root with a CUDA card,
 where PARENT is another commit unpacked with `git archive` into a directory
 that .gitignore lists; parent, change, change, parent puts both commits on
 the same card in turns.  For each checkout and each of the default and the
-fourier options (ECG200, 10 sweeps on make_mesh(1), every bond K1a or
-K1c-grad -> sum -> K1b or K1c-update -> K2-split or K2c-split -> K2-env or
-K2c-env) it prints one JSON line: the median sweep after one warm sweep,
-then one more sweep under torch.profiler, its device busy and wall ms and
-the device ms of the K1a / K1c-grad kernel (one block or cluster).  The
-card's name and power limit come first.  Imports nothing of JAX.
+fourier options (ECG200, 10 sweeps on make_mesh(1), and the default options
+on two shards of the card; every bond K1a or K1c-grad -> sum -> K1b or
+K1c-update -> K2-split or K2c-split -> K2-env or K2c-env) it prints the
+median sweep after one warm sweep, then one more
+sweep under torch.profiler, its device busy and wall ms and the device ms
+of the K1a / K1c-grad and K1b / K1c-update kernels (one block or cluster);
+for the qr fit (the default options with orth_alg="qr",
+subspace_refresh_every=2: refresh sweeps K1 -> QR -> K2 per bond, frozen
+sweeps K12m blocks) the median refresh and frozen sweeps over 10, then one
+refresh + one frozen sweep under torch.profiler, its busy and wall ms and
+K1's device ms; all as one JSON line per checkout.  The card's name and
+power limit come first.  Imports nothing of JAX.
 """
 
 import json
@@ -32,7 +38,7 @@ def measure(root: str) -> dict:
 
     import mpstime_tpu_torch as mt
     from mpstime_tpu_torch.kernels import build
-    from mpstime_tpu_torch.parallel import make_mesh
+    from mpstime_tpu_torch.parallel import Mesh, make_mesh
     if not mt.__file__.startswith(os.path.abspath(root) + os.sep):
         raise RuntimeError(f"imported {mt.__file__}, not the tree at {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -40,22 +46,43 @@ def measure(root: str) -> dict:
     data = np.load(os.path.join(root, "tests", "data", "ecg200.npz"))
     X, y = data["X_train"], data["y_train"]
     out = {"tree": root}
-    for label, kw in (("dp", {}), ("complex dp", {"encoding": "fourier"})):
-        opts = mt.MPSOptions(verbosity=-1, log_level=-1, **kw)
-        _, info, _ = mt.fit_mps(X, y, opts=opts, mesh=make_mesh(1))
+
+    def profiled(opts, **where):
+        """Device ms by kernel and sweep wall ms of a fit under
+        torch.profiler."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, p_info, _ = mt.fit_mps(X, y, opts=opts.replace(nsweeps=1),
-                                      mesh=make_mesh(1))
+            _, p_info, _ = mt.fit_mps(X, y, opts=opts, **where)
             torch.cuda.synchronize()
         dev = {e.key: e.self_device_time_total / 1e3
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA}
+        return dev, 1e3 * sum(p_info["sweep_seconds"])
+
+    def kernel_ms(dev, *kerns):
+        return sum(v for n, v in dev.items() if any(k in n for k in kerns))
+
+    two = Mesh(["cuda:0"] * 2)
+    for label, kw, mesh in (("dp", {}, make_mesh(1)), ("dp2", {}, two),
+                            ("complex dp", {"encoding": "fourier"},
+                             make_mesh(1))):
+        opts = mt.MPSOptions(verbosity=-1, log_level=-1, **kw)
+        _, info, _ = mt.fit_mps(X, y, opts=opts, mesh=mesh)
+        dev, wall = profiled(opts.replace(nsweeps=1), mesh=mesh)
         out[label] = dict(
             median_sweep_s=statistics.median(info["sweep_seconds"][1:]),
-            busy_ms=sum(dev.values()),
-            wall_ms=1e3 * sum(p_info["sweep_seconds"]),
-            k1a_ms=sum(v for n, v in dev.items() if "k1a_" in n))
+            busy_ms=sum(dev.values()), wall_ms=wall,
+            k1a_ms=kernel_ms(dev, "k1a_"), k1b_ms=kernel_ms(dev, "k1b_"))
+    opts = mt.MPSOptions(verbosity=-1, log_level=-1, orth_alg="qr",
+                         subspace_refresh_every=2)
+    _, info, _ = mt.fit_mps(X, y, opts=opts, device="cuda")
+    secs = info["sweep_seconds"]
+    dev, wall = profiled(opts.replace(nsweeps=2), device="cuda")
+    out["qr"] = dict(
+        median_refresh_sweep_s=statistics.median(secs[2::2]),
+        median_frozen_sweep_s=statistics.median(secs[1::2]),
+        busy_ms=sum(dev.values()), wall_ms=wall,
+        k1_ms=kernel_ms(dev, "k1_kernel", "k1_cluster_kernel"))
     return out
 
 
