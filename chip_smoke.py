@@ -146,6 +146,24 @@ Phases, one status line each; any failure exits non-zero:
      interleaved rounds; fails unless each cluster kernel beats its
      one-block kernel and each default size is the fastest within the
      spread.
+ 22. cluster K2, K2c, K2-split and K2c-split: each (the split, and for K2
+     and K2c the environment advance, over a thread-block cluster) against
+     its one-block kernel bit for bit, every output (center, core, env and
+     env_ls; the splits' center, core and Qm), over both directions x
+     max_rank None and 4 x cutoff 1e-10 and 0.05 (which cuts) at the
+     main-path shape, chi 64 and 128, K2 and K2c at N 50 and 32, a basis
+     with five zero-energy columns and the tie-break bond (complex64 for
+     K2c and K2c-split); at the default cluster and at every size the card
+     places; a cluster of 32 blocks refused by the wrapper and, past it, by
+     the card, with nothing launched; the occupancy of clusters; their
+     ptxas entries; device ms a call (20 calls queued behind a spin of the
+     card) of each against its one-block kernel in turns (K2 and K2c a qr
+     refresh bond's, the splits a dp bond's), and by cluster size over 5
+     interleaved rounds, failing as phase 21 does; a backward K2's and
+     K2c's device ms by part (projection, energies + mask, emission,
+     advance) from prefixes of the body; the host's us a launch of the
+     cluster and one-block forms, through the wrapper and the bare C entry
+     (1000 unsynced calls each).
 Then the ptxas line (registers, static shared memory and spills of each
 kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
@@ -204,6 +222,9 @@ SHAPE = dict(C=2, chi=25, d=5, N=100)
 RITZ_SHAPE = dict(C=2, chi=64, d=5, N=100)
 PEAK_BYTES_S = 3.35e12           # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12          # H100 SXM float32 outside the tensor cores
+# a spin of the card (torch.cuda._sleep) of ~25 ms at its ~2 GHz clock:
+# longer than the host takes to enqueue 200 wrapper calls of ~50 us
+SPIN_CYCLES = 50_000_000
 KERNEL_SRC = "mpstime_tpu_torch/csrc/bond_step.cu"
 KERNEL_SRC_C = "mpstime_tpu_torch/csrc/bond_step_c.cu"
 
@@ -287,7 +308,10 @@ def ptxas_summary(log: str) -> str:
                                      "k2_split_kernel", "k2_env_kernel",
                                      "k1_tail_kernel", "k1_cluster_kernel",
                                      "k1b_cluster_kernel",
-                                     "k1a_cluster_kernel") if k in mangled),
+                                     "k1a_cluster_kernel",
+                                     "k2_cluster_kernel",
+                                     "k2_split_cluster_kernel")
+                         if k in mangled),
                         mangled)
             name = f"{kern}<{'cfloat' if 'cfloat' in mangled else 'float'}>"
             stores = loads = "0"
@@ -567,33 +591,61 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def time_turns(fused, split, rounds: int, iters: int):
+def time_queued_ms(fn, iters: int = 20) -> float:
+    """Per-call device ms of ``fn``: one warm call, then ``iters`` calls
+    enqueued while the card spins, so that they run back to back and the
+    events time the card, not the host's wrapper calls between launches;
+    fails if the host took longer to enqueue them than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    es, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    es.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    e1.record()
+    torch.cuda.synchronize()
+    check(host_ms < es.elapsed_time(e0), f"queued timing: the host took "
+          f"{host_ms:.2f} ms to enqueue, longer than the spin's "
+          f"{es.elapsed_time(e0):.2f} ms")
+    return e0.elapsed_time(e1) / iters
+
+
+def time_turns(fused, split, rounds: int, iters: int, timer=None):
     """Per-call ms of two forms of one bond, timed in turns (fused, split,
-    split, fused per round) on the same card: (fused times, split times)."""
+    split, fused per round) on the same card by ``timer(fn, iters)``
+    (default ``time_ms`` after one warm call): (fused times, split
+    times)."""
+    timer = timer or (lambda fn, n: time_ms(fn, n, warmup=1))
     tf, ts = [], []
     for _ in range(rounds):
-        tf.append(time_ms(fused, iters, warmup=1))
-        ts.append(time_ms(split, iters, warmup=1))
-        ts.append(time_ms(split, iters, warmup=1))
-        tf.append(time_ms(fused, iters, warmup=1))
+        tf.append(timer(fused, iters))
+        ts.append(timer(split, iters))
+        ts.append(timer(split, iters))
+        tf.append(timer(fused, iters))
     return tf, ts
 
 
 def time_cluster(name, cluster_call, block_call, sized_call, sizes,
-                 default: int) -> str:
+                 default: int, timer=None) -> str:
     """Per-call ms of the cluster kernel ``name`` (``cluster_call``, at its
     default size ``default``) against its one-block kernel (``block_call``)
     in turns over 5 rounds, and at each cluster size in ``sizes``
-    (``sized_call(n)``) over 5 interleaved rounds; fails unless the cluster
-    beats one block and the default is the fastest size within the spread
-    of their rounds.  Returns the report."""
-    t_new, t_one = time_turns(cluster_call, block_call, rounds=5, iters=20)
+    (``sized_call(n)``) over 5 interleaved rounds, by ``timer(fn, iters)``
+    (default ``time_ms``); fails unless the cluster beats one block and the
+    default is the fastest size within the spread of their rounds.  Returns
+    the report."""
+    t_new, t_one = time_turns(cluster_call, block_call, rounds=5, iters=20,
+                              timer=timer)
     # each size timed in 5 interleaved rounds: the sizes' medians and
     # spreads decide the default, not one timing each
     rounds = {n: [] for n in sizes}
     for _ in range(5):
         for n in sizes:
-            rounds[n].append(time_ms(lambda: sized_call(n)))
+            rounds[n].append((timer or time_ms)(lambda: sized_call(n), 20))
     by_size = {n: statistics.median(t) for n, t in rounds.items()}
     new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
     check(new_ms < one_ms, f"{name} (cluster {default}) {new_ms:.3f} ms is "
@@ -1412,6 +1464,280 @@ def k1_cluster_phase(card: str, ptxas: str) -> None:
           + f" ({card})", flush=True)
 
 
+def k2_cluster_phase(card: str, ptxas: str) -> None:
+    """K2, K2c, K2-split and K2c-split, the split (K2, K2c: and the
+    environment advance) over a thread-block cluster, against their
+    one-block kernels bit for bit over both directions x max_rank None and
+    4 x a cutoff that keeps all directions and one that cuts at the
+    main-path shape, chi 64 and 128, K2 and K2c at N 50 and 32, a basis
+    with zero-energy columns and the tie-break bond, at the default cluster
+    and at every size the card places; a cluster of 32 blocks refused by
+    the wrapper and, past it, by the card, with nothing launched; the
+    occupancy of clusters; their ptxas entries; device ms a call of each
+    against its one-block kernel in turns, and by cluster size; a backward
+    K2's and K2c's device ms by part (prefixes of the body); and the host's
+    cost of a cluster launch against a one-block one."""
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    from mpstime_tpu_torch.ops import bond_kernels_c as bkc
+    from mpstime_tpu_torch.ops.decomp import _qr_orth
+    tag = "[k2-k2split-cluster]"
+    sizes = (1, 2, 4, 8, 16)
+    names = {"k2": "K2", "k2c": "K2c", "k2_split": "K2-split",
+             "k2c_split": "K2c-split"}
+    mods = {k: bkc if k.startswith("k2c") else bk for k in names}
+    cluster_fn = {k: getattr(m, f"{k}_cuda") for k, m in mods.items()}
+    block_fn = {k: getattr(m, f"{k}_block_cuda") for k, m in mods.items()}
+    default = {k: getattr(m, f"{k.upper()}_CLUSTER") for k, m in mods.items()}
+    occ = {(k, n): bk.cluster_occupancy(k, n, SHAPE["chi"])
+           for k in names for n in sizes}
+    placed = {k: [n for n in sizes if occ[(k, n)] >= 1] for k in names}
+    for k in names:
+        check(default[k] in placed[k], f"{names[k]}: the chosen cluster of "
+              f"{default[k]} blocks cannot be placed: {occ}")
+    print(f"{tag} cluster sizes " + ", ".join(
+        f"{names[k]} {default[k]}" for k in names) + " (blocks of 512 "
+          "threads); clusters the card holds at once "
+          "(cudaOccupancyMaxActiveClusters) at chi 25, " + "; ".join(
+              f"{names[k]}: " + ", ".join(f"{n}: {occ[(k, n)]}"
+                                          for n in sizes) for k in names)
+          + f" ({card})", flush=True)
+    if "no log" not in ptxas:
+        mine = [e for e in ptxas.split("; ")
+                if e.startswith(("k2_cluster_kernel",
+                                 "k2_split_cluster_kernel"))]
+        check(len(mine) == 4, f"ptxas: no entry for the cluster K2 and "
+              f"K2-split ({ptxas})")
+        print(f"{tag} ptxas: " + "; ".join(mine), flush=True)
+
+    def operands(key, seed, shape, forward, zero_cols=0):
+        """K2's (K2c's) operands: the plain K1's (K1c's, q 3) bond tensor,
+        the QR (realified QR) of its Y with its last ``zero_cols`` columns
+        zeroed, the advancing side's environment, log-scales and features;
+        K2-split's (K2c-split's) the bond tensor and the basis."""
+        if key.startswith("k2c"):
+            x = bond_inputs_c(seed, 1, **shape)
+            a1 = k1c_args(x, forward)
+            BT, Y = bkc.k1c_plain(*a1, forward=forward, power_iters=3)
+            Q = _qr_orth(Y).contiguous()
+        else:
+            x = bond_inputs(seed, 1, **shape)
+            a1 = k1_args(x, forward)
+            BT, Y = bk.k1_plain(*a1, forward=forward)
+            Q = torch.linalg.qr(Y).Q.contiguous()
+        if zero_cols:
+            Q[:, -zero_cols:] = 0
+        if key.endswith("_split"):
+            return (BT, Q)
+        env, phi = ((a1[2], x["phil"][0]) if forward
+                    else (a1[3], x["phir"][0]))
+        return (BT, Q, env, x["ls0"], phi)
+
+    def tie_operands(key):
+        """The tie-break bond (tie_break_inputs) as K2's or K2-split's
+        operands, complex64 for K2c and K2c-split: its bond tensor (eta 0)
+        and the basis V0, and its cutoff."""
+        A, center, le, re, ls, phil, phir, y1h, w, V0, _, cutoff = \
+            tie_break_inputs()
+        if key.startswith("k2c"):
+            A, center, le, re, phil, phir, V0 = (
+                t.to(torch.complex64)
+                for t in (A, center, le, re, phil, phir, V0))
+            BT, _ = bkc.k1c_plain(A, center, le, re, phil, phir, y1h, w, V0,
+                                  0.0, forward=False, emit_y=False)
+        else:
+            BT, _ = bk.k1_plain(A, center, le, re, phil, phir, y1h, w, ls,
+                                V0, 0.0, forward=False, emit_y=False)
+        return ((BT, V0) if key.endswith("_split")
+                else (BT, V0, re, ls, phir)), cutoff
+
+    labels = {k: ("center", "core", "Qm") if k.endswith("_split")
+              else ("center", "core", "env", "env_ls") for k in names}
+    n_cases, cut = {}, {}
+    for key, name in names.items():
+        split = key.endswith("_split")
+        # (shape, forward, max_rank, cutoff, zeroed columns of Q)
+        grid = [(SHAPE, f, mr, c, 0) for f in (False, True)
+                for mr in (None, 4) for c in (1e-10, 0.05)]
+        grid += [(dict(SHAPE, chi=chi), f, None, 1e-10, 0)
+                 for chi in (64, 128) for f in (False, True)]
+        if not split:
+            grid += [(dict(SHAPE, N=n), f, None, 1e-10, 0) for n in (50, 32)
+                     for f in (False, True)]
+        grid += [(SHAPE, f, None, 1e-10, 5) for f in (False, True)]
+        cases = []
+        for i, (shape, forward, mr, cutoff, zc) in enumerate(grid):
+            cases.append((operands(key, 2500 + i, shape, forward, zc)
+                          + (cutoff,), dict(forward=forward, max_rank=mr),
+                          f"chi={shape['chi']} N={shape['N']} "
+                          f"max_rank={mr} cutoff={cutoff} zeroed={zc}"))
+        tie, tie_cutoff = tie_operands(key)
+        cases.append((tie + (tie_cutoff,), dict(forward=False), "tie-break"))
+        for args, kw, label in cases:
+            ref = block_fn[key](*args, **kw)
+            kept_dirs = kept(ref[1], kw["forward"])
+            if label == "tie-break":
+                check(kept_dirs.tolist() == [True] * 3 + [False] * 3,
+                      f"{name} tie-break kept {kept_dirs.tolist()}")
+            elif "cutoff=0.05" in label or "zeroed=5" in label:
+                # the cutoff of 5 % cuts: the least energy is at most the
+                # mean, 4 % of the total at chi 25; zeroed columns carry none
+                check(not bool(kept_dirs.all()), f"{name} {label}: nothing "
+                      "cut")
+                cut[key] = cut.get(key, 0) + 1
+            equal(f"{name} {label} {kw} vs one block",
+                  cluster_fn[key](*args, **kw), ref,
+                  labels[key])
+            for n in placed[key]:
+                equal(f"{name} {label} {kw} cluster {n} vs one block",
+                      cluster_fn[key](*args, cluster=n, **kw), ref,
+                      labels[key])
+        n_cases[key] = len(cases)
+    torch.cuda.synchronize()
+    raw = {"k2": bk._k2, "k2_split": bk._k2_split, "k2c": bkc._k2c,
+           "k2c_split": bkc._k2c_split}
+    refused = {}
+    for key, name in names.items():
+        args = operands(key, 2590, SHAPE, False) + (1e-10,)
+        # past the wrapper's check, the card refuses the launch itself
+        refused[name] = refusal(
+            name, lambda: cluster_fn[key](*args, forward=False, cluster=32),
+            lambda: raw[key](f"mpst_{key}_cluster_launch", (32,), *args,
+                             forward=False, max_rank=None))
+        # the refusal leaves no error behind for the next launch
+        equal(f"{name} after a refusal", cluster_fn[key](*args, forward=False),
+              block_fn[key](*args, forward=False),
+              labels[key])
+    print(f"{tag} cluster vs one block, torch.equal on center, core, env and "
+          "env_ls (K2, K2c) and center, core and Qm (the splits) at the "
+          "default cluster and at every size placed ("
+          + "; ".join(f"{names[k]} {placed[k]}" for k in names) + "): "
+          + ", ".join(f"{names[k]} {n_cases[k]}" for k in names)
+          + " cases (both directions x max_rank None, 4 x cutoff 1e-10, "
+          "0.05 at chi 25; chi 64 and 128; K2 and K2c at N 50 and 32; a basis "
+          "with 5 zero-energy columns; the tie-break bond, which keeps "
+          "directions 0..2), of which cut: " + ", ".join(
+              f"{names[k]} {cut[k]}" for k in names)
+          + "; a cluster of 32 blocks raises, nothing launched: " + "; ".join(
+              f"{k}: {v}" for k, v in refused.items()), flush=True)
+
+    # the timed calls: a qr refresh bond's K2 (K2c, q 3) and a dp bond's
+    # K2-split (K2c-split, ns, q 1 and 3), backward, at the main-path shape
+    x1 = bond_inputs(7, 1, **SHAPE)
+    BT1, Y1 = bk.k1_cuda(*k1_args(x1, False), forward=False)
+    xc1 = bond_inputs_c(17, 1, **SHAPE)
+    BTc, Yc = bkc.k1c_cuda(*k1c_args(xc1, False), forward=False,
+                           power_iters=3)
+    xd, xdc = dp_args(21, False), dp_args(22, False, cplx=True)
+    BTd, Yd = bk.k1b_cuda(xd[0], xd[1], bk.k1a_cuda(*xd[:9], forward=False),
+                          xd[9], 0.05, forward=False, orth="ns")
+    BTdc, Ydc = bkc.k1c_update_cuda(
+        xdc[0], xdc[1], bkc.k1c_grad_cuda(*xdc[:9], forward=False), xdc[9],
+        0.05, forward=False, orth="ns", power_iters=3)
+    timed = {
+        "k2": (BT1, torch.linalg.qr(Y1).Q.contiguous(), x1["envx"][0],
+               x1["ls0"], x1["phir"][0], 1e-10),
+        "k2c": (BTc, _qr_orth(Yc).contiguous(), xc1["envx"][0], xc1["ls0"],
+                xc1["phir"][0], 1e-10),
+        "k2_split": (BTd, Yd, 1e-10), "k2c_split": (BTdc, Ydc, 1e-10)}
+    # device ms a call: the host's wrapper call (~50 us) outlasts these
+    # kernels, so back-to-back event timing would time the host
+    lines = [f"{names[key]} (cluster {default[key]}): " + time_cluster(
+                 names[key], lambda: cluster_fn[key](*args, forward=False),
+                 lambda: block_fn[key](*args, forward=False),
+                 lambda n: cluster_fn[key](*args, cluster=n, forward=False),
+                 placed[key], default[key], timer=time_queued_ms)
+             for key, args in timed.items()]
+    print(f"{tag} device ms a call (20 calls queued behind a spin of the "
+          "card), backward at chi 25 (K2 and K2c a qr refresh bond's, q 1 "
+          "and 3; the splits a dp bond's, ns): " + "; ".join(lines)
+          + f" ({card})", flush=True)
+
+    # by part: prefixes of the body (1 projection, after the real kron
+    # factors; 2 + energies and mask; 3 + emission; 4 + advance), device
+    # ms a call in 5 interleaved rounds
+    parts = ("projection", "energies + mask", "emit", "advance")
+    by_part = []
+    for key, prefix in (("k2", bk._k2), ("k2c", bkc._k2c)):
+        entry = f"mpst_{key}_cluster_parts_launch"
+        args = timed[key]
+        calls = [lambda u=u: prefix(entry, (u, default[key]), *args,
+                                    forward=False, max_rank=None)
+                 for u in (1, 2, 3)]
+        calls.append(lambda: cluster_fn[key](*args, forward=False))
+        rounds = [[] for _ in calls]
+        for _ in range(5):
+            for r, call in zip(rounds, calls):
+                r.append(time_queued_ms(call))
+        med = [statistics.median(r) for r in rounds]
+        by_part.append(f"{names[key]} prefixes " + ", ".join(
+            f"{m:.4f} ({min(r):.4f}-{max(r):.4f})"
+            for m, r in zip(med, rounds)) + " ms, so by part " + ", ".join(
+            f"{p} {m - m0:.4f}" for p, m, m0 in zip(parts, med,
+                                                    [0.0] + med[:-1]))
+            + " ms")
+    print(f"{tag} a backward K2 and K2c (cluster {bk.K2_CLUSTER}, "
+          f"{bkc.K2C_CLUSTER}) by part, device ms a call, medians (min-max) "
+          "of 5 interleaved rounds of the body's prefixes: "
+          + "; ".join(by_part) + f" ({card})", flush=True)
+
+    # the host's cost of a launch: 1000 calls of each form, unsynced, in 5
+    # batches of 200 queued behind a spin of the card (so the host never
+    # waits for it), through the wrapper and through the bare C entry (its
+    # C arguments captured once, with a workspace held here)
+    from mpstime_tpu_torch.kernels.build import load_library
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def host_us(fn, batches=5, per=200):
+        total = 0.0
+        for _ in range(batches):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(per):
+                fn()
+            total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * total / (batches * per)
+
+    forms = {"K2 wrapper": (lambda: bk.k2_cuda(*timed["k2"], forward=False),
+                            lambda: bk.k2_block_cuda(*timed["k2"],
+                                                     forward=False))}
+    held = []
+    for key, ws_floats, dtype in (
+            ("k2", lib.mpst_k12_workspace_floats, torch.float32),
+            ("k2c", lib.mpst_c_workspace_floats, torch.complex64)):
+        c_args = []
+        held.append(bk._launch_k2(*timed[key], forward=False, max_rank=None,
+                                  launch=lambda *a: c_args.extend(a),
+                                  workspace_floats=ws_floats, dtype=dtype))
+        held.append(torch.empty(ws_floats(*c_args[10:14]), device="cuda"))
+        c_args[9] = held[-1].data_ptr()          # a workspace that stays
+        cluster_entry = getattr(lib, f"mpst_{key}_cluster_launch")
+        block_entry = getattr(lib, f"mpst_{key}_launch")
+        forms[f"{names[key]} C entry"] = (
+            lambda e=cluster_entry, a=tuple(c_args), n=default[key]:
+                e(*a, n, stream),
+            lambda e=block_entry, a=tuple(c_args): e(*a, stream))
+    us = {}
+    for _ in range(3):
+        for label, (cluster_call, block_call) in forms.items():
+            us.setdefault((label, "cluster"), []).append(
+                host_us(cluster_call))
+            us.setdefault((label, "one block"), []).append(
+                host_us(block_call))
+    check(all(rc == 0 for rc in (forms["K2 C entry"][0](),
+                                 forms["K2c C entry"][0]())),
+          "the bare C entries failed")
+    torch.cuda.synchronize()
+    print(f"{tag} host us a launch, 1000 unsynced calls in 5 batches of 200 "
+          "queued behind a spin of the card, median (min-max) of 3 rounds, "
+          "backward at chi 25: " + "; ".join(
+              f"{label} {form} {statistics.median(v):.2f} "
+              f"({min(v):.2f}-{max(v):.2f})"
+              for (label, form), v in us.items()) + f" ({card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1728,15 +2054,18 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(prof_info["sweep_seconds"])
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
-    # a fit launches K12m and K1 over a cluster only, never on one block
-    check(not any("k12m_kernel" in k or "k1_kernel" in k for k in dev),
-          f"qr fit profile: a one-block K12m or K1 ran: {list(dev)}")
+    # a fit launches K12m, K1 and K2 over a cluster only, never on one block
+    check(not any(n in k for k in dev
+                  for n in ("k12m_kernel", "k1_kernel", "k2_kernel")),
+          f"qr fit profile: a one-block K12m, K1 or K2 ran: {list(dev)}")
     print(f"[profile] qr fit, one refresh + one frozen sweep on cuda: device "
           f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time; K12m "
           f"(cluster) "
           f"{sum(v for k, v in dev.items() if 'k12m_cluster_kernel' in k):.1f}"
           " ms; K1 (cluster) "
           f"{sum(v for k, v in dev.items() if 'k1_cluster_kernel' in k):.1f}"
+          " ms; K2 (cluster) "
+          f"{sum(v for k, v in dev.items() if 'k2_cluster_kernel' in k):.1f}"
           " ms; by kernel: "
           + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top)
           + f" ({card})", flush=True)
@@ -1962,18 +2291,21 @@ def main() -> int:
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA}
         top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
-        # a fit launches K1c and K12mc over a cluster only, never their
-        # one-block kernels
-        check(not any("k1_kernel" in k or "k12m_kernel" in k for k in dev),
-              f"{label}: a one-block K1c or K12mc ran: {list(dev)}")
+        # a fit launches K1c, K2c and K12mc over a cluster only, never
+        # their one-block kernels
+        check(not any(n in k for k in dev
+                      for n in ("k1_kernel", "k2_kernel", "k12m_kernel")),
+              f"{label}: a one-block K1c, K2c or K12mc ran: {list(dev)}")
         k1c_ms = sum(v for k, v in dev.items() if "k1_cluster_kernel" in k)
+        k2c_ms = sum(v for k, v in dev.items() if "k2_cluster_kernel" in k)
         k12mc_ms = sum(v for k, v in dev.items()
                        if "k12m_cluster_kernel" in k)
         print(f"[profile] {label} on cuda: device busy "
               f"{sum(dev.values()):.1f} ms of "
               f"{1e3 * sum(p_info['sweep_seconds']):.1f} ms sweep wall time; "
-              f"K1c (cluster) {k1c_ms:.1f} ms, K12mc (cluster) "
-              f"{k12mc_ms:.1f} ms; by kernel: " + "; ".join(
+              f"K1c (cluster) {k1c_ms:.1f} ms, K2c (cluster) {k2c_ms:.1f} "
+              f"ms, K12mc (cluster) {k12mc_ms:.1f} ms; by kernel: "
+              + "; ".join(
                   f"{k[:60]} {v:.1f} ms" for k, v in top)
               + f" ({card})", flush=True)
 
@@ -2304,13 +2636,15 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA}
         busy = sum(dev.values())
         wall = 1e3 * sum(p_info["sweep_seconds"])
-        # K1a and K1b run over a cluster, never on one block
-        check(not any("k1a_kernel" in n or "k1b_kernel" in n for n in dev),
-              f"dp-profile: a one-block K1a or K1b ran: {list(dev)}")
+        # K1a, K1b and K2-split run over a cluster, never on one block
+        check(not any(k in n for n in dev for k in (
+            "k1a_kernel", "k1b_kernel", "k2_split_kernel")),
+              f"dp-profile: a one-block K1a, K1b or K2-split ran: "
+              f"{list(dev)}")
         parts = {k: sum(v for n, v in dev.items() if kern in n)
                  for k, kern in (("k1a", "k1a_cluster_kernel"),
                                  ("k1b", "k1b_cluster_kernel"),
-                                 ("k2_split", "k2_split_kernel"),
+                                 ("k2_split", "k2_split_cluster_kernel"),
                                  ("k2_env", "k2_env_kernel"))}
         copies = {n: v for n, v in dev.items() if "emcpy" in n}
         print(f"[dp-profile] one sweep on {label} (default options): device "
@@ -2523,13 +2857,15 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     check(busy > 0, "complex-dp-profile: no device time traced")
-    # K1c-grad and K1c-update run over a cluster, never on one block
-    check(not any("k1a_kernel" in n or "k1b_kernel" in n for n in dev),
-          f"complex-dp-profile: a one-block K1c-grad or K1c-update ran: "
-          f"{list(dev)}")
+    # K1c-grad, K1c-update and K2c-split run over a cluster, never on one
+    # block
+    check(not any(k in n for n in dev for k in (
+        "k1a_kernel", "k1b_kernel", "k2_split_kernel")),
+          f"complex-dp-profile: a one-block K1c-grad, K1c-update or "
+          f"K2c-split ran: {list(dev)}")
     parts = {k: sum(v for n, v in dev.items() if k in n)
              for k in ("k1a_cluster_kernel", "k1b_cluster_kernel",
-                       "k2_split_kernel", "k2_env_kernel")}
+                       "k2_split_cluster_kernel", "k2_env_kernel")}
     print(f"[complex-dp-profile] one fourier sweep on make_mesh(1): device "
           f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
           f"({100 * busy / wall:.1f} %); " + "; ".join(
@@ -2753,13 +3089,13 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     check(busy > 0, "split-tail-profile: no device time traced")
-    # K1 runs over a cluster, never on one block
-    check(not any("k1_kernel" in n for n in dev),
-          f"split-tail-profile: a one-block K1 ran: {list(dev)}")
+    # K1 and K2 run over a cluster, never on one block
+    check(not any("k1_kernel" in n or "k2_kernel" in n for n in dev),
+          f"split-tail-profile: a one-block K1 or K2 ran: {list(dev)}")
     parts = {k: sum(v for n, v in dev.items() if kern in n)
              for k, kern in (("k1", "k1_cluster_kernel"),
                              ("k1_tail", "k1_tail_kernel"),
-                             ("k2", "k2_kernel"))}
+                             ("k2", "k2_cluster_kernel"))}
     print(f"[split-tail-profile] one default sweep with SPLIT_TAIL_CHI = 0: "
           f"device busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
           f"({100 * busy / wall:.1f} %); " + "; ".join(
@@ -2782,6 +3118,9 @@ def main() -> int:
 
     # ---- 21. K1 and K1b over a thread-block cluster ------------------------
     k1_cluster_phase(card, ptxas)
+
+    # ---- 22. K2, K2c, K2-split and K2c-split over a thread-block cluster ---
+    k2_cluster_phase(card, ptxas)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

@@ -16,12 +16,18 @@
 // They are built from the same device functions as K12, phase for phase, so
 // the three cannot drift apart; K1 writes BT straight into its output.  At
 // the main-path shape K1 is a chain of ~8.6 M multiply-adds and K2 of
-// ~1.1 M, each over ~0.2 MB of operands: latency-bound like K12.  K1 runs
-// over a thread-block cluster (mpst_k1_cluster_launch, the wrapper's
-// K1_CLUSTER blocks): k1_cluster_kernel is k1_kernel's body, k1_body, under
-// ClusterTeam, the same bits, and mpst_k1_launch stays as its one-block
-// reference, which no route of the package launches.  K2 runs on one
-// thread block.
+// ~1.1 M, each over ~0.2 MB of operands: latency-bound like K12.  K1 and
+// K2 run over a thread-block cluster (mpst_k1_cluster_launch and
+// mpst_k2_cluster_launch, the wrappers' K1_CLUSTER and K2_CLUSTER blocks):
+// k1_cluster_kernel and k2_cluster_kernel are k1_kernel's and k2_kernel's
+// bodies, k1_body and k2_body, under ClusterTeam, the same bits, and
+// mpst_k1_launch and mpst_k2_launch stay as their one-block references,
+// which no route of the package launches.  K2's work is two products (the
+// projection C*P*K*P and the advance N*K*P multiply-adds, 16 and 7 output
+// tiles of 16 x 32 at the main-path shape) between elementwise phases
+// (kron factors, energies, mask, emission, the per-sample renormalisation)
+// that spread over the cluster's threads; mpst_k2_cluster_parts_launch runs
+// a prefix of its four parts, so that the parts can be timed.
 //
 // Per bond it computes: the bond tensor BT per class, yhat and the KLD or
 // MSE gradient, a TSGO or GD step with renormalisation, q warm power steps
@@ -65,17 +71,19 @@
 // through Qm.  At the main-path shape (C = 2, chi = 25, d = 5, N = 100 per
 // shard) K1a is ~7.1 M multiply-adds, K1b ~4.7 M with the Newton-Schulz
 // power step, K2-split ~0.8 M and K2-env ~0.3 M: latency-bound like K12.
-// K2-split and K2-env run on one thread block.  K1a and K1b run over a
-// thread-block cluster as K12m does (mpst_k1a_cluster_launch and
-// mpst_k1b_cluster_launch, the wrappers' K1A_CLUSTER and K1B_CLUSTER
-// blocks): K1a's work is almost all batch products (BT = core center,
-// T1 = L BT [C, N, P], G = L^H U [C, P, P], each ~16 output tiles of
-// 32 x 64), K1b's the bond tensor, the step's sums and the power step's
-// products, whose Newton-Schulz chain stays a chain of cluster phases.
-// k1a_cluster_kernel and k1b_cluster_kernel are k1a_kernel's and
-// k1b_kernel's bodies under ClusterTeam, the same bits.  mpst_k1a_launch
-// and mpst_k1b_launch stay as the one-block references; no route of the
-// package launches them.  The gradient G [C, chi*d, d, chi] (250 KB) is
+// K2-env runs on one thread block.  K1a, K1b and K2-split run over a
+// thread-block cluster as K12m does (mpst_k1a_cluster_launch,
+// mpst_k1b_cluster_launch and mpst_k2_split_cluster_launch, the wrappers'
+// K1A_CLUSTER, K1B_CLUSTER and K2_SPLIT_CLUSTER blocks): K1a's work is
+// almost all batch products (BT = core center, T1 = L BT [C, N, P],
+// G = L^H U [C, P, P], each ~16 output tiles of 32 x 64), K1b's the bond
+// tensor, the step's sums and the power step's products, whose
+// Newton-Schulz chain stays a chain of cluster phases, K2-split's the
+// projection and the elementwise emission.  k1a_cluster_kernel,
+// k1b_cluster_kernel and k2_split_cluster_kernel are k1a_kernel's,
+// k1b_kernel's and k2_split_kernel's bodies under ClusterTeam, the same
+// bits.  mpst_k1a_launch, mpst_k1b_launch and mpst_k2_split_launch stay as
+// the one-block references; no route of the package launches them.  The gradient G [C, chi*d, d, chi] (250 KB) is
 // the only operand that crosses devices.
 //
 // K1-tail replaces _k1_tail_kernel of the same file: the warm power step of
@@ -140,7 +148,8 @@ int mpst_k12m_cluster_launch(const void* lhs, const void* center0,
 
 // How many clusters of `cluster` blocks of a real cluster kernel the card
 // holds at once, into *n (0: it cannot place one): kernel 0 K12m (and K12,
-// its Bb = 1), 1 K1a, 2 K1, 3 K1b; chi is unused.  Returns the CUDA error
+// its Bb = 1), 1 K1a, 2 K1, 3 K1b, 4 K2, 5 K2-split; chi is unused.
+// Returns the CUDA error
 // of the query (cudaErrorInvalidValue for another kernel); bond_step_c.cu's
 // mpst_c_cluster_occupancy answers for the complex ones.
 int mpst_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
@@ -159,6 +168,12 @@ int mpst_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
                                      cluster, stage, n);
     case 3:
       return mpst::cluster_occupancy(mpst::k1b_cluster_kernel<float>,
+                                     cluster, stage, n);
+    case 4:
+      return mpst::cluster_occupancy(mpst::k2_cluster_kernel<float>,
+                                     cluster, stage, n);
+    case 5:
+      return mpst::cluster_occupancy(mpst::k2_split_cluster_kernel<float>,
                                      cluster, stage, n);
     default:
       return (int)cudaErrorInvalidValue;
@@ -207,6 +222,36 @@ int mpst_k2_launch(const void* bt, const void* q, const void* env,
   return mpst::launch_k2<float>(bt, q, env, env_ls, phi, center_out,
                                 core_out, env_out, ls_out, ws, C, chi, d, N,
                                 forward, cutoff, max_rank, stream);
+}
+
+// K2 over one cluster of `cluster` blocks: mpst_k2_launch's arguments and
+// the cluster size, the same bits.  Scratch: mpst_k12_workspace_floats.
+int mpst_k2_cluster_launch(const void* bt, const void* q, const void* env,
+                           const void* env_ls, const void* phi,
+                           void* center_out, void* core_out, void* env_out,
+                           void* ls_out, void* ws, int C, int chi, int d,
+                           int N, int forward, float cutoff, float max_rank,
+                           int cluster, void* stream) {
+  return mpst::launch_k2_cluster<float>(
+      bt, q, env, env_ls, phi, center_out, core_out, env_out, ls_out, ws, C,
+      chi, d, N, forward, cutoff, max_rank, 0, cluster, stream);
+}
+
+// The first `upto` (1-3) of the cluster K2's four parts (projection;
+// energies and mask; emission; advance), for timing them by prefixes:
+// mpst_k2_cluster_launch's arguments with upto before the cluster size.
+// The outputs of the parts not run are left unwritten.
+int mpst_k2_cluster_parts_launch(const void* bt, const void* q,
+                                 const void* env, const void* env_ls,
+                                 const void* phi, void* center_out,
+                                 void* core_out, void* env_out, void* ls_out,
+                                 void* ws, int C, int chi, int d, int N,
+                                 int forward, float cutoff, float max_rank,
+                                 int upto, int cluster, void* stream) {
+  if (upto < 1) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k2_cluster<float>(
+      bt, q, env, env_ls, phi, center_out, core_out, env_out, ls_out, ws, C,
+      chi, d, N, forward, cutoff, max_rank, upto, cluster, stream);
 }
 
 // K1a.  gls: [N] total log-scales (MSE only, else null).  Scratch:
@@ -279,6 +324,20 @@ int mpst_k2_split_launch(const void* bt, const void* q, void* center_out,
   return mpst::launch_k2_split<float>(bt, q, center_out, core_out, qm_out,
                                       ws, C, chi, d, forward, cutoff,
                                       max_rank, stream);
+}
+
+// K2-split over one cluster of `cluster` blocks: mpst_k2_split_launch's
+// arguments and the cluster size, the same bits.  Scratch:
+// mpst_k12_workspace_floats(C, chi, d, 0).
+int mpst_k2_split_cluster_launch(const void* bt, const void* q,
+                                 void* center_out, void* core_out,
+                                 void* qm_out, void* ws, int C, int chi,
+                                 int d, int forward, float cutoff,
+                                 float max_rank, int cluster, void* stream) {
+  return mpst::launch_k2_split_cluster<float>(bt, q, center_out, core_out,
+                                              qm_out, ws, C, chi, d, forward,
+                                              cutoff, max_rank, cluster,
+                                              stream);
 }
 
 // K2-env.  Scratch: mpst_k12_workspace_floats(0, chi, d, N).

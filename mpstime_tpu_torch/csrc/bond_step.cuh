@@ -4,10 +4,11 @@
 // stand-alone power step of the split-tail route (K1-tail), real
 // (float) and complex (cfloat), and the kernels that run a bond over a
 // thread-block cluster: the multi-bond block (K12m, K12 and K12mc), the
-// batch gradient (K1a, K1c-grad) and the bond update up to its
-// orthogonalisation (K1 and K1c, K1b and K1c-update) at both scalar types,
-// and the complex bond step (K12c) and the tracked-ritz bond step (K12cr)
-// at cfloat.
+// batch gradient (K1a, K1c-grad), the bond update up to its
+// orthogonalisation (K1 and K1c, K1b and K1c-update) and the split with or
+// without the environment advance (K2 and K2c, K2-split and K2c-split) at
+// both scalar types, and the complex bond step (K12c) and the tracked-ritz
+// bond step (K12cr) at cfloat.
 // See bond_step.cu and bond_step_c.cu for what the kernels replace and how
 // they are bounded; this header holds the math, phase by phase, written once
 // for both scalar types and both teams.
@@ -39,10 +40,12 @@
 // Energies, norms, the cutoff mask and the log-scales are real.
 //
 // Every device function takes a team, the threads that share one bond:
-// BlockTeam, one thread block (the kernels of one block: the reference
-// K12m, K1, K2, the pieces and the tails), or ClusterTeam, every block of a
-// thread-block cluster (the cluster K12m, K1a, K1, K1b, K12c and K12cr).  A thread's index in the team is rank * blockDim.x +
-// threadIdx.x, loops stride over the team's threads, and team.sync()
+// BlockTeam, one thread block (the kernels of one block: the references
+// K12m, K1, K2, K1a, K1b, K2-split, K2-env and the tails), or ClusterTeam,
+// every block of a thread-block cluster (the cluster K12m, K1a, K1, K1b, K2,
+// K2-split, K12c and K12cr).  A thread's index in the team is
+// rank * blockDim.x + threadIdx.x, loops stride over the team's threads, and
+// team.sync()
 // separates the phases (__syncthreads() or the cluster barrier).
 // The arithmetic of every output does not depend on the team:
 //   * each product output is one thread's sequential chain over k = 0..Kd-1
@@ -190,6 +193,8 @@ struct K12Args {
                            // normalisation only, no revival, no polar
   int tri;                 // power step of K12cr: column normalisation,
                            // then tri_newton (no revival)
+  int upto;                // K2's parts to run, 1-3 (0: all four), so that
+                           // the parts can be timed by prefixes
   float eta, cutoff, max_rank;
 };
 
@@ -822,14 +827,13 @@ __device__ inline void project(const Tm& tm, const K12Args<T>& a, const T* Q,
   tm.sync();
 }
 
-// The projected blocks, the direction energies w.wv [K] and their cutoff
+// The direction energies w.wv [K] of the projected blocks and their cutoff
 // mask.
 template <class Tm, class T>
-__device__ inline void project_mask(const Tm& tm, const K12Args<T>& a,
-                                    const T* Q, Work<T> w) {
+__device__ inline void energies_mask(const Tm& tm, const K12Args<T>& a,
+                                     Work<T> w) {
   const int C = a.C, K = a.chi;
   const long P = (long)a.chi * a.d;
-  project(tm, a, Q, w);
   for (int j = tm.tid(); j < K; j += tm.size()) {
     float wv = 0.f;
     for (int c = 0; c < C; ++c) {
@@ -845,6 +849,14 @@ __device__ inline void project_mask(const Tm& tm, const K12Args<T>& a,
   }
   tm.sync();
   cutoff_mask(tm, a, w);
+}
+
+// The projected blocks, the direction energies and their cutoff mask.
+template <class Tm, class T>
+__device__ inline void project_mask(const Tm& tm, const K12Args<T>& a,
+                                    const T* Q, Work<T> w) {
+  project(tm, a, Q, w);
+  energies_mask(tm, a, w);
 }
 
 // Emit the masked split factors in their final core layouts, the unmasked
@@ -1050,22 +1062,45 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 // Q [P, chi]: projection, energies and cutoff mask, the center and core in
 // their final layouts, and the advance of the environment env0 / ls0
 // through the new isometry with its features phil (backward: re and phir;
-// forward: le and phil).
+// forward: le and phil).  The body on a team, in four parts: the
+// projection (after the real kron factors), the energies and mask, the
+// emission, the advance; a.upto = n > 0 stops after part n.  Then the
+// kernel of one block.
+template <class Tm, class T>
+__device__ inline void k2_body(const Tm& tm, const K12Args<T>& a, const T* Q,
+                               Work<T> w) {
+  // one side's factor is all the advance needs: L (forward) or R (backward)
+  if constexpr (!IsComplex<T>::value) {
+    kron_factors(tm, a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
+    tm.sync();
+  }
+  project(tm, a, Q, w);
+  if (a.upto == 1) return;
+  energies_mask(tm, a, w);
+  if (a.upto == 2) return;
+  emit(tm, a, Q, a.core_out, static_cast<T*>(nullptr), w);
+  if (a.upto == 3) return;
+  env_advance(tm, a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
+}
+
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k2_kernel(K12Args<T> a,
                                                          const T* bt,
                                                          const T* Q) {
-  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
   w.BT = const_cast<T*>(bt);                // read only
-  // one side's factor is all the advance needs: L (forward) or R (backward)
-  if constexpr (!IsComplex<T>::value) {
-    kron_factors(tm, a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
-    __syncthreads();
-  }
-  project_mask(tm, a, Q, w);
-  emit(tm, a, Q, a.core_out, static_cast<T*>(nullptr), w);
-  env_advance(tm, a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
+  k2_body(BlockTeam{}, a, Q, w);
+}
+
+// K2 (K2c) over a thread-block cluster: K2's body and operands under
+// ClusterTeam, the same bits as k2_kernel (launch bound as K1c's).
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    k2_cluster_kernel(K12Args<T> a, const T* bt, const T* Q) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, a.N);
+  w.BT = const_cast<T*>(bt);                // read only
+  k2_body(cluster_team(w.parts, dyn_smem), a, Q, w);
 }
 
 // ---- K1a, K1b, K2-split, K2-env: the bond step in four pieces ------------
@@ -1168,17 +1203,37 @@ __global__ void __launch_bounds__(kMaxThreads) k1_tail_kernel(K12Args<T> a,
 // K2-split: the split of bt against the orthonormal basis Q: projection,
 // energies and cutoff mask, the center and core in their final layouts, and
 // the masked isometry Qm = Q * mask into qm_out (emit forms it in w.Yb).
+// The body on a team, then the kernel of one block.
+template <class Tm, class T>
+__device__ inline void k2_split_body(const Tm& tm, const K12Args<T>& a,
+                                     const T* Q, Work<T> w) {
+  project_mask(tm, a, Q, w);
+  emit(tm, a, Q, a.core_out, static_cast<T*>(nullptr), w);
+}
+
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k2_split_kernel(K12Args<T> a,
                                                                const T* bt,
                                                                const T* Q,
                                                                T* qm_out) {
-  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
   w.BT = const_cast<T*>(bt);                // read only
   w.Yb = qm_out;
-  project_mask(tm, a, Q, w);
-  emit(tm, a, Q, a.core_out, static_cast<T*>(nullptr), w);
+  k2_split_body(BlockTeam{}, a, Q, w);
+}
+
+// K2-split (K2c-split) over a thread-block cluster: K2-split's body and
+// operands under ClusterTeam, the same bits as k2_split_kernel (launch
+// bound as K1c's).
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    k2_split_cluster_kernel(K12Args<T> a, const T* bt, const T* Q,
+                            T* qm_out) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
+  w.BT = const_cast<T*>(bt);                // read only
+  w.Yb = qm_out;
+  k2_split_body(cluster_team(w.parts, dyn_smem), a, Q, w);
 }
 
 // K2-env: the advance of this shard's environment env0 / ls0 through the
@@ -1419,8 +1474,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) k12cr_kernel(K12Args<T> a,
 // The C entry points of bond_step.cu (T = float) and bond_step_c.cu
 // (T = cfloat) forward to these, so one argument list per kernel serves
 // both scalar types.  Each launches one block of kMaxThreads (the cluster
-// K12m, K12c, K12cr, K1, K1a and K1b: one cluster of `cluster` blocks of
-// kMaxThreads) on the caller's stream and returns cudaGetLastError().
+// K12m, K12c, K12cr, K1, K1a, K1b, K2 and K2-split: one cluster of
+// `cluster` blocks of kMaxThreads) on the caller's stream and returns
+// cudaGetLastError().
 
 // A launch configuration of one cluster of `cluster` blocks with smem bytes
 // of dynamic shared memory, the kernel's attributes set to allow both.
@@ -1680,14 +1736,14 @@ inline int launch_k1_cluster(const void* lhs, const void* center0,
                         static_cast<T*>(y_out));
 }
 
-// K2: env / env_ls / phi are the advancing side's environment, log-scales
-// and features.
+// The operands of a K2 launch: env / env_ls / phi are the advancing side's
+// environment, log-scales and features.
 template <class T>
-inline int launch_k2(const void* bt, const void* q, const void* env,
-                     const void* env_ls, const void* phi, void* center_out,
-                     void* core_out, void* env_out, void* ls_out, void* ws,
-                     int C, int chi, int d, int N, int forward, float cutoff,
-                     float max_rank, void* stream) {
+inline K12Args<T> k2_args(const void* env, const void* env_ls,
+                          const void* phi, void* center_out, void* core_out,
+                          void* env_out, void* ls_out, void* ws, int C,
+                          int chi, int d, int N, int forward, float cutoff,
+                          float max_rank) {
   K12Args<T> a{};
   a.env0 = static_cast<const T*>(env);
   a.ls0 = static_cast<const float*>(env_ls);
@@ -1705,9 +1761,40 @@ inline int launch_k2(const void* bt, const void* q, const void* env,
   a.forward = forward;
   a.cutoff = cutoff;
   a.max_rank = max_rank;
+  return a;
+}
+
+template <class T>
+inline int launch_k2(const void* bt, const void* q, const void* env,
+                     const void* env_ls, const void* phi, void* center_out,
+                     void* core_out, void* env_out, void* ls_out, void* ws,
+                     int C, int chi, int d, int N, int forward, float cutoff,
+                     float max_rank, void* stream) {
+  const K12Args<T> a =
+      k2_args<T>(env, env_ls, phi, center_out, core_out, env_out, ls_out, ws,
+                 C, chi, d, N, forward, cutoff, max_rank);
   k2_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const T*>(bt), static_cast<const T*>(q));
   return (int)cudaGetLastError();
+}
+
+// K2 (K2c) over one cluster of `cluster` blocks: K2's operands; upto > 0
+// runs only the body's first upto parts (the by-part timing), 0 all.
+template <class T>
+inline int launch_k2_cluster(const void* bt, const void* q, const void* env,
+                             const void* env_ls, const void* phi,
+                             void* center_out, void* core_out, void* env_out,
+                             void* ls_out, void* ws, int C, int chi, int d,
+                             int N, int forward, float cutoff, float max_rank,
+                             int upto, int cluster, void* stream) {
+  if (upto < 0 || upto > 3) return (int)cudaErrorInvalidValue;
+  K12Args<T> a =
+      k2_args<T>(env, env_ls, phi, center_out, core_out, env_out, ls_out, ws,
+                 C, chi, d, N, forward, cutoff, max_rank);
+  a.upto = upto;
+  return launch_cluster(k2_cluster_kernel<T>, cluster, stage_smem_bytes<T>(),
+                        stream, a, static_cast<const T*>(bt),
+                        static_cast<const T*>(q));
 }
 
 // The operands of a K1a launch: gls [N] is the total log-scale (MSE only,
@@ -1845,12 +1932,12 @@ inline int launch_k1_tail(const void* bt, const void* v0, void* y_out,
   return (int)cudaGetLastError();
 }
 
-// K2-split.  Scratch: workspace_floats(C, chi, d, 0).
+// The operands of a K2-split launch.  Scratch: workspace_floats(C, chi, d,
+// 0).
 template <class T>
-inline int launch_k2_split(const void* bt, const void* q, void* center_out,
-                           void* core_out, void* qm_out, void* ws, int C,
-                           int chi, int d, int forward, float cutoff,
-                           float max_rank, void* stream) {
+inline K12Args<T> k2_split_args(void* center_out, void* core_out, void* ws,
+                                int C, int chi, int d, int forward,
+                                float cutoff, float max_rank) {
   K12Args<T> a{};
   a.center_out = static_cast<T*>(center_out);
   a.core_out = static_cast<T*>(core_out);
@@ -1862,11 +1949,38 @@ inline int launch_k2_split(const void* bt, const void* q, void* center_out,
   a.forward = forward;
   a.cutoff = cutoff;
   a.max_rank = max_rank;
+  return a;
+}
+
+template <class T>
+inline int launch_k2_split(const void* bt, const void* q, void* center_out,
+                           void* core_out, void* qm_out, void* ws, int C,
+                           int chi, int d, int forward, float cutoff,
+                           float max_rank, void* stream) {
+  const K12Args<T> a = k2_split_args<T>(center_out, core_out, ws, C, chi, d,
+                                        forward, cutoff, max_rank);
   k2_split_kernel<T><<<1, kMaxThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const T*>(bt), static_cast<const T*>(q),
       static_cast<T*>(qm_out));
   return (int)cudaGetLastError();
+}
+
+// K2-split (K2c-split) over one cluster of `cluster` blocks: K2-split's
+// operands.
+template <class T>
+inline int launch_k2_split_cluster(const void* bt, const void* q,
+                                   void* center_out, void* core_out,
+                                   void* qm_out, void* ws, int C, int chi,
+                                   int d, int forward, float cutoff,
+                                   float max_rank, int cluster,
+                                   void* stream) {
+  const K12Args<T> a = k2_split_args<T>(center_out, core_out, ws, C, chi, d,
+                                        forward, cutoff, max_rank);
+  return launch_cluster(k2_split_cluster_kernel<T>, cluster,
+                        stage_smem_bytes<T>(), stream, a,
+                        static_cast<const T*>(bt), static_cast<const T*>(q),
+                        static_cast<T*>(qm_out));
 }
 
 // K2-env: env / env_ls / phi are the advancing side's environment,

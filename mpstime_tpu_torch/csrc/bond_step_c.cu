@@ -57,8 +57,8 @@
 // chi = 25, d = 5, N = 100, q = 3) a refresh bond is a chain of ~20 M
 // complex multiply-adds (four real ones each) in ~170 dependent phases (the
 // batch products, q power steps of fourteen Newton-Schulz steps each, the
-// projection, the mask).  On one thread block (K2c, K2c-split, K2c-env,
-// K1c-tail and the one-block references of the cluster kernels) every
+// projection, the mask).  On one thread block (K2c-env, K1c-tail and the
+// one-block references of the cluster kernels) every
 // phase is latency-bound on one SM of 132, its products reading both
 // operands from L1/L2 per multiply-add.  BT and its gradient
 // (2 x C*chi*d*d*chi complex values, 500 KB) live in the L2-resident global
@@ -97,6 +97,17 @@
 // k1a_cluster_kernel at cfloat spreads its three batch products (C*N*P^2
 // and C*P^2*chi complex multiply-adds, ~16 output tiles each) over the
 // cluster's SMs; mpst_k1c_grad_launch stays as its one-block reference.
+//
+// K2c and K2c-split run the same way (mpst_k2c_cluster_launch,
+// mpst_k2c_split_cluster_launch, the wrappers' K2C_CLUSTER and
+// K2C_SPLIT_CLUSTER): k2_cluster_kernel and k2_split_cluster_kernel at
+// cfloat are K2's and K2-split's bodies under ClusterTeam, so the
+// projection (C*P*K*P complex multiply-adds, 16 output tiles of 16 x 32 at
+// the main-path shape), the advance (N*K*P, 7 tiles) and the elementwise
+// emission of a fourier qr refresh bond or a complex dp bond spread over
+// the cluster's SMs.  mpst_k2c_launch and mpst_k2c_split_launch stay as
+// their one-block references; mpst_k2c_cluster_parts_launch runs a prefix
+// of K2c's four parts, so that the parts can be timed.
 //
 // K12mc runs the same way too (mpst_k12mc_cluster_launch, the wrapper's
 // K12MC_CLUSTER): k12m_cluster_kernel at cfloat is the one-block
@@ -208,6 +219,36 @@ int mpst_k2c_launch(const void* bt, const void* q, const void* env,
                                  forward, cutoff, max_rank, stream);
 }
 
+// K2c over one cluster of `cluster` blocks: mpst_k2c_launch's arguments and
+// the cluster size, the same bits.  Scratch: mpst_c_workspace_floats.
+int mpst_k2c_cluster_launch(const void* bt, const void* q, const void* env,
+                            const void* env_ls, const void* phi,
+                            void* center_out, void* core_out, void* env_out,
+                            void* ls_out, void* ws, int C, int chi, int d,
+                            int N, int forward, float cutoff, float max_rank,
+                            int cluster, void* stream) {
+  return mpst::launch_k2_cluster<cfloat>(
+      bt, q, env, env_ls, phi, center_out, core_out, env_out, ls_out, ws, C,
+      chi, d, N, forward, cutoff, max_rank, 0, cluster, stream);
+}
+
+// The first `upto` (1-3) of the cluster K2c's four parts, for timing them
+// by prefixes: mpst_k2c_cluster_launch's arguments with upto before the
+// cluster size (bond_step.cu's mpst_k2_cluster_parts_launch at cfloat).
+int mpst_k2c_cluster_parts_launch(const void* bt, const void* q,
+                                  const void* env, const void* env_ls,
+                                  const void* phi, void* center_out,
+                                  void* core_out, void* env_out,
+                                  void* ls_out, void* ws, int C, int chi,
+                                  int d, int N, int forward, float cutoff,
+                                  float max_rank, int upto, int cluster,
+                                  void* stream) {
+  if (upto < 1) return (int)cudaErrorInvalidValue;
+  return mpst::launch_k2_cluster<cfloat>(
+      bt, q, env, env_ls, phi, center_out, core_out, env_out, ls_out, ws, C,
+      chi, d, N, forward, cutoff, max_rank, upto, cluster, stream);
+}
+
 // K12c: K12mc's argument list at Bb = 1 over one cluster of `cluster`
 // blocks (KLD + TSGO).  Scratch: mpst_c_workspace_floats.
 int mpst_k12c_launch(const void* lhs, const void* center0, const void* envx,
@@ -249,7 +290,8 @@ int mpst_k12cr_launch(const void* lhs, const void* center0, const void* envx,
 
 // How many clusters of `cluster` blocks of a complex cluster kernel at bond
 // width chi the card holds at once, into *n (0: it cannot place one):
-// kernel 0 K12c, 1 K12cr, 2 K1c, 3 K1c-update, 4 K12mc, 5 K1c-grad.
+// kernel 0 K12c, 1 K12cr, 2 K1c, 3 K1c-update, 4 K12mc, 5 K1c-grad, 6 K2c,
+// 7 K2c-split.
 // Returns the CUDA error of the query (cudaErrorInvalidValue for another
 // kernel); bond_step.cu's mpst_cluster_occupancy answers for the real ones.
 int mpst_c_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
@@ -273,6 +315,12 @@ int mpst_c_cluster_occupancy(int kernel, int cluster, int chi, int* n) {
                                      cluster, stage, n);
     case 5:
       return mpst::cluster_occupancy(mpst::k1a_cluster_kernel<cfloat>,
+                                     cluster, stage, n);
+    case 6:
+      return mpst::cluster_occupancy(mpst::k2_cluster_kernel<cfloat>,
+                                     cluster, stage, n);
+    case 7:
+      return mpst::cluster_occupancy(mpst::k2_split_cluster_kernel<cfloat>,
                                      cluster, stage, n);
     default:
       return (int)cudaErrorInvalidValue;
@@ -353,6 +401,21 @@ int mpst_k2c_split_launch(const void* bt, const void* q, void* center_out,
   return mpst::launch_k2_split<cfloat>(bt, q, center_out, core_out, qm_out,
                                        ws, C, chi, d, forward, cutoff,
                                        max_rank, stream);
+}
+
+// K2c-split over one cluster of `cluster` blocks: mpst_k2c_split_launch's
+// arguments and the cluster size, the same bits.  Scratch:
+// mpst_c_workspace_floats(C, chi, d, 0).
+int mpst_k2c_split_cluster_launch(const void* bt, const void* q,
+                                  void* center_out, void* core_out,
+                                  void* qm_out, void* ws, int C, int chi,
+                                  int d, int forward, float cutoff,
+                                  float max_rank, int cluster,
+                                  void* stream) {
+  return mpst::launch_k2_split_cluster<cfloat>(bt, q, center_out, core_out,
+                                               qm_out, ws, C, chi, d,
+                                               forward, cutoff, max_rank,
+                                               cluster, stream);
 }
 
 // K2c-env (K2-env at complex64): the advance through Qm, conj(Qm) backward.

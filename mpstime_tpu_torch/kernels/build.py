@@ -115,8 +115,9 @@ def load_library() -> ctypes.CDLL:
         # each complex launcher takes its real twin's argument list; K12c
         # and the cluster K12m and K12mc take K12m's and the cluster size,
         # K12cr K12mc's, the Jacobi round count and the cluster size, and
-        # the cluster K1a, K1c-grad, K1, K1c, K1b and K1c-update their
-        # one-block launchers' and the cluster size
+        # the cluster K1a, K1c-grad, K1, K1c, K1b, K1c-update, K2, K2c,
+        # K2-split and K2c-split their one-block launchers' and the cluster
+        # size, and the by-part K2 and K2c the parts to run before it
         for ws in ("mpst_k12_workspace_floats", "mpst_c_workspace_floats"):
             getattr(lib, ws).argtypes = [i, i, i, i]
             getattr(lib, ws).restype = ctypes.c_long
@@ -127,6 +128,11 @@ def load_library() -> ctypes.CDLL:
                  [p] * 13 + [i] * 10 + [f] + [p]),
                 (("mpst_k2_launch", "mpst_k2c_launch"),
                  [p] * 10 + [i] * 5 + [f] * 2 + [p]),
+                (("mpst_k2_cluster_launch", "mpst_k2c_cluster_launch"),
+                 [p] * 10 + [i] * 5 + [f] * 2 + [i, p]),
+                (("mpst_k2_cluster_parts_launch",
+                  "mpst_k2c_cluster_parts_launch"),
+                 [p] * 10 + [i] * 5 + [f] * 2 + [i, i, p]),
                 (("mpst_k12c_launch", "mpst_k12m_cluster_launch",
                   "mpst_k12mc_cluster_launch"), [p] * 17 + [i] * 10
                  + [f] * 3 + [i, p]),
@@ -147,6 +153,9 @@ def load_library() -> ctypes.CDLL:
                  [p] * 4 + [i] * 6 + [p]),
                 (("mpst_k2_split_launch", "mpst_k2c_split_launch"),
                  [p] * 6 + [i] * 4 + [f] * 2 + [p]),
+                (("mpst_k2_split_cluster_launch",
+                  "mpst_k2c_split_cluster_launch"),
+                 [p] * 6 + [i] * 4 + [f] * 2 + [i, p]),
                 (("mpst_k2_env_launch", "mpst_k2c_env_launch"),
                  [p] * 7 + [i] * 4 + [p])):
             for name in names:

@@ -22,10 +22,12 @@ the tensors it is given:
     at first use, or raise.  There is no fallback.  K12 and K12m run their
     block of bonds over a thread-block cluster of ``K12M_CLUSTER`` blocks,
     K1a its batch gradient over ``K1A_CLUSTER``, K1 and K1b their bond
-    update over ``K1_CLUSTER`` and ``K1B_CLUSTER``; the one-block K12m,
-    K1a, K1 and K1b (``k12m_block_cuda``, ``k1a_block_cuda``,
-    ``k1_block_cuda``, ``k1b_block_cuda``) stay as the reference they are
-    held against bit for bit, and no route calls them.
+    update over ``K1_CLUSTER`` and ``K1B_CLUSTER``, K2 and K2-split their
+    split over ``K2_CLUSTER`` and ``K2_SPLIT_CLUSTER``; the one-block K12m,
+    K1a, K1, K1b, K2 and K2-split (``k12m_block_cuda``, ``k1a_block_cuda``,
+    ``k1_block_cuda``, ``k1b_block_cuda``, ``k2_block_cuda``,
+    ``k2_split_block_cuda``) stay as the reference they are held against
+    bit for bit, and no route calls them.
   * CPU tensors take the kernel's plain PyTorch version (``k12_plain``,
     ``k12m_plain``, ``k1_plain``, ``k2_plain``, ``k1a_plain``,
     ``k1b_plain``, ``k2_split_plain``, ``k2_env_plain``,
@@ -34,8 +36,8 @@ the tensors it is given:
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the dispatches to the
 plain versions, so a run can show which path it took (the one-block K12m,
-K1a, K1 and K1b under "k12m_block", "k1a_block", "k1_block" and
-"k1b_block").  Operand layouts are
+K1a, K1, K1b, K2 and K2-split under "k12m_block", "k1a_block", "k1_block",
+"k1b_block", "k2_block" and "k2_split_block").  Operand layouts are
 the JAX kernels': the class-major center [C, chi, d, chi], environments
 [N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and the
 bond tensor and its gradient [C, chi*d, d, chi].
@@ -56,16 +58,19 @@ from .env import env_step_left_scaled, env_step_right_scaled
 #: Kernel launches per kernel since the last reset_counts().
 #: The complex kernels (ops/bond_kernels_c.py) count here too; "k12m_block",
 #: "k12mc_block", "k1c_block", "k1c_update_block", "k1a_block",
-#: "k1c_grad_block", "k1_block" and "k1b_block" count the one-block K12m,
-#: K12mc, K1c, K1c-update, K1a, K1c-grad, K1 and K1b, which no route launches
-#: (their cluster kernels count under "k12" and "k12m", "k12mc", "k1c",
-#: "k1c_update", "k1a", "k1c_grad", "k1", "k1b").
+#: "k1c_grad_block", "k1_block", "k1b_block", "k2_block", "k2c_block",
+#: "k2_split_block" and "k2c_split_block" count the one-block K12m, K12mc,
+#: K1c, K1c-update, K1a, K1c-grad, K1, K1b, K2, K2c, K2-split and K2c-split,
+#: which no route launches (their cluster kernels count under "k12" and
+#: "k12m", "k12mc", "k1c", "k1c_update", "k1a", "k1c_grad", "k1", "k1b",
+#: "k2", "k2c", "k2_split", "k2c_split").
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr",
      "k1a", "k1b", "k2_split", "k2_env", "k1c_grad", "k1c_update",
      "k2c_split", "k2c_env", "k1_tail", "k1c_tail", "k1c_block",
      "k1c_update_block", "k12m_block", "k12mc_block", "k1a_block",
-     "k1c_grad_block", "k1_block", "k1b_block"), 0)
+     "k1c_grad_block", "k1_block", "k1b_block", "k2_block", "k2c_block",
+     "k2_split_block", "k2c_split_block"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
@@ -622,12 +627,16 @@ K1A_CLUSTER = 16
 #: size on the card (chip_smoke.py's [k1-k1b-cluster]).
 K1_CLUSTER = 16
 K1B_CLUSTER = 16
+#: Thread blocks in the clusters of K2 and K2-split, from their times by
+#: cluster size on the card (chip_smoke.py's [k2-k2split-cluster]).
+K2_CLUSTER = 16
+K2_SPLIT_CLUSTER = 16
 #: The largest cluster a launch may ask for (Hopper's non-portable limit).
 MAX_CLUSTER = 16
 #: Each cluster kernel's occupancy query: the library entry and the kernel's
 #: index there (csrc/bond_step.cu answers for the real cluster K12m, which
-#: K12 launches too, K1a, K1 and K1b, csrc/bond_step_c.cu for the complex
-#: kernels).
+#: K12 launches too, K1a, K1, K1b, K2 and K2-split, csrc/bond_step_c.cu for
+#: the complex kernels).
 _OCCUPANCY = {"k12c": ("mpst_c_cluster_occupancy", 0),
               "k12cr": ("mpst_c_cluster_occupancy", 1),
               "k1c": ("mpst_c_cluster_occupancy", 2),
@@ -637,7 +646,11 @@ _OCCUPANCY = {"k12c": ("mpst_c_cluster_occupancy", 0),
               "k1a": ("mpst_cluster_occupancy", 1),
               "k1c_grad": ("mpst_c_cluster_occupancy", 5),
               "k1": ("mpst_cluster_occupancy", 2),
-              "k1b": ("mpst_cluster_occupancy", 3)}
+              "k1b": ("mpst_cluster_occupancy", 3),
+              "k2": ("mpst_cluster_occupancy", 4),
+              "k2_split": ("mpst_cluster_occupancy", 5),
+              "k2c": ("mpst_c_cluster_occupancy", 6),
+              "k2c_split": ("mpst_c_cluster_occupancy", 7)}
 #: The cluster kernels cluster_occupancy answers for.
 CLUSTER_KERNELS = tuple(_OCCUPANCY)
 
@@ -777,13 +790,35 @@ def k1_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0,
     return out
 
 
+def _k2(entry: str, extra: tuple, *args, **kw) -> Out4:
+    """K2's operands (``_launch_k2``'s) checked and launched through the
+    library's ``entry``, with ``extra`` after K2's C arguments (the parts
+    to run, the cluster size)."""
+    launch, wsf = _cuda_launch(args[0].device, entry)
+    return _launch_k2(*args, launch=lambda *a: launch(*a, *extra),
+                      workspace_floats=wsf, **kw)
+
+
 def k2_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
-            max_rank=None) -> Out4:
-    """K2 as one launch; operands and results as ``k2_plain``'s."""
-    launch, wsf = _cuda_launch(BT.device, "mpst_k2_launch")
-    out = _launch_k2(BT, Q, env, env_ls, phi, cutoff, forward=forward,
-                     max_rank=max_rank, launch=launch, workspace_floats=wsf)
+            max_rank=None, cluster: Optional[int] = None) -> Out4:
+    """K2 as one launch of a thread-block cluster of ``cluster`` blocks
+    (default ``K2_CLUSTER``); operands and results as ``k2_plain``'s.  A
+    cluster the card cannot place raises RuntimeError."""
+    n = _cluster_size(K2_CLUSTER if cluster is None else cluster)
+    out = _k2("mpst_k2_cluster_launch", (n,), BT, Q, env, env_ls, phi,
+              cutoff, forward=forward, max_rank=max_rank)
     LAUNCHES["k2"] += 1
+    return out
+
+
+def k2_block_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
+                  max_rank=None) -> Out4:
+    """K2 on one thread block, the reference ``k2_cuda`` is held against
+    bit for bit (no route calls it); operands and results as
+    ``k2_plain``'s."""
+    out = _k2("mpst_k2_launch", (), BT, Q, env, env_ls, phi, cutoff,
+              forward=forward, max_rank=max_rank)
+    LAUNCHES["k2_block"] += 1
     return out
 
 
@@ -869,14 +904,38 @@ def k1_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
     return Y
 
 
-def k2_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
+def _k2_split(entry: str, extra: tuple, *args, **kw
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2-split's operands (``_launch_k2_split``'s) checked and launched
+    through the library's ``entry``, with ``extra`` after K2-split's C
+    arguments (the cluster size)."""
+    launch, wsf = _cuda_launch(args[0].device, entry)
+    return _launch_k2_split(*args, launch=lambda *a: launch(*a, *extra),
+                            workspace_floats=wsf, **kw)
+
+
+def k2_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None,
+                  cluster: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2-split as one launch; operands and results as
-    ``k2_split_plain``'s."""
-    launch, wsf = _cuda_launch(BT.device, "mpst_k2_split_launch")
-    out = _launch_k2_split(BT, Q, cutoff, forward=forward, max_rank=max_rank,
-                           launch=launch, workspace_floats=wsf)
+    """K2-split as one launch of a thread-block cluster of ``cluster``
+    blocks (default ``K2_SPLIT_CLUSTER``); operands and results as
+    ``k2_split_plain``'s.  A cluster the card cannot place raises
+    RuntimeError."""
+    n = _cluster_size(K2_SPLIT_CLUSTER if cluster is None else cluster)
+    out = _k2_split("mpst_k2_split_cluster_launch", (n,), BT, Q, cutoff,
+                    forward=forward, max_rank=max_rank)
     LAUNCHES["k2_split"] += 1
+    return out
+
+
+def k2_split_block_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2-split on one thread block, the reference ``k2_split_cuda`` is held
+    against bit for bit (no route calls it); operands and results as
+    ``k2_split_plain``'s."""
+    out = _k2_split("mpst_k2_split_launch", (), BT, Q, cutoff,
+                    forward=forward, max_rank=max_rank)
+    LAUNCHES["k2_split_block"] += 1
     return out
 
 

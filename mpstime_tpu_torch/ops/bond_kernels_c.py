@@ -27,10 +27,12 @@ other loss or optimiser with a ValueError.
     is no fallback.  K12c and K12cr run one bond over a thread-block
     cluster of ``CLUSTER`` blocks, K12mc a block of bonds over
     ``K12MC_CLUSTER``, K1c over ``K1C_CLUSTER``, K1c-update over
-    ``K1C_UPDATE_CLUSTER`` and K1c-grad over ``K1C_GRAD_CLUSTER``; the rest
-    over one block.  The one-block K12mc, K1c, K1c-update and K1c-grad
-    (``k12mc_block_cuda``, ``k1c_block_cuda``, ``k1c_update_block_cuda``,
-    ``k1c_grad_block_cuda``) stay as the reference their cluster kernels
+    ``K1C_UPDATE_CLUSTER``, K1c-grad over ``K1C_GRAD_CLUSTER``, K2c over
+    ``K2C_CLUSTER`` and K2c-split over ``K2C_SPLIT_CLUSTER``; the rest over
+    one block.  The one-block K12mc, K1c, K1c-update, K1c-grad, K2c and
+    K2c-split (``k12mc_block_cuda``, ``k1c_block_cuda``,
+    ``k1c_update_block_cuda``, ``k1c_grad_block_cuda``, ``k2c_block_cuda``,
+    ``k2c_split_block_cuda``) stay as the reference their cluster kernels
     are held against bit for bit; no route calls them.
   * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
     ``k1c_plain``, ``k2c_plain``, ``k12cr_plain``, ``k1c_grad_plain``,
@@ -42,8 +44,9 @@ other loss or optimiser with a ValueError.
 Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c",
 "k12cr", "k1c_grad", "k1c_update", "k2c_split", "k2c_env" and "k1c_tail" in
 ``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS`` (the one-block K12mc, K1c,
-K1c-update and K1c-grad under "k12mc_block", "k1c_block",
-"k1c_update_block" and "k1c_grad_block").
+K1c-update, K1c-grad, K2c and K2c-split under "k12mc_block", "k1c_block",
+"k1c_update_block", "k1c_grad_block", "k2c_block" and
+"k2c_split_block").
 Operand layouts are the real kernels': phil / phir are the conjugated
 encoded states, the center is class-major [C, chi, d, chi], environments
 [N, chi] with real log-scales [N], labels [N, C] and weights [N] real
@@ -154,14 +157,16 @@ def _launcher(device: torch.device, entry: str):
 
 #: Thread blocks in the cluster that runs one bond of K12c or K12cr.
 CLUSTER = 16
-#: Thread blocks in the cluster of K1c, of K1c-update, of K12mc and of
-#: K1c-grad, from their times by cluster size on the card (chip_smoke.py's
-#: [k1c-k1c-update-cluster], [k12m-k12mc-cluster] and
-#: [k1a-k1c-grad-cluster]).
+#: Thread blocks in the cluster of K1c, of K1c-update, of K12mc, of
+#: K1c-grad, of K2c and of K2c-split, from their times by cluster size on
+#: the card (chip_smoke.py's [k1c-k1c-update-cluster],
+#: [k12m-k12mc-cluster], [k1a-k1c-grad-cluster] and [k2-k2split-cluster]).
 K1C_CLUSTER = 16
 K1C_UPDATE_CLUSTER = 16
 K12MC_CLUSTER = 16
 K1C_GRAD_CLUSTER = 16
+K2C_CLUSTER = 16
+K2C_SPLIT_CLUSTER = 16
 
 
 def _k12mc(entry, extra, *args, **kw) -> Out5:
@@ -272,14 +277,35 @@ def k1c_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
     return out
 
 
+def _k2c(entry, extra, *args, **kw) -> Out4:
+    """K2c's operands checked and launched through ``entry``, with
+    ``extra`` after K2c's C arguments (the parts to run, the cluster
+    size)."""
+    launch, wsf = _launcher(args[0].device, entry)
+    return bk._launch_k2(*args, launch=lambda *a: launch(*a, *extra),
+                         workspace_floats=wsf, dtype=torch.complex64, **kw)
+
+
 def k2c_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
-             max_rank=None) -> Out4:
-    """K2c as one launch; operands and results as ``k2c_plain``'s."""
-    launch, wsf = _launcher(BT.device, "mpst_k2c_launch")
-    out = bk._launch_k2(BT, Q, env, env_ls, phi, cutoff, forward=forward,
-                        max_rank=max_rank, launch=launch,
-                        workspace_floats=wsf, dtype=torch.complex64)
+             max_rank=None, cluster: Optional[int] = None) -> Out4:
+    """K2c as one launch of a thread-block cluster of ``cluster`` blocks
+    (default ``K2C_CLUSTER``); operands and results as ``k2c_plain``'s.  A
+    cluster the card cannot place raises RuntimeError."""
+    n = _cluster_size(K2C_CLUSTER if cluster is None else cluster)
+    out = _k2c("mpst_k2c_cluster_launch", (n,), BT, Q, env, env_ls, phi,
+               cutoff, forward=forward, max_rank=max_rank)
     bk.LAUNCHES["k2c"] += 1
+    return out
+
+
+def k2c_block_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
+                   max_rank=None) -> Out4:
+    """K2c on one thread block, the reference ``k2c_cuda`` is held against
+    bit for bit (no route calls it); operands and results as
+    ``k2c_plain``'s."""
+    out = _k2c("mpst_k2c_launch", (), BT, Q, env, env_ls, phi, cutoff,
+               forward=forward, max_rank=max_rank)
+    bk.LAUNCHES["k2c_block"] += 1
     return out
 
 
@@ -385,15 +411,38 @@ def k1c_update_block_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
     return out
 
 
-def k2c_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
+def _k2c_split(entry, extra, *args, **kw
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2c-split's operands checked and launched through ``entry``, with
+    ``extra`` after K2c-split's C arguments (the cluster size)."""
+    launch, wsf = _launcher(args[0].device, entry)
+    return bk._launch_k2_split(*args, launch=lambda *a: launch(*a, *extra),
+                               workspace_floats=wsf, dtype=torch.complex64,
+                               **kw)
+
+
+def k2c_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None,
+                   cluster: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2c-split as one launch; operands and results as
-    ``k2c_split_plain``'s: (center_c', core', Qm)."""
-    launch, wsf = _launcher(BT.device, "mpst_k2c_split_launch")
-    out = bk._launch_k2_split(BT, Q, cutoff, forward=forward,
-                              max_rank=max_rank, launch=launch,
-                              workspace_floats=wsf, dtype=torch.complex64)
+    """K2c-split as one launch of a thread-block cluster of ``cluster``
+    blocks (default ``K2C_SPLIT_CLUSTER``); operands and results as
+    ``k2c_split_plain``'s: (center_c', core', Qm).  A cluster the card
+    cannot place raises RuntimeError."""
+    n = _cluster_size(K2C_SPLIT_CLUSTER if cluster is None else cluster)
+    out = _k2c_split("mpst_k2c_split_cluster_launch", (n,), BT, Q, cutoff,
+                     forward=forward, max_rank=max_rank)
     bk.LAUNCHES["k2c_split"] += 1
+    return out
+
+
+def k2c_split_block_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2c-split on one thread block, the reference ``k2c_split_cuda`` is
+    held against bit for bit (no route calls it); operands and results as
+    ``k2c_split_plain``'s."""
+    out = _k2c_split("mpst_k2c_split_launch", (), BT, Q, cutoff,
+                     forward=forward, max_rank=max_rank)
+    bk.LAUNCHES["k2c_split_block"] += 1
     return out
 
 

@@ -399,6 +399,27 @@ def _k1_ops(key):
     return (A, center, G, V0, 0.05)
 
 
+def _k2_ops(key):
+    """K2's (K2c's) operands from the plain K1 (K1c) of the same inputs and
+    the QR of its Y, (BT, Q, env, env_ls, phi, cutoff) backward, or
+    K2-split's (K2c-split's) (BT, Q, cutoff); real for the real kernels."""
+    x = _bond(99)
+    real = not key.startswith("k2c")
+    if real:
+        x = {k: np.ascontiguousarray(v.real) for k, v in x.items()}
+    A, center, le, re, ls, phil, phir, y1h, w, V0 = _torch(_single(x, False))
+    if real:
+        BT, Y = bk.k1_plain(A, center, le, re, phil, phir, y1h, w, ls, V0,
+                            0.05, forward=False)
+    else:
+        BT, Y = bkc.k1c_plain(A, center, le, re, phil, phir, y1h, w, V0,
+                              0.05, forward=False)
+    Q = tdec._qr_orth(Y).contiguous()
+    if key.endswith("_split"):
+        return (BT, Q, 1e-10)
+    return (BT, Q, re, ls, phir, 1e-10)
+
+
 def _k12_ops(key):
     """A bond's operands (K12c, K12cr) or a block of 2 bonds' (K12m,
     K12mc), complex, or real for the real K12m."""
@@ -432,6 +453,12 @@ CLUSTER_CALLS = {
                                             forward=False, cluster=n),
     "k1": lambda n: bk.k1_cuda(*_k1_ops("k1"), forward=False, cluster=n),
     "k1b": lambda n: bk.k1b_cuda(*_k1_ops("k1b"), forward=False, cluster=n),
+    "k2": lambda n: bk.k2_cuda(*_k2_ops("k2"), forward=False, cluster=n),
+    "k2_split": lambda n: bk.k2_split_cuda(*_k2_ops("k2_split"),
+                                           forward=False, cluster=n),
+    "k2c": lambda n: bkc.k2c_cuda(*_k2_ops("k2c"), forward=False, cluster=n),
+    "k2c_split": lambda n: bkc.k2c_split_cuda(*_k2_ops("k2c_split"),
+                                              forward=False, cluster=n),
     "occupancy": lambda n: bkc.cluster_occupancy("k1c", n, CHI),
     "k12c": lambda n: bkc.k12c_cuda(*_k12_ops("k12c"), 0.05, 1e-10,
                                     forward=False, cluster=n),
@@ -459,7 +486,8 @@ def test_cluster_occupancy_names_its_kernel(monkeypatch):
     _no_library(monkeypatch)
     assert bkc.CLUSTER_KERNELS == ("k12c", "k12cr", "k1c", "k1c_update",
                                    "k12m", "k12mc", "k1a", "k1c_grad",
-                                   "k1", "k1b")
+                                   "k1", "k1b", "k2", "k2_split", "k2c",
+                                   "k2c_split")
     with pytest.raises(ValueError, match="one of"):
         bkc.cluster_occupancy("k12m_block", 4, CHI)
 
@@ -470,7 +498,9 @@ def test_default_cluster_sizes_lie_in_range():
     assert bkc.cluster_occupancy is bk.cluster_occupancy
     for n in (bkc.CLUSTER, bkc.K1C_CLUSTER, bkc.K1C_UPDATE_CLUSTER,
               bkc.K12MC_CLUSTER, bk.K12M_CLUSTER, bk.K1A_CLUSTER,
-              bkc.K1C_GRAD_CLUSTER, bk.K1_CLUSTER, bk.K1B_CLUSTER):
+              bkc.K1C_GRAD_CLUSTER, bk.K1_CLUSTER, bk.K1B_CLUSTER,
+              bk.K2_CLUSTER, bk.K2_SPLIT_CLUSTER, bkc.K2C_CLUSTER,
+              bkc.K2C_SPLIT_CLUSTER):
         assert type(n) is int and 1 <= n <= bkc.MAX_CLUSTER
 
 
@@ -587,6 +617,47 @@ def test_k1_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
         assert a1[4] is not None                   # gls, for MSE
     assert a1[n_ptr:-1] == a2[n_ptr:]              # the same sizes and flags
     assert all(f == 1 for f in a1[flags])          # MSE and GD passed on
+    assert a1[-1] == (default if cluster is None else cluster)
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
+        key: 1, f"{key}_block": 1}
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 8])
+@pytest.mark.parametrize("key", ["k2", "k2_split", "k2c", "k2c_split"])
+def test_k2_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
+    """k2_cuda / k2_split_cuda / k2c_cuda / k2c_split_cuda launch the
+    cluster entry with the one-block entry's operands, sizes and flags and
+    the cluster size (default K2_CLUSTER / K2_SPLIT_CLUSTER / K2C_CLUSTER /
+    K2C_SPLIT_CLUSTER), counted under the kernel's name; the one-block
+    wrappers launch the one-block entry, counted apart.  The dp route's
+    K2-split piece is the cluster wrapper, real and complex."""
+    calls = []
+
+    def launcher(device, entry, workspace=None):
+        return (lambda *args: calls.append((entry, args))), (lambda *s: 16)
+
+    cplx, split = key.startswith("k2c"), key.endswith("_split")
+    mod = bkc if cplx else bk
+    monkeypatch.setattr(mod, "_launcher" if cplx else "_cuda_launch",
+                        launcher)
+    cuda, block = getattr(mod, f"{key}_cuda"), getattr(mod, f"{key}_block_cuda")
+    default = getattr(mod, f"{key.upper()}_CLUSTER")
+    assert (bkc.PIECES if cplx else bk._PIECES)["k2_split"][2] is (
+        bkc.k2c_split_cuda if cplx else bk.k2_split_cuda)
+    ops = _k2_ops(key)
+    kw = dict(forward=True, max_rank=4)
+    bk.reset_counts()
+    out = cuda(*ops, cluster=cluster, **kw)
+    block(*ops, **kw)
+    assert out[0].shape == (C, CHI, D, CHI) and out[1].shape == (CHI, D, CHI)
+    assert out[-1].shape == ((CHI * D, CHI) if split else (N,))
+    assert out[0].dtype == (torch.complex64 if cplx else torch.float32)
+    (e1, a1), (e2, a2) = calls
+    assert (e1, e2) == (f"mpst_{key}_cluster_launch", f"mpst_{key}_launch")
+    n_in, n_ptr = (2, 6) if split else (5, 10)
+    assert a1[:n_in] == a2[:n_in]                  # the same operands
+    assert a1[n_ptr:-1] == a2[n_ptr:]              # the same sizes and flags
+    assert a1[-4:-1] == (1, 1e-10, 4.0)            # forward, cutoff, max_rank
     assert a1[-1] == (default if cluster is None else cluster)
     assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
         key: 1, f"{key}_block": 1}

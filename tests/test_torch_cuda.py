@@ -4,8 +4,9 @@ complex dp pieces K1c-grad, K1c-update, K2c-split, K2c-env and the split
 tails K1-tail, K1c-tail) held against their plain PyTorch versions on the
 card, and the cluster kernels (K12c, K12cr, K1c, K1c-update, K1 and K1b,
 one bond over a thread-block cluster; K12, K12m and K12mc, a block of
-bonds; K1a and K1c-grad, one shard's gradient) held bit for bit against
-their one-block kernels and across cluster sizes.
+bonds; K1a and K1c-grad, one shard's gradient; K2, K2c, K2-split and
+K2c-split, the split) held bit for bit against their one-block kernels and
+across cluster sizes.
 These tests need an NVIDIA GPU with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
@@ -1227,10 +1228,10 @@ def test_k12_mse_cluster_equals_one_block(bk, forward, bbopt):
     _equal(got, _first(bk.k12m_block_cuda(*_block(x), **kw)))
 
 
-def test_k12_cluster_equals_one_block_on_the_tie_break(bk):
+def _tie_break():
     """tests/test_torch_bond_kernels.py's degenerate-spectrum bond (frozen,
-    eta 0, the cutoff inside a tie group): the same bits, and the stable
-    order keeps directions 0..2."""
+    eta 0, the cutoff inside a tie group) on the card: (A, center, env, ls,
+    phi, y1h, w, V0, cutoff)."""
     chi, d, C, N = 6, 2, 1, 4
     wv = np.array([4.0, 2.0, 2.0, 2.0, 1.0, 0.5], np.float32)
     A = np.zeros((chi, d, chi), np.float32)
@@ -1243,10 +1244,16 @@ def test_k12_cluster_equals_one_block_on_the_tie_break(bk):
     env[:, 0] = 1.0
     phi = np.full((N, d), 0.5, np.float32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
-    A, center, env, ls, phi, y1h, w, V0 = (t(a) for a in (
+    return tuple(t(a) for a in (
         A, center, env, np.zeros(N, np.float32), phi,
-        np.ones((N, C), np.float32), np.full(N, 1.0 / N, np.float32), V0))
-    cutoff = float(np.float32(4.5 / wv.sum()))
+        np.ones((N, C), np.float32), np.full(N, 1.0 / N, np.float32),
+        V0)) + (float(np.float32(4.5 / wv.sum())),)
+
+
+def test_k12_cluster_equals_one_block_on_the_tie_break(bk):
+    """The degenerate-spectrum bond (_tie_break): the same bits, and the
+    stable order keeps directions 0..2."""
+    A, center, env, ls, phi, y1h, w, V0, cutoff = _tie_break()
     kw = dict(forward=False, refresh=False)
     got = bk.k12_cuda(A, center, env, env, ls, phi, phi, y1h, w, V0, 0.0,
                       cutoff, **kw)
@@ -1356,3 +1363,147 @@ def test_fits_launch_no_one_block_k12m(bk):
     assert set(counts["qr"]) == {"k12m", "k1", "k2"}
     assert set(counts["mse"]) == {"k12"}
     assert set(counts["fourier qr"]) == {"k12mc", "k1c", "k2c"}
+
+
+# ---- K2, K2c, K2-split and K2c-split over a thread-block cluster ------------
+
+#: The cluster kernels of the split: K2 and K2c (with the environment
+#: advance), K2-split and K2c-split (the dp route's, with Qm)
+K2_KEYS = ["k2", "k2_split", "k2c", "k2c_split"]
+
+
+def _k2_fns(bk, bkc, key):
+    """(cluster wrapper, one-block wrapper) of K2, K2-split, K2c or
+    K2c-split."""
+    mod = bkc if key.startswith("k2c") else bk
+    return getattr(mod, f"{key}_cuda"), getattr(mod, f"{key}_block_cuda")
+
+
+def _k2_operands(bk, bkc, key, seed, forward):
+    """K2's (K2c's) operands at the main-path shape: the plain K1's (K1c's,
+    q 3) bond tensor, the QR (realified QR) of its Y, the advancing side's
+    environment, log-scales and features, the cutoff; K2-split's
+    (K2c-split's): the bond tensor, the basis, the cutoff."""
+    from mpstime_tpu_torch.ops.decomp import _qr_orth
+    cplx = key.startswith("k2c")
+    x = (_inputs_c if cplx else _inputs)(seed, 1, **SHAPE)
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    ops = (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+           x["y1h"], x["w"])
+    if cplx:
+        BT, Y = bkc.k1c_plain(*ops, x["V0"][0], 0.05, forward=forward,
+                              power_iters=3)
+    else:
+        BT, Y = bk.k1_plain(*ops, x["ls0"], x["V0"][0], 0.05,
+                            forward=forward)
+    Q = _qr_orth(Y).contiguous()
+    if key.endswith("_split"):
+        return (BT, Q, 1e-10)
+    env, phi = (le, x["phil"][0]) if forward else (re, x["phir"][0])
+    return (BT, Q, env, x["ls0"], phi, 1e-10)
+
+
+def _k2_tie_operands(bk, bkc, key):
+    """The tie-break bond (_tie_break) as K2's or K2-split's operands,
+    complex64 for K2c and K2c-split: its bond tensor (eta 0), the basis V0,
+    the cutoff."""
+    A, center, env, ls, phi, y1h, w, V0, cutoff = _tie_break()
+    if key.startswith("k2c"):
+        A, center, env, phi, V0 = (t.to(torch.complex64)
+                                   for t in (A, center, env, phi, V0))
+        BT, _ = bkc.k1c_plain(A, center, env, env, phi, phi, y1h, w, V0, 0.0,
+                              forward=False, emit_y=False)
+    else:
+        BT, _ = bk.k1_plain(A, center, env, env, phi, phi, y1h, w, ls, V0,
+                            0.0, forward=False, emit_y=False)
+    if key.endswith("_split"):
+        return (BT, V0, cutoff)
+    return (BT, V0, env, ls, phi, cutoff)
+
+
+@pytest.mark.parametrize("forward,mr", [(False, None), (False, 4),
+                                        (True, None), (True, 4),
+                                        ("tie-break", None)])
+@pytest.mark.parametrize("key", K2_KEYS)
+def test_k2_cluster_equals_one_block(bk, bkc, key, forward, mr):
+    # K2, K2c, K2-split and K2c-split run the split over a cluster; the
+    # one-block kernel is k2_kernel / k2_split_kernel over the same device
+    # functions: the same bits, and on the tie-break bond the stable order
+    # keeps directions 0..2
+    cuda, block = _k2_fns(bk, bkc, key)
+    tie = forward == "tie-break"
+    if tie:
+        forward, args = False, _k2_tie_operands(bk, bkc, key)
+    else:
+        args = _k2_operands(bk, bkc, key, 44, forward)
+    kw = dict(forward=forward, max_rank=mr)
+    n0, b0 = bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]
+    got = cuda(*args, **kw)
+    one = block(*args, **kw)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]) == (n0 + 1,
+                                                               b0 + 1)
+    _equal(got, one)
+    if tie:
+        assert _kept(got[1], False).tolist() == [True] * 3 + [False] * 3
+
+
+@pytest.mark.parametrize("key", K2_KEYS)
+@pytest.mark.parametrize("forward", [False, True])
+def test_k2_kernels_equal_across_cluster_sizes(bk, bkc, key, forward):
+    cuda, block = _k2_fns(bk, bkc, key)
+    args = _k2_operands(bk, bkc, key, 45, forward)
+    ref = block(*args, forward=forward, max_rank=17)
+    for n in range(1, 17):
+        if bk.cluster_occupancy(key, n, SHAPE["chi"]) >= 1:
+            _equal(cuda(*args, forward=forward, max_rank=17, cluster=n), ref)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("key", K2_KEYS)
+def test_a_k2_cluster_past_the_limit_is_refused(bk, bkc, key):
+    """A cluster of 32 blocks: the wrapper refuses it (ValueError), and the
+    card refuses the launch itself (RuntimeError); nothing launches, no
+    one-block kernel stands in, and the next launch runs."""
+    cuda, _ = _k2_fns(bk, bkc, key)
+    raw = {"k2": bk._k2, "k2_split": bk._k2_split, "k2c": bkc._k2c,
+           "k2c_split": bkc._k2c_split}[key]
+    args = _k2_operands(bk, bkc, key, 46, False)
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError, match="from 1 to 16"):
+        cuda(*args, forward=False, cluster=32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        raw(f"mpst_{key}_cluster_launch", (32,), *args, forward=False,
+            max_rank=None)
+    assert dict(bk.LAUNCHES) == before
+    cuda(*args, forward=False)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == before[key] + 1
+
+
+def test_fits_launch_no_one_block_k2(bk, monkeypatch):
+    """The qr, fourier qr, dp, complex dp and split-tail fits launch K2,
+    K2c, K2-split and K2c-split over a cluster only."""
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.parallel import make_mesh
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40, :24], data["y_train"][:40]
+    opts = mt.MPSOptions(nsweeps=2, chi_max=12, d=3, verbosity=-1,
+                         log_level=-1)
+    qr = dict(orth_alg="qr", subspace_refresh_every=2)
+    bk.reset_counts()
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(**qr), device="cuda")
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(encoding="fourier", **qr),
+               device="cuda")
+    mt.fit_mps(Xtr, ytr, opts=opts, mesh=make_mesh(1))
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(encoding="fourier"),
+               mesh=make_mesh(1))
+    monkeypatch.setattr(bk, "SPLIT_TAIL_CHI", 0)
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(nsweeps=1), device="cuda")
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k2"] == 2 * 23 + 2 * 23  # qr refresh, split tail
+    assert bk.LAUNCHES["k2c"] == 2 * 23
+    assert bk.LAUNCHES["k2_split"] == bk.LAUNCHES["k2c_split"] == 2 * 2 * 23
+    assert all(bk.LAUNCHES[f"{k}_block"] == 0 for k in K2_KEYS)
+    assert sum(bk.PLAIN_CALLS.values()) == 0

@@ -13,13 +13,15 @@ on two shards of the card; every bond K1a or K1c-grad -> sum -> K1b or
 K1c-update -> K2-split or K2c-split -> K2-env or K2c-env) it prints the
 median sweep after one warm sweep, then one more
 sweep under torch.profiler, its device busy and wall ms and the device ms
-of the K1a / K1c-grad and K1b / K1c-update kernels (one block or cluster);
-for the qr fit (the default options with orth_alg="qr",
-subspace_refresh_every=2: refresh sweeps K1 -> QR -> K2 per bond, frozen
-sweeps K12m blocks) the median refresh and frozen sweeps over 10, then one
-refresh + one frozen sweep under torch.profiler, its busy and wall ms and
-K1's device ms; all as one JSON line per checkout.  The card's name and
-power limit come first.  Imports nothing of JAX.
+of the K1a / K1c-grad, K1b / K1c-update and K2-split / K2c-split kernels
+(one block or cluster); for the qr fit (the default options with
+orth_alg="qr", subspace_refresh_every=2: refresh sweeps K1 -> QR -> K2 per
+bond, frozen sweeps K12m blocks) and the fourier qr fit (the same with
+encoding="fourier": K1c -> realified QR -> K2c, frozen sweeps K12mc blocks)
+the median refresh and frozen sweeps over 10, then one refresh + one
+frozen sweep under torch.profiler, its busy and wall ms and K1's and K2's
+(K1c's and K2c's) device ms; all as one JSON line per checkout.  The
+card's name and power limit come first.  Imports nothing of JAX.
 """
 
 import json
@@ -72,17 +74,20 @@ def measure(root: str) -> dict:
         out[label] = dict(
             median_sweep_s=statistics.median(info["sweep_seconds"][1:]),
             busy_ms=sum(dev.values()), wall_ms=wall,
-            k1a_ms=kernel_ms(dev, "k1a_"), k1b_ms=kernel_ms(dev, "k1b_"))
-    opts = mt.MPSOptions(verbosity=-1, log_level=-1, orth_alg="qr",
-                         subspace_refresh_every=2)
-    _, info, _ = mt.fit_mps(X, y, opts=opts, device="cuda")
-    secs = info["sweep_seconds"]
-    dev, wall = profiled(opts.replace(nsweeps=2), device="cuda")
-    out["qr"] = dict(
-        median_refresh_sweep_s=statistics.median(secs[2::2]),
-        median_frozen_sweep_s=statistics.median(secs[1::2]),
-        busy_ms=sum(dev.values()), wall_ms=wall,
-        k1_ms=kernel_ms(dev, "k1_kernel", "k1_cluster_kernel"))
+            k1a_ms=kernel_ms(dev, "k1a_"), k1b_ms=kernel_ms(dev, "k1b_"),
+            k2_split_ms=kernel_ms(dev, "k2_split_"))
+    for label, kw in (("qr", {}), ("fourier qr", {"encoding": "fourier"})):
+        opts = mt.MPSOptions(verbosity=-1, log_level=-1, orth_alg="qr",
+                             subspace_refresh_every=2, **kw)
+        _, info, _ = mt.fit_mps(X, y, opts=opts, device="cuda")
+        secs = info["sweep_seconds"]
+        dev, wall = profiled(opts.replace(nsweeps=2), device="cuda")
+        out[label] = dict(
+            median_refresh_sweep_s=statistics.median(secs[2::2]),
+            median_frozen_sweep_s=statistics.median(secs[1::2]),
+            busy_ms=sum(dev.values()), wall_ms=wall,
+            k1_ms=kernel_ms(dev, "k1_kernel", "k1_cluster_kernel"),
+            k2_ms=kernel_ms(dev, "k2_kernel", "k2_cluster_kernel"))
     return out
 
 
