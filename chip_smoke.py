@@ -75,6 +75,7 @@ Phases, one status line each; any failure exits non-zero:
      fourier fit's (K12c), then classify; the same fit on two shards of the
      card; one sweep of it under torch.profiler.
  15. split-tail kernels: K1-tail and K1c-tail against their plain versions
+     (K1-tail's body over a cooperative grid of K1_TAIL_BLOCKS blocks)
      at the main-path shape and at chi 192 (C 2, d 5) over both directions,
      orth ns and qr, q 1 and 3; bond_step(split_tail=True) against K12 (ns)
      and K1 -> QR -> K2 (qr), bond_step_c(split_tail=True) (q 3) against
@@ -164,6 +165,21 @@ Phases, one status line each; any failure exits non-zero:
      advance) from prefixes of the body; the host's us a launch of the
      cluster and one-block forms, through the wrapper and the bare C entry
      (1000 unsynced calls each).
+ 23. row-tile K2-env and K2c-env, grid K1-tail and K1c-tail: K2-env and
+     K2c-env (ceil(N / rows) independent blocks of the one-block body)
+     against their one-block kernels bit for bit over both directions x N
+     1, 7, 32, 50, 100 x rows a block 1-32 and the default; K1-tail and
+     K1c-tail (K1-tail's body over every block of a cooperative grid)
+     against theirs over both directions x chi 25 and 192 x orth ns and qr
+     x q 1 and 3 at grids of 1, 2, 16, 66 and the most blocks the card
+     holds; a grid one past the most refused by the card, nothing
+     launched; their ptxas entries; device ms a call of K2-env and K2c-env
+     against one block in turns at N 100, 50, 32, by rows a block and
+     unstaged (Qm and the factors from global memory, not shared), and of
+     K1-tail and K1c-tail at chi 25 (queued) and at chi 192-320 (128-192
+     complex; events) in turns and by grid size 16, 32, 66, 132; fails
+     unless each beats its one-block kernel at those shapes and each
+     default is the fastest within the spread.
 Then the ptxas line (registers, static shared memory and spills of each
 kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
@@ -306,7 +322,9 @@ def ptxas_summary(log: str) -> str:
                                      "k1_kernel", "k2_kernel",
                                      "k1a_kernel", "k1b_kernel",
                                      "k2_split_kernel", "k2_env_kernel",
-                                     "k1_tail_kernel", "k1_cluster_kernel",
+                                     "k1_tail_kernel", "k2_env_rows_kernel",
+                                     "k1_tail_grid_kernel",
+                                     "k1_cluster_kernel",
                                      "k1b_cluster_kernel",
                                      "k1a_cluster_kernel",
                                      "k2_cluster_kernel",
@@ -314,6 +332,8 @@ def ptxas_summary(log: str) -> str:
                          if k in mangled),
                         mangled)
             name = f"{kern}<{'cfloat' if 'cfloat' in mangled else 'float'}>"
+            if kern == "k2_env_rows_kernel":      # <T, Staged>
+                name += " staged" if "Lb1E" in mangled else " unstaged"
             stores = loads = "0"
         elif name and "spill stores" in line:
             stores = line.split("bytes spill stores")[0].split(",")[-1].strip()
@@ -630,7 +650,7 @@ def time_turns(fused, split, rounds: int, iters: int, timer=None):
 
 
 def time_cluster(name, cluster_call, block_call, sized_call, sizes,
-                 default: int, timer=None) -> str:
+                 default: int, timer=None, what: str = "cluster") -> str:
     """Per-call ms of the cluster kernel ``name`` (``cluster_call``, at its
     default size ``default``) against its one-block kernel (``block_call``)
     in turns over 5 rounds, and at each cluster size in ``sizes``
@@ -648,19 +668,19 @@ def time_cluster(name, cluster_call, block_call, sized_call, sizes,
             rounds[n].append((timer or time_ms)(lambda: sized_call(n), 20))
     by_size = {n: statistics.median(t) for n, t in rounds.items()}
     new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
-    check(new_ms < one_ms, f"{name} (cluster {default}) {new_ms:.3f} ms is "
+    check(new_ms < one_ms, f"{name} ({what} {default}) {new_ms:.3f} ms is "
           f"not below its one-block kernel ({one_ms:.3f} ms)")
     # the default must be the fastest size, within the two sizes' spread
     # over their rounds
     fast, mine = min(by_size, key=by_size.get), rounds[default]
     spread = max(max(mine) - min(mine), max(rounds[fast]) - min(rounds[fast]))
     check(by_size[default] - by_size[fast] <= spread,
-          f"{name}: the default cluster of {default} blocks "
+          f"{name}: the default {what} of {default} "
           f"({by_size[default]:.4f} ms) is slower than {fast} "
           f"({by_size[fast]:.4f} ms) by more than the spread {spread:.4f} ms")
     return (f"median {new_ms:.4f} ({min(t_new):.4f}-{max(t_new):.4f}) ms vs "
             f"one block {one_ms:.4f} ({min(t_one):.4f}-{max(t_one):.4f}) ms "
-            f"in turns ({one_ms / new_ms:.2f}x); by cluster size, median "
+            f"in turns ({one_ms / new_ms:.2f}x); by {what} size, median "
             "(min-max) of 5 interleaved rounds " +
             ", ".join(f"{n}: {by_size[n]:.4f} ({min(t):.4f}-{max(t):.4f})"
                       for n, t in rounds.items()) + f" ms (fastest {fast})")
@@ -1738,6 +1758,246 @@ def k2_cluster_phase(card: str, ptxas: str) -> None:
               for (label, form), v in us.items()) + f" ({card})", flush=True)
 
 
+def k2env_k1tail_phase(card: str, ptxas: str) -> None:
+    """K2-env and K2c-env over independent row tiles, and K1-tail and
+    K1c-tail over a cooperative grid, against their one-block kernels bit
+    for bit: the row kernels over both directions x N 1, 7, 32, 50, 100 x
+    rows a block 1-32 and the default; the grid tails over both directions
+    x chi 25 and 192 x orth ns and qr x q 1 and 3 at grids of 1, 2, 16, 66
+    blocks, the most the card holds and the default; a grid past that
+    refused by the card, with nothing launched; their ptxas entries; device
+    ms a call of each against its one-block kernel in turns, K2-env and
+    K2c-env by rows a block at N 100, 50 and 32 (queued behind a spin of
+    the card), K1-tail at chi 192, 256 and 320 and K1c-tail at chi 128 and
+    192 by grid size (events, over several calls); fails unless each new
+    kernel beats its one-block kernel and each default is the fastest
+    within the spread."""
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    from mpstime_tpu_torch.ops import bond_kernels_c as bkc
+    tag = "[k2env-k1tail-redesign]"
+    most = {k: bk.grid_occupancy(k) for k in bk.GRID_KERNELS}
+    default = {"k2_env": bk.K2_ENV_ROWS, "k2c_env": bkc.K2C_ENV_ROWS,
+               "k1_tail": bk.K1_TAIL_BLOCKS, "k1c_tail": bkc.K1C_TAIL_BLOCKS}
+    for k in bk.GRID_KERNELS:
+        check(default[k] <= most[k], f"{k}: the default grid of "
+              f"{default[k]} blocks exceeds what the card holds ({most[k]})")
+    names = {"k2_env": "K2-env", "k2c_env": "K2c-env", "k1_tail": "K1-tail",
+             "k1c_tail": "K1c-tail"}
+    mods = {k: bkc if k in ("k2c_env", "k1c_tail") else bk for k in names}
+    new_fn = {k: getattr(m, f"{k}_cuda") for k, m in mods.items()}
+    block_fn = {k: getattr(m, f"{k}_block_cuda") for k, m in mods.items()}
+    print(f"{tag} rows a block K2-env {default['k2_env']}, K2c-env "
+          f"{default['k2c_env']}; grid K1-tail {default['k1_tail']}, K1c-tail "
+          f"{default['k1c_tail']} blocks of 512 threads; the most blocks the "
+          "card holds at once (occupancy x SMs): " + ", ".join(
+              f"{names[k]} {v}" for k, v in most.items()) + f" ({card})",
+          flush=True)
+    if "no log" not in ptxas:
+        mine = [e for e in ptxas.split("; ")
+                if e.startswith(("k2_env_rows_kernel", "k1_tail_grid_kernel"))]
+        check(len(mine) == 6, f"ptxas: no entry for the row-tile K2-env "
+              f"(staged and not) and the grid K1-tail ({ptxas})")
+        print(f"{tag} ptxas: " + "; ".join(mine), flush=True)
+
+    def env_operands(key, seed, N, forward):
+        """K2-env's (K2c-env's) operands at chi 25: the masked isometry of
+        the plain K2-split (K2c-split) of a K1 (K1c, q 3) bond and its QR
+        basis, and the advancing side's environment, log-scales and
+        features of N rows."""
+        from mpstime_tpu_torch.ops.decomp import _qr_orth
+        if key == "k2c_env":
+            x = bond_inputs_c(seed, 1, **dict(SHAPE, N=N))
+            BT, Y = bkc.k1c_plain(*k1c_args(x, forward), forward=forward,
+                                  power_iters=3)
+            Qm = bkc.k2c_split_plain(BT, _qr_orth(Y).contiguous(), 1e-10,
+                                     forward=forward)[2]
+        else:
+            x = bond_inputs(seed, 1, **dict(SHAPE, N=N))
+            BT, Y = bk.k1_plain(*k1_args(x, forward), forward=forward)
+            Qm = bk.k2_split_plain(BT, torch.linalg.qr(Y).Q.contiguous(),
+                                   1e-10, forward=forward)[2]
+        env, phi = ((x["env0"], x["phil"][0]) if forward
+                    else (x["env0"], x["phir"][0]))
+        return (Qm.contiguous(), env, x["ls0"], phi)
+
+    def tail_operands(key, seed, chi, forward):
+        """A stepped bond tensor (the plain K1's, K1c's, without its power
+        step) and the sketch V0 at bond width chi."""
+        if key == "k1c_tail":
+            x = bond_inputs_c(seed, 1, **dict(SHAPE, chi=chi))
+            BT, _ = bkc.k1c_plain(*k1c_args(x, forward), forward=forward,
+                                  emit_y=False)
+        else:
+            x = bond_inputs(seed, 1, **dict(SHAPE, chi=chi))
+            BT, _ = bk.k1_plain(*k1_args(x, forward), forward=forward,
+                                emit_y=False)
+        return BT, x["V0"][0]
+
+    rows_set = (1, 2, 4, 8, 16, 32)
+    n_cases = dict.fromkeys(names, 0)
+    for key in ("k2_env", "k2c_env"):
+        for i, (N, forward) in enumerate((n, f) for n in (1, 7, 32, 50, 100)
+                                         for f in (False, True)):
+            args = env_operands(key, 2700 + i, N, forward)
+            ref = block_fn[key](*args, forward=forward)
+            for rows in (None,) + rows_set:
+                equal(f"{names[key]} N={N} forward={forward} rows={rows}",
+                      new_fn[key](*args, forward=forward, rows=rows), ref,
+                      ("env", "env_ls"))
+                n_cases[key] += 1
+    for key in ("k1_tail", "k1c_tail"):
+        for i, (chi, orth, q, forward) in enumerate(
+                (c, o, q, f) for c in (SHAPE["chi"], 192) for o in ("ns", "qr")
+                for q in (1, 3) for f in (False, True)):
+            BT, V0 = tail_operands(key, 2800 + i, chi, forward)
+            kw = dict(forward=forward, power_iters=q, orth=orth)
+            ref = block_fn[key](BT, V0, **kw)
+            for n in (None, 1, 2, 16, 66, most[key]):
+                equal(f"{names[key]} chi={chi} {kw} blocks={n}",
+                      [new_fn[key](BT, V0, blocks=n, **kw)], [ref], ("Y",))
+                n_cases[key] += 1
+    torch.cuda.synchronize()
+    refused = {}
+    for key in ("k1_tail", "k1c_tail"):
+        BT, V0 = tail_operands(key, 2890, SHAPE["chi"], False)
+        before = dict(bk.LAUNCHES)
+        try:
+            new_fn[key](BT, V0, forward=False, blocks=most[key] + 1)
+            torch.cuda.synchronize()
+            said = "launched"
+        except RuntimeError as exc:
+            said = f"RuntimeError ({str(exc).split(': ', 1)[-1]})"
+        check("launched" not in said, f"{names[key]}: a grid of "
+              f"{most[key] + 1} blocks launched")
+        check(dict(bk.LAUNCHES) == before, f"{names[key]}: a refused grid "
+              "launched a kernel")
+        equal(f"{names[key]} after a refusal",
+              [new_fn[key](BT, V0, forward=False)],
+              [block_fn[key](BT, V0, forward=False)], ("Y",))
+        refused[names[key]] = said
+    print(f"{tag} new vs one block, torch.equal on env and env_ls (K2-env, "
+          "K2c-env: both directions x N 1, 7, 32, 50, 100 x rows a block "
+          f"default, {', '.join(map(str, rows_set))}) and on Y (K1-tail, "
+          "K1c-tail: both directions x chi 25, 192 x ns, qr x q 1, 3 at "
+          "grids of the default, 1, 2, 16, 66 and the most blocks): "
+          + ", ".join(f"{names[k]} {v}" for k, v in n_cases.items())
+          + " cases; a grid one past the most: " + "; ".join(
+              f"{k} {v}" for k, v in refused.items())
+          + ", nothing launched", flush=True)
+
+    # K2-env and K2c-env: device ms a call queued behind a spin, against
+    # the one block in turns at N 100 (the dp shape), 50 and 32, and by rows
+    # a block over 5 interleaved rounds, with the default rows unstaged
+    # (Qm and the factors read from global memory) beside them; the default
+    # must be the fastest summed over the three Ns within the summed spread
+    raw = {"k2_env": lambda *a, **k: bk._k2_env(
+               "mpst_k2_env_rows_launch", (default["k2_env"], 0), *a, **k),
+           "k2c_env": lambda *a, **k: bkc._k2c_env(
+               "mpst_k2c_env_rows_launch", (default["k2c_env"], 0), *a,
+               **k)}
+    lines = []
+    for key in ("k2_env", "k2c_env"):
+        by_n, turns, unstaged = {}, {}, {}
+        for N in (100, 50, 32):
+            args = env_operands(key, 2950, N, False)
+            t_new, t_one = time_turns(
+                lambda: new_fn[key](*args, forward=False),
+                lambda: block_fn[key](*args, forward=False), rounds=3,
+                iters=20, timer=time_queued_ms)
+            turns[N] = (statistics.median(t_new), statistics.median(t_one))
+            check(turns[N][0] < turns[N][1], f"{names[key]} at N {N}: "
+                  f"{turns[N][0]:.4f} ms is not below one block's "
+                  f"{turns[N][1]:.4f}")
+            rounds = {r: [] for r in rows_set}
+            unstaged[N] = []
+            equal(f"{names[key]} unstaged", raw[key](*args, forward=False),
+                  new_fn[key](*args, forward=False), ("env", "env_ls"))
+            for _ in range(5):
+                for r in rows_set:
+                    rounds[r].append(time_queued_ms(
+                        lambda r=r: new_fn[key](*args, forward=False,
+                                                rows=r)))
+                unstaged[N].append(time_queued_ms(
+                    lambda: raw[key](*args, forward=False)))
+            by_n[N] = rounds
+        total = {r: sum(statistics.median(by_n[N][r]) for N in by_n)
+                 for r in rows_set}
+        spread = {r: sum(max(by_n[N][r]) - min(by_n[N][r]) for N in by_n)
+                  for r in rows_set}
+        fast, mine = min(total, key=total.get), default[key]
+        check(total[mine] - total[fast] <= max(spread[mine], spread[fast]),
+              f"{names[key]}: the default of {mine} rows a block "
+              f"({total[mine]:.4f} ms summed) is slower than {fast} "
+              f"({total[fast]:.4f}) by more than the spread")
+        lines.append(f"{names[key]} (rows {mine}) " + "; ".join(
+            f"N {N}: {turns[N][0]:.4f} vs one block {turns[N][1]:.4f} "
+            f"({turns[N][1] / turns[N][0]:.2f}x), by rows " + ", ".join(
+                f"{r}: {statistics.median(t):.4f} ({min(t):.4f}-"
+                f"{max(t):.4f})" for r, t in by_n[N].items())
+            + f"; {mine} unstaged {statistics.median(unstaged[N]):.4f} "
+            f"({min(unstaged[N]):.4f}-{max(unstaged[N]):.4f})"
+            for N in by_n) + f" (fastest summed {fast})")
+    print(f"{tag} device ms a call (20 calls queued behind a spin of the "
+          "card; medians in turns with the one-block kernel, then by rows a "
+          "block, staged where they fit, and the default unstaged, median "
+          "(min-max) of 5 interleaved rounds), backward at chi 25: "
+          + "; ".join(lines) + f" ({card})", flush=True)
+
+    # K1-tail and K1c-tail: one power step (ns, q 1) of a stored backward
+    # bond tensor, at the main-path shape device ms a call queued behind a
+    # spin against the one block in turns; at large chi ms a call by events
+    # over 3 calls, against the one block in turns, and by grid size over 3
+    # interleaved rounds
+    lines = []
+    for key in ("k1_tail", "k1c_tail"):
+        BT, V0 = tail_operands(key, 2955, SHAPE["chi"], False)
+        kw = dict(forward=False, power_iters=1, orth="ns")
+        t_new, t_one = time_turns(
+            lambda: new_fn[key](BT, V0, **kw),
+            lambda: block_fn[key](BT, V0, **kw), rounds=3, iters=20,
+            timer=time_queued_ms)
+        new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
+        lines.append(f"{names[key]} chi {SHAPE['chi']} (device, queued): "
+                     f"{new_ms:.4f} ({min(t_new):.4f}-{max(t_new):.4f}) vs "
+                     f"one block {one_ms:.4f} ({min(t_one):.4f}-"
+                     f"{max(t_one):.4f}) ({one_ms / new_ms:.2f}x)")
+    for key, chis in (("k1_tail", (192, 256, 320)),
+                      ("k1c_tail", (128, 192))):
+        for chi in chis:
+            BT, V0 = tail_operands(key, 2960 + chi, chi, False)
+            kw = dict(forward=False, power_iters=1, orth="ns")
+            t_new, t_one = time_turns(
+                lambda: new_fn[key](BT, V0, **kw),
+                lambda: block_fn[key](BT, V0, **kw), rounds=1, iters=1)
+            new_ms, one_ms = statistics.median(t_new), statistics.median(t_one)
+            check(new_ms < one_ms, f"{names[key]} at chi {chi}: {new_ms:.3f} "
+                  f"ms is not below one block's {one_ms:.3f}")
+            sizes = sorted({16, 32, 66, most[key]})
+            rounds = {n: [] for n in sizes}
+            for _ in range(3):
+                for n in sizes:
+                    rounds[n].append(time_ms(
+                        lambda n=n: new_fn[key](BT, V0, blocks=n, **kw), 3,
+                        warmup=1))
+            med = {n: statistics.median(t) for n, t in rounds.items()}
+            fast, mine = min(med, key=med.get), default[key]
+            spread = max(max(rounds[n]) - min(rounds[n]) for n in (fast, mine))
+            check(med[mine] - med[fast] <= spread, f"{names[key]} at chi "
+                  f"{chi}: the default grid of {mine} ({med[mine]:.4f} ms) is "
+                  f"slower than {fast} ({med[fast]:.4f}) by more than the "
+                  f"spread {spread:.4f}")
+            lines.append(
+                f"{names[key]} chi {chi}: {new_ms:.4f} vs one block "
+                f"{one_ms:.4f} ({one_ms / new_ms:.1f}x); by grid " + ", ".join(
+                    f"{n}: {med[n]:.4f} ({min(t):.4f}-{max(t):.4f})"
+                    for n, t in rounds.items()) + f" (fastest {fast})")
+    print(f"{tag} ms a call of one power step (ns, q 1) of a stored backward "
+          "bond tensor (C 2, d 5): events over 3 calls in turns with the "
+          "one-block kernel, then by grid size, median (min-max) of 3 "
+          "interleaved rounds: " + "; ".join(lines) + f" ({card})",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2636,16 +2896,17 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA}
         busy = sum(dev.values())
         wall = 1e3 * sum(p_info["sweep_seconds"])
-        # K1a, K1b and K2-split run over a cluster, never on one block
+        # K1a, K1b and K2-split run over a cluster and K2-env over row
+        # tiles, never on one block
         check(not any(k in n for n in dev for k in (
-            "k1a_kernel", "k1b_kernel", "k2_split_kernel")),
-              f"dp-profile: a one-block K1a, K1b or K2-split ran: "
+            "k1a_kernel", "k1b_kernel", "k2_split_kernel", "k2_env_kernel")),
+              f"dp-profile: a one-block K1a, K1b, K2-split or K2-env ran: "
               f"{list(dev)}")
         parts = {k: sum(v for n, v in dev.items() if kern in n)
                  for k, kern in (("k1a", "k1a_cluster_kernel"),
                                  ("k1b", "k1b_cluster_kernel"),
                                  ("k2_split", "k2_split_cluster_kernel"),
-                                 ("k2_env", "k2_env_kernel"))}
+                                 ("k2_env", "k2_env_rows_kernel"))}
         copies = {n: v for n, v in dev.items() if "emcpy" in n}
         print(f"[dp-profile] one sweep on {label} (default options): device "
               f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
@@ -2857,15 +3118,15 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     check(busy > 0, "complex-dp-profile: no device time traced")
-    # K1c-grad, K1c-update and K2c-split run over a cluster, never on one
-    # block
+    # K1c-grad, K1c-update and K2c-split run over a cluster and K2c-env
+    # over row tiles, never on one block
     check(not any(k in n for n in dev for k in (
-        "k1a_kernel", "k1b_kernel", "k2_split_kernel")),
-          f"complex-dp-profile: a one-block K1c-grad, K1c-update or "
-          f"K2c-split ran: {list(dev)}")
+        "k1a_kernel", "k1b_kernel", "k2_split_kernel", "k2_env_kernel")),
+          f"complex-dp-profile: a one-block K1c-grad, K1c-update, K2c-split "
+          f"or K2c-env ran: {list(dev)}")
     parts = {k: sum(v for n, v in dev.items() if k in n)
              for k in ("k1a_cluster_kernel", "k1b_cluster_kernel",
-                       "k2_split_cluster_kernel", "k2_env_kernel")}
+                       "k2_split_cluster_kernel", "k2_env_rows_kernel")}
     print(f"[complex-dp-profile] one fourier sweep on make_mesh(1): device "
           f"busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
           f"({100 * busy / wall:.1f} %); " + "; ".join(
@@ -3089,12 +3350,15 @@ def main() -> int:
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     check(busy > 0, "split-tail-profile: no device time traced")
-    # K1 and K2 run over a cluster, never on one block
-    check(not any("k1_kernel" in n or "k2_kernel" in n for n in dev),
-          f"split-tail-profile: a one-block K1 or K2 ran: {list(dev)}")
+    # K1 and K2 run over a cluster and K1-tail over a grid, never on one
+    # block
+    check(not any(k in n for n in dev for k in (
+        "k1_kernel", "k2_kernel", "k1_tail_kernel")),
+          f"split-tail-profile: a one-block K1, K2 or K1-tail ran: "
+          f"{list(dev)}")
     parts = {k: sum(v for n, v in dev.items() if kern in n)
              for k, kern in (("k1", "k1_cluster_kernel"),
-                             ("k1_tail", "k1_tail_kernel"),
+                             ("k1_tail", "k1_tail_grid_kernel"),
                              ("k2", "k2_cluster_kernel"))}
     print(f"[split-tail-profile] one default sweep with SPLIT_TAIL_CHI = 0: "
           f"device busy {busy:.1f} ms of {wall:.1f} ms sweep wall time "
@@ -3121,6 +3385,9 @@ def main() -> int:
 
     # ---- 22. K2, K2c, K2-split and K2c-split over a thread-block cluster ---
     k2_cluster_phase(card, ptxas)
+
+    # ---- 23. K2-env/K2c-env over row tiles, K1-tail/K1c-tail over a grid --
+    k2env_k1tail_phase(card, ptxas)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

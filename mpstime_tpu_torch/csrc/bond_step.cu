@@ -71,7 +71,8 @@
 // through Qm.  At the main-path shape (C = 2, chi = 25, d = 5, N = 100 per
 // shard) K1a is ~7.1 M multiply-adds, K1b ~4.7 M with the Newton-Schulz
 // power step, K2-split ~0.8 M and K2-env ~0.3 M: latency-bound like K12.
-// K2-env runs on one thread block.  K1a, K1b and K2-split run over a
+// K2-env runs over independent row tiles (below).  K1a, K1b and K2-split
+// run over a
 // thread-block cluster as K12m does (mpst_k1a_cluster_launch,
 // mpst_k1b_cluster_launch and mpst_k2_split_cluster_launch, the wrappers'
 // K1A_CLUSTER, K1B_CLUSTER and K2_SPLIT_CLUSTER blocks): K1a's work is
@@ -95,8 +96,28 @@
 // "qr", so a chain of q launches computes what K1's q in-kernel steps do.  At
 // the main-path shape one step is ~1.6 M multiply-adds of the Gram
 // application plus ~2.3 M of the Newton-Schulz polar (ns), over ~150 KB of
-// operands (BT 125 KB, V0 and Y): latency-bound like the rest, one thread
-// block per launch.
+// operands (BT 125 KB, V0 and Y): latency-bound like the rest.  At the chi
+// where the split-tail route runs (192-320) its products are large (one
+// backward step at chi 256 ~1.7 G multiply-adds before the polar), more
+// than a 16-block cluster fills.  So k1_tail_grid_kernel runs K1-tail's
+// body over every block of a cooperative launch (GridTeam: the cluster
+// kernels' L2-staged tiles and 512-partial sums, grid.sync() between the
+// phases), as many as the card holds at once (132 at one block a SM; the
+// wrapper's K1_TAIL_BLOCKS), launched by mpst_k1_tail_grid_launch; a grid
+// past that is refused by the card (cudaErrorCooperativeLaunchTooLarge).
+// It computes the one-block kernel's bits; mpst_k1_tail_launch stays as
+// that reference, which no route launches.
+//
+// K2-env, the advance of a shard's environment through Qm, has no
+// dependence between rows: each output row is its kron row times Qm (a
+// chain over chi*d per element) and its own renormalisation.  So
+// k2_env_rows_kernel runs ceil(N / rows) independent blocks (the wrapper's
+// K2_ENV_ROWS rows each), K2-env's body on each tile with no barrier or sum
+// between blocks, the same bits as the one-block k2_env_kernel
+// (mpst_k2_env_launch, the reference no route launches).  Each block
+// stages Qm and its rows' kron factors in shared memory where they fit in
+// 48 KB, so the chains read shared memory, not L2.  At the dp shape (N 100,
+// 13 tiles) it is bound by its dependent chains, not by its ~0.1 MB.
 //
 // C interface (ctypes): pointers as void*, the stream as a void* handle; the
 // launch goes to the caller's current device and returns cudaGetLastError().
@@ -316,6 +337,30 @@ int mpst_k1_tail_launch(const void* bt, const void* v0, void* y_out, void* ws,
                                      q_iters, qr, stream);
 }
 
+// K1-tail over a cooperative grid of `blocks` blocks: mpst_k1_tail_launch's
+// arguments and the grid size, the same bits.  A grid past what the card
+// holds at once (mpst_grid_occupancy) returns
+// cudaErrorCooperativeLaunchTooLarge.  Scratch:
+// mpst_k12_workspace_floats(C, chi, d, 0).
+int mpst_k1_tail_grid_launch(const void* bt, const void* v0, void* y_out,
+                             void* ws, int C, int chi, int d, int forward,
+                             int q_iters, int qr, int blocks, void* stream) {
+  return mpst::launch_k1_tail_grid<float>(bt, v0, y_out, ws, C, chi, d,
+                                          forward, q_iters, qr, blocks,
+                                          stream);
+}
+
+// How many blocks of a real grid kernel the card holds at once (the largest
+// grid it launches), into *n: kernel 0 K1-tail.  Returns the CUDA error of
+// the query (cudaErrorInvalidValue for another kernel); bond_step_c.cu's
+// mpst_c_grid_occupancy answers for K1c-tail.
+int mpst_grid_occupancy(int kernel, int* n) {
+  *n = 0;
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
+  return mpst::grid_occupancy(mpst::k1_tail_grid_kernel<float>,
+                              mpst::stage_smem_bytes<float>(), n);
+}
+
 // K2-split.  Scratch: mpst_k12_workspace_floats(C, chi, d, 0).
 int mpst_k2_split_launch(const void* bt, const void* q, void* center_out,
                          void* core_out, void* qm_out, void* ws, int C,
@@ -346,6 +391,20 @@ int mpst_k2_env_launch(const void* qm, const void* env, const void* env_ls,
                        int chi, int d, int N, int forward, void* stream) {
   return mpst::launch_k2_env<float>(qm, env, env_ls, phi, env_out, ls_out, ws,
                                     chi, d, N, forward, stream);
+}
+
+// K2-env over ceil(N / rows) independent blocks of `rows` rows each:
+// mpst_k2_env_launch's arguments, the rows a block and whether to stage Qm
+// and the kron factors in shared memory (where they fit), the same bits.
+// Scratch: mpst_k12_workspace_floats(0, chi, d, N).
+int mpst_k2_env_rows_launch(const void* qm, const void* env,
+                            const void* env_ls, const void* phi,
+                            void* env_out, void* ls_out, void* ws, int chi,
+                            int d, int N, int forward, int rows,
+                            int stage, void* stream) {
+  return mpst::launch_k2_env_rows<float>(qm, env, env_ls, phi, env_out,
+                                         ls_out, ws, chi, d, N, forward,
+                                         rows, stage, stream);
 }
 
 const char* mpst_error_string(int code) {

@@ -8,7 +8,9 @@
 // orthogonalisation (K1 and K1c, K1b and K1c-update) and the split with or
 // without the environment advance (K2 and K2c, K2-split and K2c-split) at
 // both scalar types, and the complex bond step (K12c) and the tracked-ritz
-// bond step (K12cr) at cfloat.
+// bond step (K12cr) at cfloat; the environment advance over independent
+// row tiles (K2-env, K2c-env) and the stored-BT power step over a
+// cooperative grid (K1-tail, K1c-tail).
 // See bond_step.cu and bond_step_c.cu for what the kernels replace and how
 // they are bounded; this header holds the math, phase by phase, written once
 // for both scalar types and both teams.
@@ -41,12 +43,13 @@
 //
 // Every device function takes a team, the threads that share one bond:
 // BlockTeam, one thread block (the kernels of one block: the references
-// K12m, K1, K2, K1a, K1b, K2-split, K2-env and the tails), or ClusterTeam,
-// every block of a thread-block cluster (the cluster K12m, K1a, K1, K1b, K2,
-// K2-split, K12c and K12cr).  A thread's index in the team is
-// rank * blockDim.x + threadIdx.x, loops stride over the team's threads, and
-// team.sync()
-// separates the phases (__syncthreads() or the cluster barrier).
+// K12m, K1, K2, K1a, K1b, K2-split, K2-env and K1-tail, and each row tile
+// of the row-tile K2-env), ClusterTeam, every block of a thread-block
+// cluster (the cluster K12m, K1a, K1, K1b, K2, K2-split, K12c and K12cr),
+// or GridTeam, every block of a cooperative grid (the grid K1-tail).  A
+// thread's index in the team is rank * blockDim.x + threadIdx.x, loops
+// stride over the team's threads, and team.sync() separates the phases
+// (__syncthreads(), the cluster barrier or the grid barrier).
 // The arithmetic of every output does not depend on the team:
 //   * each product output is one thread's sequential chain over k = 0..Kd-1
 //     (no split-K), by one-element-per-thread loads (BlockTeam) or from
@@ -55,7 +58,8 @@
 //     over the elements e = t (mod kParts), computed by the team's thread t,
 //     and one fixed tree combines them (block_sum);
 //   * each epilogue is one expression in one function (gemm_out).
-// So a cluster of any size computes the one-block kernels' bits.  The host
+// So a cluster or a grid of any size computes the one-block kernels' bits,
+// and so does a row tile of K2-env, whose rows share nothing.  The host
 // launchers at the end need <cuda_runtime.h>, included first by the .cu
 // sources.
 #pragma once
@@ -276,26 +280,47 @@ struct BlockTeam {
   __device__ int part_stride() const { return blockDim.x; }
 };
 
-// Every block of a thread-block cluster, kMaxThreads threads each.  parts
-// is the workspace's [kParts] floats, stage the block's dynamic shared
-// memory (gemm_tiles' tiles).
-struct ClusterTeam {
-  static constexpr bool kCluster = true;
+// Every block of a multi-block team, kMaxThreads threads each, separated
+// by Sync's barrier.  parts is the workspace's [kParts] floats, stage the
+// block's dynamic shared memory (gemm_tiles' tiles).  Nothing is shared
+// between the blocks but global memory read through L2, so the team's
+// products and sums do not depend on which barrier joins the blocks.
+template <class Sync>
+struct MultiTeam {
+  static constexpr bool kCluster = true;     // several blocks
   int rank, ctas;
   float* parts;
   void* stage;
   __device__ int tid() const { return rank * blockDim.x + threadIdx.x; }
   __device__ int size() const { return ctas * blockDim.x; }
-  __device__ void sync() const { cooperative_groups::this_cluster().sync(); }
+  __device__ void sync() const { Sync::sync(); }
   // a sum's partials: the team's threads t < kParts hold one each
   __device__ bool holds_part() const { return tid() < kParts; }
   __device__ int part_stride() const { return kParts; }
 };
 
+struct ClusterSync {
+  __device__ static void sync() { cooperative_groups::this_cluster().sync(); }
+};
+
+// The whole grid of a cooperative launch (every block co-resident).
+struct GridSync {
+  __device__ static void sync() { cooperative_groups::this_grid().sync(); }
+};
+
+// Every block of a thread-block cluster (at most 16 on Hopper).
+using ClusterTeam = MultiTeam<ClusterSync>;
+// Every block of a cooperative grid: as many as the card holds at once.
+using GridTeam = MultiTeam<GridSync>;
+
 __device__ inline ClusterTeam cluster_team(float* parts, void* stage) {
   const cooperative_groups::cluster_group c =
       cooperative_groups::this_cluster();
   return ClusterTeam{(int)c.block_rank(), (int)c.num_blocks(), parts, stage};
+}
+
+__device__ inline GridTeam grid_team(float* parts, void* stage) {
+  return GridTeam{(int)blockIdx.x, (int)gridDim.x, parts, stage};
 }
 
 // A load through L2 only: what another block of the cluster wrote in an
@@ -351,7 +376,8 @@ __host__ __device__ inline long stage_smem_bytes() {
   return (long)kBK * (32 + 1 + 64 + 1) * (long)sizeof(T);
 }
 
-// The cluster's gemm: output tiles of (16 TM) x (32 TN) dealt to the blocks
+// The multi-block team's gemm (a cluster's or a cooperative grid's):
+// output tiles of (16 TM) x (32 TN) dealt to the blocks
 // in turn; each block stages the tile's A and B K-chunks in shared memory
 // (conjugated as they land, through L2) and each of its 16 x 32 threads
 // keeps a TM x TN register micro-tile, rows ty + 16 i and columns tx + 32 j,
@@ -359,8 +385,8 @@ __host__ __device__ inline long stage_smem_bytes() {
 // of the next chunk into registers while the block computes this one, all
 // its loads in flight at once.  Each output is still one chain over
 // k = 0..Kd-1 in order, with gemm's mac.  Needs blockDim.x == kMaxThreads.
-template <int TM, int TN, bool CA, bool CB, class T>
-__device__ inline void gemm_tiles(const ClusterTeam& tm, int batch, int M,
+template <int TM, int TN, bool CA, bool CB, class S, class T>
+__device__ inline void gemm_tiles(const MultiTeam<S>& tm, int batch, int M,
                                   int Nc, int Kd, View<T> A, View<T> B,
                                   T* out, long ob, long orow, long ocol,
                                   float alpha, float beta, const T* src) {
@@ -454,11 +480,11 @@ __device__ inline void gemm_tiles(const ClusterTeam& tm, int batch, int M,
   }
 }
 
-// The cluster's gemm: 32 x 64 tiles (2 x 2 micro-tiles) when there are at
-// least as many of them as blocks, else 16 x 32 (1 x 1), which spreads a
+// The multi-block gemm: 32 x 64 tiles (2 x 2 micro-tiles) when there are
+// at least as many of them as blocks, else 16 x 32 (1 x 1), which spreads a
 // small product over more blocks.  Both give every output the same bits.
-template <bool CA = false, bool CB = false, class T>
-__device__ inline void gemm(const ClusterTeam& tm, int batch, int M, int Nc,
+template <bool CA = false, bool CB = false, class S, class T>
+__device__ inline void gemm(const MultiTeam<S>& tm, int batch, int M, int Nc,
                             int Kd, View<T> A, View<T> B, T* out, long ob,
                             long orow, long ocol, float alpha = 1.f,
                             float beta = 0.f, const T* src = nullptr) {
@@ -485,10 +511,11 @@ __device__ inline float block_sum(BlockTeam, float v, float* red) {
   return r;
 }
 
-// The same sum over a cluster: the team's threads t < kParts hold the
-// partials; every block gathers all kParts of them and runs the same tree
-// on its own copy, so every block gets the same bits.
-__device__ inline float block_sum(const ClusterTeam& tm, float v,
+// The same sum over a cluster or a grid: the team's threads t < kParts
+// hold the partials; every block gathers all kParts of them and runs the
+// same tree on its own copy, so every block gets the same bits.
+template <class S>
+__device__ inline float block_sum(const MultiTeam<S>& tm, float v,
                                   float* red) {
   if (tm.holds_part()) tm.parts[tm.tid()] = v;
   tm.sync();
@@ -1188,16 +1215,37 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 // (K1's or K1b's, launched with emit_y = 0) from v0 into y_out (a.qr:
 // column-normalised only; else the revival and Newton-Schulz polar of each
 // step).  The split-tail route chains launches at q = 1, which is K1's own
-// tail step by step: power_tail over the same BT, as K1b reads it.
+// tail step by step: power_tail over the same BT, as K1b reads it.  The
+// body on a team, then the kernel of one block.
+template <class Tm, class T>
+__device__ inline void k1_tail_body(const Tm& tm, const K12Args<T>& a,
+                                    const T* bt, T* y_out, float* red) {
+  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
+  w.BT = const_cast<T*>(bt);                // read only
+  store_y(tm, a, power_tail(tm, a, a.v0, w, red), y_out);
+}
+
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k1_tail_kernel(K12Args<T> a,
                                                               const T* bt,
                                                               T* y_out) {
-  const BlockTeam tm;
   __shared__ float red[kMaxThreads];
-  Work<T> w = carve<T>(a.ws, a.C, a.chi, a.d, 0);
-  w.BT = const_cast<T*>(bt);                // read only
-  store_y(tm, a, power_tail(tm, a, a.v0, w, red), y_out);
+  k1_tail_body(BlockTeam{}, a, bt, y_out, red);
+}
+
+// K1-tail (K1c-tail) over every block of a cooperative grid: K1-tail's body
+// and operands under GridTeam, the same bits as k1_tail_kernel.  A cluster
+// holds at most 16 blocks; the grid spans as many SMs as the card holds
+// blocks at once (132 at one block a SM), which the large products of a
+// stored BT at chi 192-320 can fill.  Launch bound as the cluster kernels'.
+template <class T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    k1_tail_grid_kernel(K12Args<T> a, const T* bt, T* y_out) {
+  __shared__ float red[kMaxThreads];
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const GridTeam tm = grid_team(
+      carve<T>(a.ws, a.C, a.chi, a.d, 0).parts, dyn_smem);
+  k1_tail_body(tm, a, bt, y_out, red);
 }
 
 // K2-split: the split of bt against the orthonormal basis Q: projection,
@@ -1238,18 +1286,64 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
 // K2-env: the advance of this shard's environment env0 / ls0 through the
 // masked isometry qm with its features phil (backward: re and phir; forward:
-// le and phil).
+// le and phil).  The body on one block's rows (w.L and w.R the rows' kron
+// factors), then the kernel of one block over all N rows.
+template <class T>
+__device__ inline void k2_env_body(const K12Args<T>& a, Work<T> w) {
+  const BlockTeam tm;
+  if constexpr (!IsComplex<T>::value) {
+    kron_factors(tm, a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
+    tm.sync();
+  }
+  env_advance(tm, a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
+}
+
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads) k2_env_kernel(K12Args<T> a,
                                                              const T* qm) {
-  const BlockTeam tm;
   Work<T> w = carve<T>(a.ws, 0, a.chi, a.d, a.N);
   w.Yb = const_cast<T*>(qm);                // read only
-  if constexpr (!IsComplex<T>::value) {
-    kron_factors(tm, a.env0, a.env0, a.phil, a.phil, w, a.chi, a.d, a.N);
-    __syncthreads();
+  k2_env_body(a, w);
+}
+
+// K2-env (K2c-env) over independent row tiles: block b advances rows
+// [b rows, min(N, (b + 1) rows)) with K2-env's body on that slice, its
+// operands, outputs and kron factors offset by the tile's first row.  Every
+// output row is its own kron row times Qm (one chain over p per element)
+// and its own renormalisation (one chain over m), so the tiles need no
+// barrier and no sum between them, and each element is the one-block
+// kernel's chain: the same bits.  The grid grows with N.
+// Staged, the block copies Qm [P, chi] into its dynamic shared memory and
+// keeps its rows' kron factors there (k2_env_rows_smem_bytes), so the
+// advance's chains read shared memory, not L2; the body's barrier before
+// the product (after the real kron factors, after the complex factor)
+// orders the copy.  The values and chains are the same either way.
+template <class T, bool Staged>
+__global__ void __launch_bounds__(kMaxThreads)
+    k2_env_rows_kernel(K12Args<T> a, const T* qm, int rows) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int r0 = blockIdx.x * rows;
+  const long P = (long)a.chi * a.d;
+  Work<T> w = carve<T>(a.ws, 0, a.chi, a.d, a.N);
+  w.L += r0 * P;
+  w.R += r0 * P;
+  w.Yb = const_cast<T*>(qm);                // read only
+  if constexpr (Staged) {
+    T* q = reinterpret_cast<T*>(dyn_smem);
+#pragma unroll 4
+    for (long e = threadIdx.x; e < P * a.chi; e += blockDim.x) q[e] = qm[e];
+    w.Yb = q;
+    w.L = q + P * a.chi;
+    w.R = w.L + rows * P;
   }
-  env_advance(tm, a, a.env0, a.phil, a.ls0, a.env_out, a.ls_out, w);
+  K12Args<T> t = a;
+  t.N = min(rows, a.N - r0);
+  t.env0 += (long)r0 * a.chi;
+  t.phil += (long)r0 * a.d;
+  t.ls0 += r0;
+  t.env_out += (long)r0 * a.chi;
+  t.ls_out += r0;
+  k2_env_body(t, w);
 }
 
 // ---- K12cr: the tracked-ritz bond step ------------------------------------
@@ -1475,8 +1569,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) k12cr_kernel(K12Args<T> a,
 // (T = cfloat) forward to these, so one argument list per kernel serves
 // both scalar types.  Each launches one block of kMaxThreads (the cluster
 // K12m, K12c, K12cr, K1, K1a, K1b, K2 and K2-split: one cluster of
-// `cluster` blocks of kMaxThreads) on the caller's stream and returns
-// cudaGetLastError().
+// `cluster` blocks of kMaxThreads; the row-tile K2-env: ceil(N / rows)
+// blocks; the grid K1-tail: a cooperative grid of `blocks` blocks) on the
+// caller's stream and returns cudaGetLastError().
 
 // A launch configuration of one cluster of `cluster` blocks with smem bytes
 // of dynamic shared memory, the kernel's attributes set to allow both.
@@ -1530,6 +1625,53 @@ inline int cluster_occupancy(Kernel kernel, int cluster, long smem, int* n) {
   cudaLaunchConfig_t cfg;
   cudaError_t e = cluster_config(kernel, cluster, smem, nullptr, &attr, &cfg);
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// Allow smem bytes of dynamic shared memory to a grid kernel's blocks.
+template <class Kernel>
+inline cudaError_t grid_smem(Kernel kernel, long smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                   (int)smem)
+             : cudaSuccess;
+}
+
+// Launch a cooperative grid of `blocks` blocks of kMaxThreads, every block
+// co-resident, so that GridSync's barrier can hold them all.  A grid larger
+// than the card holds at once is refused by the launch itself
+// (cudaErrorCooperativeLaunchTooLarge) and the error cleared, as
+// launch_cluster does; nothing shrinks the grid.
+template <class Kernel, class... Args>
+inline int launch_grid(Kernel kernel, int blocks, long smem, void* stream,
+                       Args... args) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  void* params[] = {static_cast<void*>(&args)...};
+  cudaError_t e = grid_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(kernel), dim3(blocks),
+        dim3(kMaxThreads), params, (size_t)smem,
+        static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// How many blocks of a grid kernel the current card holds at once (the
+// largest cooperative grid) into *n: blocks a SM times SMs.
+template <class Kernel>
+inline int grid_occupancy(Kernel kernel, long smem, int* n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = grid_smem(kernel, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kMaxThreads, smem);
+  *n = e == cudaSuccess ? per_sm * sms : 0;
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }
@@ -1912,9 +2054,8 @@ inline int launch_k1b_cluster(const void* lhs, const void* center0,
 // K1-tail: bt [C, P, P] is a stepped bond tensor; q_iters power steps from
 // v0 into y_out.  Scratch: workspace_floats(C, chi, d, 0).
 template <class T>
-inline int launch_k1_tail(const void* bt, const void* v0, void* y_out,
-                          void* ws, int C, int chi, int d, int forward,
-                          int q_iters, int qr, void* stream) {
+inline K12Args<T> k1_tail_args(const void* v0, void* ws, int C, int chi,
+                               int d, int forward, int q_iters, int qr) {
   K12Args<T> a{};
   a.v0 = static_cast<const T*>(v0);
   a.ws = static_cast<float*>(ws);
@@ -1926,10 +2067,34 @@ inline int launch_k1_tail(const void* bt, const void* v0, void* y_out,
   a.refresh = 1;
   a.q_iters = q_iters;
   a.qr = qr;
+  return a;
+}
+
+template <class T>
+inline int launch_k1_tail(const void* bt, const void* v0, void* y_out,
+                          void* ws, int C, int chi, int d, int forward,
+                          int q_iters, int qr, void* stream) {
+  const K12Args<T> a =
+      k1_tail_args<T>(v0, ws, C, chi, d, forward, q_iters, qr);
   k1_tail_kernel<T><<<1, kMaxThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const T*>(bt), static_cast<T*>(y_out));
   return (int)cudaGetLastError();
+}
+
+// K1-tail (K1c-tail) over a cooperative grid of `blocks` blocks: K1-tail's
+// operands.  A grid larger than the card holds at once is refused by the
+// launch (cudaErrorCooperativeLaunchTooLarge), never shrunk.
+template <class T>
+inline int launch_k1_tail_grid(const void* bt, const void* v0, void* y_out,
+                               void* ws, int C, int chi, int d, int forward,
+                               int q_iters, int qr, int blocks,
+                               void* stream) {
+  const K12Args<T> a =
+      k1_tail_args<T>(v0, ws, C, chi, d, forward, q_iters, qr);
+  return launch_grid(k1_tail_grid_kernel<T>, blocks, stage_smem_bytes<T>(),
+                     stream, a, static_cast<const T*>(bt),
+                     static_cast<T*>(y_out));
 }
 
 // The operands of a K2-split launch.  Scratch: workspace_floats(C, chi, d,
@@ -1986,10 +2151,9 @@ inline int launch_k2_split_cluster(const void* bt, const void* q,
 // K2-env: env / env_ls / phi are the advancing side's environment,
 // log-scales and features.  Scratch: workspace_floats(0, chi, d, N).
 template <class T>
-inline int launch_k2_env(const void* qm, const void* env, const void* env_ls,
-                         const void* phi, void* env_out, void* ls_out,
-                         void* ws, int chi, int d, int N, int forward,
-                         void* stream) {
+inline K12Args<T> k2_env_args(const void* env, const void* env_ls,
+                              const void* phi, void* env_out, void* ls_out,
+                              void* ws, int chi, int d, int N, int forward) {
   K12Args<T> a{};
   a.env0 = static_cast<const T*>(env);
   a.ls0 = static_cast<const float*>(env_ls);
@@ -2002,8 +2166,61 @@ inline int launch_k2_env(const void* qm, const void* env, const void* env_ls,
   a.d = d;
   a.N = N;
   a.forward = forward;
+  return a;
+}
+
+template <class T>
+inline int launch_k2_env(const void* qm, const void* env, const void* env_ls,
+                         const void* phi, void* env_out, void* ls_out,
+                         void* ws, int chi, int d, int N, int forward,
+                         void* stream) {
+  const K12Args<T> a = k2_env_args<T>(env, env_ls, phi, env_out, ls_out, ws,
+                                      chi, d, N, forward);
   k2_env_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const T*>(qm));
+  return (int)cudaGetLastError();
+}
+
+// The threads of a K2-env row tile of `rows` rows at bond width chi: one
+// an output (rows * chi), in whole warps, at most kMaxThreads.
+inline int k2_env_rows_threads(int rows, int chi) {
+  const long outs = (long)rows * chi;
+  return (int)(outs >= kMaxThreads ? kMaxThreads : (outs + 31) / 32 * 32);
+}
+
+// A staged K2-env block's dynamic shared memory: Qm [P, chi] and the kron
+// factors L and R of its rows [rows, P].
+template <class T>
+inline long k2_env_rows_smem_bytes(int rows, int chi, int d) {
+  const long P = (long)chi * d;
+  return (P * chi + 2L * rows * P) * (long)sizeof(T);
+}
+
+// K2-env (K2c-env) over ceil(N / rows) independent blocks of `rows` rows
+// each (the last one partial): K2-env's operands, the same workspace.  With
+// `stage` set the blocks stage Qm and their factors in shared memory when
+// they fit in the 48 KB a launch takes without an attribute (20 KB at
+// float, 41 KB at cfloat at chi 25, 8 rows); otherwise, and with stage 0
+// (for timing the two), they read both from global memory.
+template <class T>
+inline int launch_k2_env_rows(const void* qm, const void* env,
+                              const void* env_ls, const void* phi,
+                              void* env_out, void* ls_out, void* ws, int chi,
+                              int d, int N, int forward, int rows, int stage,
+                              void* stream) {
+  if (rows < 1 || N < 1 || chi < 1) return (int)cudaErrorInvalidValue;
+  const K12Args<T> a = k2_env_args<T>(env, env_ls, phi, env_out, ls_out, ws,
+                                      chi, d, N, forward);
+  const long smem = k2_env_rows_smem_bytes<T>(rows, chi, d);
+  const dim3 grid((N + rows - 1) / rows);
+  const dim3 block(k2_env_rows_threads(rows, chi));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stage && smem <= 48 * 1024)
+    k2_env_rows_kernel<T, true><<<grid, block, smem, s>>>(
+        a, static_cast<const T*>(qm), rows);
+  else
+    k2_env_rows_kernel<T, false><<<grid, block, 0, s>>>(
+        a, static_cast<const T*>(qm), rows);
   return (int)cudaGetLastError();
 }
 

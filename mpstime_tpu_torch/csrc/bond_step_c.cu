@@ -41,8 +41,13 @@
 // over a read-only BT, and accepts orth "ns" and "qr" only (no tail call of
 // the JAX package passes "tri").  At the complex main-path shape one step is
 // ~1.6 M complex multiply-adds of the Gram application plus ~2.3 M of the
-// Newton-Schulz polar (ns), over ~300 KB of operands (BT 250 KB, V0 and Y):
-// latency-bound on one thread block like the rest.
+// Newton-Schulz polar (ns), over ~300 KB of operands (BT 250 KB, V0 and Y).
+// It runs over a cooperative grid (k1_tail_grid_kernel at cfloat,
+// mpst_k1c_tail_grid_launch, the wrapper's K1C_TAIL_BLOCKS), and K2c-env
+// over independent row tiles (k2_env_rows_kernel at cfloat,
+// mpst_k2c_env_rows_launch, K2C_ENV_ROWS rows a block), as bond_step.cu
+// says of the real ones; mpst_k1c_tail_launch and mpst_k2c_env_launch stay
+// as their one-block references.
 //
 // K12cr is the same device code around three more phases
 // (bond_step.cuh): the power step orthonormalised by damped triangular
@@ -57,8 +62,8 @@
 // chi = 25, d = 5, N = 100, q = 3) a refresh bond is a chain of ~20 M
 // complex multiply-adds (four real ones each) in ~170 dependent phases (the
 // batch products, q power steps of fourteen Newton-Schulz steps each, the
-// projection, the mask).  On one thread block (K2c-env, K1c-tail and the
-// one-block references of the cluster kernels) every
+// projection, the mask).  On one thread block (the one-block references)
+// every
 // phase is latency-bound on one SM of 132, its products reading both
 // operands from L1/L2 per multiply-add.  BT and its gradient
 // (2 x C*chi*d*d*chi complex values, 500 KB) live in the L2-resident global
@@ -435,6 +440,43 @@ int mpst_k1c_tail_launch(const void* bt, const void* v0, void* y_out,
                          int q_iters, int qr, void* stream) {
   return mpst::launch_k1_tail<cfloat>(bt, v0, y_out, ws, C, chi, d, forward,
                                       q_iters, qr, stream);
+}
+
+// K1c-tail over a cooperative grid of `blocks` blocks:
+// mpst_k1c_tail_launch's arguments and the grid size, the same bits; a grid
+// past what the card holds at once (mpst_c_grid_occupancy) returns
+// cudaErrorCooperativeLaunchTooLarge.  Scratch:
+// mpst_c_workspace_floats(C, chi, d, 0).
+int mpst_k1c_tail_grid_launch(const void* bt, const void* v0, void* y_out,
+                              void* ws, int C, int chi, int d, int forward,
+                              int q_iters, int qr, int blocks,
+                              void* stream) {
+  return mpst::launch_k1_tail_grid<cfloat>(bt, v0, y_out, ws, C, chi, d,
+                                           forward, q_iters, qr, blocks,
+                                           stream);
+}
+
+// How many blocks of a complex grid kernel the card holds at once, into
+// *n: kernel 0 K1c-tail (cudaErrorInvalidValue for another kernel).
+int mpst_c_grid_occupancy(int kernel, int* n) {
+  *n = 0;
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
+  return mpst::grid_occupancy(mpst::k1_tail_grid_kernel<cfloat>,
+                              mpst::stage_smem_bytes<cfloat>(), n);
+}
+
+// K2c-env over ceil(N / rows) independent blocks of `rows` rows each:
+// mpst_k2c_env_launch's arguments, the rows a block and whether to stage Qm
+// and the kron factors in shared memory (where they fit), the same bits.
+// Scratch: mpst_c_workspace_floats(0, chi, d, N).
+int mpst_k2c_env_rows_launch(const void* qm, const void* env,
+                             const void* env_ls, const void* phi,
+                             void* env_out, void* ls_out, void* ws, int chi,
+                             int d, int N, int forward, int rows,
+                             int stage, void* stream) {
+  return mpst::launch_k2_env_rows<cfloat>(qm, env, env_ls, phi, env_out,
+                                          ls_out, ws, chi, d, N, forward,
+                                          rows, stage, stream);
 }
 
 }  // extern "C"

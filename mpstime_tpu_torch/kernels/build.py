@@ -117,7 +117,10 @@ def load_library() -> ctypes.CDLL:
         # K12cr K12mc's, the Jacobi round count and the cluster size, and
         # the cluster K1a, K1c-grad, K1, K1c, K1b, K1c-update, K2, K2c,
         # K2-split and K2c-split their one-block launchers' and the cluster
-        # size, and the by-part K2 and K2c the parts to run before it
+        # size, and the by-part K2 and K2c the parts to run before it; the
+        # row-tile K2-env and K2c-env their one-block launchers', the rows
+        # a block and the staging flag, the grid K1-tail and K1c-tail
+        # theirs and the blocks
         for ws in ("mpst_k12_workspace_floats", "mpst_c_workspace_floats"):
             getattr(lib, ws).argtypes = [i, i, i, i]
             getattr(lib, ws).restype = ctypes.c_long
@@ -157,12 +160,19 @@ def load_library() -> ctypes.CDLL:
                   "mpst_k2c_split_cluster_launch"),
                  [p] * 6 + [i] * 4 + [f] * 2 + [i, p]),
                 (("mpst_k2_env_launch", "mpst_k2c_env_launch"),
-                 [p] * 7 + [i] * 4 + [p])):
+                 [p] * 7 + [i] * 4 + [p]),
+                (("mpst_k2_env_rows_launch", "mpst_k2c_env_rows_launch"),
+                 [p] * 7 + [i] * 6 + [p]),
+                (("mpst_k1_tail_grid_launch", "mpst_k1c_tail_grid_launch"),
+                 [p] * 4 + [i] * 7 + [p])):
             for name in names:
                 getattr(lib, name).argtypes = argtypes
                 getattr(lib, name).restype = i
         for name in ("mpst_cluster_occupancy", "mpst_c_cluster_occupancy"):
             getattr(lib, name).argtypes = [i, i, i, ctypes.POINTER(i)]
+            getattr(lib, name).restype = i
+        for name in ("mpst_grid_occupancy", "mpst_c_grid_occupancy"):
+            getattr(lib, name).argtypes = [i, ctypes.POINTER(i)]
             getattr(lib, name).restype = i
         lib.mpst_error_string.argtypes = [i]
         lib.mpst_error_string.restype = ctypes.c_char_p

@@ -23,10 +23,13 @@ the tensors it is given:
     block of bonds over a thread-block cluster of ``K12M_CLUSTER`` blocks,
     K1a its batch gradient over ``K1A_CLUSTER``, K1 and K1b their bond
     update over ``K1_CLUSTER`` and ``K1B_CLUSTER``, K2 and K2-split their
-    split over ``K2_CLUSTER`` and ``K2_SPLIT_CLUSTER``; the one-block K12m,
-    K1a, K1, K1b, K2 and K2-split (``k12m_block_cuda``, ``k1a_block_cuda``,
+    split over ``K2_CLUSTER`` and ``K2_SPLIT_CLUSTER``; K2-env runs
+    independent blocks of ``K2_ENV_ROWS`` rows, K1-tail a cooperative grid
+    of ``K1_TAIL_BLOCKS`` blocks; the one-block K12m, K1a, K1, K1b, K2,
+    K2-split, K2-env and K1-tail (``k12m_block_cuda``, ``k1a_block_cuda``,
     ``k1_block_cuda``, ``k1b_block_cuda``, ``k2_block_cuda``,
-    ``k2_split_block_cuda``) stay as the reference they are held against
+    ``k2_split_block_cuda``, ``k2_env_block_cuda``,
+    ``k1_tail_block_cuda``) stay as the reference they are held against
     bit for bit, and no route calls them.
   * CPU tensors take the kernel's plain PyTorch version (``k12_plain``,
     ``k12m_plain``, ``k1_plain``, ``k2_plain``, ``k1a_plain``,
@@ -36,8 +39,9 @@ the tensors it is given:
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the dispatches to the
 plain versions, so a run can show which path it took (the one-block K12m,
-K1a, K1, K1b, K2 and K2-split under "k12m_block", "k1a_block", "k1_block",
-"k1b_block", "k2_block" and "k2_split_block").  Operand layouts are
+K1a, K1, K1b, K2, K2-split, K2-env and K1-tail under "k12m_block",
+"k1a_block", "k1_block", "k1b_block", "k2_block", "k2_split_block",
+"k2_env_block" and "k1_tail_block").  Operand layouts are
 the JAX kernels': the class-major center [C, chi, d, chi], environments
 [N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and the
 bond tensor and its gradient [C, chi*d, d, chi].
@@ -59,18 +63,22 @@ from .env import env_step_left_scaled, env_step_right_scaled
 #: The complex kernels (ops/bond_kernels_c.py) count here too; "k12m_block",
 #: "k12mc_block", "k1c_block", "k1c_update_block", "k1a_block",
 #: "k1c_grad_block", "k1_block", "k1b_block", "k2_block", "k2c_block",
-#: "k2_split_block" and "k2c_split_block" count the one-block K12m, K12mc,
-#: K1c, K1c-update, K1a, K1c-grad, K1, K1b, K2, K2c, K2-split and K2c-split,
-#: which no route launches (their cluster kernels count under "k12" and
-#: "k12m", "k12mc", "k1c", "k1c_update", "k1a", "k1c_grad", "k1", "k1b",
-#: "k2", "k2c", "k2_split", "k2c_split").
+#: "k2_split_block", "k2c_split_block", "k2_env_block", "k2c_env_block",
+#: "k1_tail_block" and "k1c_tail_block" count the one-block K12m, K12mc,
+#: K1c, K1c-update, K1a, K1c-grad, K1, K1b, K2, K2c, K2-split, K2c-split,
+#: K2-env, K2c-env, K1-tail and K1c-tail, which no route launches (their
+#: cluster, row-tile and grid kernels count under "k12" and "k12m",
+#: "k12mc", "k1c", "k1c_update", "k1a", "k1c_grad", "k1", "k1b", "k2",
+#: "k2c", "k2_split", "k2c_split", "k2_env", "k2c_env", "k1_tail",
+#: "k1c_tail").
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("k12", "k12m", "k1", "k2", "k12c", "k12mc", "k1c", "k2c", "k12cr",
      "k1a", "k1b", "k2_split", "k2_env", "k1c_grad", "k1c_update",
      "k2c_split", "k2c_env", "k1_tail", "k1c_tail", "k1c_block",
      "k1c_update_block", "k12m_block", "k12mc_block", "k1a_block",
      "k1c_grad_block", "k1_block", "k1b_block", "k2_block", "k2c_block",
-     "k2_split_block", "k2c_split_block"), 0)
+     "k2_split_block", "k2c_split_block", "k2_env_block", "k2c_env_block",
+     "k1_tail_block", "k1c_tail_block"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
@@ -78,8 +86,10 @@ PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 #: the caller passes ``split_tail=``; None: never by default.  The port's
 #: counterpart of pallas_bond.SPLIT_TAIL_FOOTPRINT, keyed on chi (the card
 #: has no VMEM gate); its value is the large-chi timing of chip_smoke.py's
-#: [split-tail-kernels] phase (PERF.md).
-SPLIT_TAIL_CHI: Optional[int] = None
+#: [split-tail-kernels] phase (PERF.md): with K1-tail over a cooperative
+#: grid the split form beats the fused one from chi 192 (the smallest
+#: measured) under ns and qr, and complex from 128.
+SPLIT_TAIL_CHI: Optional[int] = 192
 
 Out5 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
              torch.Tensor]
@@ -633,6 +643,19 @@ K2_CLUSTER = 16
 K2_SPLIT_CLUSTER = 16
 #: The largest cluster a launch may ask for (Hopper's non-portable limit).
 MAX_CLUSTER = 16
+#: Rows of the batch each block of K2-env advances: its grid is
+#: ceil(N / K2_ENV_ROWS) independent blocks, from its times by rows a block
+#: on the card at N 100, 50 and 32 (chip_smoke.py's
+#: [k2env-k1tail-redesign]).
+K2_ENV_ROWS = 8
+#: The most rows a K2-env block may take: a thread of its renormalisation
+#: for each row (kMaxThreads).
+MAX_ENV_ROWS = 512
+#: Blocks of the cooperative grid that runs K1-tail, from its times by grid
+#: size at chi 192, 256 and 320 on the card ([k2env-k1tail-redesign]); a
+#: grid past what the card holds at once (``grid_occupancy``) is refused by
+#: the card.
+K1_TAIL_BLOCKS = 132
 #: Each cluster kernel's occupancy query: the library entry and the kernel's
 #: index there (csrc/bond_step.cu answers for the real cluster K12m, which
 #: K12 launches too, K1a, K1, K1b, K2 and K2-split, csrc/bond_step_c.cu for
@@ -681,6 +704,53 @@ def cluster_occupancy(kernel: str, cluster: int, chi: int) -> int:
     rc = getattr(lib, entry)(index, n_blocks, int(chi), ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"cluster occupancy query failed: CUDA error {rc} "
+                           f"({lib.mpst_error_string(rc).decode()})")
+    return n.value
+
+
+def _env_rows(rows) -> int:
+    """``rows`` if it is an integer from 1 to MAX_ENV_ROWS, else ValueError
+    (before any library load)."""
+    if (isinstance(rows, bool) or not isinstance(rows, numbers.Integral)
+            or not 1 <= rows <= MAX_ENV_ROWS):
+        raise ValueError(f"rows must be an integer from 1 to "
+                         f"{MAX_ENV_ROWS}, got {rows!r}")
+    return int(rows)
+
+
+def _grid_blocks(blocks) -> int:
+    """``blocks`` if it is a positive integer, else ValueError (before any
+    library load); whether the card holds that many at once is the
+    launch's to say."""
+    if (isinstance(blocks, bool) or not isinstance(blocks, numbers.Integral)
+            or blocks < 1):
+        raise ValueError(f"blocks must be a positive integer, got "
+                         f"{blocks!r}")
+    return int(blocks)
+
+
+#: Each grid kernel's occupancy query: the library entry and the kernel's
+#: index there.
+_GRID_OCCUPANCY = {"k1_tail": ("mpst_grid_occupancy", 0),
+                   "k1c_tail": ("mpst_c_grid_occupancy", 0)}
+#: The grid kernels grid_occupancy answers for.
+GRID_KERNELS = tuple(_GRID_OCCUPANCY)
+
+
+def grid_occupancy(kernel: str) -> int:
+    """How many blocks of the grid kernel ``kernel`` (one of GRID_KERNELS)
+    the current card holds at once, the largest grid it launches: blocks a
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) times SMs."""
+    if kernel not in GRID_KERNELS:
+        raise ValueError(f"kernel must be one of {GRID_KERNELS}, got "
+                         f"{kernel!r}")
+    from ..kernels.build import load_library
+    lib = load_library()
+    entry, index = _GRID_OCCUPANCY[kernel]
+    n = ctypes.c_int(0)
+    rc = getattr(lib, entry)(index, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"grid occupancy query failed: CUDA error {rc} "
                            f"({lib.mpst_error_string(rc).decode()})")
     return n.value
 
@@ -894,13 +964,37 @@ def k1b_block_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
     return out
 
 
+def _k1_tail(entry: str, extra: tuple, *args, **kw) -> torch.Tensor:
+    """K1-tail's operands (``_launch_k1_tail``'s) checked and launched
+    through the library's ``entry``, with ``extra`` after K1-tail's C
+    arguments (the grid size)."""
+    launch, wsf = _cuda_launch(args[0].device, entry)
+    return _launch_k1_tail(*args, launch=lambda *a: launch(*a, *extra),
+                           workspace_floats=wsf, **kw)
+
+
 def k1_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
-                 orth: str = "qr") -> torch.Tensor:
-    """K1-tail as one launch; operands and result as ``k1_tail_plain``'s."""
-    launch, wsf = _cuda_launch(BT.device, "mpst_k1_tail_launch")
-    Y = _launch_k1_tail(BT, V0, forward=forward, power_iters=power_iters,
-                        orth=orth, launch=launch, workspace_floats=wsf)
+                 orth: str = "qr", blocks: Optional[int] = None
+                 ) -> torch.Tensor:
+    """K1-tail as one launch of a cooperative grid of ``blocks`` blocks
+    (default ``K1_TAIL_BLOCKS``); operands and result as
+    ``k1_tail_plain``'s.  A grid the card cannot hold at once raises
+    RuntimeError."""
+    n = _grid_blocks(K1_TAIL_BLOCKS if blocks is None else blocks)
+    Y = _k1_tail("mpst_k1_tail_grid_launch", (n,), BT, V0, forward=forward,
+                 power_iters=power_iters, orth=orth)
     LAUNCHES["k1_tail"] += 1
+    return Y
+
+
+def k1_tail_block_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
+                       orth: str = "qr") -> torch.Tensor:
+    """K1-tail on one thread block, the reference ``k1_tail_cuda`` is held
+    against bit for bit (no route calls it); operands and result as
+    ``k1_tail_plain``'s."""
+    Y = _k1_tail("mpst_k1_tail_launch", (), BT, V0, forward=forward,
+                 power_iters=power_iters, orth=orth)
+    LAUNCHES["k1_tail_block"] += 1
     return Y
 
 
@@ -939,13 +1033,39 @@ def k2_split_block_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
     return out
 
 
-def k2_env_cuda(Qm, env, env_ls, phi, *, forward: bool
+def _k2_env(entry: str, extra: tuple, *args, **kw
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2-env's operands (``_launch_k2_env``'s) checked and launched through
+    the library's ``entry``, with ``extra`` after K2-env's C arguments (the
+    rows a block and the staging flag: 1 stages Qm and the kron factors in
+    shared memory where they fit, 0 never)."""
+    launch, wsf = _cuda_launch(args[0].device, entry)
+    return _launch_k2_env(*args, launch=lambda *a: launch(*a, *extra),
+                          workspace_floats=wsf, **kw)
+
+
+def k2_env_cuda(Qm, env, env_ls, phi, *, forward: bool,
+                rows: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2-env as one launch; operands and results as ``k2_env_plain``'s."""
-    launch, wsf = _cuda_launch(Qm.device, "mpst_k2_env_launch")
-    out = _launch_k2_env(Qm, env, env_ls, phi, forward=forward,
-                         launch=launch, workspace_floats=wsf)
+    """K2-env as one launch of ceil(N / ``rows``) independent blocks of
+    ``rows`` rows each (default ``K2_ENV_ROWS``), Qm and the blocks' kron
+    factors staged in shared memory where they fit; operands and results as
+    ``k2_env_plain``'s."""
+    n = _env_rows(K2_ENV_ROWS if rows is None else rows)
+    out = _k2_env("mpst_k2_env_rows_launch", (n, 1), Qm, env, env_ls, phi,
+                  forward=forward)
     LAUNCHES["k2_env"] += 1
+    return out
+
+
+def k2_env_block_cuda(Qm, env, env_ls, phi, *, forward: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2-env on one thread block, the reference ``k2_env_cuda`` is held
+    against bit for bit (no route calls it); operands and results as
+    ``k2_env_plain``'s."""
+    out = _k2_env("mpst_k2_env_launch", (), Qm, env, env_ls, phi,
+                  forward=forward)
+    LAUNCHES["k2_env_block"] += 1
     return out
 
 

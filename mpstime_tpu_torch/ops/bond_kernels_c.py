@@ -28,12 +28,14 @@ other loss or optimiser with a ValueError.
     cluster of ``CLUSTER`` blocks, K12mc a block of bonds over
     ``K12MC_CLUSTER``, K1c over ``K1C_CLUSTER``, K1c-update over
     ``K1C_UPDATE_CLUSTER``, K1c-grad over ``K1C_GRAD_CLUSTER``, K2c over
-    ``K2C_CLUSTER`` and K2c-split over ``K2C_SPLIT_CLUSTER``; the rest over
-    one block.  The one-block K12mc, K1c, K1c-update, K1c-grad, K2c and
-    K2c-split (``k12mc_block_cuda``, ``k1c_block_cuda``,
-    ``k1c_update_block_cuda``, ``k1c_grad_block_cuda``, ``k2c_block_cuda``,
-    ``k2c_split_block_cuda``) stay as the reference their cluster kernels
-    are held against bit for bit; no route calls them.
+    ``K2C_CLUSTER`` and K2c-split over ``K2C_SPLIT_CLUSTER``; K2c-env over
+    independent blocks of ``K2C_ENV_ROWS`` rows and K1c-tail over a
+    cooperative grid of ``K1C_TAIL_BLOCKS`` blocks.  The one-block K12mc,
+    K1c, K1c-update, K1c-grad, K2c, K2c-split, K2c-env and K1c-tail
+    (``k12mc_block_cuda``, ``k1c_block_cuda``, ``k1c_update_block_cuda``,
+    ``k1c_grad_block_cuda``, ``k2c_block_cuda``, ``k2c_split_block_cuda``,
+    ``k2c_env_block_cuda``, ``k1c_tail_block_cuda``) stay as the reference
+    those kernels are held against bit for bit; no route calls them.
   * CPU tensors take the plain versions (``k12c_plain``, ``k12mc_plain``,
     ``k1c_plain``, ``k2c_plain``, ``k12cr_plain``, ``k1c_grad_plain``,
     ``k1c_update_plain``, ``k2c_split_plain``, ``k2c_env_plain``,
@@ -44,9 +46,9 @@ other loss or optimiser with a ValueError.
 Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c",
 "k12cr", "k1c_grad", "k1c_update", "k2c_split", "k2c_env" and "k1c_tail" in
 ``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS`` (the one-block K12mc, K1c,
-K1c-update, K1c-grad, K2c and K2c-split under "k12mc_block", "k1c_block",
-"k1c_update_block", "k1c_grad_block", "k2c_block" and
-"k2c_split_block").
+K1c-update, K1c-grad, K2c, K2c-split, K2c-env and K1c-tail under
+"k12mc_block", "k1c_block", "k1c_update_block", "k1c_grad_block",
+"k2c_block", "k2c_split_block", "k2c_env_block" and "k1c_tail_block").
 Operand layouts are the real kernels': phil / phir are the conjugated
 encoded states, the center is class-major [C, chi, d, chi], environments
 [N, chi] with real log-scales [N], labels [N, C] and weights [N] real
@@ -60,8 +62,10 @@ from typing import Optional, Tuple
 import torch
 
 from . import bond_kernels as bk
-from .bond_kernels import (CLUSTER_KERNELS, MAX_CLUSTER,  # noqa: F401
-                           _cluster_size, cluster_occupancy)
+from .bond_kernels import (CLUSTER_KERNELS, GRID_KERNELS,  # noqa: F401
+                           MAX_CLUSTER, MAX_ENV_ROWS, _cluster_size,
+                           _env_rows, _grid_blocks, cluster_occupancy,
+                           grid_occupancy)
 from .decomp import (_JACOBI_ROUNDS, _JACOBI_WARM_ROUNDS, _pairwise_mask,
                      _qr_orth, _ritz_rot_jacobi)
 from .env import env_step_left_scaled, env_step_right_scaled
@@ -167,6 +171,12 @@ K12MC_CLUSTER = 16
 K1C_GRAD_CLUSTER = 16
 K2C_CLUSTER = 16
 K2C_SPLIT_CLUSTER = 16
+#: Rows a block of K2c-env advances (ceil(N / K2C_ENV_ROWS) independent
+#: blocks), and blocks of the cooperative grid of K1c-tail, from their times
+#: on the card at N 100, 50 and 32 and at chi 128 and 192
+#: (chip_smoke.py's [k2env-k1tail-redesign]).
+K2C_ENV_ROWS = 8
+K1C_TAIL_BLOCKS = 132
 
 
 def _k12mc(entry, extra, *args, **kw) -> Out5:
@@ -446,26 +456,71 @@ def k2c_split_block_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
     return out
 
 
-def k2c_env_cuda(Qm, env, env_ls, phi, *, forward: bool
+def _k2c_env(entry, extra, *args, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2c-env's operands checked and launched through ``entry``, with
+    ``extra`` after K2c-env's C arguments (the rows a block and the staging
+    flag)."""
+    launch, wsf = _launcher(args[0].device, entry)
+    return bk._launch_k2_env(*args, launch=lambda *a: launch(*a, *extra),
+                             workspace_floats=wsf, dtype=torch.complex64,
+                             **kw)
+
+
+def k2c_env_cuda(Qm, env, env_ls, phi, *, forward: bool,
+                 rows: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2c-env as one launch; operands and results as ``k2c_env_plain``'s."""
-    launch, wsf = _launcher(Qm.device, "mpst_k2c_env_launch")
-    out = bk._launch_k2_env(Qm, env, env_ls, phi, forward=forward,
-                            launch=launch, workspace_floats=wsf,
-                            dtype=torch.complex64)
+    """K2c-env as one launch of ceil(N / ``rows``) independent blocks of
+    ``rows`` rows each (default ``K2C_ENV_ROWS``), staged as K2-env's;
+    operands and results as ``k2c_env_plain``'s."""
+    n = _env_rows(K2C_ENV_ROWS if rows is None else rows)
+    out = _k2c_env("mpst_k2c_env_rows_launch", (n, 1), Qm, env, env_ls, phi,
+                   forward=forward)
     bk.LAUNCHES["k2c_env"] += 1
     return out
 
 
+def k2c_env_block_cuda(Qm, env, env_ls, phi, *, forward: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2c-env on one thread block, the reference ``k2c_env_cuda`` is held
+    against bit for bit (no route calls it); operands and results as
+    ``k2c_env_plain``'s."""
+    out = _k2c_env("mpst_k2c_env_launch", (), Qm, env, env_ls, phi,
+                   forward=forward)
+    bk.LAUNCHES["k2c_env_block"] += 1
+    return out
+
+
+def _k1c_tail(entry, extra, *args, **kw) -> torch.Tensor:
+    """K1c-tail's operands checked and launched through ``entry``, with
+    ``extra`` after K1c-tail's C arguments (the grid size)."""
+    launch, wsf = _launcher(args[0].device, entry)
+    return bk._launch_k1_tail(*args, launch=lambda *a: launch(*a, *extra),
+                              workspace_floats=wsf, dtype=torch.complex64,
+                              **kw)
+
+
 def k1c_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
-                  orth: str = "qr") -> torch.Tensor:
-    """K1c-tail as one launch; operands and result as ``k1c_tail_plain``'s
-    (orth "ns" or "qr")."""
-    launch, wsf = _launcher(BT.device, "mpst_k1c_tail_launch")
-    Y = bk._launch_k1_tail(BT, V0, forward=forward, power_iters=power_iters,
-                           orth=orth, launch=launch, workspace_floats=wsf,
-                           dtype=torch.complex64)
+                  orth: str = "qr", blocks: Optional[int] = None
+                  ) -> torch.Tensor:
+    """K1c-tail as one launch of a cooperative grid of ``blocks`` blocks
+    (default ``K1C_TAIL_BLOCKS``); operands and result as
+    ``k1c_tail_plain``'s (orth "ns" or "qr").  A grid the card cannot hold
+    at once raises RuntimeError."""
+    n = _grid_blocks(K1C_TAIL_BLOCKS if blocks is None else blocks)
+    Y = _k1c_tail("mpst_k1c_tail_grid_launch", (n,), BT, V0, forward=forward,
+                  power_iters=power_iters, orth=orth)
     bk.LAUNCHES["k1c_tail"] += 1
+    return Y
+
+
+def k1c_tail_block_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
+                        orth: str = "qr") -> torch.Tensor:
+    """K1c-tail on one thread block, the reference ``k1c_tail_cuda`` is held
+    against bit for bit (no route calls it); operands and result as
+    ``k1c_tail_plain``'s."""
+    Y = _k1c_tail("mpst_k1c_tail_launch", (), BT, V0, forward=forward,
+                  power_iters=power_iters, orth=orth)
+    bk.LAUNCHES["k1c_tail_block"] += 1
     return Y
 
 

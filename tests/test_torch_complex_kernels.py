@@ -663,6 +663,81 @@ def test_k2_wrappers_launch_the_cluster_entry(monkeypatch, key, cluster):
         key: 1, f"{key}_block": 1}
 
 
+# ---- K2-env and K2c-env over row tiles: entry points -------------------------
+
+def _record_env_launches(monkeypatch, cplx):
+    """Replace K2-env's (K2c-env's) launcher with one that records (entry,
+    C arguments) and launches nothing."""
+    calls = []
+
+    def launcher(device, entry, workspace=None):
+        return (lambda *args: calls.append((entry, args))), (lambda *s: 16)
+
+    monkeypatch.setattr(bkc if cplx else bk,
+                        "_launcher" if cplx else "_cuda_launch", launcher)
+    return calls
+
+
+def _env_ops(cplx):
+    """K2-env's (K2c-env's) operands, backward: an isometry (the basis of
+    _k2_ops' bond), the advancing environment, log-scales and features."""
+    _, Q, env, ls, phi, _ = _k2_ops("k2c" if cplx else "k2")
+    return Q, env, ls, phi
+
+
+@pytest.mark.parametrize("rows", [None, 1, 32])
+@pytest.mark.parametrize("key", ["k2_env", "k2c_env"])
+def test_env_wrappers_launch_the_row_tile_entry(monkeypatch, key, rows):
+    """k2_env_cuda / k2c_env_cuda launch the row-tile entry with the
+    one-block entry's operands, sizes and direction, the rows a block
+    (default K2_ENV_ROWS / K2C_ENV_ROWS) and staging on, counted under the
+    kernel's name;
+    the one-block wrappers launch the one-block entry, counted apart.  The
+    dp route's K2-env piece is the row-tile wrapper, real and complex."""
+    cplx = key == "k2c_env"
+    mod = bkc if cplx else bk
+    calls = _record_env_launches(monkeypatch, cplx)
+    cuda, block = getattr(mod, f"{key}_cuda"), getattr(mod, f"{key}_block_cuda")
+    default = bkc.K2C_ENV_ROWS if cplx else bk.K2_ENV_ROWS
+    assert (bkc.PIECES if cplx else bk._PIECES)["k2_env"][2] is cuda
+    ops = _env_ops(cplx)
+    bk.reset_counts()
+    out = cuda(*ops, forward=True, rows=rows)
+    block(*ops, forward=True)
+    assert out[0].shape == (N, CHI) and out[1].shape == (N,)
+    assert out[0].dtype == (torch.complex64 if cplx else torch.float32)
+    assert out[1].dtype == torch.float32
+    (e1, a1), (e2, a2) = calls
+    assert (e1, e2) == (f"mpst_{key}_rows_launch", f"mpst_{key}_launch")
+    assert a1[:4] == a2[:4] == tuple(t.data_ptr() for t in ops)
+    assert a1[7:-2] == a2[7:] == (CHI, D, N, 1)    # chi, d, N, forward
+    assert a1[-2:] == (default if rows is None else rows, 1)   # rows, staged
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
+        key: 1, f"{key}_block": 1}
+
+
+@pytest.mark.parametrize("rows", [0, -3, bk.MAX_ENV_ROWS + 1, 8.0, True])
+def test_env_wrappers_refuse_rows_out_of_range(monkeypatch, rows):
+    """A row count outside 1-MAX_ENV_ROWS, or not an integer, raises
+    ValueError before the library is asked for an entry; nothing counts."""
+    asked = []
+    monkeypatch.setattr(bk, "_cuda_launch", lambda *a: asked.append(a))
+    monkeypatch.setattr(bkc, "_launcher", lambda *a: asked.append(a))
+    bk.reset_counts()
+    for cplx, cuda in ((False, bk.k2_env_cuda), (True, bkc.k2c_env_cuda)):
+        with pytest.raises(ValueError, match="rows must be an integer"):
+            cuda(*_env_ops(cplx), forward=False, rows=rows)
+    assert asked == [] and not any(bk.LAUNCHES.values())
+
+
+def test_env_rows_defaults_lie_in_range():
+    """The default rows a block are among the sizes the card timed."""
+    for rows in (bk.K2_ENV_ROWS, bkc.K2C_ENV_ROWS):
+        assert rows in (1, 2, 4, 8, 16, 32)
+        assert bk._env_rows(rows) == rows
+    assert bkc.MAX_ENV_ROWS == bk.MAX_ENV_ROWS == 512
+
+
 # ---- the cluster K12mc: entry points ----------------------------------------
 
 def _record_launches(monkeypatch):

@@ -6,7 +6,8 @@ card, and the cluster kernels (K12c, K12cr, K1c, K1c-update, K1 and K1b,
 one bond over a thread-block cluster; K12, K12m and K12mc, a block of
 bonds; K1a and K1c-grad, one shard's gradient; K2, K2c, K2-split and
 K2c-split, the split) held bit for bit against their one-block kernels and
-across cluster sizes.
+across cluster sizes, and so the row-tile K2-env and K2c-env across rows a
+block and the grid K1-tail and K1c-tail across grid sizes.
 These tests need an NVIDIA GPU with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
@@ -1506,4 +1507,142 @@ def test_fits_launch_no_one_block_k2(bk, monkeypatch):
     assert bk.LAUNCHES["k2c"] == 2 * 23
     assert bk.LAUNCHES["k2_split"] == bk.LAUNCHES["k2c_split"] == 2 * 2 * 23
     assert all(bk.LAUNCHES[f"{k}_block"] == 0 for k in K2_KEYS)
+    assert sum(bk.PLAIN_CALLS.values()) == 0
+
+
+# ---- K2-env and K2c-env over row tiles; K1-tail and K1c-tail over a grid ---
+
+#: The rows a K2-env block the card timed (chip_smoke.py's
+#: [k2env-k1tail-redesign])
+ENV_ROWS = [1, 2, 4, 8, 16, 32]
+
+
+def _env_operands(bk, bkc, cplx, seed, N, forward):
+    """K2-env's (K2c-env's) operands at chi 25: the masked isometry Qm of
+    the plain K2-split (K2c-split) of a main-path bond, and the advancing
+    side's environment, log-scales and features of N rows."""
+    key = "k2c_split" if cplx else "k2_split"
+    BT, Q, cutoff = _k2_operands(bk, bkc, key, seed, forward)
+    split = bkc.k2c_split_plain if cplx else bk.k2_split_plain
+    Qm = split(BT, Q, cutoff, forward=forward, max_rank=None)[2]
+    x = (_inputs_c if cplx else _inputs)(seed + 1, 1, **dict(SHAPE, N=N))
+    phi = x["phil"][0] if forward else x["phir"][0]
+    return Qm.contiguous(), x["env0"], x["ls0"], phi
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("N", [1, 7, 32, 50, 100])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_k2_env_rows_equal_one_block(bk, bkc, cplx, N, forward):
+    # K2-env (K2c-env) runs ceil(N / rows) independent blocks of K2-env's
+    # body: at every rows a block, a last partial tile included, the one
+    # block's bits
+    mod, key = (bkc, "k2c_env") if cplx else (bk, "k2_env")
+    cuda, block = getattr(mod, f"{key}_cuda"), getattr(mod, f"{key}_block_cuda")
+    args = _env_operands(bk, bkc, cplx, 60 + N, N, forward)
+    n0, b0 = bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]
+    ref = block(*args, forward=forward)
+    _equal(cuda(*args, forward=forward), ref)
+    for rows in ENV_ROWS:
+        _equal(cuda(*args, forward=forward, rows=rows), ref)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]) == (
+        n0 + 1 + len(ENV_ROWS), b0 + 1)
+
+
+def _tail_operands(bk, bkc, cplx, seed, chi, forward):
+    """A stepped bond tensor (the plain K1's or K1c's without its power
+    step, as the split-tail route hands it over) and the sketch V0."""
+    x = (_inputs_c if cplx else _inputs)(seed, 1, **dict(SHAPE, chi=chi))
+    le, re = (x["env0"], x["envx"][0]) if forward else (x["envx"][0],
+                                                       x["env0"])
+    ops = (x["A"][0], x["center"], le, re, x["phil"][0], x["phir"][0],
+           x["y1h"], x["w"])
+    if cplx:
+        BT, _ = bkc.k1c_plain(*ops, x["V0"][0], 0.05, forward=forward,
+                              emit_y=False)
+    else:
+        BT, _ = bk.k1_plain(*ops, x["ls0"], x["V0"][0], 0.05,
+                            forward=forward, emit_y=False)
+    return BT, x["V0"][0]
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("orth,q", [("ns", 1), ("ns", 3), ("qr", 1),
+                                    ("qr", 3)])
+@pytest.mark.parametrize("chi", [25, 192])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_k1_tail_grid_equals_one_block(bk, bkc, cplx, chi, orth, q,
+                                       forward):
+    # K1-tail (K1c-tail) runs K1-tail's body over every block of a
+    # cooperative grid: at grids of 1, 2, 16, 66 and the most the card
+    # holds, the one block's bits
+    mod, key = (bkc, "k1c_tail") if cplx else (bk, "k1_tail")
+    cuda, block = getattr(mod, f"{key}_cuda"), getattr(mod, f"{key}_block_cuda")
+    BT, V0 = _tail_operands(bk, bkc, cplx, 70 + q, chi, forward)
+    kw = dict(forward=forward, power_iters=q, orth=orth)
+    most = bk.grid_occupancy(key)
+    n0, b0 = bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]
+    ref = block(BT, V0, **kw)
+    _equal([cuda(BT, V0, **kw)], [ref])
+    sizes = (1, 2, 16, 66, most)
+    for n in sizes:
+        _equal([cuda(BT, V0, blocks=n, **kw)], [ref])
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]) == (
+        n0 + 1 + len(sizes), b0 + 1)
+
+
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_a_tail_grid_past_the_card_is_refused(bk, bkc, cplx):
+    """A grid one block past what the card holds at once: the card refuses
+    the cooperative launch (RuntimeError), nothing launches, no one-block
+    kernel stands in, and the next launch runs; a grid of 0 blocks is the
+    wrapper's ValueError."""
+    mod, key = (bkc, "k1c_tail") if cplx else (bk, "k1_tail")
+    cuda = getattr(mod, f"{key}_cuda")
+    BT, V0 = _tail_operands(bk, bkc, cplx, 80, SHAPE["chi"], False)
+    most = bk.grid_occupancy(key)
+    assert most >= (bkc.K1C_TAIL_BLOCKS if cplx else bk.K1_TAIL_BLOCKS)
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError, match="positive integer"):
+        cuda(BT, V0, forward=False, blocks=0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda(BT, V0, forward=False, blocks=most + 1)
+    assert dict(bk.LAUNCHES) == before
+    Y = cuda(BT, V0, forward=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(Y).all())
+    assert bk.LAUNCHES[key] == before[key] + 1
+
+
+def test_fits_launch_no_one_block_env_or_tail(bk, monkeypatch):
+    """The dp, complex dp and split-tail fits and the streamed bond steps
+    launch K2-env, K2c-env, K1-tail and K1c-tail as the row-tile and grid
+    kernels only."""
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.ops import bond_kernels_c as bkc
+    from mpstime_tpu_torch.parallel import make_mesh
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:40, :24], data["y_train"][:40]
+    opts = mt.MPSOptions(nsweeps=2, chi_max=12, d=3, verbosity=-1,
+                         log_level=-1)
+    bk.reset_counts()
+    mt.fit_mps(Xtr, ytr, opts=opts, mesh=make_mesh(1))
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(encoding="fourier"),
+               mesh=make_mesh(1))
+    x, xc = _inputs(90, 1, **SHAPE), _inputs_c(91, 1, **SHAPE)
+    bk.bond_step(*_single(x, False), forward=False, stream_tile=32)
+    bkc.bond_step_c(*_single(xc, False), forward=False, stream_tile=32)
+    monkeypatch.setattr(bk, "SPLIT_TAIL_CHI", 0)
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(nsweeps=1), device="cuda")
+    mt.fit_mps(Xtr, ytr, opts=opts.replace(nsweeps=1, encoding="fourier"),
+               device="cuda")
+    torch.cuda.synchronize()
+    # a sweep is 46 bonds; the streamed steps 4 tiles of 100 rows
+    assert bk.LAUNCHES["k2_env"] == bk.LAUNCHES["k2c_env"] == 2 * 46 + 4
+    assert bk.LAUNCHES["k1_tail"] == 46
+    assert bk.LAUNCHES["k1c_tail"] == 3 * 46
+    assert all(bk.LAUNCHES[f"{k}_block"] == 0
+               for k in ("k2_env", "k2c_env", "k1_tail", "k1c_tail"))
     assert sum(bk.PLAIN_CALLS.values()) == 0

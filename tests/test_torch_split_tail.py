@@ -205,6 +205,71 @@ def test_k1_tail_launch_checks_operands_before_launching():
     assert len(calls) == 1
 
 
+@pytest.mark.parametrize("blocks", [None, 1, 66, 500])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_tail_wrappers_launch_the_grid_entry(monkeypatch, cplx, blocks):
+    """k1_tail_cuda / k1c_tail_cuda launch the cooperative-grid entry with
+    the one-block entry's operands, sizes and flags and the grid size
+    (default K1_TAIL_BLOCKS / K1C_TAIL_BLOCKS; one past what a card holds,
+    500, is the card's to refuse), counted under the kernel's name; the
+    one-block wrappers launch the one-block entry, counted apart.  The
+    split tail's piece is the grid wrapper."""
+    calls = []
+
+    def launcher(device, entry, workspace=None):
+        return (lambda *args: calls.append((entry, args))), (lambda *s: 16)
+
+    mod = bkc if cplx else bk
+    monkeypatch.setattr(mod, "_launcher" if cplx else "_cuda_launch",
+                        launcher)
+    key = "k1c_tail" if cplx else "k1_tail"
+    cuda, block = getattr(mod, f"{key}_cuda"), getattr(mod, f"{key}_block_cuda")
+    default = bkc.K1C_TAIL_BLOCKS if cplx else bk.K1_TAIL_BLOCKS
+    assert (bkc.PIECES if cplx else bk._PIECES)["k1_tail"][2] is cuda
+    dtype = np.complex64 if cplx else np.float32
+    BT = _t(_stepped_bt(22, dtype))
+    V0 = _t((_bond_c if cplx else _bond)(22)["V0"])
+    kw = dict(forward=True, power_iters=3, orth="ns")
+    bk.reset_counts()
+    Y = cuda(BT, V0, blocks=blocks, **kw)
+    block(BT, V0, **kw)
+    assert Y.shape == (CHI * D, CHI) and Y.dtype == BT.dtype
+    (e1, a1), (e2, a2) = calls
+    assert (e1, e2) == (f"mpst_{key}_grid_launch", f"mpst_{key}_launch")
+    assert a1[:2] == a2[:2] == (BT.data_ptr(), V0.data_ptr())
+    assert a1[4:-1] == a2[4:] == (C, CHI, D, 1, 3, 0)  # sizes, flags
+    assert a1[-1] == (default if blocks is None else blocks)
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {
+        key: 1, f"{key}_block": 1}
+
+
+@pytest.mark.parametrize("blocks", [0, -1, 2.5, True, "132"])
+def test_tail_wrappers_refuse_a_grid_out_of_range(monkeypatch, blocks):
+    """A grid size that is not a positive integer raises ValueError before
+    the library is asked for an entry; nothing counts."""
+    asked = []
+    monkeypatch.setattr(bk, "_cuda_launch", lambda *a: asked.append(a))
+    monkeypatch.setattr(bkc, "_launcher", lambda *a: asked.append(a))
+    bk.reset_counts()
+    for cplx, cuda in ((False, bk.k1_tail_cuda), (True, bkc.k1c_tail_cuda)):
+        dtype = np.complex64 if cplx else np.float32
+        BT = _t(_stepped_bt(23, dtype))
+        V0 = _t((_bond_c if cplx else _bond)(23)["V0"])
+        with pytest.raises(ValueError, match="blocks must be a positive"):
+            cuda(BT, V0, forward=False, blocks=blocks)
+    assert asked == [] and not any(bk.LAUNCHES.values())
+
+
+def test_tail_grid_defaults_and_occupancy_query_names():
+    """The default grids are among the sizes the card timed, and the
+    occupancy query names its kernels before it loads the library."""
+    for blocks in (bk.K1_TAIL_BLOCKS, bkc.K1C_TAIL_BLOCKS):
+        assert blocks in (16, 32, 66, 132)
+    assert bk.GRID_KERNELS == bkc.GRID_KERNELS == ("k1_tail", "k1c_tail")
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        bk.grid_occupancy("k2_env")
+
+
 # ------------------------------------------------------------- the routes
 
 STEP_GRID = [(1, "ns", "KLD"), (3, "ns", "MSE"), (1, "qr", "MSE"),

@@ -13,8 +13,8 @@ on two shards of the card; every bond K1a or K1c-grad -> sum -> K1b or
 K1c-update -> K2-split or K2c-split -> K2-env or K2c-env) it prints the
 median sweep after one warm sweep, then one more
 sweep under torch.profiler, its device busy and wall ms and the device ms
-of the K1a / K1c-grad, K1b / K1c-update and K2-split / K2c-split kernels
-(one block or cluster); for the qr fit (the default options with
+of the K1a / K1c-grad, K1b / K1c-update, K2-split / K2c-split and K2-env /
+K2c-env kernels (one block, cluster or row tiles); for the qr fit (the default options with
 orth_alg="qr", subspace_refresh_every=2: refresh sweeps K1 -> QR -> K2 per
 bond, frozen sweeps K12m blocks) and the fourier qr fit (the same with
 encoding="fourier": K1c -> realified QR -> K2c, frozen sweeps K12mc blocks)
@@ -75,7 +75,8 @@ def measure(root: str) -> dict:
             median_sweep_s=statistics.median(info["sweep_seconds"][1:]),
             busy_ms=sum(dev.values()), wall_ms=wall,
             k1a_ms=kernel_ms(dev, "k1a_"), k1b_ms=kernel_ms(dev, "k1b_"),
-            k2_split_ms=kernel_ms(dev, "k2_split_"))
+            k2_split_ms=kernel_ms(dev, "k2_split_"),
+            k2_env_ms=kernel_ms(dev, "k2_env_"))
     for label, kw in (("qr", {}), ("fourier qr", {"encoding": "fourier"})):
         opts = mt.MPSOptions(verbosity=-1, log_level=-1, orth_alg="qr",
                              subspace_refresh_every=2, **kw)
