@@ -180,6 +180,30 @@ Phases, one status line each; any failure exits non-zero:
      complex; events) in turns and by grid size 16, 32, 66, 132; fails
      unless each beats its one-block kernel at those shapes and each
      default is the fastest within the spread.
+ 24. impute path: fit_mps on ECG200 with MPSOptions(nsweeps=3, chi_max=25,
+     d=5, dtype="float32") on cuda (K12m, counts read from its own run),
+     init_imputation_problem (test_encoding, dx 1e-4, G 20001) on the card,
+     impute_batch by median over min(35, class count) instances of the
+     first test class with one 20 % MAR window (the median of 3 synced
+     calls after a warm-up, the MAE on the missing sites, one call under
+     torch.profiler for the card's busy share), mps_impute of one instance
+     by median, mean, mode (with and without max_jump), ITS (3
+     trajectories; rejection_threshold 2.5) and kNN, get_cdfs and
+     sample_trajectories(n=16); checks finiteness, known sites returned
+     exactly, monotone cdfs from 0 to 1, the median's MAE over 5 instances
+     of 30 % windows below flatBaseline's, and ITS reproducing under rseed.
+ 25. impute vs cpu: the same weights cast to float64 on the card and on the
+     CPU, impute_windows (3 windows x 8 instances) by median, mean and mode;
+     every site within one grid step of the CPU's, with the count of sites
+     a grid step apart and the float32 card run's MAE against float64.
+ 26. complex impute path: fit_mps with MPSOptions(encoding="fourier",
+     nsweeps=3) (complex64, K12c, counts from its own run) then
+     impute_batch as in 24 (time, MAE, finiteness, exact known sites).
+ 27. analysis path: bipartite_spectrum, single_site_spectrum, one_site_rdm
+     and see_variation of 4 test series (T 96) of the phase-24 model in
+     float64 on the card against the CPU (within 1e-8), then in float32
+     against the float64 CPU run (max |diff| printed), and the seconds
+     see_variation takes.
 Then the ptxas line (registers, static shared memory and spills of each
 kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
@@ -241,6 +265,8 @@ PEAK_F32_FLOP_S = 67e12          # H100 SXM float32 outside the tensor cores
 # a spin of the card (torch.cuda._sleep) of ~25 ms at its ~2 GHz clock:
 # longer than the host takes to enqueue 200 wrapper calls of ~50 us
 SPIN_CYCLES = 50_000_000
+IMPUTE_DX = 1e-4                 # the JAX bench's guess grid (bench.py:186-214)
+ENTROPY_ATOL = 1e-8              # analysis, float64 on the card vs the CPU
 KERNEL_SRC = "mpstime_tpu_torch/csrc/bond_step.cu"
 KERNEL_SRC_C = "mpstime_tpu_torch/csrc/bond_step_c.cu"
 
@@ -1998,6 +2024,280 @@ def k2env_k1tail_phase(card: str, ptxas: str) -> None:
           flush=True)
 
 
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _synced_s(fn):
+    """Host seconds of one call of ``fn`` that ends in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _median_s(fn, calls: int = 3):
+    """Median host seconds of ``calls`` synced calls after one warm-up."""
+    fn()
+    return statistics.median(_synced_s(fn)[0] for _ in range(calls))
+
+
+def _to_f64(mt, trained, device):
+    """The trained weights cast to double on ``device``, with the training
+    set (the default closed-form basis has no encoding arguments)."""
+    d = trained.train_data
+    cast = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+    dt = cast[trained.mps.dtype]
+    return mt.TrainedMPS.from_numpy(
+        trained.mps.cores.to(dt).cpu().numpy(),
+        trained.mps.center.to(dt).cpu().numpy(), trained.mps.center_pos,
+        trained.opts.replace(dtype=str(dt).split(".")[-1]), trained.norms,
+        trained.labels, enc_args=d.enc_args, device=device,
+        X_train=d.X_orig, y_train=d.labels[d.y_idx])
+
+
+def _known_exact(mt, imp, X, sites, ts_scaled):
+    """Known sites of a scaled imputation equal the scaled inputs (in the
+    scan's precision) bit for bit."""
+    filled = np.array(X, dtype=np.float64)
+    filled[..., sites] = float(np.mean(imp.X_train))
+    scaled, _ = mt.transform_test_data(filled, imp.norms, imp.opts)
+    want = scaled.astype(np.float32 if imp.rdtype == torch.float32
+                         else np.float64).astype(np.float64)
+    known = np.setdiff1d(np.arange(imp.T), sites)
+    return bool(np.array_equal(ts_scaled[..., known], want[..., known]))
+
+
+def impute_batch_phase(mt, bk, imp, label: str, card: str, Xte, yte):
+    """impute_batch over min(35, class count) instances of the first test
+    class, one 20 % MAR window, by median: the median of 3 timed calls,
+    the MAE on the missing sites, finiteness and exact known sites; and
+    one call under torch.profiler (the card's busy share of it)."""
+    from mpstime_tpu_torch.imputation import impute_batch
+    cls = np.unique(yte)[0]
+    B = min(35, int(np.sum(yte == cls)))
+    sites = mt.mar(Xte[0], 0.2, rng=np.random.default_rng(0))[1]
+    bk.reset_counts()
+    run = lambda: impute_batch(imp, cls, np.arange(B), sites, "median")  # noqa: E731
+    secs = _median_s(run)
+    ts, targets = run()
+    check(sum(bk.LAUNCHES.values()) + sum(bk.PLAIN_CALLS.values()) == 0,
+          f"{label}: imputation launched a bond kernel")
+    check(ts.shape == (B, len(Xte[0])) and np.isfinite(ts).all(),
+          f"{label}: impute_batch gave {ts.shape}, finite "
+          f"{np.isfinite(ts).all()}")
+    scaled, _ = impute_batch(imp, cls, np.arange(B), sites, "median",
+                             invert_transform=False)
+    X_cls = imp.X_test[np.where(imp.y_test == cls)[0][:B]]
+    check(_known_exact(mt, imp, X_cls, sites, scaled),
+          f"{label}: known sites did not come back exactly")
+    mae = float(np.mean(np.abs(ts[:, sites] - targets[:, sites])))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = _synced_s(run)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"[{label}] impute_batch (median, dx {IMPUTE_DX}, G "
+          f"{len(imp.grid_x)}) of class {cls}: B {B}, {len(sites)} missing "
+          f"sites of {imp.T}: {secs:.4f} s (median of 3 synced calls after 1 "
+          f"warm-up); MAE on the missing sites {mae:.4f}; one profiled call: "
+          f"device busy {busy:.1f} ms of {1e3 * wall:.1f} ms "
+          f"({100 * busy / (1e3 * wall):.1f} %) ({card})", flush=True)
+    return secs, mae
+
+
+def impute_phases(card: str) -> None:
+    """Phases 24-27: fit on the card, then impute and analyse there."""
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.imputation import impute_windows
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    data = np.load(ROOT / "tests" / "data" / "ecg200.npz")
+    Xtr, ytr, Xte, yte = (data["X_train"], data["y_train"], data["X_test"],
+                          data["y_test"])
+
+    # ---- 24. impute path: the JAX bench's imputation cell ----------------
+    t_phase = time.perf_counter()
+    bk.reset_counts()
+    trained, _, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
+        nsweeps=3, chi_max=25, d=5, dtype="float32", verbosity=-1,
+        log_level=-1), device="cuda")
+    torch.cuda.synchronize()
+    launches, plain = dict(bk.LAUNCHES), dict(bk.PLAIN_CALLS)
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k12m": 3 * 24}
+    check(launches == want, f"impute-path fit: launches {launches} != {want}")
+    check(sum(plain.values()) == 0,
+          f"impute-path fit: plain-version calls on the card {plain}")
+    init_s, imp = _synced_s(lambda: mt.init_imputation_problem(
+        trained, Xte, yte, verbosity=-1, dx=IMPUTE_DX, test_encoding=True))
+    check(imp.cores_full[0].is_cuda and imp.grid.dtype == torch.float32,
+          "impute-path: the problem is not on the card in float32")
+    batch_s, batch_mae = impute_batch_phase(mt, bk, imp, "impute-path", card,
+                                            Xte, yte)
+
+    cls = np.unique(yte)[0]
+    inst = 3
+    sites = mt.mar(Xte[5], 0.2, rng=42)[1]
+    target = Xte[np.where(yte == cls)[0][inst]]
+    known = np.setdiff1d(np.arange(len(target)), sites)
+    runs = {"median": {}, "mean": {}, "mode": {},
+            "mode max_jump 0.05": dict(max_jump=0.05),
+            "ITS x3": dict(num_trajectories=3, rseed=5),
+            "ITS rejection 2.5": dict(rejection_threshold=2.5, rseed=5),
+            "kNN": {}}
+    maes, method_s = {}, {}
+    for name, kw in runs.items():
+        method = name.split()[0].replace("kNN", "kNearestNeighbour")
+        s, out = _synced_s(lambda: mt.mps_impute(
+            imp, cls, inst, sites, method, NN_baseline=False, **kw))
+        ts = np.stack(out[0])
+        check(np.isfinite(ts).all(), f"mps_impute {name}: non-finite values")
+        if method != "kNearestNeighbour":
+            check(np.allclose(ts[:, known], target[known], rtol=1e-5,
+                              atol=1e-6),
+                  f"mps_impute {name}: known sites moved")
+        maes[name], method_s[name] = out[3][0]["MAE"], s
+    again = mt.mps_impute(imp, cls, inst, sites, "ITS", NN_baseline=False,
+                          num_trajectories=3, rseed=5)[0]
+    first = mt.mps_impute(imp, cls, inst, sites, "ITS", NN_baseline=False,
+                          num_trajectories=3, rseed=5)[0]
+    check(all(np.array_equal(a, b) for a, b in zip(again, first)),
+          "ITS did not reproduce under the same rseed")
+    cdfs, _, _, _ = mt.get_cdfs(imp, cls, inst, sites)
+    check(np.isfinite(cdfs).all() and cdfs.shape == (len(sites),
+                                                     len(imp.grid_x)),
+          f"get_cdfs: shape {cdfs.shape}")
+    check(bool(np.all(np.diff(cdfs, axis=1) >= -1e-6)),
+          "get_cdfs: a cdf is not monotone")
+    check(np.allclose(cdfs[:, 0], 0, atol=1e-6)
+          and np.allclose(cdfs[:, -1], 1, atol=1e-5),
+          f"get_cdfs: ends {cdfs[:, 0].max()}, {cdfs[:, -1].min()}")
+    traj_s, traj = _synced_s(lambda: mt.sample_trajectories(
+        trained, n=16, rseed=7))
+    check(traj.shape == (16, len(target)) and np.isfinite(traj).all(),
+          f"sample_trajectories: {traj.shape}")
+    # the median beats the flat baseline (tests/test_imputation.py:68-80)
+    rng = np.random.default_rng(0)
+    mps_mae = flat_mae = 0.0
+    for i in range(5):
+        w = mt.mar(Xte[i], 0.3, rng=rng)[1]
+        mps_mae += mt.mps_impute(imp, 1, i, w, "median",
+                                 NN_baseline=False)[3][0]["MAE"]
+        flat_mae += mt.mps_impute(imp, 1, i, w, "flatBaseline",
+                                  NN_baseline=False)[3][0]["MAE"]
+    check(mps_mae < flat_mae, f"median MAE {mps_mae / 5:.4f} does not beat "
+          f"the flat baseline's {flat_mae / 5:.4f}")
+    print(f"[impute-path] ECG200 MPSOptions(nsweeps=3, chi_max=25, d=5, "
+          f"dtype='float32') on cuda: launches {_nonzero(launches)}; plain "
+          f"calls {_nonzero(plain)}; init_imputation_problem (test_encoding, dx "
+          f"{IMPUTE_DX}) {init_s:.3f} s; mps_impute of instance {inst} "
+          f"({len(sites)} missing) MAE and s: " + "; ".join(
+              f"{k} {maes[k]:.4f} {method_s[k]:.3f}" for k in runs)
+          + f"; get_cdfs monotone 0 -> 1; sample_trajectories(n=16) "
+          f"{traj_s:.3f} s; median MAE over 5 instances of 30 % windows "
+          f"{mps_mae / 5:.4f} < flatBaseline {flat_mae / 5:.4f}; ITS "
+          f"reproduces under rseed 5; phase {time.perf_counter() - t_phase:.1f}"
+          f" s ({card})", flush=True)
+
+    # ---- 25. impute vs cpu: float64 weights on the card and on the CPU --
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1)
+    windows = [mt.mar(Xte[0], p, rng=rng)[1] for p in (0.1, 0.2, 0.3)]
+    n_sites = 8 * sum(len(w) for w in windows)
+    probs = {dev: mt.init_imputation_problem(
+        _to_f64(mt, trained, dev), Xte, yte, verbosity=-1, dx=IMPUTE_DX)
+        for dev in ("cuda", "cpu")}
+    lines = []
+    for method in ("median", "mean", "mode"):
+        out = {}
+        for dev, p in probs.items():
+            out[dev], _ = impute_windows(p, cls, np.arange(8), windows,
+                                         method, invert_transform=False)
+        x32, _ = impute_windows(imp, cls, np.arange(8), windows, method,
+                                invert_transform=False)
+        diff = np.abs(out["cuda"] - out["cpu"])
+        miss = np.concatenate([out["cuda"][iw][:, w].ravel()
+                               for iw, w in enumerate(windows)])
+        miss64 = np.concatenate([out["cpu"][iw][:, w].ravel()
+                                 for iw, w in enumerate(windows)])
+        miss32 = np.concatenate([x32[iw][:, w].ravel()
+                                 for iw, w in enumerate(windows)])
+        check(np.isfinite(out["cuda"]).all(), f"{method}: non-finite")
+        check(diff.max() <= IMPUTE_DX + 1e-12, f"impute-vs-cpu {method}: "
+              f"max |card - cpu| {diff.max():.3e} > dx {IMPUTE_DX}")
+        lines.append(
+            f"{method} max |diff| {diff.max():.3e}, {int(np.sum(np.abs(miss - miss64) > IMPUTE_DX / 2))}"
+            f" of {n_sites} missing sites moved a grid step, float32 card vs "
+            f"float64 MAE {float(np.mean(np.abs(miss32 - miss64))):.3e} "
+            "(scaled units)")
+    print(f"[impute-vs-cpu] impute_windows (3 windows x 8 instances of class "
+          f"{cls}, dx {IMPUTE_DX}) of the float64 weights on cuda vs the CPU: "
+          + "; ".join(lines) + f"; phase {time.perf_counter() - t_phase:.1f}"
+          f" s ({card})", flush=True)
+
+    # ---- 26. complex impute path: the fourier fit (K12c) ---------------
+    t_phase = time.perf_counter()
+    bk.reset_counts()
+    ctrained, _, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
+        encoding="fourier", nsweeps=3, verbosity=-1, log_level=-1),
+        device="cuda")
+    torch.cuda.synchronize()
+    c_launches, c_plain = dict(bk.LAUNCHES), dict(bk.PLAIN_CALLS)
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k12c": 3 * 190}
+    check(c_launches == want,
+          f"complex impute fit: launches {c_launches} != {want}")
+    check(sum(c_plain.values()) == 0,
+          f"complex impute fit: plain-version calls on the card {c_plain}")
+    cimp = mt.init_imputation_problem(ctrained, Xte, yte, verbosity=-1,
+                                      dx=IMPUTE_DX)
+    check(cimp.grid_states[0].dtype == torch.complex64,
+          "complex impute: the grid states are not complex64")
+    cbatch_s, cbatch_mae = impute_batch_phase(mt, bk, cimp,
+                                              "complex-impute-path", card,
+                                              Xte, yte)
+    print(f"[complex-impute-path] ECG200 MPSOptions(encoding='fourier', "
+          f"nsweeps=3) (complex64) on cuda: launches {_nonzero(c_launches)}; "
+          f"plain calls {_nonzero(c_plain)}; impute_batch {cbatch_s:.4f} s, MAE "
+          f"{cbatch_mae:.4f}; phase {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+
+    # ---- 27. analysis path -------------------------------------------------
+    t_phase = time.perf_counter()
+    series = Xte[:4]
+
+    def analyse(tr):
+        m0 = mt.models.mps.expand_label_index(tr.mps)[0]
+        return {"bipartite": np.stack(mt.bipartite_spectrum(tr)),
+                "single_site": np.stack(mt.single_site_spectrum(tr)),
+                "rdm": mt.one_site_rdm(m0, 40),
+                "see": mt.see_variation(tr, series)}
+
+    gpu64 = analyse(_to_f64(mt, trained, "cuda"))
+    cpu64 = analyse(_to_f64(mt, trained, "cpu"))
+    f32 = analyse(trained)
+    see_s, _ = _synced_s(lambda: mt.see_variation(trained, series))
+    see64_s, _ = _synced_s(lambda: mt.see_variation(
+        _to_f64(mt, trained, "cuda"), series))
+    diffs = {k: float(np.abs(gpu64[k] - cpu64[k]).max()) for k in cpu64}
+    diffs32 = {k: float(np.abs(f32[k] - cpu64[k]).max()) for k in cpu64}
+    for k, v in diffs.items():
+        check(np.isfinite(gpu64[k]).all() and np.isfinite(f32[k]).all(),
+              f"analysis {k}: non-finite")
+        check(v <= ENTROPY_ATOL, f"analysis {k}: float64 card vs cpu {v:.3e}"
+              f" > {ENTROPY_ATOL}")
+    print(f"[analysis-path] bipartite_spectrum, single_site_spectrum, "
+          f"one_site_rdm and see_variation of {len(series)} test series "
+          f"(T {trained.mps.T}): float64 card vs CPU max |diff| " + ", ".join(
+              f"{k} {v:.2e}" for k, v in diffs.items())
+          + "; float32 card vs float64 CPU " + ", ".join(
+              f"{k} {v:.2e}" for k, v in diffs32.items())
+          + f"; see_variation {see_s:.3f} s (float32), {see64_s:.3f} s "
+          f"(float64); phase {time.perf_counter() - t_phase:.1f} s ({card})",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3388,6 +3688,9 @@ def main() -> int:
 
     # ---- 23. K2-env/K2c-env over row tiles, K1-tail/K1c-tail over a grid --
     k2env_k1tail_phase(card, ptxas)
+
+    # ---- 24-27. imputation and analysis after a fit on the card -----------
+    impute_phases(card)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

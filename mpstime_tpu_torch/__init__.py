@@ -1,7 +1,9 @@
 """mpstime_tpu_torch: the PyTorch + CUDA port of mpstime_tpu.
 
 Time-series classification with label-indexed Matrix Product States
-(MPSTime.jl's method), trained by DMRG-style two-site sweeps.  This package
+(MPSTime.jl's method), trained by DMRG-style two-site sweeps, with
+probabilistic imputation, entanglement analysis and missing-data
+simulation on the trained model's device.  This package
 keeps the JAX package's module paths, public names and array layouts; the
 JAX package stays the reference each module is held against.  The training
 sweep's bond steps run as hand-written CUDA kernels on an NVIDIA GPU, where
@@ -10,9 +12,12 @@ and as their plain PyTorch versions on the CPU.  Importing the package
 imports neither JAX nor a compiler.
 """
 
-from .options import MPSOptions
-from .encodings import (EncodingSpec, get_encoding, encoding_range,
-                        EncodedDataset, encode_dataset)
+from .options import MPSOptions, print_opts
+from .encodings import (EncodingSpec, get_encoding, function_basis,
+                        encoding_range, EncodedDataset, encode_dataset,
+                        stoudenmire, fourier, legendre, legendre_no_norm,
+                        sahand, uniform, sahand_legendre, histogram_split,
+                        uniform_split)
 from .models.mps import (MPS, SingleMPS, random_mps, contract_batch,
                          contract_batch_scaled, expand_label_index)
 from .training.fit import fit_mps, TrainedMPS
@@ -21,17 +26,31 @@ from .summary import (classify, classify_encoded, classify_overlap,
 from .utils.preprocessing import (TransformNorms, transform_data,
                                   transform_train_data, transform_test_data,
                                   invert_test_transform)
+from .imputation import (ImputationProblem, init_imputation_problem,
+                         mps_impute, MPS_impute, get_cdfs, kNN_impute,
+                         sample_trajectories)
+from .simulation import mcar, mar, mnar, trendy_sine, state_space
+from .analysis import (von_neumann_entropy, bipartite_spectrum,
+                       single_site_entropy, single_site_spectrum,
+                       see_variation, one_site_rdm, rho_correct)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "MPSOptions",
-    "EncodingSpec", "get_encoding", "encoding_range", "EncodedDataset",
-    "encode_dataset",
+    "MPSOptions", "print_opts",
+    "EncodingSpec", "get_encoding", "function_basis", "encoding_range",
+    "EncodedDataset", "encode_dataset",
+    "stoudenmire", "fourier", "legendre", "legendre_no_norm", "sahand",
+    "uniform", "sahand_legendre", "histogram_split", "uniform_split",
     "MPS", "SingleMPS", "random_mps", "contract_batch",
     "contract_batch_scaled", "expand_label_index",
     "fit_mps", "TrainedMPS", "classify", "classify_encoded",
     "classify_overlap", "get_training_summary", "sweep_summary", "KL_div",
     "TransformNorms", "transform_data", "transform_train_data",
     "transform_test_data", "invert_test_transform",
+    "ImputationProblem", "init_imputation_problem", "mps_impute",
+    "MPS_impute", "get_cdfs", "kNN_impute", "sample_trajectories",
+    "mcar", "mar", "mnar", "trendy_sine", "state_space",
+    "von_neumann_entropy", "bipartite_spectrum", "single_site_entropy",
+    "single_site_spectrum", "see_variation", "one_site_rdm", "rho_correct",
 ]

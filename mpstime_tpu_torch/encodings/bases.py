@@ -13,6 +13,15 @@ import numpy as np
 import torch
 
 
+def const(a, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """A host constant (array, list or scalar) as a tensor on ``like``'s
+    device, in ``dtype`` (default ``like``'s).  The host-to-device copy is
+    queued without waiting for the card's queue, so encoding inside a loop
+    of device work does not synchronise."""
+    t = torch.as_tensor(a, dtype=like.dtype if dtype is None else dtype)
+    return t.to(like.device, non_blocking=True)
+
+
 def _cis(theta: torch.Tensor) -> torch.Tensor:
     """e^{i theta} as cos + i sin (the JAX package's Euler form)."""
     return torch.complex(torch.cos(theta), torch.sin(theta))
@@ -53,7 +62,7 @@ def fourier_encode(x: torch.Tensor, d: int,
     ``freqs`` overrides the default symmetric selection."""
     if freqs is None:
         freqs = get_fourier_freqs(d)
-    f = torch.as_tensor(np.asarray(freqs), dtype=x.dtype, device=x.device)
+    f = const(np.asarray(freqs), x)
     return _cis(math.pi * x[..., None] * f) / math.sqrt(float(f.shape[0]))
 
 
@@ -65,10 +74,9 @@ def sahand_encode(x: torch.Tensor, d: int) -> torch.Tensor:
     i = np.arange(1, d + 1, dtype=np.float64)            # basis index
     dx = 2.0 / d
     interval = np.ceil(i / 2.0)
-    as_x = lambda a: torch.as_tensor(a, dtype=x.dtype, device=x.device)  # noqa: E731
-    startx = as_x((interval - 1) * dx)
-    inside = (startx <= x) & (x <= as_x(interval * dx))
-    odd = torch.as_tensor(i.astype(np.int64) % 2 == 1, device=x.device)
+    startx = const((interval - 1) * dx, x)
+    inside = (startx <= x) & (x <= const(interval * dx, x))
+    odd = const(i.astype(np.int64) % 2 == 1, x, torch.bool)
     phase = _cis(math.pi * 1.5 * x / dx)
     arg = 0.5 * math.pi * (x - startx) / dx
     vals = torch.where(odd, phase * torch.cos(arg),
@@ -103,3 +111,13 @@ def legendre_encode(x: torch.Tensor, d: int, norm: bool = False) -> torch.Tensor
     if norm:
         ls = ls / math.sqrt(_legendre_norm_const(d) * d)
     return ls
+
+
+def polyval_matrix(x: torch.Tensor, cvecs) -> torch.Tensor:
+    """Evaluate the d polynomial rows of ``cvecs`` [d, d] (coefficients in
+    increasing power order, reference bases.jl:115) at x -> x.shape + (d,)."""
+    cvecs = const(cvecs, x)
+    d = cvecs.shape[-1]
+    powers = torch.pow(x[..., None],
+                       torch.arange(d, dtype=x.dtype, device=x.device))
+    return torch.einsum("...i,ni->...n", powers, cvecs)

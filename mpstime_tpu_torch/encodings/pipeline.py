@@ -1,13 +1,14 @@
 """Dataset encoding pipeline (counterpart of
 ``mpstime_tpu/encodings/pipeline.py``): sort samples by class, run the
-encoding's host-side ``init`` on training data, then encode the whole
-dataset ``[N, T] -> [N, T, d]`` at float64 on the host and cast once to the
-model dtype on the fit's device."""
+encoding's host-side ``init`` on training data (per class for a data-driven
+basis under ``encode_classes_separately``), then encode the whole dataset
+``[N, T] -> [N, T, d]`` at float64 on the host and cast once to the model
+dtype on the fit's device."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -73,7 +74,8 @@ def encode_dataset(X_orig: np.ndarray, X_scaled: np.ndarray, y: np.ndarray,
         return EncodedDataset(
             torch.zeros((0, 0, opts.d), dtype=tdt, device=device),
             np.zeros(0, np.int64), labels, X_orig, X_scaled,
-            np.zeros(len(labels), np.int64), training_enc_args, False)
+            np.zeros(len(labels), np.int64), training_enc_args,
+            opts.encode_classes_separately)
 
     # class-sorted order (stable, matches reference sortperm)
     label_to_idx = {l: i for i, l in enumerate(labels.tolist())}
@@ -84,7 +86,31 @@ def encode_dataset(X_orig: np.ndarray, X_scaled: np.ndarray, y: np.ndarray,
 
     validate_range(X_scaled_s, spec)
 
-    if training_enc_args is None:
+    is_train = training_enc_args is None
+
+    if opts.encode_classes_separately and spec.is_data_driven:
+        # per-class encoding args (reference encodings.jl:50-76)
+        enc_args: List[Any] = [] if is_train else training_enc_args
+        parts = []
+        start = 0
+        for ci, cnt in enumerate(class_distribution.tolist()):
+            Xc = X_scaled_s[start:start + cnt]
+            if is_train:
+                args_c = spec.init(Xc, y_idx_s[start:start + cnt], opts.d,
+                                   opts) if spec.init is not None else None
+                enc_args.append(args_c)
+            else:
+                args_c = enc_args[ci]
+            if cnt:
+                parts.append(spec.encode_batch(torch.from_numpy(Xc), opts.d,
+                                               args_c))
+            start += cnt
+        X_enc = torch.cat(parts, dim=0)
+        return EncodedDataset(X_enc.to(device=device, dtype=tdt), y_idx_s,
+                              labels, X_orig_s, X_scaled_s,
+                              class_distribution, enc_args, True)
+
+    if is_train:
         enc_args = spec.init(X_scaled_s, y_idx_s, opts.d, opts) \
             if spec.init is not None else None
     else:
@@ -94,3 +120,27 @@ def encode_dataset(X_orig: np.ndarray, X_scaled: np.ndarray, y: np.ndarray,
     return EncodedDataset(X_enc.to(device=device, dtype=tdt), y_idx_s, labels,
                           X_orig_s, X_scaled_s, class_distribution, enc_args,
                           False)
+
+
+def encode_series(x_scaled: np.ndarray, opts: MPSOptions, enc_args: Any,
+                  spec: Optional[EncodingSpec] = None, class_idx: int = 0,
+                  dtype=None, device="cuda") -> torch.Tensor:
+    """Encode a single scaled series [T] -> [T, d] on ``device`` using the
+    stored training args (float64 on the host, then cast once)."""
+    return encode_rows(np.asarray(x_scaled)[None], opts, enc_args, spec,
+                       class_idx, dtype, device)[0]
+
+
+def encode_rows(X_scaled: np.ndarray, opts: MPSOptions, enc_args: Any,
+                spec: Optional[EncodingSpec] = None, class_idx: int = 0,
+                dtype=None, device="cuda") -> torch.Tensor:
+    """Encode scaled series [N, T] -> [N, T, d] on ``device`` with the
+    stored training args (one class's under encode_classes_separately), in
+    their given order."""
+    if spec is None:
+        spec = get_encoding(opts.encoding, project=opts.projected_basis)
+    tdt = torch_dtype(opts.resolved_dtype() if dtype is None else dtype)
+    args = enc_args[class_idx] if (opts.encode_classes_separately and
+                                   isinstance(enc_args, list)) else enc_args
+    X = torch.from_numpy(np.asarray(X_scaled, dtype=np.float64))
+    return spec.encode_batch(X, opts.d, args).to(device=device, dtype=tdt)

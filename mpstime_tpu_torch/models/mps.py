@@ -181,6 +181,16 @@ class SingleMPS:
     center: torch.Tensor      # [chi, d, chi]
     center_pos: int
 
+    @property
+    def T(self) -> int:
+        return self.cores.shape[0]
+
+    def folded_cores(self) -> torch.Tensor:
+        """[T, chi, d, chi] cores with the center written into its slot."""
+        cores = self.cores.clone()
+        cores[self.center_pos] = self.center
+        return cores
+
 
 def single_contract_batch_scaled(m: SingleMPS, phis: torch.Tensor
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -189,6 +199,14 @@ def single_contract_batch_scaled(m: SingleMPS, phis: torch.Tensor
     yhat, ls = _contract_batch(m.cores, m.center[..., None], m.center_pos,
                                phis)
     return yhat[:, 0], ls
+
+
+def single_contract_batch(m: SingleMPS, phis: torch.Tensor) -> torch.Tensor:
+    """Overlap <psi|conj(phi_states)> for an unlabeled MPS -> [N] (true
+    scale); may underflow to 0 at large T in float32, where the scaled
+    variant keeps the magnitude."""
+    yhat, ls = single_contract_batch_scaled(m, phis)
+    return yhat * torch.exp(ls).to(yhat.dtype)
 
 
 def expand_label_index(mps: MPS) -> List[SingleMPS]:

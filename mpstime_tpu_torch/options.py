@@ -76,7 +76,10 @@ def _device(device) -> torch.device:
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a numpy dtype (or dtype name)."""
+    """The torch dtype of a numpy dtype (or dtype name); a torch dtype
+    passes through."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
@@ -248,3 +251,18 @@ class MPSOptions:
     @classmethod
     def from_json(cls, s: str) -> "MPSOptions":
         return cls.from_dict(json.loads(s))
+
+
+def print_opts(opts: MPSOptions, long: bool = False, file=None) -> None:
+    """Print options as a table (reference: summary.jl:438-456), the JAX
+    package's ``print_opts`` layout line for line."""
+    if long:
+        names = [f.name for f in dataclasses.fields(opts)]
+    else:
+        names = ["chi_max", "d", "eta", "nsweeps", "encoding",
+                 "sigmoid_transform", "loss_grad"]
+    width = max(len(n) for n in names)
+    print("┌" + "─" * (width + 2) + "┬" + "─" * 30 + "┐", file=file)
+    for n in names:
+        print(f"│ {n:<{width}} │ {getattr(opts, n)!s:<28} │", file=file)
+    print("└" + "─" * (width + 2) + "┴" + "─" * 30 + "┘", file=file)

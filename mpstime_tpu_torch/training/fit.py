@@ -18,7 +18,8 @@ import torch
 from ..encodings import EncodedDataset, EncodingSpec, encode_dataset, get_encoding
 from ..models.mps import MPS, random_mps
 from ..options import MPSOptions, torch_dtype
-from ..utils.preprocessing import TransformNorms, transform_data
+from ..utils.preprocessing import (TransformNorms, transform_data,
+                                   transform_train_data)
 from .stats import loss_acc_conf
 from .sweep import full_sweeps, pallas_route_notice
 
@@ -32,38 +33,66 @@ class TrainedMPS:
     opts: MPSOptions
     norms: TransformNorms
     train_data: EncodedDataset
+    custom_encoding: Optional[EncodingSpec] = None
 
     @property
     def labels(self) -> np.ndarray:
         return self.train_data.labels
 
     def encoding_spec(self) -> EncodingSpec:
+        if self.custom_encoding is not None:
+            return self.custom_encoding
         return get_encoding(self.opts.encoding, project=self.opts.projected_basis)
 
     @classmethod
     def from_numpy(cls, cores: np.ndarray, center: np.ndarray,
                    center_pos: int, opts, norms, labels,
-                   enc_args=None, device="cuda") -> "TrainedMPS":
+                   enc_args=None, device="cuda", *,
+                   X_train: Optional[np.ndarray] = None,
+                   y_train: Optional[np.ndarray] = None,
+                   custom_encoding: Optional[EncodingSpec] = None
+                   ) -> "TrainedMPS":
         """Weight converter: a TrainedMPS from a JAX model's host arrays.
 
         ``opts``: this package's MPSOptions, or the JAX options' JSON
         (``jax_trained.opts.to_json()``); ``norms``: a TransformNorms or its
         dict (``jax_trained.norms.to_dict()``); ``labels``: the sorted class
         labels; ``enc_args``: the encoding's training arguments (None for
-        the closed-form bases).  Enough to classify new data; the training
-        set itself is not carried over."""
+        the closed-form bases; host numpy for the data-driven ones, a list
+        of them per class under ``encode_classes_separately``).
+
+        Without ``X_train`` the model classifies new data and the training
+        set is left empty.  With ``X_train`` (and ``y_train``, the raw
+        training series and labels, e.g. ``jax_trained.train_data.X_orig``
+        and ``labels[y_idx]``) the training record is rebuilt through this
+        package's ``transform_train_data`` and ``encode_dataset`` with the
+        given ``enc_args``, in the same class-sorted order, so the model
+        also imputes (``init_imputation_problem`` reads it)."""
         if isinstance(opts, str):
             opts = MPSOptions.from_json(opts)
         if isinstance(norms, dict):
             norms = TransformNorms.from_dict(norms)
         mps = MPS.from_numpy(cores, center, center_pos, device)
         labels = np.asarray(labels)
-        tdt = mps.dtype
-        train = EncodedDataset(
-            torch.zeros((0, mps.T, mps.d), dtype=tdt, device=mps.device),
-            np.zeros(0, np.int64), labels, np.zeros((0, mps.T)),
-            np.zeros((0, mps.T)), np.zeros(len(labels), np.int64), enc_args)
-        return cls(mps, opts, norms, train)
+        if X_train is None:
+            train = EncodedDataset(
+                torch.zeros((0, mps.T, mps.d), dtype=mps.dtype,
+                            device=mps.device),
+                np.zeros(0, np.int64), labels, np.zeros((0, mps.T)),
+                np.zeros((0, mps.T)), np.zeros(len(labels), np.int64),
+                enc_args)
+        else:
+            X_train = np.asarray(X_train, dtype=np.float64)
+            y_train = (np.full(X_train.shape[0], labels[0]) if y_train is None
+                       else np.asarray(y_train))
+            X_scaled, _ = transform_train_data(X_train, opts)
+            spec = (custom_encoding if custom_encoding is not None else
+                    get_encoding(opts.encoding, project=opts.projected_basis))
+            train = encode_dataset(X_train, X_scaled, y_train, opts, spec=spec,
+                                   labels=labels, training_enc_args=enc_args,
+                                   dtype=opts.resolved_dtype(),
+                                   device=mps.device)
+        return cls(mps, opts, norms, train, custom_encoding)
 
 
 def _not_ported(what: str, module: str):
@@ -116,9 +145,6 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     if test_run:
         raise _not_ported("test_run=True (basis preview)",
                           "vis/vis_encodings.py (plot_encoding)")
-    if custom_encoding is not None:
-        raise _not_ported("custom_encoding=",
-                          "encodings/registry.py function_basis")
     if opts is None:
         opts = MPSOptions()
     if opts.pad_to is not None:
@@ -139,7 +165,15 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     X_test = np.asarray(X_test, dtype=np.float64)
     y_test = np.asarray(y_test)
 
-    spec = get_encoding(opts.encoding, project=opts.projected_basis)
+    if custom_encoding is not None and opts.encoding != "custom":
+        raise ValueError("To use a custom encoding, set encoding='custom' in MPSOptions")
+    spec = custom_encoding if custom_encoding is not None \
+        else get_encoding(opts.encoding, project=opts.projected_basis)
+    if custom_encoding is not None and \
+            opts.custom_encoding_range != tuple(spec.range):
+        # stamp the spec's domain so preprocessing scales into it (it
+        # travels with TrainedMPS.opts for classify/impute re-encoding)
+        opts = opts.replace(custom_encoding_range=tuple(spec.range))
     dtype = opts.resolved_dtype()
     if spec.is_complex and np.dtype(dtype).kind != "c":
         raise ValueError("Using a complex valued encoding but the MPS dtype is real. "
@@ -300,5 +334,5 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     if opts.log_level > 0:
         log_stats(mps, float("nan"))
 
-    trained = TrainedMPS(mps, opts, norms, train_ds)
+    trained = TrainedMPS(mps, opts, norms, train_ds, custom_encoding)
     return trained, info, test_ds

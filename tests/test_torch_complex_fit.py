@@ -84,9 +84,12 @@ def test_complex_specs_match_jax(name):
             spec.is_data_driven, spec.range) == (
         jspec.name, jspec.is_complex, jspec.is_time_dependent,
         jspec.is_data_driven, jspec.range)
-    # the projected Fourier basis is data-driven (encodings/data_driven.py)
-    with pytest.raises(NotImplementedError, match="data_driven.py"):
-        get_encoding(name, project=True)
+    # project=True: the projected Fourier basis (data-driven), the plain
+    # basis for the others, as in the JAX package
+    spec, jspec = get_encoding(name, project=True), mj.get_encoding(
+        name, project=True)
+    assert (spec.name, spec.is_complex, spec.is_data_driven) == (
+        jspec.name, jspec.is_complex, jspec.is_data_driven)
 
 
 def test_complex_encode_dataset_matches_jax(ecg200):

@@ -7,7 +7,8 @@ one bond over a thread-block cluster; K12, K12m and K12mc, a block of
 bonds; K1a and K1c-grad, one shard's gradient; K2, K2c, K2-split and
 K2c-split, the split) held bit for bit against their one-block kernels and
 across cluster sizes, and so the row-tile K2-env and K2c-env across rows a
-block and the grid K1-tail and K1c-tail across grid sizes.
+block and the grid K1-tail and K1c-tail across grid sizes; and the
+imputation scan and the analysis sweeps on the card against the CPU.
 These tests need an NVIDIA GPU with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
@@ -1646,3 +1647,74 @@ def test_fits_launch_no_one_block_env_or_tail(bk, monkeypatch):
     assert all(bk.LAUNCHES[f"{k}_block"] == 0
                for k in ("k2_env", "k2c_env", "k1_tail", "k1c_tail"))
     assert sum(bk.PLAIN_CALLS.values()) == 0
+
+
+# ---- imputation and analysis on the card -----------------------------------
+
+@pytest.fixture(scope="module")
+def f64_models():
+    """A float64 model fitted on the CPU (ECG200 cut to T = 48, chi 8, d 4,
+    2 sweeps), carried to the card with its training set."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mpstime_tpu_torch as mt
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    Xtr, ytr = data["X_train"][:, :48], data["y_train"]
+    Xte, yte = data["X_test"][:, :48], data["y_test"]
+    cpu, _, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
+        nsweeps=2, chi_max=8, d=4, verbosity=-1, log_level=-1,
+        dtype="float64"), device="cpu")
+    card = mt.TrainedMPS.from_numpy(
+        cpu.mps.cores.numpy(), cpu.mps.center.numpy(), cpu.mps.center_pos,
+        cpu.opts, cpu.norms, cpu.labels, enc_args=cpu.train_data.enc_args,
+        device="cuda", X_train=cpu.train_data.X_orig,
+        y_train=cpu.labels[cpu.train_data.y_idx])
+    return cpu, card, Xte, yte
+
+
+@pytest.mark.parametrize("method", ["median", "mean", "mode"])
+def test_impute_on_the_card_matches_the_cpu_within_a_grid_step(f64_models,
+                                                               method):
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.imputation import impute_windows
+    cpu, card, Xte, yte = f64_models
+    dx = 1e-3
+    ic = mt.init_imputation_problem(cpu, Xte, yte, verbosity=-1, dx=dx)
+    ig = mt.init_imputation_problem(card, Xte, yte, verbosity=-1, dx=dx)
+    assert ig.cores_full[0].is_cuda and ig.grid_states[0].is_cuda
+    rng = np.random.default_rng(0)
+    windows = [mt.mar(Xte[0], p, rng=rng)[1] for p in (0.1, 0.2, 0.3)]
+    a, _ = impute_windows(ic, 1, range(8), windows, method,
+                          invert_transform=False)
+    b, _ = impute_windows(ig, 1, range(8), windows, method,
+                          invert_transform=False)
+    assert np.isfinite(b).all()
+    assert np.abs(a - b).max() <= dx
+
+
+def test_its_on_the_card_reproduces_under_a_seed(f64_models):
+    import mpstime_tpu_torch as mt
+    _, card, Xte, yte = f64_models
+    ig = mt.init_imputation_problem(card, Xte, yte, verbosity=-1, dx=1e-3)
+    sites = mt.mar(Xte[2], 0.2, rng=9)[1]
+    kw = dict(NN_baseline=False, get_metrics=False, num_trajectories=3)
+    a = mt.mps_impute(ig, 0, 2, sites, "ITS", rseed=5, **kw)[0]
+    b = mt.mps_impute(ig, 0, 2, sites, "ITS", rseed=5, **kw)[0]
+    c = mt.mps_impute(ig, 0, 2, sites, "ITS", rseed=6, **kw)[0]
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert np.abs(a[0] - c[0]).max() > 0
+    assert np.isfinite(np.stack(a)).all()
+
+
+@pytest.mark.parametrize("n", [3, 15])
+def test_see_variation_on_the_card_matches_the_cpu(f64_models, n):
+    # 15 series at T 48 hand 34560 RDMs to the batched eigensolver, past
+    # cuSOLVER's limit of one call (analysis.analyse.EIGH_BATCH)
+    import mpstime_tpu_torch as mt
+    cpu, card, Xte, _ = f64_models
+    np.testing.assert_allclose(mt.see_variation(card, Xte[:n]),
+                               mt.see_variation(cpu, Xte[:n]), rtol=0,
+                               atol=1e-8)
+    for g, w in zip(mt.bipartite_spectrum(card), mt.bipartite_spectrum(cpu)):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-8)

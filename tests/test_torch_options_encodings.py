@@ -159,25 +159,37 @@ def test_encode_dataset_casts_to_model_dtype_and_empty_sets():
     ("hist_split_uniform", "encodings/split.py"),
     ("custom", "function_basis")])
 def test_unported_encodings_name_their_roadmap_item(name, item):
-    # an unported encoding's refusal names the JAX module it waits for
-    if item == "ported":
-        # the complex encodings are ported, and the ritz route their fits at
-        # chi_max > 40 resolve to on the card, whose tracked sweeps run
-        # K12cr
-        assert get_encoding(name).is_complex
-        opts = mt.MPSOptions(encoding=name, chi_max=64)
-        assert tsweep._ritz_fused(opts.resolved_dtype(), "KLD", "TSGO", 1,
-                                  (False, True),
-                                  opts.resolved_svd_alg("cuda"),
-                                  opts.resolved_ritz_rots("cuda")[1])
+    # every basis of the JAX package is ported now: the data-driven and
+    # split ones (the JAX modules named in `item`) give the JAX package's
+    # spec, and "custom" asks for a function_basis spec as JAX does
+    if item == "function_basis":
+        with pytest.raises(ValueError, match=item):
+            get_encoding(name)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        get_encoding(name)
+    if item != "ported":
+        spec, jspec = get_encoding(name), mj.get_encoding(name)
+        assert spec.is_data_driven and jspec.is_data_driven
+        assert (spec.name, spec.is_complex, spec.is_time_dependent,
+                spec.range) == (jspec.name, jspec.is_complex,
+                                jspec.is_time_dependent, jspec.range)
+        return
+    # the complex encodings, and the ritz route their fits at chi_max > 40
+    # resolve to on the card, whose tracked sweeps run K12cr
+    assert get_encoding(name).is_complex
+    opts = mt.MPSOptions(encoding=name, chi_max=64)
+    assert tsweep._ritz_fused(opts.resolved_dtype(), "KLD", "TSGO", 1,
+                              (False, True),
+                              opts.resolved_svd_alg("cuda"),
+                              opts.resolved_ritz_rots("cuda")[1])
 
 
 def test_projected_bases_are_not_ported():
-    with pytest.raises(NotImplementedError, match="data_driven.py"):
-        get_encoding("legendre", project=True)
+    # ported since: the projected Legendre basis is the JAX package's
+    spec, jspec = (get_encoding("legendre", project=True),
+                   mj.get_encoding("legendre", project=True))
+    assert (spec.name, spec.is_time_dependent, spec.is_data_driven) == \
+        (jspec.name, jspec.is_time_dependent, jspec.is_data_driven) == \
+        ("Projected Legendre", True, True)
 
 
 def test_encoding_range_matches_jax():
