@@ -204,6 +204,35 @@ Phases, one status line each; any failure exits non-zero:
      float64 on the card against the CPU (within 1e-8), then in float32
      against the float64 CPU run (max |diff| printed), and the seconds
      see_variation takes.
+ 28. reference model path: the ECG200 model MPSTime.jl trained (from its
+     .jld2 where h5py is installed, else from the .npz the port's save_mps
+     wrote of it) on cuda in float64: train accuracy exactly 1.0, test
+     accuracy 0.84 and the median imputation's MAE 0.1883971410956766 at
+     rel 1e-8 (tests/test_itensor_import.py:28-29), else within one grid
+     step of the CPU's imputation, both values printed.
+ 29. serialize path: a default fit on cuda, save_mps -> load_mps(device=
+     "cuda"): trained_mps_equal(atol=0) and the same classify output.
+ 30. classifier path: MPSClassifier(nsweeps=10) (chi 25, d 5, f32) fit and
+     score on cuda: K12m 240, no plain call, test accuracy >= ACC_FLOOR.
+ 31. padded path: fit_mps with MPSOptions(chi_max=15, d=4, pad_to=(25, 5))
+     on cuda: cores (T, 25, 5, 25), bond dims <= 15, the state's weight on
+     the padded site directions below PAD_DEAD_WEIGHT (the cores' raw share
+     printed), K1 and K2 1900 each and no plain call (pad_to
+     forces orth "qr"), its test accuracy beside the unpadded chi 15, d 4
+     fit's.
+ 32. batched-fit path: fit_mps_batch of the 5 stratified folds of ECG200
+     train at the default options on cuda (one fit_mps per fold) beside 5
+     sequential fit_mps calls: the same K12m launches and the same bits,
+     per-fold validation accuracy and both wall times.
+ 33. tune-evaluate path: evaluate on ECG200 train+test (N 200), 5 outer
+     folds, MisclassificationRate, n_cvfolds=2, tuning_maxiters=3, chi_max
+     (15, 5, 25), d [4, 5] (padded trials at (25, 5)), the default f32
+     options: the 13 per-fold keys of the reference's results, the
+     stratified partition law, the mean loss, the wall time and the K1 /
+     K2 / K12m counts; then tune(fold_batch=True) with ImputationLoss
+     (pms [0.2]), maxiters=2, on ECG200 train: each trial's folds one
+     fit_mps_batch at the padded caps (K1 and K2, no plain call), then
+     impute_windows on the card.
 Then the ptxas line (registers, static shared memory and spills of each
 kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
@@ -2298,6 +2327,295 @@ def impute_phases(card: str) -> None:
           flush=True)
 
 
+# the 13 per-fold keys of the reference's evaluate results
+# (tests/data/eval_results.jld2, read by tests/test_eval_oracle.py:79-89)
+EVAL_KEYS = {"fold", "objective", "train_inds", "test_inds", "optimiser",
+             "tuning_windows", "tuning_pms", "eval_windows", "eval_pms",
+             "time", "opts", "cache", "loss"}
+# the MPSTime.jl-trained ECG200 model's pins (tests/test_itensor_import.py:
+# 28-29): its test accuracy and the median imputation's MAE, instance 0 of
+# class 0, sites 30-49
+REF_TEST_ACC = 0.84
+REF_IMPUTE_MAE = 0.1883971410956766
+REF_MAE_RTOL = 1e-8
+# the padded site directions of a padded fit: the state's weight there.
+# The cores' raw share, which tests/test_padded.py:136 holds under 1e-7 at
+# its 3-sweep cut (tests/test_torch_cuda.py holds the port there on the
+# card), is dominated at ECG200's 10 sweeps by the near-null kept columns of
+# site 1's core, the QR's fill-in (5.7e-6 on the kernels, 1.0e-6 on their
+# plain versions on the H100, PERF.md).  The state's weight there after 10
+# sweeps is 5.0e-7 on the kernels and 2.8e-7 on the plain versions on the
+# card (tests/torch_padded_probe.py); on the same inputs each bond's kernels
+# add what the plain versions add (tests/test_torch_cuda.py), so the bound
+# is a few times the plain reading
+PAD_DEAD_WEIGHT = 1e-6
+PAD_ACC_FLOOR = 0.75             # tests/test_padded.py:70
+
+
+def _reference_model(mt, device):
+    """The ECG200 model MPSTime.jl trained: from its .jld2 where h5py is
+    installed, else from the .npz the port's save_mps wrote from it
+    (tests/test_torch_serialize_import.py holds the two equal)."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        path = ROOT / "tests" / "data" / "reference_trained_ecg200_port.npz"
+        return mt.load_mps(str(path), device=device), path.name
+    path = ROOT / "tests" / "data" / "reference_trained_ecg200.jld2"
+    return mt.load_mpstime_jl(str(path), device=device), path.name
+
+
+def _padded_weight(mps, d: int) -> float:
+    """The largest share of the represented state's norm on the padded site
+    directions (index >= d) of any one site.  Sites left of the center are
+    left-orthogonal, so site t's share is its padded slice contracted with
+    the right environment of sites t+1..T-1 (float64 on the card)."""
+    cores, center = mps.cores.double(), mps.center.double()
+    R = torch.einsum("aicl,bicl->ab", center, center.conj())
+    worst = float(torch.einsum("aicl,aicl->", center[:, d:],
+                               center[:, d:].conj()).real)
+    for t in range(mps.T - 2, -1, -1):
+        A = cores[t]
+        worst = max(worst, float(torch.einsum(
+            "aib,bc,aic->", A[:, d:], R, A[:, d:].conj()).real))
+        R = torch.einsum("aib,bc,dic->ad", A, R, A.conj())
+    return worst / float(torch.trace(R).real)
+
+
+def _counts(bk) -> dict:
+    """Nonzero launches and plain-version calls (the latter as plain_*)."""
+    return {**_nonzero(bk.LAUNCHES),
+            **{f"plain_{k}": v for k, v in _nonzero(bk.PLAIN_CALLS).items()}}
+
+
+def port_api_phases(card: str) -> None:
+    """Phases 28-33: the MPSTime.jl model, serialization, MPSClassifier,
+    padded and batched fits, and tune / evaluate on the card."""
+    import tempfile
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    data = np.load(ROOT / "tests" / "data" / "ecg200.npz")
+    Xtr, ytr, Xte, yte = (data["X_train"], data["y_train"], data["X_test"],
+                          data["y_test"])
+
+    # ---- 28. the model MPSTime.jl trained, on the card in float64 ---------
+    t_phase = time.perf_counter()
+    ref, src = _reference_model(mt, "cuda")
+    check(ref.mps.cores.is_cuda and ref.mps.dtype == torch.float64,
+          f"reference model on {ref.mps.device} in {ref.mps.dtype}")
+    tr_acc = float(np.mean(mt.classify(ref, Xtr) == ytr))
+    te_acc = float(np.mean(mt.classify(ref, Xte) == yte))
+    check(tr_acc == 1.0, f"reference model: train accuracy {tr_acc} != 1")
+    check(abs(te_acc - REF_TEST_ACC) < 1e-12,
+          f"reference model: test accuracy {te_acc} != {REF_TEST_ACC}")
+    imp = mt.init_imputation_problem(ref, Xte, yte, verbosity=-1)
+    sites = np.arange(30, 50)
+    out = mt.mps_impute(imp, 0, 0, sites, method="median")
+    mae = out[3][0]["MAE"]
+    check(np.isfinite(out[0][0]).all(), "reference model: non-finite "
+          "imputation")
+    note = "at the pin"
+    if abs(mae - REF_IMPUTE_MAE) > REF_MAE_RTOL * REF_IMPUTE_MAE:
+        # a cumsum near-tie may move a site by one grid step: hold the card
+        # against the CPU at that step, as the GPU imputation tests do
+        from mpstime_tpu_torch.imputation.problem import get_predictions
+        cpu_ref, _ = _reference_model(mt, "cpu")
+        cpu_imp = mt.init_imputation_problem(cpu_ref, Xte, yte, verbosity=-1)
+        a = get_predictions(imp, 0, 0, sites, "median",
+                            invert_transform=False)[0][0]
+        b = get_predictions(cpu_imp, 0, 0, sites, "median",
+                            invert_transform=False)[0][0]
+        steps = float(np.abs(a - b).max() / imp.dx)
+        check(steps <= 1 + 1e-6, f"reference model: MAE {mae!r} != "
+              f"{REF_IMPUTE_MAE!r} and the card is {steps:.2f} grid steps "
+              "from the CPU")
+        note = f"{mae - REF_IMPUTE_MAE:+.3e} off the pin, within one grid " \
+            f"step of the CPU's ({steps:.2f} steps)"
+    print(f"[reference-model-path] the ECG200 model MPSTime.jl trained "
+          f"({src}) on cuda in float64: train accuracy {tr_acc:.4f}, test "
+          f"accuracy {te_acc:.4f} (pin {REF_TEST_ACC}); median imputation "
+          f"of instance 0, sites 30-49: MAE {mae!r} (pin {REF_IMPUTE_MAE!r}, "
+          f"{note}); phase {time.perf_counter() - t_phase:.1f} s ({card})",
+          flush=True)
+
+    # ---- 29. save_mps -> load_mps on the card ------------------------------
+    t_phase = time.perf_counter()
+    trained, _, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
+        verbosity=-1, log_level=-1), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "model.npz")
+        save_s, _ = _synced_s(lambda: mt.save_mps(path, trained))
+        load_s, loaded = _synced_s(lambda: mt.load_mps(path, device="cuda"))
+        size = Path(path).stat().st_size
+    check(loaded.mps.cores.is_cuda and loaded.train_data.X_enc.is_cuda,
+          "load_mps: the model is not on the card")
+    check(mt.trained_mps_equal(trained, loaded, atol=0.0),
+          "load_mps: the loaded model differs from the saved one")
+    check(np.array_equal(mt.classify(loaded, Xte), mt.classify(trained, Xte)),
+          "load_mps: the loaded model classifies differently")
+    print(f"[serialize-path] default fit on cuda -> save_mps ({size} bytes, "
+          f"{save_s:.3f} s) -> load_mps(device='cuda') ({load_s:.3f} s): "
+          f"trained_mps_equal(atol=0) and classify of {len(Xte)} series "
+          f"identical; phase {time.perf_counter() - t_phase:.1f} s ({card})",
+          flush=True)
+
+    # ---- 30. MPSClassifier at the default width ----------------------------
+    # its own default is 5 sweeps; the main path's 10 hold it to that path's
+    # floor
+    t_phase = time.perf_counter()
+    bk.reset_counts()
+    clf = mt.MPSClassifier(nsweeps=10)
+    fit_s, _ = _synced_s(lambda: clf.fit(Xtr, ytr))
+    launches, plain = dict(bk.LAUNCHES), dict(bk.PLAIN_CALLS)
+    clf_acc = clf.score(Xte, yte)
+    check(clf.trained_.mps.cores.is_cuda, "MPSClassifier: not on the card")
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k12m": 10 * 24}
+    check(launches == want, f"MPSClassifier: launches {launches} != {want}")
+    check(sum(plain.values()) == 0, f"MPSClassifier: plain calls {plain}")
+    check(clf_acc >= ACC_FLOOR, f"MPSClassifier: test accuracy {clf_acc} < "
+          f"{ACC_FLOOR}")
+    print(f"[classifier-path] MPSClassifier(nsweeps=10) (chi 25, d 5, f32) "
+          f"fit {fit_s:.2f} s, K12m launches {launches['k12m']}, score "
+          f"(test accuracy) {clf_acc:.4f} (floor {ACC_FLOOR}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+    # ---- 31. a padded fit: K1 -> QR -> K2 with the rank cap -----------------
+    t_phase = time.perf_counter()
+    bk.reset_counts()
+    popts = mt.MPSOptions(chi_max=15, d=4, pad_to=(25, 5), verbosity=-1,
+                          log_level=-1)
+    pfit_s, (padded, pinfo, _) = _synced_s(
+        lambda: mt.fit_mps(Xtr, ytr, opts=popts, device="cuda"))
+    launches, plain = dict(bk.LAUNCHES), dict(bk.PLAIN_CALLS)
+    check(popts.resolved_orth_alg("cuda") == "qr", "pad_to did not force qr")
+    c = padded.mps.cores
+    T = c.shape[0]
+    check(tuple(c.shape) == (T, 25, 5, 25), f"padded cores {tuple(c.shape)}")
+    dims = padded.mps.bond_dims()
+    check(int(dims.max()) <= 15, f"padded fit: bond dims {dims.max()} > 15")
+    share = float((c[:, :, 4:, :].abs() ** 2).sum() / (c.abs() ** 2).sum())
+    weight = _padded_weight(padded.mps, 4)
+    check(weight < PAD_DEAD_WEIGHT, f"padded fit: the state's weight on the "
+          f"padded directions {weight:.3e} >= {PAD_DEAD_WEIGHT}")
+    want = {**dict.fromkeys(bk.LAUNCHES, 0), "k1": 10 * 190, "k2": 10 * 190}
+    check(launches == want, f"padded fit: launches {launches} != {want}")
+    check(sum(plain.values()) == 0, f"padded fit: plain calls {plain}")
+    p_acc = float(np.mean(mt.classify(padded, Xte) == yte))
+    ufit_s, (unpadded, uinfo, _) = _synced_s(lambda: mt.fit_mps(
+        Xtr, ytr, opts=popts.replace(pad_to=None), device="cuda"))
+    u_acc = float(np.mean(mt.classify(unpadded, Xte) == yte))
+    check(p_acc >= PAD_ACC_FLOOR, f"padded fit: test accuracy {p_acc} < "
+          f"{PAD_ACC_FLOOR}")
+    print(f"[padded-path] MPSOptions(chi_max=15, d=4, pad_to=(25, 5)) on "
+          f"cuda: cores {tuple(c.shape)}, bond dims <= {int(dims.max())}, "
+          f"the state's weight on the padded site directions {weight:.2e} "
+          f"(at most, a site; bound {PAD_DEAD_WEIGHT}), the cores' "
+          f"squared entries there {share:.2e}; launches K1 {launches['k1']}, "
+          f"K2 {launches['k2']}, no plain call; test accuracy {p_acc:.4f} "
+          f"(unpadded chi 15, d 4: {u_acc:.4f}); fit {pfit_s:.2f} s, median "
+          f"sweep {statistics.median(pinfo['sweep_seconds'][1:]):.4f} s "
+          f"(unpadded {ufit_s:.2f} s, "
+          f"{statistics.median(uinfo['sweep_seconds'][1:]):.4f} s); phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+    # ---- 32. fit_mps_batch of 5 CV folds against 5 sequential fits --------
+    t_phase = time.perf_counter()
+    folds = mt.make_stratified_cvfolds(Xtr, ytr, 5, rng=1)
+    jobs = [(Xtr[tr], ytr[tr]) for tr, _ in folds]
+    bopts = mt.MPSOptions(verbosity=-1, log_level=-1)
+    bk.reset_counts()
+    batch_s, models = _synced_s(lambda: mt.fit_mps_batch(jobs, opts=bopts,
+                                                         device="cuda"))
+    b_counts = _counts(bk)
+    bk.reset_counts()
+    seq_s, seq = _synced_s(lambda: [mt.fit_mps(X, y, opts=bopts,
+                                               device="cuda")[0]
+                                    for X, y in jobs])
+    s_counts = _counts(bk)
+    check(b_counts.get("k12m", 0) > 0 and b_counts == s_counts
+          and not any(k.startswith("plain_") for k in b_counts),
+          f"fit_mps_batch launched {b_counts}, the sequential fits "
+          f"{s_counts}")
+    check(all(torch.equal(m.mps.cores, q.mps.cores)
+              and torch.equal(m.mps.center, q.mps.center)
+              for m, q in zip(models, seq)),
+          "fit_mps_batch: a fold differs from its sequential fit_mps")
+    b_acc = [float(np.mean(mt.classify(m, Xtr[va]) == ytr[va]))
+             for m, (_, va) in zip(models, folds)]
+    s_acc = [float(np.mean(mt.classify(m, Xtr[va]) == ytr[va]))
+             for m, (_, va) in zip(seq, folds)]
+    for m in models:
+        check(m.mps.cores.is_cuda and bool(torch.isfinite(m.mps.center).all()),
+              "fit_mps_batch: a model is not finite on the card")
+    print(f"[batched-fit-path] fit_mps_batch of the 5 stratified folds of "
+          f"ECG200 train (N {[len(tr) for tr, _ in folds]}, default "
+          f"MPSOptions) on cuda: {batch_s:.2f} s, launches "
+          f"{b_counts}, per-fold validation accuracy "
+          f"{', '.join(f'{a:.3f}' for a in b_acc)}; 5 sequential fit_mps: "
+          f"{seq_s:.2f} s, {', '.join(f'{a:.3f}' for a in s_acc)}, the same "
+          f"launches and bits; phase {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+
+    # ---- 33. evaluate and tune on the card ---------------------------------
+    t_phase = time.perf_counter()
+    Xs, ys = np.concatenate([Xtr, Xte]), np.concatenate([ytr, yte])
+    params = {"chi_max": (15, 5, 25), "d": [4, 5]}
+    bk.reset_counts()
+    eval_s, res = _synced_s(lambda: mt.evaluate(
+        Xs, ys, nfolds=5, tuning_parameters=params,
+        objective=mt.MisclassificationRate(), n_cvfolds=2,
+        tuning_maxiters=3, verbosity=-1, device="cuda"))
+    e_counts = _counts(bk)
+    N = len(ys)
+    check(len(res) == 5, f"evaluate: {len(res)} folds")
+    tests = np.concatenate([np.asarray(r["test_inds"]) for r in res])
+    check(len(tests) == N and len(np.unique(tests)) == N,
+          "evaluate: the test sets do not partition the data")
+    for r in res:
+        check(set(r) == EVAL_KEYS, f"evaluate: keys {sorted(r)}")
+        tr, te = set(r["train_inds"].tolist()), set(r["test_inds"].tolist())
+        # stratified folds: each class's share of a test set is the floor
+        # or the ceiling of its count over 5
+        check(not tr & te and len(tr) + len(te) == N
+              and all(np.sum(ys[r["test_inds"]] == c) in (n // 5, n // 5 + 1)
+                      for c, n in zip(*np.unique(ys, return_counts=True))),
+              f"evaluate: fold {r['fold']} breaks the partition law")
+        check(0.0 <= r["loss"] <= 1.0, f"evaluate: loss {r['loss']}")
+        check(r["opts"].pad_to == (25, 5), f"evaluate: refit pad_to "
+              f"{r['opts'].pad_to}")
+    check(e_counts.get("k1", 0) > 0 and e_counts.get("k2", 0) > 0
+          and not any(k.startswith("plain_") for k in e_counts),
+          f"evaluate: counts {e_counts}")
+    losses = [r["loss"] for r in res]
+    print(f"[tune-evaluate-path] evaluate(ECG200 train+test, N {N}, nfolds=5, "
+          f"MisclassificationRate, n_cvfolds=2, tuning_maxiters=3, "
+          f"chi_max (15, 5, 25), d [4, 5] -> pad_to (25, 5), f32) on cuda: "
+          f"{eval_s:.1f} s, mean loss {np.mean(losses):.4f} (per fold "
+          f"{', '.join(f'{v:.3f}' for v in losses)}); launches K1 "
+          f"{e_counts.get('k1', 0)}, K2 {e_counts.get('k2', 0)}, K12m "
+          f"{e_counts.get('k12m', 0)}, no plain call; test sets of "
+          f"{[len(r['test_inds']) for r in res]}, the 13 keys and the "
+          f"partition law held ({card})", flush=True)
+    bk.reset_counts()
+    tune_s, (best, cache) = _synced_s(lambda: mt.tune(
+        Xtr, ytr, 5, params, objective=mt.ImputationLoss(), pms=[0.2],
+        maxiters=2, fold_batch=True, verbosity=-1, device="cuda"))
+    t_counts = _counts(bk)
+    check(len(cache) == 2 and all(np.isfinite(v) for v in cache.values()),
+          f"tune(fold_batch=True): cache {cache}")
+    check(t_counts.get("k1", 0) > 0 and t_counts.get("k2", 0) > 0
+          and not any(k.startswith("plain_") for k in t_counts),
+          f"tune(fold_batch=True): counts {t_counts}")
+    print(f"[tune-evaluate-path] tune(ECG200 train, 5 folds, ImputationLoss "
+          f"(pms [0.2], median, dx 1e-4), maxiters=2, fold_batch=True) on "
+          f"cuda: {tune_s:.1f} s; best {best}; cache "
+          f"{ {k: round(v, 4) for k, v in cache.items()} }; launches K1 "
+          f"{t_counts.get('k1', 0)}, K2 {t_counts.get('k2', 0)}, no plain "
+          f"call (each trial's 5 folds one fit_mps_batch at the padded caps, "
+          f"then impute_windows); phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3691,6 +4009,10 @@ def main() -> int:
 
     # ---- 24-27. imputation and analysis after a fit on the card -----------
     impute_phases(card)
+
+    # ---- 28-33. the model import, serialization, the classifier, padded
+    # and batched fits, tune and evaluate --------------------------------
+    port_api_phases(card)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

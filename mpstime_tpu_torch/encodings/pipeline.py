@@ -50,6 +50,15 @@ def validate_range(X_scaled: np.ndarray, spec: EncodingSpec) -> None:
             f"Data must be rescaled between {a} and {b} before a {spec.name} encoding.")
 
 
+def _pad_enc(X_enc: torch.Tensor, opts: MPSOptions) -> torch.Tensor:
+    """Zero-pad the feature axis from opts.d to opts.pad_to[1]
+    (pipeline.py:63-70): the padded trials' basis directions carry exactly
+    zero."""
+    if opts.pad_to is None or opts.pad_to[1] == X_enc.shape[-1]:
+        return X_enc
+    return torch.nn.functional.pad(X_enc, (0, opts.pad_to[1] - X_enc.shape[-1]))
+
+
 def encode_dataset(X_orig: np.ndarray, X_scaled: np.ndarray, y: np.ndarray,
                    opts: MPSOptions, spec: Optional[EncodingSpec] = None,
                    labels: Optional[np.ndarray] = None,
@@ -71,8 +80,9 @@ def encode_dataset(X_orig: np.ndarray, X_scaled: np.ndarray, y: np.ndarray,
     N, T = X_scaled.shape if X_scaled.ndim == 2 else (0, 0)
 
     if N == 0:
+        d_out = opts.d if opts.pad_to is None else opts.pad_to[1]
         return EncodedDataset(
-            torch.zeros((0, 0, opts.d), dtype=tdt, device=device),
+            torch.zeros((0, 0, d_out), dtype=tdt, device=device),
             np.zeros(0, np.int64), labels, X_orig, X_scaled,
             np.zeros(len(labels), np.int64), training_enc_args,
             opts.encode_classes_separately)
@@ -106,7 +116,8 @@ def encode_dataset(X_orig: np.ndarray, X_scaled: np.ndarray, y: np.ndarray,
                                                args_c))
             start += cnt
         X_enc = torch.cat(parts, dim=0)
-        return EncodedDataset(X_enc.to(device=device, dtype=tdt), y_idx_s,
+        return EncodedDataset(_pad_enc(X_enc.to(device=device, dtype=tdt),
+                                       opts), y_idx_s,
                               labels, X_orig_s, X_scaled_s,
                               class_distribution, enc_args, True)
 
@@ -117,9 +128,9 @@ def encode_dataset(X_orig: np.ndarray, X_scaled: np.ndarray, y: np.ndarray,
         enc_args = training_enc_args
 
     X_enc = spec.encode_batch(torch.from_numpy(X_scaled_s), opts.d, enc_args)
-    return EncodedDataset(X_enc.to(device=device, dtype=tdt), y_idx_s, labels,
-                          X_orig_s, X_scaled_s, class_distribution, enc_args,
-                          False)
+    return EncodedDataset(_pad_enc(X_enc.to(device=device, dtype=tdt), opts),
+                          y_idx_s, labels, X_orig_s, X_scaled_s,
+                          class_distribution, enc_args, False)
 
 
 def encode_series(x_scaled: np.ndarray, opts: MPSOptions, enc_args: Any,
@@ -136,11 +147,12 @@ def encode_rows(X_scaled: np.ndarray, opts: MPSOptions, enc_args: Any,
                 dtype=None, device="cuda") -> torch.Tensor:
     """Encode scaled series [N, T] -> [N, T, d] on ``device`` with the
     stored training args (one class's under encode_classes_separately), in
-    their given order."""
+    their given order; under ``opts.pad_to`` d is the padded width."""
     if spec is None:
         spec = get_encoding(opts.encoding, project=opts.projected_basis)
     tdt = torch_dtype(opts.resolved_dtype() if dtype is None else dtype)
     args = enc_args[class_idx] if (opts.encode_classes_separately and
                                    isinstance(enc_args, list)) else enc_args
     X = torch.from_numpy(np.asarray(X_scaled, dtype=np.float64))
-    return spec.encode_batch(X, opts.d, args).to(device=device, dtype=tdt)
+    return _pad_enc(spec.encode_batch(X, opts.d, args).to(device=device,
+                                                           dtype=tdt), opts)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..encodings import encode_dataset, get_encoding
-from ..encodings.pipeline import encode_rows
+from ..encodings.pipeline import _pad_enc, encode_rows
 from ..models.mps import expand_label_index
 from ..options import MPSOptions
 from ..training.fit import TrainedMPS
@@ -153,10 +153,12 @@ class ImputationProblem:
                     xx = torch.zeros((x.shape[0], T), dtype=x.dtype,
                                      device=x.device)
                     xx[:, tt] = x
-                    return spec.encode_batch(xx, d, args)[:, tt].to(dtype)
+                    return _pad_enc(spec.encode_batch(xx, d, args)[:, tt]
+                                    .to(dtype), self.opts)
             else:
                 def encode_at(x, t):
-                    return spec.encode_batch(x[:, None], d, args)[:, 0].to(dtype)
+                    return _pad_enc(spec.encode_batch(x[:, None], d, args)
+                                    [:, 0].to(dtype), self.opts)
 
         res = impute_scan(
             cores, phis_c, known_mask, known_x, x_prev0,
@@ -243,12 +245,14 @@ def init_imputation_problem(mps: TrainedMPS, X_test: np.ndarray,
         args = train.enc_args[ci] if (opts.encode_classes_separately and
                                       isinstance(train.enc_args, list)) \
             else train.enc_args
+        # padded trials (opts.pad_to): zero features up to the padded d
         if timedep:
             enc = spec.encode_batch(grid[:, None].expand(G, T), opts.d, args)
-            grid_states.append(enc.to(dtype).transpose(0, 1).contiguous())
+            grid_states.append(_pad_enc(enc.to(dtype), opts).transpose(0, 1)
+                               .contiguous())
         else:
             enc = spec.encode_batch(grid[None, :], opts.d, args)
-            grid_states.append(enc[0].to(dtype))                    # [G, d]
+            grid_states.append(_pad_enc(enc[0].to(dtype), opts))    # [G, d]
         if not opts.encode_classes_separately:
             grid_states = grid_states * n_cls
             break

@@ -13,7 +13,7 @@ right-orthogonal, so ``norm(mps) == norm(center)``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +57,19 @@ class MPS:
     def normalize(self) -> "MPS":
         return MPS(self.cores, self.center / self.norm(), self.center_pos)
 
+    def bond_dims(self) -> np.ndarray:
+        """Effective bond dimensions [T+1] (mps.py:64-83): the count of live
+        (nonzero) directions at each bond, since the sort-free splits zero
+        truncated directions in place without compacting the kept ones."""
+        cores = self.cores.abs().cpu().numpy()
+        center = self.center.abs().cpu().numpy()
+        dims = np.ones(self.T + 1, dtype=np.int64)
+        for t in range(self.T - 1):
+            m = (center.sum(axis=(0, 1, 3)) if t == self.center_pos
+                 else cores[t].sum(axis=(0, 1)))
+            dims[t + 1] = int(np.count_nonzero(m > 0))
+        return dims
+
     @classmethod
     def from_numpy(cls, cores: np.ndarray, center: np.ndarray,
                    center_pos: int, device="cuda") -> "MPS":
@@ -77,11 +90,16 @@ class MPS:
 
 
 def random_mps(seed: int, T: int, d: int, num_classes: int, chi_init: int,
-               chi_max: int, dtype=np.float32, device="cuda") -> MPS:
+               chi_max: int, dtype=np.float32, device="cuda",
+               pad_d: Optional[int] = None) -> MPS:
     """Seeded random MPS, left-orthogonal up to the last site, which carries
     the label axis (reference RealRealHighDimension.jl:1-41).  Host numpy,
     line for line the JAX package's ``random_mps`` (mps.py:87), so both
-    packages start from bit-identical cores."""
+    packages start from bit-identical cores.
+
+    ``pad_d``: allocate the site axis at this padded size with exact zeros
+    beyond ``d`` (the padded trials of ``MPSOptions.pad_to``; the same seed
+    gives the same values as the unpadded MPS)."""
     rng = np.random.default_rng(seed)
     dtype = np.dtype(dtype)
     is_complex = dtype.kind == "c"
@@ -123,12 +141,13 @@ def random_mps(seed: int, T: int, d: int, num_classes: int, chi_init: int,
     label_site = label_site / np.linalg.norm(label_site)
 
     chi = chi_max
-    cores = np.zeros((T, chi, d, chi), dtype=dtype)
+    d_out = d if pad_d is None else int(pad_d)
+    cores = np.zeros((T, chi, d_out, chi), dtype=dtype)
     for t in range(T - 1):
         A = site_tensors[t]
-        cores[t, :A.shape[0], :, :A.shape[2]] = A
-    center = np.zeros((chi, d, chi, num_classes), dtype=dtype)
-    center[:label_site.shape[0], :, :1, :] = label_site
+        cores[t, :A.shape[0], :d, :A.shape[2]] = A
+    center = np.zeros((chi, d_out, chi, num_classes), dtype=dtype)
+    center[:label_site.shape[0], :d, :1, :] = label_site
     return MPS.from_numpy(cores, center, T - 1, device)
 
 

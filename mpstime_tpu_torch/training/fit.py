@@ -141,15 +141,23 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     and every bond update sums the shards' gradients once.  The trained
     model lives on the mesh's first device.  ``pad_samples_to``: pad the
     sample axis to at least this many rows the same way (before the mesh's
-    padding)."""
+    padding).
+
+    ``opts.pad_to = (chi_cap, d_cap)`` (the padded trials of ``tune``):
+    the model is allocated at the caps, the encodings zero-padded to
+    d_cap, the samples padded to a multiple of 8 (or ``pad_samples_to``),
+    and ``chi_max`` is a runtime rank cap on every split; the split then
+    orthogonalises by QR (``MPSOptions.resolved_orth_alg``), so on the
+    card every refresh bond runs K1 -> QR -> K2 with the cap.  It does not
+    combine with ``mesh``."""
     if test_run:
         raise _not_ported("test_run=True (basis preview)",
                           "vis/vis_encodings.py (plot_encoding)")
     if opts is None:
         opts = MPSOptions()
-    if opts.pad_to is not None:
-        raise _not_ported("pad_to (padded hyperopt trials)",
-                          "hyperopt/ (with encodings/pipeline.py _pad_enc)")
+    if opts.pad_to is not None and mesh is not None:
+        raise ValueError("pad_to (shape-polymorphic trials) does not "
+                         "combine with mesh sharding; use one or the other")
     device = mesh.devices[0] if mesh is not None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit_mps(device='cuda'): no CUDA device is available")
@@ -197,8 +205,15 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     if verb > -1:
         print(f"Generating initial weight MPS with bond dimension chi_init = "
               f"{opts.chi_init} using random state {opts.init_rng}.")
+    # padded trials (MPSOptions.pad_to): allocate at the caps (chi_cap,
+    # d_cap) with chi_max as a runtime rank cap, passed on every padded fit
+    # as the JAX package always traces it (fit.py:144-158)
+    pad = opts.pad_to
+    chi_pad = opts.chi_max if pad is None else pad[0]
+    max_rank = None if pad is None else opts.chi_max
     mps = random_mps(opts.init_rng, T, opts.d, num_classes, opts.chi_init,
-                     opts.chi_max, dtype=dtype, device=device)
+                     chi_pad, dtype=dtype, device=device,
+                     pad_d=None if pad is None else pad[1])
 
     # ---- training tensors -------------------------------------------------
     phis_c = train_ds.X_enc.conj().transpose(0, 1).contiguous()   # [T, N, d]
@@ -210,9 +225,12 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     w = (1.0 / counts[y_idx] if opts.train_classes_separately
          else np.full(N, 1.0 / N))
     class_weight = torch.as_tensor(w, device=device).to(real_dt)
-    if pad_samples_to:
+    if pad is not None or pad_samples_to:
+        # zero-weight copies up to pad_samples_to, else (padded trials) to a
+        # multiple of 8, as the JAX package's fit does (fit.py:173-180)
+        target = max(N, pad_samples_to) if pad_samples_to else N + (-N) % 8
         phis_c, y_onehot, class_weight = _pad_sample_axis(
-            phis_c, y_onehot, class_weight, max(N, pad_samples_to) - N)
+            phis_c, y_onehot, class_weight, target - N)
     cores, center = mps.cores, mps.center
     if mesh is not None:
         from ..parallel import replicate, shard_train_arrays
@@ -326,7 +344,7 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     cores, center = full_sweeps(
         cores, center, phis_c, y_onehot, class_weight, opts.eta,
         opts.cutoff, nsweeps=opts.nsweeps,
-        refresh_every=opts.subspace_refresh_every,
+        refresh_every=opts.subspace_refresh_every, max_rank=max_rank,
         track_cost=opts.track_cost, on_sweep=on_sweep, mesh=mesh, **sweep_kw)
     mps = MPS(cores, center, T - 1).normalize()
     if verb > -1:
@@ -336,3 +354,76 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
 
     trained = TrainedMPS(mps, opts, norms, train_ds, custom_encoding)
     return trained, info, test_ds
+
+
+# Fields fit_mps_batch allows to differ between jobs: the per-model knobs
+# (eta, cutoff, the chi_max rank cap) and the init seed.  Everything else is
+# shared, as the JAX package's one batched program requires
+# (fit.py:381-384).
+_BATCH_VARIABLE_FIELDS = ("eta", "cutoff", "chi_max", "init_rng")
+
+
+def fit_mps_batch(jobs, opts: MPSOptions = None, opts_list=None,
+                  device="cuda") -> list:
+    """Train F independent MPS models that share one configuration up to
+    their per-model knobs (fit.py:387-527): a padded trial population, or
+    the CV folds of one trial.  Each job is one :func:`fit_mps` on
+    ``device`` (on the card, through the bond kernels).
+
+    ``jobs``: a list of ``(X_train, y_train)`` pairs sharing T and the label
+    set.  ``opts_list``: per-job options differing only in eta / cutoff /
+    chi_max / init_rng; pass ``opts`` when all jobs share one configuration.
+    ``device``: the card ("cuda", the default) or "cpu".
+
+    The jobs share their caps as in the JAX package's batch: the model is
+    allocated at ``opts.pad_to``, else, where the jobs' chi_max differ, at
+    (the largest chi_max, d), with each job's chi_max as its rank cap; a
+    padded job's samples are padded with zero-weight copies to the largest
+    job's count rounded up to 8 (exact for the KLD loss and gradient).
+    Every job runs all ``nsweeps``, with no per-sweep logging and no early
+    exit; returns a list of TrainedMPS, each carrying its own options."""
+    if opts_list is None:
+        opts_list = [opts if opts is not None else MPSOptions()] * len(jobs)
+    if len(opts_list) != len(jobs):
+        raise ValueError("opts_list must match jobs in length")
+    if not jobs:
+        return []
+
+    def _static_key(o):
+        dd = o.to_dict()
+        for f in _BATCH_VARIABLE_FIELDS:
+            dd.pop(f)
+        return dd
+
+    base = _static_key(opts_list[0])
+    for o in opts_list[1:]:
+        if _static_key(o) != base:
+            raise ValueError(
+                "fit_mps_batch jobs may differ only in "
+                f"{_BATCH_VARIABLE_FIELDS}; other options are shared")
+    Xs = [np.asarray(X, np.float64) for X, _ in jobs]
+    T = Xs[0].shape[1]
+    if any(X.shape[1] != T for X in Xs):
+        raise ValueError("all jobs must share the series length T")
+    ys = [np.asarray(y) if y is not None else np.zeros(X.shape[0], np.int64)
+          for X, (_, y) in zip(Xs, jobs)]
+    labels = np.unique(ys[0])
+    if any(not np.array_equal(np.unique(y), labels) for y in ys):
+        raise ValueError("all jobs must share the label set")
+
+    o0 = opts_list[0]
+    chis = [o.chi_max for o in opts_list]
+    pad = o0.pad_to
+    if pad is None and len(set(chis)) > 1:
+        pad = (max(chis), o0.d)
+    n_max = max(X.shape[0] for X in Xs)
+    pad_samples = None if pad is None else n_max + (-n_max) % 8
+    out = []
+    for o, X, y in zip(opts_list, Xs, ys):
+        trained, _, _ = fit_mps(
+            X, y, opts=o.replace(pad_to=pad, log_level=0, exit_early=False,
+                                 verbosity=-1),
+            pad_samples_to=pad_samples, device=device)
+        trained.opts = o
+        out.append(trained)
+    return out

@@ -7,8 +7,10 @@ one bond over a thread-block cluster; K12, K12m and K12mc, a block of
 bonds; K1a and K1c-grad, one shard's gradient; K2, K2c, K2-split and
 K2c-split, the split) held bit for bit against their one-block kernels and
 across cluster sizes, and so the row-tile K2-env and K2c-env across rows a
-block and the grid K1-tail and K1c-tail across grid sizes; and the
-imputation scan and the analysis sweeps on the card against the CPU.
+block and the grid K1-tail and K1c-tail across grid sizes; the
+imputation scan and the analysis sweeps on the card against the CPU; and a
+padded fit's launches and rank cap, save/load, MPSClassifier and a
+two-thread DeviceFarm on one card.
 These tests need an NVIDIA GPU with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
@@ -1718,3 +1720,136 @@ def test_see_variation_on_the_card_matches_the_cpu(f64_models, n):
                                atol=1e-8)
     for g, w in zip(mt.bipartite_spectrum(card), mt.bipartite_spectrum(cpu)):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-8)
+
+
+# ---- padded fits, serialization, the classifier and the farm on the card ---
+
+def _ecg(T=None):
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    cut = slice(None) if T is None else slice(0, T)
+    return (data["X_train"][:, cut], data["y_train"], data["X_test"][:, cut],
+            data["y_test"])
+
+
+def test_padded_fit_runs_k1_and_k2_under_the_rank_cap(bk):
+    # pad_to forces orth "qr": every refresh bond K1 -> QR -> K2 with
+    # max_rank = chi_max < chi (tests/test_padded.py:115-140)
+    import mpstime_tpu_torch as mt
+    Xtr, ytr, _, _ = _ecg()
+    bk.reset_counts()
+    trained, _, _ = mt.fit_mps(Xtr[:40], ytr[:40], device="cuda",
+                               opts=mt.MPSOptions(
+                                   nsweeps=3, chi_max=10, d=4, pad_to=(16, 6),
+                                   verbosity=-1, log_level=-1))
+    torch.cuda.synchronize()
+    T = trained.mps.T
+    assert bk.LAUNCHES["k1"] == bk.LAUNCHES["k2"] == 3 * 2 * (T - 1)
+    assert sum(bk.LAUNCHES.values()) == 2 * 3 * 2 * (T - 1)
+    assert sum(bk.PLAIN_CALLS.values()) == 0
+    c = trained.mps.cores
+    assert tuple(c.shape) == (T, 16, 6, 16)
+    assert trained.mps.bond_dims().max() <= 10
+    share = (c[:, :, 4:, :].abs() ** 2).sum() / (c.abs() ** 2).sum()
+    assert float(share) < 1e-7
+    preds = mt.classify(trained, Xtr[:40])
+    assert float(np.mean(preds == ytr[:40])) > 0.8
+
+
+def test_padded_bonds_gain_no_more_weight_through_the_kernels(bk):
+    """At the full ECG200 size of chip_smoke.py's padded phase (chi 15 under
+    25, d 4 under 5), every refresh bond's inputs also go through the plain
+    K1 -> QR -> K2: the kernels give the new core the padded-direction
+    weight the plain versions give (within 4x plus 1e-8; equal to three
+    digits from sweep 2 on, tests/torch_padded_probe.py), and in sweep 1,
+    whose inputs carry no padded weight, K1's Y has exactly zero padded
+    rows."""
+    import torch_padded_probe as probe
+    Xtr, ytr, _, _ = _ecg()
+    rows = probe.probe_bonds(Xtr, ytr, "kernels", nsweeps=2)
+    nbond = 2 * (Xtr.shape[1] - 1)
+    assert len(rows) == 2 * nbond
+    for r in rows:
+        kernel, plain = r[("kernel", "kernel")][1], r[("plain", "plain")][1]
+        assert kernel <= 4 * plain + 1e-8
+    assert all(r[("kernel", "kernel")][0] for r in rows[:nbond])
+
+
+def test_save_and_load_on_the_card(bk, tmp_path):
+    import mpstime_tpu_torch as mt
+    Xtr, ytr, Xte, _ = _ecg()
+    trained, _, _ = mt.fit_mps(Xtr, ytr, device="cuda", opts=mt.MPSOptions(
+        nsweeps=2, verbosity=-1, log_level=-1))
+    path = str(tmp_path / "model.npz")
+    mt.save_mps(path, trained)
+    on_card = mt.load_mps(path, device="cuda")
+    on_cpu = mt.load_mps(path, device="cpu")
+    assert on_card.mps.cores.is_cuda and on_card.train_data.X_enc.is_cuda
+    assert not on_cpu.mps.cores.is_cuda
+    assert mt.trained_mps_equal(trained, on_card, atol=0.0)
+    assert mt.trained_mps_equal(on_cpu, on_card, atol=0.0)
+    np.testing.assert_array_equal(mt.classify(on_card, Xte),
+                                  mt.classify(trained, Xte))
+
+
+def test_classifier_on_the_card(bk):
+    import mpstime_tpu_torch as mt
+    Xtr, ytr, Xte, yte = _ecg()
+    bk.reset_counts()
+    clf = mt.MPSClassifier(nsweeps=2, device="cuda").fit(Xtr, ytr)
+    assert clf.trained_.mps.cores.is_cuda
+    assert bk.LAUNCHES["k12m"] == 2 * 24 and sum(bk.PLAIN_CALLS.values()) == 0
+    np.testing.assert_array_equal(clf.predict(Xte),
+                                  mt.classify(clf.trained_, Xte))
+    assert 0.5 <= clf.score(Xte, yte) <= 1.0
+    assert clf.get_params()["device"] == "cuda"
+
+
+def test_fit_mps_batch_runs_each_job_through_the_kernels(bk):
+    # one fit_mps per job: the default options' K12m, the same bits as the
+    # job fit alone; jobs whose chi_max differ share the largest as their
+    # width (K1 -> QR -> K2 under each job's own cap)
+    import mpstime_tpu_torch as mt
+    Xtr, ytr, _, _ = _ecg()
+    jobs = [(Xtr[:60], ytr[:60]), (Xtr[40:], ytr[40:])]
+    opts = mt.MPSOptions(nsweeps=2, verbosity=-1, log_level=-1)
+    bk.reset_counts()
+    batch = mt.fit_mps_batch(jobs, opts=opts, device="cuda")
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k12m"] > 0 and sum(bk.PLAIN_CALLS.values()) == 0
+    for (X, y), m in zip(jobs, batch):
+        alone = mt.fit_mps(X, y, opts=opts, device="cuda")[0]
+        assert torch.equal(m.mps.cores, alone.mps.cores)
+        assert torch.equal(m.mps.center, alone.mps.center)
+    bk.reset_counts()
+    capped = mt.fit_mps_batch(jobs, device="cuda", opts_list=[
+        opts.replace(chi_max=10), opts.replace(chi_max=6)])
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1"] == bk.LAUNCHES["k2"] > 0
+    for m, chi in zip(capped, (10, 6)):
+        assert m.mps.cores.shape[1] == 10 and m.mps.bond_dims().max() <= chi
+
+
+def test_device_farm_runs_two_fits_at_once_on_one_card(bk, monkeypatch):
+    """Two host threads, each on a stream of its own, fit on one card at
+    once; with SPLIT_TAIL_CHI = 0 every refresh bond runs K1 -> the
+    cooperative K1-tail grid -> K2, so the grid launches while the other
+    thread's kernels hold SMs.  Each fit equals the same fit run alone."""
+    import mpstime_tpu_torch as mt
+    monkeypatch.setattr(bk, "SPLIT_TAIL_CHI", 0)
+    Xtr, ytr, _, _ = _ecg()
+    opts = mt.MPSOptions(nsweeps=2, verbosity=-1, log_level=-1)
+
+    def job(seed, dev):
+        trained, _, _ = mt.fit_mps(Xtr, ytr, device=dev,
+                                   opts=opts.replace(init_rng=seed))
+        return trained.mps.cores.cpu(), trained.mps.center.cpu()
+
+    alone = [job(s, torch.device("cuda", 0)) for s in (1, 2, 3, 4)]
+    bk.reset_counts()
+    farm = mt.DeviceFarm(["cuda:0", "cuda:0"])
+    together = farm.map(job, [1, 2, 3, 4])
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["k1_tail"] > 0
+    for (a_cores, a_center), (b_cores, b_center) in zip(alone, together):
+        assert torch.equal(a_cores, b_cores) and torch.equal(a_center,
+                                                             b_center)

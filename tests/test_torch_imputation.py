@@ -1,8 +1,9 @@
 """The port's imputation (mpstime_tpu_torch.imputation) held against the JAX
 package's on the same trained model: a float64 JAX fit of ECG200 cut to
-T = 48 (chi 8, d 4, 2 sweeps), carried across with
-``TrainedMPS.from_numpy(..., X_train=, y_train=)``, imputed by both
-packages on a guess grid of dx = 1e-3 on the CPU."""
+T = 48 (chi 8, d 4, 2 sweeps), and a complex128 fourier fit of the same
+size, carried across with ``TrainedMPS.from_numpy(..., X_train=,
+y_train=)``, imputed by both packages on a guess grid of dx = 1e-3 on the
+CPU."""
 
 import dataclasses
 
@@ -414,3 +415,50 @@ def test_float32_model_imputes_close_to_float64(models, imps, data):
         # within one grid step (a near-tie of the cdf or the density may
         # move by one) plus float32's rounding of the grid values
         assert np.abs(a - b).max() <= DX + 1e-6, method
+
+
+# ---- the complex (fourier, complex128) model --------------------------------
+
+C_OPTS = dict(OPTS, encoding="fourier", dtype="complex128")
+C_ATOL = 1e-12
+
+
+@pytest.fixture(scope="module")
+def cimps(data):
+    """A complex128 fourier model (T 48, chi 8, d 4, 2 sweeps) fitted by the
+    JAX package and carried across; both problems at dx 1e-3."""
+    Xtr, ytr, Xte, yte = data
+    jt, _, _ = mj.fit_mps(Xtr, ytr, opts=mj.MPSOptions(**C_OPTS))
+    tt = _convert(jt)
+    assert tt.mps.dtype == torch.complex128
+    return (mj.init_imputation_problem(jt, Xte, yte, verbosity=-1, dx=DX),
+            mt.init_imputation_problem(tt, Xte, yte, verbosity=-1, dx=DX))
+
+
+@pytest.mark.parametrize("method", ["median", "mean", "mode"])
+def test_complex_estimators_match_jax(cimps, data, method):
+    ji, ti = cimps
+    sites = _sites(data, 4, 0.25, 11)
+    for cls in (0, 1):
+        xj, ej, _ = jproblem.get_predictions(ji, cls, 4, sites, method,
+                                             invert_transform=False)
+        xt, et, _ = tproblem.get_predictions(ti, cls, 4, sites, method,
+                                             invert_transform=False)
+        np.testing.assert_allclose(xt[0], xj[0], rtol=0, atol=C_ATOL)
+        if ej[0] is not None:
+            np.testing.assert_allclose(et[0], ej[0], rtol=0, atol=C_ATOL)
+
+
+def test_complex_impute_batch_and_cdfs_match_jax(cimps, data):
+    ji, ti = cimps
+    sites = _sites(data, 0, 0.2, 5)
+    for method in ("median", "mean"):
+        ts, targets = tproblem.impute_batch(ti, 1, [0, 1, 2], sites, method)
+        tj, targets_j = jproblem.impute_batch(ji, 1, [0, 1, 2], sites, method)
+        np.testing.assert_array_equal(targets, targets_j)
+        np.testing.assert_allclose(ts, tj, rtol=0, atol=C_ATOL)
+    ct, xt, _, gt = mt.get_cdfs(ti, 0, 2, sites)
+    cj, xj, _, gj = mj.get_cdfs(ji, 0, 2, sites)
+    np.testing.assert_allclose(ct, cj, rtol=0, atol=C_ATOL)
+    np.testing.assert_allclose(xt[0], xj[0], rtol=0, atol=C_ATOL)
+    np.testing.assert_array_equal(gt, gj)

@@ -211,17 +211,29 @@ def test_default_options_on_cpu_resolve_to_unported_gram_eigh(slice_data):
     # complex kernel-route fit under a mesh runs: tests/test_torch_complex_
     # dp.py's test_fit_mps_complex_on_a_mesh)
     (dict(test_run=True), "vis/vis_encodings.py"),
-    (dict(pad_samples_to=64,
-          opts=mt.MPSOptions(**{**SLICE_OPTS, "pad_to": (10, 4)})),
-     "hyperopt/"),
-    (dict(opts=mt.MPSOptions(**{**SLICE_OPTS, "pad_to": (10, 4)})),
-     "hyperopt/"),
 ])
 def test_unported_fit_configurations_raise(slice_data, kw, match):
     Xtr, ytr, _, _ = slice_data
     kw = {"opts": mt.MPSOptions(**SLICE_OPTS), **kw}
     with pytest.raises(NotImplementedError, match=match):
         mt.fit_mps(Xtr[:, :6], ytr, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(pad_samples_to=64), dict()])
+def test_padded_fit_configurations_run(slice_data, kw):
+    # pad_to, refused before the port of hyperopt/, now trains at the caps
+    # with chi_max as the rank cap (tests/test_torch_padded_batch.py holds
+    # it against the JAX package); with a mesh it raises as in JAX
+    Xtr, ytr, _, _ = slice_data
+    opts = mt.MPSOptions(**{**SLICE_OPTS, "pad_to": (10, 4)})
+    trained, _, _ = mt.fit_mps(Xtr[:, :6], ytr, device="cpu", opts=opts,
+                               **kw)
+    assert tuple(trained.mps.cores.shape) == (6, 10, 4, 10)
+    assert trained.mps.bond_dims().max() <= SLICE_OPTS["chi_max"]
+    from mpstime_tpu_torch.parallel import Mesh
+    with pytest.raises(ValueError, match="mesh"):
+        mt.fit_mps(Xtr[:, :6], ytr, device="cpu", opts=opts,
+                   mesh=Mesh(["cpu"] * 2), **kw)
 
 
 # (options, sweeps, tolerance): each fit option against the JAX package's
