@@ -233,6 +233,26 @@ Phases, one status line each; any failure exits non-zero:
      (pms [0.2]), maxiters=2, on ECG200 train: each trial's folds one
      fit_mps_batch at the padded caps (K1 and K2, no plain call), then
      impute_windows on the card.
+ 34. loader path: the native UCR parser built from
+     mpstime_tpu_torch/native/ucr_loader.cpp (fails if it does not build);
+     trendysine TRAIN/TEST loaded ((90, 60), int64 labels 30/30/30); ECG200
+     train written as UCR text with repr floats reads back bit for bit.
+ 35. three-class path: K12 and K12m against their plain versions at C=3,
+     chi 25, d 5, N 90 over phase 3's grid and tolerances; fit_mps of
+     trendysine at the default MPSOptions on cuda at init seeds 1234, 1
+     and 2, then classify: K12m 160 a fit, no plain call, finite weights,
+     mean train accuracy >= TS3_TRAIN_ACC_FLOOR; each seed's accuracies
+     printed beside the CPU's.
+ 36. reference-engine path: the card's float64 gram_eigh fit (unfused,
+     cuSOLVER) against naive_fit_mps / naive_predict on the JAX package's
+     test problem (two_class_sines, N 24, chi 8, d 3, 4 sweeps): agreement
+     >= NAIVE_AGREEMENT; at trendysine's width both accuracies, the naive
+     engine's seconds and the agreement printed; training.full_sweep on
+     cuda equals sweep_once bit for bit.
+ 37. profiling path: profile_trace around a two-sweep default ECG200 fit
+     on cuda; the trace holds 48 k12m_cluster_kernel events and two
+     mps/backward_bond and mps/forward_bond ranges, 24 K12m launches under
+     each; their device ms printed.
 Then the ptxas line (registers, static shared memory and spills of each
 kernel), one JSON line of
 per-kernel results (each kernel's launches from the fit that runs it; its
@@ -412,6 +432,61 @@ def k12_args(x, forward: bool, b: int = 0):
 def k12m_args(x):
     return (x["A"], x["center"], x["envx"], x["env0"], x["ls0"], x["phil"],
             x["phir"], x["y1h"], x["w"], x["V0"], 0.05, 1e-10)
+
+
+def k12_k12m_vs_plain(bk, shape: dict, seed: int):
+    """K12 over its variant grid (both directions x refresh q 1, 3, a
+    frozen bond, KLD/MSE x TSGO/GD, a rank cap of 17) and K12m (Bb 8, 7 x
+    both directions x refresh, frozen) against their plain versions on the
+    card at ``shape``, each block also against Bb chained K12 launches.
+    Returns ({"k12", "k12m"}: max |err|, {"k12", "k12m"}: cases)."""
+    err = {"k12": 0.0, "k12m": 0.0}
+    n_cases = {"k12": 0, "k12m": 0}
+    k12_grid = []
+    for forward in (False, True):
+        for q in (1, 3):
+            k12_grid.append((forward, True, q, "KLD", "TSGO", None))
+        k12_grid.append((forward, False, 1, "KLD", "TSGO", None))
+        for loss in ("KLD", "MSE"):
+            for bbopt in ("TSGO", "GD"):
+                k12_grid.append((forward, True, 1, loss, bbopt, None))
+        k12_grid.append((forward, True, 1, "KLD", "TSGO", 17))
+    for i, (forward, refresh, q, loss, bbopt, mr) in enumerate(k12_grid):
+        x = bond_inputs(seed + i, 1, **shape)
+        kw = dict(forward=forward, refresh=refresh, power_iters=q,
+                  max_rank=mr, loss=loss, bbopt=bbopt,
+                  opp_ls=x["opp"] if loss == "MSE" else None)
+        name = (f"K12 C={shape['C']} {'fwd' if forward else 'bwd'} "
+                f"refresh={refresh} q={q} {loss}/{bbopt} max_rank={mr}")
+        got = bk.k12_cuda(*k12_args(x, forward), **kw)
+        torch.cuda.synchronize()
+        ref = bk.k12_plain(*k12_args(x, forward), **kw)
+        err["k12"] = max(err["k12"], compare(name, got, ref, forward))
+        n_cases["k12"] += 1
+    for i, (Bb, forward, refresh) in enumerate(
+            (Bb, f, r) for Bb in (8, 7) for f in (False, True)
+            for r in (True, False)):
+        x = bond_inputs(seed + 100 + i, Bb, **shape)
+        kw = dict(forward=forward, refresh=refresh, power_iters=1)
+        name = (f"K12m C={shape['C']} Bb={Bb} "
+                f"{'fwd' if forward else 'bwd'} refresh={refresh}")
+        got = bk.k12m_cuda(*k12m_args(x), **kw)
+        torch.cuda.synchronize()
+        ref = bk.k12m_plain(*k12m_args(x), **kw)
+        err["k12m"] = max(err["k12m"], compare(name, got, ref, forward))
+        # the block equals Bb chained single-bond launches
+        center, env, ls, chain = x["center"], x["env0"], x["ls0"], []
+        for b in range(Bb):
+            le, re = (env, x["envx"][b]) if forward else (x["envx"][b], env)
+            center, core, env, ls, Q = bk.k12_cuda(
+                x["A"][b], center, le, re, ls, x["phil"][b], x["phir"][b],
+                x["y1h"], x["w"], x["V0"][b], 0.05, 1e-10, **kw)
+            chain.append((core, env, ls, Q))
+        chained = (center,) + tuple(torch.stack(c) for c in zip(*chain))
+        compare(name + " vs chained K12", got, chained, forward,
+                atol=CHAIN_ATOL, rtol=0.0)
+        n_cases["k12m"] += 1
+    return err, n_cases
 
 
 def k1_args(x, forward: bool):
@@ -2059,6 +2134,19 @@ def _nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
+#: The sweep's record_function ranges (training/sweep.py).  torch.profiler
+#: also lists them among the device events, as spans over the kernels they
+#: hold, so the device-time sums below leave them out.
+SCOPES = ("mps/backward_bond", "mps/forward_bond")
+
+
+def device_ms(prof) -> dict:
+    """Device ms by kernel of a torch.profiler run (each event's own time),
+    the sweep's ranges left out."""
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in SCOPES}
+
+
 def _synced_s(fn):
     """Host seconds of one call of ``fn`` that ends in a synchronise."""
     torch.cuda.synchronize()
@@ -2127,8 +2215,7 @@ def impute_batch_phase(mt, bk, imp, label: str, card: str, Xte, yte):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall, _ = _synced_s(run)
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    busy = sum(device_ms(prof).values())
     print(f"[{label}] impute_batch (median, dx {IMPUTE_DX}, G "
           f"{len(imp.grid_x)}) of class {cls}: B {B}, {len(sites)} missing "
           f"sites of {imp.T}: {secs:.4f} s (median of 3 synced calls after 1 "
@@ -2615,6 +2702,257 @@ def port_api_phases(card: str) -> None:
           f"then impute_windows); phase "
           f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
+SHAPE3 = dict(C=3, chi=25, d=5, N=90)     # trendysine: 3 classes, 90 series
+# trendysine at the default options on the CPU (1 thread), init seeds 1234,
+# 1, 2: the port's and the JAX package's train / test accuracy
+TS3_CPU_PORT = {1234: (0.744, 0.456), 1: (0.733, 0.389), 2: (0.878, 0.578)}
+TS3_CPU_JAX = {1234: (0.678, 0.444), 1: (0.633, 0.344), 2: (0.978, 0.722)}
+TS3_TRAIN_ACC_FLOOR = 0.60       # mean over the three seeds; chance is 1/3
+NAIVE_AGREEMENT = 0.95           # tests/test_reference_engine.py:45
+
+
+def two_class_sines():
+    """The JAX package's test problem (tests/conftest.py:66-82): sinusoids
+    of frequency 1 and 6 with random phase and noise, T 48."""
+    rng = np.random.default_rng(42)
+    T, n_per = 48, 40
+
+    def make(freq, n):
+        t = np.linspace(0, 2 * np.pi, T)
+        ph = rng.uniform(0, 2 * np.pi, size=(n, 1))
+        return (np.sin(freq * t[None, :] + ph)
+                + 0.05 * rng.standard_normal((n, T)))
+
+    X = np.concatenate([make(1.0, n_per), make(6.0, n_per)], axis=0)
+    y = np.concatenate([np.zeros(n_per, int), np.ones(n_per, int)])
+    perm = rng.permutation(2 * n_per)
+    X, y = X[perm], y[perm]
+    return X[:48], y[:48], X[48:], y[48:]
+
+
+def _encoded(mt, Xtr, ytr, Xte, yte, opts, device):
+    """The training and test sets encoded as fit_mps encodes them."""
+    from mpstime_tpu_torch.utils.preprocessing import transform_data
+    Xtr_s, Xte_s, _, _ = transform_data(Xtr, Xte, opts)
+    tr = mt.encode_dataset(Xtr, Xtr_s, ytr, opts, device=device)
+    te = mt.encode_dataset(Xte, Xte_s, yte, opts, labels=tr.labels,
+                           training_enc_args=tr.enc_args, device=device)
+    return tr, te
+
+
+def _naive_vs_card(mt, opts, data, C):
+    """The port's fit on the card and the naive engine on the host, on the
+    same encoded data: (card test accuracy, naive test accuracy, their
+    agreement, naive seconds)."""
+    from mpstime_tpu_torch.training.reference_engine import (naive_fit_mps,
+                                                             naive_predict)
+    from mpstime_tpu_torch.training.stats import predict_class_indices
+    Xtr, ytr, Xte, yte = data
+    tr, te = _encoded(mt, Xtr, ytr, Xte, yte, opts, "cuda")
+    trained, _, _ = mt.fit_mps(Xtr, ytr, opts=opts, device="cuda")
+    check(trained.mps.cores.is_cuda and bool(
+        torch.isfinite(trained.mps.center).all()), "naive vs card: the "
+        "card's fit is not finite on the card")
+    fast = predict_class_indices(trained.mps, te.X_enc)
+    t0 = time.perf_counter()
+    naive = naive_fit_mps(tr.X_enc.cpu().numpy(), tr.y_idx, C,
+                          nsweeps=opts.nsweeps, chi_max=opts.chi_max,
+                          chi_init=opts.chi_init, eta=opts.eta,
+                          cutoff=opts.cutoff, seed=opts.init_rng)
+    slow = naive_predict(naive, te.X_enc.cpu().numpy())
+    naive_s = time.perf_counter() - t0
+    return (float(np.mean(fast == te.y_idx)), float(np.mean(slow == te.y_idx)),
+            float(np.mean(fast == slow)), naive_s)
+
+
+def _trace_ms_under(trace_path, kernel: str, ranges):
+    """Device ms of the kernels whose name holds ``kernel`` under each
+    named range of a torch.profiler trace, with the count of such
+    kernels in the whole trace: each kernel's launch (the runtime or driver
+    call with its correlation id) is placed in the host range that holds
+    it."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and kernel in e.get("name", "")]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    spans = {r: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation" and e.get("name") == r]
+             for r in ranges}
+    ms = dict.fromkeys(ranges, 0.0)
+    n = dict.fromkeys(ranges, 0)
+    for k in kernels:
+        ts = launch_ts.get(k.get("args", {}).get("correlation"))
+        for r in ranges:
+            if ts is not None and any(a <= ts <= b for a, b in spans[r]):
+                ms[r] += k["dur"] / 1e3
+                n[r] += 1
+    return ms, n, len(kernels), {r: len(v) for r, v in spans.items()}
+
+
+def last_slice_phases(card: str) -> None:
+    """Phases 34-37: the UCR loader, the three-class path, the naive
+    reference engine and the profiling path on the card."""
+    import tempfile
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch import training
+    from mpstime_tpu_torch.ops import bond_kernels as bk
+    from mpstime_tpu_torch.training import sweep as tsweep
+    from mpstime_tpu_torch.utils import data_loading as dl
+    from mpstime_tpu_torch.utils.profiling import TRACE_FILE, profile_trace
+    data = np.load(ROOT / "tests" / "data" / "ecg200.npz")
+    Xtr, ytr, Xte, yte = (data["X_train"], data["y_train"], data["X_test"],
+                          data["y_test"])
+
+    # ---- 34. the UCR loader ------------------------------------------------
+    t0 = time.perf_counter()
+    check(dl._get_native() is not None, "UCR loader: the native parser did "
+          "not build (g++)")
+    build_s = time.perf_counter() - t0
+    ts3 = {}
+    for split in ("TRAIN", "TEST"):
+        X, y = dl.load_ucr_file(ROOT / "tests" / "data"
+                                / f"trendysine_{split}.tsv")
+        check(X.shape == (90, 60) and X.dtype == np.float64
+              and y.dtype == np.int64
+              and np.bincount(y).tolist() == [30, 30, 30],
+              f"trendysine {split}: {X.shape} {X.dtype} {y.dtype} "
+              f"{np.bincount(y).tolist()}")
+        ts3[split] = (X, y)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ecg200_TRAIN.txt"
+        with open(path, "w") as f:
+            for x, lab in zip(Xtr, ytr):
+                f.write(" ".join([str(int(lab))] + [repr(float(v)) for v in x])
+                        + "\n")
+        X, y = dl.load_ucr_file(path)
+    check(np.array_equal(X, Xtr) and np.array_equal(y, ytr)
+          and y.dtype == np.int64, "UCR loader: ECG200 written with repr "
+          "floats did not read back bit for bit")
+    print(f"[loader-path] native parser {dl.library_path().name} built and "
+          f"loaded in {build_s:.2f} s; trendysine TRAIN/TEST (90, 60) each, "
+          f"labels int64, 30/30/30; ECG200 train written with repr floats "
+          f"read back bit for bit ({card})", flush=True)
+
+    # ---- 35. the three-class path ---------------------------------------
+    err3, n3 = k12_k12m_vs_plain(bk, SHAPE3, 3100)
+    print(f"[three-class-kernels] C=3, chi 25, d 5, N 90: K12 {n3['k12']} "
+          f"cases, max |err| {err3['k12']:.3e}; K12m {n3['k12m']} cases, max "
+          f"|err| {err3['k12m']:.3e} (rtol {RTOL}, atol {ATOL}; K12m vs "
+          f"chained K12 atol {CHAIN_ATOL}); kept ranks equal ({card})",
+          flush=True)
+    (X3, y3), (X3t, y3t) = ts3["TRAIN"], ts3["TEST"]
+    accs = {}
+    for seed in (1234, 1, 2):
+        bk.reset_counts()
+        tr, inf, _ = mt.fit_mps(X3, y3, opts=mt.MPSOptions(
+            verbosity=-1, log_level=-1, init_rng=seed), device="cuda")
+        torch.cuda.synchronize()
+        counts = _counts(bk)
+        check(counts == {"k12m": 10 * 16}, f"trendysine fit (seed {seed}): "
+              f"counts {counts} != K12m 160 (8 blocks a half-sweep of 59 "
+              f"bonds), no plain call")
+        for t in (tr.mps.cores, tr.mps.center):
+            check(t.is_cuda and bool(torch.isfinite(t).all()),
+                  f"trendysine fit (seed {seed}): weights not finite on "
+                  f"the card")
+        accs[seed] = (float(np.mean(mt.classify(tr, X3) == y3)),
+                      float(np.mean(mt.classify(tr, X3t) == y3t)),
+                      sum(inf["sweep_seconds"]))
+    mean_train = float(np.mean([a[0] for a in accs.values()]))
+    check(mean_train >= TS3_TRAIN_ACC_FLOOR, f"trendysine: mean train "
+          f"accuracy {mean_train:.4f} < {TS3_TRAIN_ACC_FLOOR}")
+    print("[three-class-path] trendysine (C 3, N 90, T 60) at the default "
+          "MPSOptions on cuda, K12m 160 a fit, no plain call; init seed: "
+          "train / test accuracy on the card [port on the CPU; JAX on the "
+          "CPU], fit s: " + "; ".join(
+              f"{s}: {a[0]:.4f} / {a[1]:.4f} [{TS3_CPU_PORT[s][0]} / "
+              f"{TS3_CPU_PORT[s][1]}; {TS3_CPU_JAX[s][0]} / "
+              f"{TS3_CPU_JAX[s][1]}], {a[2]:.3f} s"
+              for s, a in accs.items())
+          + f"; mean train accuracy {mean_train:.4f} (floor "
+          f"{TS3_TRAIN_ACC_FLOOR}) ({card})", flush=True)
+
+    # ---- 36. the naive reference engine -----------------------------------
+    Xs, ys, Xst, yst = two_class_sines()
+    opts = mt.MPSOptions(nsweeps=4, chi_max=8, d=3, verbosity=-1,
+                         log_level=-1, dtype="float64", svd_alg="gram_eigh")
+    bk.reset_counts()
+    card_acc, naive_acc, agree, naive_s = _naive_vs_card(
+        mt, opts, (Xs[:24], ys[:24], Xst[:24], yst[:24]), 2)
+    check(sum(bk.LAUNCHES.values()) == sum(bk.PLAIN_CALLS.values()) == 0,
+          f"naive vs card: the float64 fit ran a kernel or a plain version "
+          f"({_counts(bk)})")
+    check(agree >= NAIVE_AGREEMENT, f"naive vs card: agreement {agree:.4f} "
+          f"< {NAIVE_AGREEMENT}")
+    ts_opts = mt.MPSOptions(nsweeps=5, chi_max=20, d=4, verbosity=-1,
+                            log_level=-1, dtype="float64",
+                            svd_alg="gram_eigh")
+    ts_card, ts_naive, ts_agree, ts_naive_s = _naive_vs_card(
+        mt, ts_opts, (X3, y3, X3t, y3t), 3)
+    # one sweep through training.full_sweep equals sweep_once bit for bit
+    # (the default float32 route: K12m blocks)
+    opts32 = mt.MPSOptions(verbosity=-1, log_level=-1)
+    enc, _ = _encoded(mt, Xtr, ytr, Xte[:0], yte[:0], opts32, "cuda")
+    m = mt.random_mps(opts32.init_rng, Xtr.shape[1], 5, 2, opts32.chi_init,
+                      25, dtype=np.float32, device="cuda")
+    phis = enc.X_enc.conj().transpose(0, 1).contiguous()
+    y1h = torch.nn.functional.one_hot(
+        torch.as_tensor(enc.y_idx, device="cuda"), 2).float()
+    w = torch.full((len(ytr),), 1.0 / len(ytr), device="cuda")
+    kw = dict(loss="KLD", bbopt="TSGO", update_iters=1, rescale=(False, True),
+              svd_alg="randomized_warm", orth="ns")
+    bk.reset_counts()
+    cores, center = training.full_sweep(m.cores, m.center, phis, y1h, w,
+                                        opts32.eta, opts32.cutoff, **kw)
+    once = tsweep.sweep_once(m.cores, m.center, phis, y1h, w, opts32.eta,
+                             opts32.cutoff, **kw)
+    torch.cuda.synchronize()
+    fs_counts = _counts(bk)
+    check(torch.equal(cores, once[0]) and torch.equal(center, once[1]),
+          "full_sweep on cuda differs from sweep_once")
+    check(fs_counts == {"k12m": 2 * 24}, f"full_sweep: counts {fs_counts}")
+    print(f"[reference-engine-path] two_class_sines (N 24, chi 8, d 3, 4 "
+          f"sweeps, float64, gram_eigh): the card's fit (unfused, "
+          f"cuSOLVER) {card_acc:.4f} test accuracy, the naive engine "
+          f"{naive_acc:.4f} ({naive_s:.1f} s on the host), agreement "
+          f"{agree:.4f} (>= {NAIVE_AGREEMENT}); trendysine (5 sweeps, chi "
+          f"20, d 4, float64): the card {ts_card:.4f}, the naive engine "
+          f"{ts_naive:.4f} in {ts_naive_s:.1f} s, agreement {ts_agree:.4f} "
+          f"(no threshold); training.full_sweep on cuda equals sweep_once "
+          f"bit for bit (K12m 24 each) ({card})", flush=True)
+
+    # ---- 37. the profiling path -------------------------------------------
+    ranges = SCOPES
+    with tempfile.TemporaryDirectory() as tmp:
+        bk.reset_counts()
+        with profile_trace(tmp):
+            _, p_info, _ = mt.fit_mps(
+                Xtr, ytr, opts=mt.MPSOptions(verbosity=-1, log_level=-1,
+                                             nsweeps=2), device="cuda")
+        trace = Path(tmp) / TRACE_FILE
+        check(trace.is_file(), f"profile_trace wrote no {TRACE_FILE}")
+        size = trace.stat().st_size
+        ms, n, n_k12m, n_spans = _trace_ms_under(trace, "k12m_cluster_kernel",
+                                                 ranges)
+    check(n_k12m == 2 * 24 == bk.LAUNCHES["k12m"], f"profile: {n_k12m} "
+          f"k12m_cluster_kernel events in the trace, {bk.LAUNCHES['k12m']} "
+          f"launches, want 48")
+    check(all(n_spans[r] == 2 for r in ranges), f"profile: ranges {n_spans}, "
+          "want 2 of each")
+    check(all(n[r] == 24 for r in ranges), f"profile: K12m launches under "
+          f"the ranges {n}, want 24 each")
+    print(f"[profile-trace-path] profile_trace around a two-sweep default "
+          f"ECG200 fit on cuda: {TRACE_FILE} {size} bytes, "
+          f"{n_k12m} k12m_cluster_kernel events, ranges {n_spans}; K12m "
+          f"device ms under mps/backward_bond {ms[ranges[0]]:.2f} "
+          f"({n[ranges[0]]} launches), under mps/forward_bond "
+          f"{ms[ranges[1]]:.2f} ({n[ranges[1]]}); sweep wall "
+          f"{1e3 * sum(p_info['sweep_seconds']):.1f} ms ({card})",
+          flush=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2649,51 +2987,7 @@ def main() -> int:
     from mpstime_tpu_torch.ops.decomp import _qr_orth
 
     # ---- 3. kernel vs plain ----------------------------------------------
-    err = {"k12": 0.0, "k12m": 0.0}
-    n_cases = {"k12": 0, "k12m": 0}
-    k12_grid = []
-    for forward in (False, True):
-        for q in (1, 3):
-            k12_grid.append((forward, True, q, "KLD", "TSGO", None))
-        k12_grid.append((forward, False, 1, "KLD", "TSGO", None))
-        for loss in ("KLD", "MSE"):
-            for bbopt in ("TSGO", "GD"):
-                k12_grid.append((forward, True, 1, loss, bbopt, None))
-        k12_grid.append((forward, True, 1, "KLD", "TSGO", 17))
-    for i, (forward, refresh, q, loss, bbopt, mr) in enumerate(k12_grid):
-        x = bond_inputs(100 + i, 1, **SHAPE)
-        kw = dict(forward=forward, refresh=refresh, power_iters=q,
-                  max_rank=mr, loss=loss, bbopt=bbopt,
-                  opp_ls=x["opp"] if loss == "MSE" else None)
-        name = (f"K12 {'fwd' if forward else 'bwd'} refresh={refresh} q={q} "
-                f"{loss}/{bbopt} max_rank={mr}")
-        got = bk.k12_cuda(*k12_args(x, forward), **kw)
-        torch.cuda.synchronize()
-        ref = bk.k12_plain(*k12_args(x, forward), **kw)
-        err["k12"] = max(err["k12"], compare(name, got, ref, forward))
-        n_cases["k12"] += 1
-    for i, (Bb, forward, refresh) in enumerate(
-            (Bb, f, r) for Bb in (8, 7) for f in (False, True)
-            for r in (True, False)):
-        x = bond_inputs(200 + i, Bb, **SHAPE)
-        kw = dict(forward=forward, refresh=refresh, power_iters=1)
-        name = f"K12m Bb={Bb} {'fwd' if forward else 'bwd'} refresh={refresh}"
-        got = bk.k12m_cuda(*k12m_args(x), **kw)
-        torch.cuda.synchronize()
-        ref = bk.k12m_plain(*k12m_args(x), **kw)
-        err["k12m"] = max(err["k12m"], compare(name, got, ref, forward))
-        # the block equals Bb chained single-bond launches
-        center, env, ls, chain = x["center"], x["env0"], x["ls0"], []
-        for b in range(Bb):
-            le, re = (env, x["envx"][b]) if forward else (x["envx"][b], env)
-            center, core, env, ls, Q = bk.k12_cuda(
-                x["A"][b], center, le, re, ls, x["phil"][b], x["phir"][b],
-                x["y1h"], x["w"], x["V0"][b], 0.05, 1e-10, **kw)
-            chain.append((core, env, ls, Q))
-        chained = (center,) + tuple(torch.stack(c) for c in zip(*chain))
-        compare(name + " vs chained K12", got, chained, forward,
-                atol=CHAIN_ATOL, rtol=0.0)
-        n_cases["k12m"] += 1
+    err, n_cases = k12_k12m_vs_plain(bk, SHAPE, 100)
     tb = tie_break_inputs()
     kw = dict(forward=False, refresh=False, power_iters=1)
     got = bk.k12_cuda(*tb, **kw)
@@ -2871,8 +3165,7 @@ def main() -> int:
             Xtr, ytr, opts=mt.MPSOptions(verbosity=-1, log_level=-1,
                                          nsweeps=2), device="cuda")
         torch.cuda.synchronize()
-    dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA}
+    dev = device_ms(prof)
     busy, wall = sum(dev.values()), 1e3 * sum(prof_info["sweep_seconds"])
     check(not any("k12m_kernel" in k for k in dev),
           f"default fit profile: a one-block K12m ran: {list(dev)}")
@@ -2927,8 +3220,7 @@ def main() -> int:
                                          subspace_refresh_every=2),
             device="cuda")
         torch.cuda.synchronize()
-    dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA}
+    dev = device_ms(prof)
     busy = sum(dev.values())
     wall = 1e3 * sum(prof_info["sweep_seconds"])
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
@@ -3165,9 +3457,7 @@ def main() -> int:
                                       opts=mt.MPSOptions(**fourier, **kw),
                                       device="cuda")
             torch.cuda.synchronize()
-        dev = {e.key: e.self_device_time_total / 1e3
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
+        dev = device_ms(prof)
         top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
         # a fit launches K1c, K2c and K12mc over a cluster only, never
         # their one-block kernels
@@ -3306,8 +3596,7 @@ def main() -> int:
             **{**ritz, "nsweeps": 1, "log_level": -1}, ritz_exact_sweeps=0),
             device="cuda")
         torch.cuda.synchronize()
-    dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA}
+    dev = device_ms(prof)
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     k12cr_ms = sum(v for k, v in dev.items() if "k12cr" in k)
@@ -3509,9 +3798,7 @@ def main() -> int:
             _, p_info, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
                 verbosity=-1, log_level=-1, nsweeps=1), mesh=mesh)
             torch.cuda.synchronize()
-        dev = {e.key: e.self_device_time_total / 1e3
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
+        dev = device_ms(prof)
         busy = sum(dev.values())
         wall = 1e3 * sum(p_info["sweep_seconds"])
         # K1a, K1b and K2-split run over a cluster and K2-env over row
@@ -3731,8 +4018,7 @@ def main() -> int:
         _, p_info, _ = mt.fit_mps(Xtr, ytr, opts=mt.MPSOptions(
             **fourier, nsweeps=1), mesh=make_mesh(1))
         torch.cuda.synchronize()
-    dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA}
+    dev = device_ms(prof)
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     check(busy > 0, "complex-dp-profile: no device time traced")
@@ -3963,8 +4249,7 @@ def main() -> int:
             torch.cuda.synchronize()
     finally:
         bk.SPLIT_TAIL_CHI = split_chi
-    dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA}
+    dev = device_ms(prof)
     busy = sum(dev.values())
     wall = 1e3 * sum(p_info["sweep_seconds"])
     check(busy > 0, "split-tail-profile: no device time traced")
@@ -4013,6 +4298,10 @@ def main() -> int:
     # ---- 28-33. the model import, serialization, the classifier, padded
     # and batched fits, tune and evaluate --------------------------------
     port_api_phases(card)
+
+    # ---- 34-37. the UCR loader, the three-class path, the naive engine
+    # and the profiling path ----------------------------------------------
+    last_slice_phases(card)
 
     # bounds of the timed calls: one backward refresh bond (KLD, TSGO, q 1)
     # and an 8-bond block, at the main-path shape, and the complex, ritz and

@@ -3,11 +3,11 @@
 Time-series classification with label-indexed Matrix Product States
 (MPSTime.jl's method), trained by DMRG-style two-site sweeps, with
 probabilistic imputation, entanglement analysis, missing-data
-simulation, serialization (and import of models MPSTime.jl trained), and
-cross-validated hyperparameter tuning on the trained model's device.  This
-package
-keeps the JAX package's module paths, public names and array layouts; the
-JAX package stays the reference each module is held against.  The training
+simulation, serialization (and import of models MPSTime.jl trained),
+cross-validated hyperparameter tuning on the trained model's device, UCR
+file loading, device traces and plots.  This package keeps the JAX
+package's module paths, public names and array layouts; the JAX package
+stays the reference each module is held against.  The training
 sweep's bond steps run as hand-written CUDA kernels on an NVIDIA GPU, where
 the entry points run unless the caller asks for the CPU (``device="cpu"``),
 and as their plain PyTorch versions on the CPU.  Importing the package
@@ -44,6 +44,7 @@ from .models.serialize import save_mps, load_mps, trained_mps_equal
 from .models.itensor_import import load_mpstime_jl
 from .models.classifier import MPSClassifier
 from .parallel import DeviceFarm, ProcessFarm
+from .vis import plot_encoding, plot_conf_mat, plot_training_summary
 
 __version__ = "0.1.0"
 
@@ -70,6 +71,6 @@ __all__ = [
     "BalancedMisclassificationRate", "ImputationLoss", "eval_loss",
     "make_stratified_cvfolds", "make_windows",
     "save_mps", "load_mps", "trained_mps_equal",
-    "MPSClassifier",
+    "MPSClassifier", "plot_encoding", "plot_conf_mat", "plot_training_summary",
     "DeviceFarm", "ProcessFarm",
 ]

@@ -435,12 +435,35 @@ def warm_ritz_split_right(M: torch.Tensor, U0: torch.Tensor, keep: int,
 def _eigh_desc(G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eigenpairs of a hermitian G in descending order (eigh ascends).
 
-    Single precision is solved in double and cast back: MKL's float32 eigh
-    raises or returns NaN eigenvectors on the Gram matrices of early bonds,
-    most of whose rows are exactly zero (measured on such matrices, 125 x
-    125 of rank <= 7: 25 failures in 100 in float32, none in float64)."""
+    The Gram matrices of early bonds at the allocated width have mostly
+    exactly-zero rows (ECG200 at chi 25, d 5: 125 x 125 with 116 zero rows,
+    rank 5), and MKL's eigensolver fails on them: in float32 it raises or
+    returns NaN eigenvectors (25 failures in 100 such matrices), and in
+    float64 multi-threaded syevd raises LinAlgError at some thread counts
+    (4 and 8 threads on that matrix, tests/data/eigh_zero_rows_gram.npy).
+    So single precision is solved in double and cast back, and only the
+    live block (the rows and columns that are not exactly zero) goes to the
+    solver, on every device.  A zero row of a hermitian matrix is an exact
+    null direction: its unit vector is an eigenvector of eigenvalue 0, and
+    the live block's eigenpairs, embedded, are the others.  The solve gets
+    smaller and every eigenpair stays exact."""
     wide = {torch.float32: torch.float64, torch.complex64: torch.complex128}
-    w, V = torch.linalg.eigh(G.to(wide.get(G.dtype, G.dtype)))
+    Gw = G.to(wide.get(G.dtype, G.dtype))
+    n = Gw.shape[-1]
+    nonzero = (Gw != 0).any(dim=1)
+    live = torch.nonzero(nonzero).flatten()
+    m = live.numel()
+    if m == n:
+        w, V = torch.linalg.eigh(Gw)
+    else:
+        wl, Vl = torch.linalg.eigh(Gw[live][:, live])
+        dead = torch.nonzero(~nonzero).flatten()
+        w = torch.cat([wl, wl.new_zeros(n - m)])
+        V = Gw.new_zeros((n, n))
+        V[live, :m] = Vl
+        V[dead, torch.arange(m, n, device=Gw.device)] = 1
+        order = torch.sort(w, stable=True).indices
+        w, V = w[order], V[:, order]
     return (torch.flip(w, (0,)).to(G.real.dtype),
             torch.flip(V, (1,)).to(G.dtype))
 

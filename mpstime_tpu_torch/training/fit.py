@@ -95,11 +95,6 @@ class TrainedMPS:
         return cls(mps, opts, norms, train, custom_encoding)
 
 
-def _not_ported(what: str, module: str):
-    return NotImplementedError(f"{what} is not ported yet: it waits for the "
-                               f"port of mpstime_tpu's {module}")
-
-
 def _pad_sample_axis(phis_c, y_onehot, class_weight, npad: int):
     """Pad the sample axis with ``npad`` zero-weight copies of the first
     sample (fit.py:48-60): every contraction stays finite (a zero-filled row
@@ -149,10 +144,11 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     and ``chi_max`` is a runtime rank cap on every split; the split then
     orthogonalises by QR (``MPSOptions.resolved_orth_alg``), so on the
     card every refresh bond runs K1 -> QR -> K2 with the cap.  It does not
-    combine with ``mesh``."""
-    if test_run:
-        raise _not_ported("test_run=True (basis preview)",
-                          "vis/vis_encodings.py (plot_encoding)")
+    combine with ``mesh``.
+
+    ``test_run=True`` (the basis preview): encode, plot the basis with
+    ``vis.plot_encoding`` (matplotlib) and return (train_ds, test_ds, fig)
+    without training."""
     if opts is None:
         opts = MPSOptions()
     if opts.pad_to is not None and mesh is not None:
@@ -200,6 +196,18 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     test_ds = encode_dataset(X_test, X_test_s, y_test, opts, spec=spec,
                              labels=labels, training_enc_args=train_ds.enc_args,
                              dtype=dtype, device=device)
+
+    if test_run:
+        # basis-preview mode (reference fitMPS test_run,
+        # RealRealHighDimension.jl:500-543): encode, plot the basis on the
+        # fit's device, skip training
+        from ..vis import plot_encoding
+        fig = plot_encoding(spec, opts.d, train_ds.X_scaled, y_train,
+                            opts=opts, device=device)
+        if verb > -1:
+            print("Encoding completed! Returning initial states without "
+                  "training.")
+        return train_ds, test_ds, fig
 
     # ---- init MPS ---------------------------------------------------------
     if verb > -1:

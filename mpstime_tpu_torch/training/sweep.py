@@ -401,8 +401,9 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
                 envx_ls=_flip(_rows(LE_ls, 0, T - 1)))
     if warm:
         xs_b["q"] = _flip(VB)
-    (center, _, _), ys_b = _half_sweep((center, e0, ls0), xs_b, BB,
-                                       *steps(False))
+    with torch.profiler.record_function("mps/backward_bond"):
+        (center, _, _), ys_b = _half_sweep((center, e0, ls0), xs_b, BB,
+                                           *steps(False))
     # new cores[1..T-1] (emitted for j = T-2..0 -> slots T-1..1)
     cores_mid = _cat(_rows(cores, 0, 1), _flip(ys_b["core"]))
     if warm:
@@ -419,8 +420,9 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
         xs_f["q"] = UF
 
     # ---------------- forward half-sweep (center 0 -> T-1) -----------------
-    (center, _, _), ys_f = _half_sweep((center, e0, ls0), xs_f, BB,
-                                       *steps(True))
+    with torch.profiler.record_function("mps/forward_bond"):
+        (center, _, _), ys_f = _half_sweep((center, e0, ls0), xs_f, BB,
+                                           *steps(True))
     cores_out = _cat(ys_f["core"], _rows(cores_mid, T - 1, T))
     if warm:
         UF = ys_f["q"]
@@ -515,3 +517,38 @@ def sweep_once(cores, center, phis_c, y_onehot, class_weight, eta, cutoff,
         cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot, class_weight, eta,
         cutoff, mesh=mesh, **kw)
     return cores, center, (VB, UF), costs
+
+
+def full_sweep(cores, center, phis_c, y_onehot, class_weight, eta, cutoff,
+               *, donate: bool = False, **kw):
+    """One full sweep per call (sweep.py:706): (cores, center) -> (cores,
+    center), plus the per-bond loss trace [2(T-1)] when ``track_cost``.
+    ``kw``: ``sweep_once``'s options (``loss``, ``bbopt``,
+    ``update_iters``, ``rescale``, ``svd_alg``, ``power_iters``, ``orth``,
+    ``refresh``, ``ritz_rot``, ``max_rank``, ``track_cost``, ``mesh``).  A
+    warm split's subspace caches are cold-started every call; use
+    :func:`full_sweeps` or :func:`full_sweep_warm` to carry them.
+    ``donate`` is accepted for the JAX signature and has no effect: the
+    sweep allocates its outputs and leaves the inputs untouched."""
+    cores, center, _, costs = sweep_once(
+        cores, center, phis_c, y_onehot, class_weight, eta, cutoff, **kw)
+    return (cores, center) + ((costs,) if kw.get("track_cost") else ())
+
+
+def full_sweep_warm(cores, center, subspaces, phis_c, y_onehot,
+                    class_weight, eta, cutoff, *, donate: bool = False,
+                    **kw):
+    """One sweep from explicit warm-subspace state (sweep.py:757): pass the
+    ``subspaces`` = (VB, UF) the previous call returned (start from
+    :func:`init_subspaces`) so the caches carry across calls;
+    ``refresh=False`` splits against the cached bases.  Returns (cores,
+    center, subspaces) for a warm ``svd_alg``, else (cores, center), plus
+    the per-bond loss trace when ``track_cost``.  ``donate`` has no effect
+    (see :func:`full_sweep`)."""
+    cores, center, subspaces, costs = sweep_once(
+        cores, center, phis_c, y_onehot, class_weight, eta, cutoff,
+        subspaces=subspaces, **kw)
+    out = (cores, center)
+    if kw["svd_alg"] in WARM_ALGS:
+        out += (subspaces,)
+    return out + ((costs,) if kw.get("track_cost") else ())

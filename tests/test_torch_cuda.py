@@ -8,9 +8,10 @@ bonds; K1a and K1c-grad, one shard's gradient; K2, K2c, K2-split and
 K2c-split, the split) held bit for bit against their one-block kernels and
 across cluster sizes, and so the row-tile K2-env and K2c-env across rows a
 block and the grid K1-tail and K1c-tail across grid sizes; the
-imputation scan and the analysis sweeps on the card against the CPU; and a
+imputation scan and the analysis sweeps on the card against the CPU; a
 padded fit's launches and rank cap, save/load, MPSClassifier and a
-two-thread DeviceFarm on one card.
+two-thread DeviceFarm on one card; K12 and K12m at three classes, a
+three-class fit from the UCR loader, and a profile_trace of a fit.
 These tests need an NVIDIA GPU with nvcc and skip without one.
 This file imports nothing of JAX, so it runs where JAX is not installed;
 tests/conftest.py does import JAX, hence --noconftest:
@@ -1853,3 +1854,75 @@ def test_device_farm_runs_two_fits_at_once_on_one_card(bk, monkeypatch):
     for (a_cores, a_center), (b_cores, b_center) in zip(alone, together):
         assert torch.equal(a_cores, b_cores) and torch.equal(a_center,
                                                              b_center)
+
+
+SHAPE3 = dict(C=3, chi=25, d=5, N=90)      # trendysine's bond shape
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh,q,loss,bbopt,mr", [
+    (True, 1, "KLD", "TSGO", None), (True, 3, "KLD", "TSGO", None),
+    (False, 1, "KLD", "TSGO", None), (True, 1, "MSE", "GD", None),
+    (True, 1, "KLD", "TSGO", 17)])
+def test_k12_kernel_matches_plain_at_three_classes(bk, forward, refresh, q,
+                                                   loss, bbopt, mr):
+    x = _inputs(31, 1, **SHAPE3)
+    kw = dict(forward=forward, refresh=refresh, power_iters=q, max_rank=mr,
+              loss=loss, bbopt=bbopt, opp_ls=x["opp"])
+    got = bk.k12_cuda(*_single(x, forward), **kw)
+    torch.cuda.synchronize()
+    _close(got, bk.k12_plain(*_single(x, forward), **kw))
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("refresh", [True, False])
+def test_k12m_kernel_matches_plain_at_three_classes(bk, forward, refresh):
+    x = _inputs(32, 8, **SHAPE3)
+    kw = dict(forward=forward, refresh=refresh, power_iters=1)
+    got = bk.bond_block_steps(*_block(x), **kw)
+    torch.cuda.synchronize()
+    _close(got, bk.k12m_plain(*_block(x), **kw))
+
+
+def _trendysine():
+    from mpstime_tpu_torch.utils.data_loading import load_ucr_file
+    base = Path(__file__).parent / "data"
+    return (load_ucr_file(base / "trendysine_TRAIN.tsv")
+            + load_ucr_file(base / "trendysine_TEST.tsv"))
+
+
+def test_three_class_fit_on_cuda_runs_k12m(bk):
+    """trendysine (C 3, T 60) at the default options on the card: 8 K12m
+    blocks a half-sweep of 59 bonds, no plain call."""
+    import mpstime_tpu_torch as mt
+    X, y, Xt, yt = _trendysine()
+    assert np.bincount(y).tolist() == [30, 30, 30]
+    bk.reset_counts()
+    trained, _, _ = mt.fit_mps(X, y, opts=mt.MPSOptions(verbosity=-1,
+                                                        log_level=-1),
+                               device="cuda")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in bk.LAUNCHES.items() if v} == {"k12m": 160}
+    assert sum(bk.PLAIN_CALLS.values()) == 0
+    assert trained.mps.center.shape[-1] == 3
+    assert bool(torch.isfinite(trained.mps.center).all())
+    assert np.mean(mt.classify(trained, X) == y) > 1 / 3
+
+
+def test_profile_trace_on_cuda_holds_k12m_under_both_scopes(bk, tmp_path):
+    import json
+    import mpstime_tpu_torch as mt
+    from mpstime_tpu_torch.utils.profiling import TRACE_FILE, profile_trace
+    data = np.load(Path(__file__).parent / "data" / "ecg200.npz")
+    with profile_trace(str(tmp_path)):
+        mt.fit_mps(data["X_train"][:40], data["y_train"][:40],
+                   opts=mt.MPSOptions(nsweeps=1, chi_max=12, d=3,
+                                      verbosity=-1, log_level=-1),
+                   device="cuda")
+    events = json.loads((tmp_path / TRACE_FILE).read_text())["traceEvents"]
+    names = {(e.get("cat"), e.get("name")) for e in events}
+    assert ("user_annotation", "mps/backward_bond") in names
+    assert ("user_annotation", "mps/forward_bond") in names
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "k12m_cluster_kernel" in e.get("name", "")]
+    assert len(kernels) == 2 * 12

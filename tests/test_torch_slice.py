@@ -206,19 +206,6 @@ def test_default_options_on_cpu_resolve_to_unported_gram_eigh(slice_data):
     assert len(mt.classify(trained, Xte[:, :12])) == len(Xte)
 
 
-@pytest.mark.parametrize("kw,match", [
-    # each refusal names the module of the JAX package it waits for (a
-    # complex kernel-route fit under a mesh runs: tests/test_torch_complex_
-    # dp.py's test_fit_mps_complex_on_a_mesh)
-    (dict(test_run=True), "vis/vis_encodings.py"),
-])
-def test_unported_fit_configurations_raise(slice_data, kw, match):
-    Xtr, ytr, _, _ = slice_data
-    kw = {"opts": mt.MPSOptions(**SLICE_OPTS), **kw}
-    with pytest.raises(NotImplementedError, match=match):
-        mt.fit_mps(Xtr[:, :6], ytr, device="cpu", **kw)
-
-
 @pytest.mark.parametrize("kw", [dict(pad_samples_to=64), dict()])
 def test_padded_fit_configurations_run(slice_data, kw):
     # pad_to, refused before the port of hyperopt/, now trains at the caps

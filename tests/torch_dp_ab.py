@@ -56,9 +56,12 @@ def measure(root: str) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             _, p_info, _ = mt.fit_mps(X, y, opts=opts, **where)
             torch.cuda.synchronize()
+        # the sweep's record_function ranges are listed among the device
+        # events too, as spans over their kernels: leave them out
         dev = {e.key: e.self_device_time_total / 1e3
                for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("mps/")}
         return dev, 1e3 * sum(p_info["sweep_seconds"])
 
     def kernel_ms(dev, *kerns):
