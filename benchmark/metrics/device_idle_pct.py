@@ -1,0 +1,9 @@
+"""Share of the traced window in which no operation ran on the card, %:
+one less the union of the device operations' intervals over the window."""
+
+
+def read(run):
+    tr = run.trace
+    if tr is None or tr.window_s <= 0 or tr.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
