@@ -41,7 +41,9 @@ the tensors it is given:
 plain versions, so a run can show which path it took (the one-block K12m,
 K1a, K1, K1b, K2, K2-split, K2-env and K1-tail under "k12m_block",
 "k1a_block", "k1_block", "k1b_block", "k2_block", "k2_split_block",
-"k2_env_block" and "k1_tail_block").  Operand layouts are
+"k2_env_block" and "k1_tail_block"); both are bumped under one lock
+(``count``), and each counted launch is the program span "mps/launch"
+under a profiler (``counted_launch``).  Operand layouts are
 the JAX kernels': the class-major center [C, chi, d, chi], environments
 [N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and the
 bond tensor and its gradient [C, chi*d, d, chi].
@@ -50,11 +52,14 @@ bond tensor and its gradient [C, chi*d, d, chi].
 from __future__ import annotations
 
 import ctypes
+import functools
 import numbers
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from .bond_update import kld_loss_grad, mse_loss_grad
 from .decomp import _qr_orth, warm_iterate, warm_split_left, warm_split_right
 from .env import env_step_left_scaled, env_step_right_scaled
@@ -96,10 +101,36 @@ Out5 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 Out4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+_count_lock = threading.Lock()
+
+
+def count(table: Dict[str, int], key: str, n: int = 1) -> None:
+    """Add ``n`` to ``table[key]`` (LAUNCHES or PLAIN_CALLS) under one lock,
+    so that threads launching at once (``DeviceFarm``) lose no count."""
+    with _count_lock:
+        table[key] += n
+
+
 def reset_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-        PLAIN_CALLS[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+            PLAIN_CALLS[k] = 0
+
+
+def counted_launch(kernel: str) -> Callable:
+    """Decorator of a CUDA launch wrapper: each call that returns counts
+    once under ``LAUNCHES[kernel]``, and under a profiler is the program
+    span "mps/launch" (attribute ``kernel``) from entry to return."""
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def launch(*args, **kw):
+            with profiling.annotate("mps/launch", kernel=kernel):
+                out = fn(*args, **kw)
+                count(LAUNCHES, kernel)
+            return out
+        return launch
+    return wrap
 
 
 def splits_tail(chi: int, split_tail: Optional[bool] = None) -> bool:
@@ -772,6 +803,7 @@ def _k12m_cluster(cluster, *args, **kw) -> Out5:
                  *args, **kw)
 
 
+@counted_launch("k12")
 def k12_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
              cutoff, *, forward: bool, refresh: bool = True,
              power_iters: int = 1, max_rank=None, loss: str = "KLD",
@@ -784,25 +816,24 @@ def k12_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
         opp_ls, phil[None], phir[None], y1h, w, V0[None], eta, cutoff,
         forward=forward, refresh=refresh, power_iters=power_iters,
         max_rank=max_rank, loss=loss, bbopt=bbopt)
-    LAUNCHES["k12"] += 1
     return center2, core[0], env2[0], ls2[0], Q[0]
 
 
+@counted_launch("k12m")
 def k12m_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,
               y1h, w, V0_blk, eta, cutoff, *, forward: bool,
               refresh: bool = True, power_iters: int = 1, max_rank=None,
               bbopt: str = "TSGO") -> Out5:
     """K12m: Bb consecutive bond steps (KLD) as one launch of a
     thread-block cluster of ``K12M_CLUSTER`` blocks."""
-    out = _k12m_cluster(
+    return _k12m_cluster(
         K12M_CLUSTER, A_blk, center_c, envx_blk, env0, env_ls0, None,
         phil_blk, phir_blk, y1h, w, V0_blk, eta, cutoff, forward=forward,
         refresh=refresh, power_iters=power_iters, max_rank=max_rank,
         loss="KLD", bbopt=bbopt)
-    LAUNCHES["k12m"] += 1
-    return out
 
 
+@counted_launch("k12m_block")
 def k12m_block_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
                     phir_blk, y1h, w, V0_blk, eta, cutoff, *, forward: bool,
                     refresh: bool = True, power_iters: int = 1,
@@ -811,13 +842,11 @@ def k12m_block_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
     """K12m on one thread block, the reference ``k12_cuda`` and
     ``k12m_cuda`` are held against bit for bit (no route calls it); K12m's
     operands, and the MSE loss with ``opp_ls`` as K12's."""
-    out = _k12m(
+    return _k12m(
         "mpst_k12m_launch", (), A_blk, center_c, envx_blk, env0, env_ls0,
         opp_ls, phil_blk, phir_blk, y1h, w, V0_blk, eta, cutoff,
         forward=forward, refresh=refresh, power_iters=power_iters,
         max_rank=max_rank, loss=loss, bbopt=bbopt)
-    LAUNCHES["k12m_block"] += 1
-    return out
 
 
 def _k1(entry: str, extra: tuple, *args, **kw
@@ -830,6 +859,7 @@ def _k1(entry: str, extra: tuple, *args, **kw
                       workspace_floats=wsf, **kw)
 
 
+@counted_launch("k1")
 def k1_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
             forward: bool, emit_y: bool = True, power_iters: int = 1,
             orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO",
@@ -839,13 +869,12 @@ def k1_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
     (default ``K1_CLUSTER``); operands and results as ``k1_plain``'s.  A
     cluster the card cannot place raises RuntimeError."""
     n = _cluster_size(K1_CLUSTER if cluster is None else cluster)
-    out = _k1("mpst_k1_cluster_launch", (n,), A_or_B, center_c, le, re, phil,
-              phir, y1h, w, gls, V0, eta, forward=forward, emit_y=emit_y,
-              power_iters=power_iters, orth=orth, loss=loss, bbopt=bbopt)
-    LAUNCHES["k1"] += 1
-    return out
+    return _k1("mpst_k1_cluster_launch", (n,), A_or_B, center_c, le, re, phil,
+               phir, y1h, w, gls, V0, eta, forward=forward, emit_y=emit_y,
+               power_iters=power_iters, orth=orth, loss=loss, bbopt=bbopt)
 
 
+@counted_launch("k1_block")
 def k1_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0,
                   eta, *, forward: bool, emit_y: bool = True,
                   power_iters: int = 1, orth: str = "qr", loss: str = "KLD",
@@ -853,11 +882,9 @@ def k1_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0,
     """K1 on one thread block, the reference ``k1_cuda`` is held against
     bit for bit (no route calls it); operands and results as
     ``k1_plain``'s."""
-    out = _k1("mpst_k1_launch", (), A_or_B, center_c, le, re, phil, phir,
-              y1h, w, gls, V0, eta, forward=forward, emit_y=emit_y,
-              power_iters=power_iters, orth=orth, loss=loss, bbopt=bbopt)
-    LAUNCHES["k1_block"] += 1
-    return out
+    return _k1("mpst_k1_launch", (), A_or_B, center_c, le, re, phil, phir,
+               y1h, w, gls, V0, eta, forward=forward, emit_y=emit_y,
+               power_iters=power_iters, orth=orth, loss=loss, bbopt=bbopt)
 
 
 def _k2(entry: str, extra: tuple, *args, **kw) -> Out4:
@@ -869,27 +896,25 @@ def _k2(entry: str, extra: tuple, *args, **kw) -> Out4:
                       workspace_floats=wsf, **kw)
 
 
+@counted_launch("k2")
 def k2_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
             max_rank=None, cluster: Optional[int] = None) -> Out4:
     """K2 as one launch of a thread-block cluster of ``cluster`` blocks
     (default ``K2_CLUSTER``); operands and results as ``k2_plain``'s.  A
     cluster the card cannot place raises RuntimeError."""
     n = _cluster_size(K2_CLUSTER if cluster is None else cluster)
-    out = _k2("mpst_k2_cluster_launch", (n,), BT, Q, env, env_ls, phi,
-              cutoff, forward=forward, max_rank=max_rank)
-    LAUNCHES["k2"] += 1
-    return out
+    return _k2("mpst_k2_cluster_launch", (n,), BT, Q, env, env_ls, phi,
+               cutoff, forward=forward, max_rank=max_rank)
 
 
+@counted_launch("k2_block")
 def k2_block_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
                   max_rank=None) -> Out4:
     """K2 on one thread block, the reference ``k2_cuda`` is held against
     bit for bit (no route calls it); operands and results as
     ``k2_plain``'s."""
-    out = _k2("mpst_k2_launch", (), BT, Q, env, env_ls, phi, cutoff,
-              forward=forward, max_rank=max_rank)
-    LAUNCHES["k2_block"] += 1
-    return out
+    return _k2("mpst_k2_launch", (), BT, Q, env, env_ls, phi, cutoff,
+               forward=forward, max_rank=max_rank)
 
 
 def _k1a(entry: str, extra: tuple, *args, **kw) -> torch.Tensor:
@@ -901,6 +926,7 @@ def _k1a(entry: str, extra: tuple, *args, **kw) -> torch.Tensor:
                        workspace_floats=wsf, **kw)
 
 
+@counted_launch("k1a")
 def k1a_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
              forward: bool, loss: str = "KLD",
              cluster: Optional[int] = None) -> torch.Tensor:
@@ -908,21 +934,18 @@ def k1a_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
     (default ``K1A_CLUSTER``); operands and result as ``k1a_plain``'s.  A
     cluster the card cannot place raises RuntimeError."""
     n = _cluster_size(K1A_CLUSTER if cluster is None else cluster)
-    G = _k1a("mpst_k1a_cluster_launch", (n,), A_or_B, center_c, le, re, phil,
-             phir, y1h, w, gls, forward=forward, loss=loss)
-    LAUNCHES["k1a"] += 1
-    return G
+    return _k1a("mpst_k1a_cluster_launch", (n,), A_or_B, center_c, le, re,
+                phil, phir, y1h, w, gls, forward=forward, loss=loss)
 
 
+@counted_launch("k1a_block")
 def k1a_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
                    forward: bool, loss: str = "KLD") -> torch.Tensor:
     """K1a on one thread block, the reference ``k1a_cuda`` is held against
     bit for bit (no route calls it); operands and result as
     ``k1a_plain``'s."""
-    G = _k1a("mpst_k1a_launch", (), A_or_B, center_c, le, re, phil, phir, y1h,
-             w, gls, forward=forward, loss=loss)
-    LAUNCHES["k1a_block"] += 1
-    return G
+    return _k1a("mpst_k1a_launch", (), A_or_B, center_c, le, re, phil, phir,
+                y1h, w, gls, forward=forward, loss=loss)
 
 
 def _k1b(entry: str, extra: tuple, *args, **kw
@@ -935,6 +958,7 @@ def _k1b(entry: str, extra: tuple, *args, **kw
                        workspace_floats=wsf, **kw)
 
 
+@counted_launch("k1b")
 def k1b_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
              emit_y: bool = True, power_iters: int = 1, orth: str = "qr",
              bbopt: str = "TSGO", cluster: Optional[int] = None
@@ -943,13 +967,12 @@ def k1b_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
     (default ``K1B_CLUSTER``); operands and results as ``k1b_plain``'s.  A
     cluster the card cannot place raises RuntimeError."""
     n = _cluster_size(K1B_CLUSTER if cluster is None else cluster)
-    out = _k1b("mpst_k1b_cluster_launch", (n,), A_or_B, center_c, G, V0, eta,
-               forward=forward, emit_y=emit_y, power_iters=power_iters,
-               orth=orth, bbopt=bbopt)
-    LAUNCHES["k1b"] += 1
-    return out
+    return _k1b("mpst_k1b_cluster_launch", (n,), A_or_B, center_c, G, V0, eta,
+                forward=forward, emit_y=emit_y, power_iters=power_iters,
+                orth=orth, bbopt=bbopt)
 
 
+@counted_launch("k1b_block")
 def k1b_block_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
                    emit_y: bool = True, power_iters: int = 1,
                    orth: str = "qr", bbopt: str = "TSGO"
@@ -957,11 +980,9 @@ def k1b_block_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
     """K1b on one thread block, the reference ``k1b_cuda`` is held against
     bit for bit (no route calls it); operands and results as
     ``k1b_plain``'s."""
-    out = _k1b("mpst_k1b_launch", (), A_or_B, center_c, G, V0, eta,
-               forward=forward, emit_y=emit_y, power_iters=power_iters,
-               orth=orth, bbopt=bbopt)
-    LAUNCHES["k1b_block"] += 1
-    return out
+    return _k1b("mpst_k1b_launch", (), A_or_B, center_c, G, V0, eta,
+                forward=forward, emit_y=emit_y, power_iters=power_iters,
+                orth=orth, bbopt=bbopt)
 
 
 def _k1_tail(entry: str, extra: tuple, *args, **kw) -> torch.Tensor:
@@ -973,6 +994,7 @@ def _k1_tail(entry: str, extra: tuple, *args, **kw) -> torch.Tensor:
                            workspace_floats=wsf, **kw)
 
 
+@counted_launch("k1_tail")
 def k1_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
                  orth: str = "qr", blocks: Optional[int] = None
                  ) -> torch.Tensor:
@@ -981,21 +1003,18 @@ def k1_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
     ``k1_tail_plain``'s.  A grid the card cannot hold at once raises
     RuntimeError."""
     n = _grid_blocks(K1_TAIL_BLOCKS if blocks is None else blocks)
-    Y = _k1_tail("mpst_k1_tail_grid_launch", (n,), BT, V0, forward=forward,
-                 power_iters=power_iters, orth=orth)
-    LAUNCHES["k1_tail"] += 1
-    return Y
+    return _k1_tail("mpst_k1_tail_grid_launch", (n,), BT, V0, forward=forward,
+                    power_iters=power_iters, orth=orth)
 
 
+@counted_launch("k1_tail_block")
 def k1_tail_block_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
                        orth: str = "qr") -> torch.Tensor:
     """K1-tail on one thread block, the reference ``k1_tail_cuda`` is held
     against bit for bit (no route calls it); operands and result as
     ``k1_tail_plain``'s."""
-    Y = _k1_tail("mpst_k1_tail_launch", (), BT, V0, forward=forward,
-                 power_iters=power_iters, orth=orth)
-    LAUNCHES["k1_tail_block"] += 1
-    return Y
+    return _k1_tail("mpst_k1_tail_launch", (), BT, V0, forward=forward,
+                    power_iters=power_iters, orth=orth)
 
 
 def _k2_split(entry: str, extra: tuple, *args, **kw
@@ -1008,6 +1027,7 @@ def _k2_split(entry: str, extra: tuple, *args, **kw
                             workspace_floats=wsf, **kw)
 
 
+@counted_launch("k2_split")
 def k2_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None,
                   cluster: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -1016,21 +1036,18 @@ def k2_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None,
     ``k2_split_plain``'s.  A cluster the card cannot place raises
     RuntimeError."""
     n = _cluster_size(K2_SPLIT_CLUSTER if cluster is None else cluster)
-    out = _k2_split("mpst_k2_split_cluster_launch", (n,), BT, Q, cutoff,
-                    forward=forward, max_rank=max_rank)
-    LAUNCHES["k2_split"] += 1
-    return out
+    return _k2_split("mpst_k2_split_cluster_launch", (n,), BT, Q, cutoff,
+                     forward=forward, max_rank=max_rank)
 
 
+@counted_launch("k2_split_block")
 def k2_split_block_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2-split on one thread block, the reference ``k2_split_cuda`` is held
     against bit for bit (no route calls it); operands and results as
     ``k2_split_plain``'s."""
-    out = _k2_split("mpst_k2_split_launch", (), BT, Q, cutoff,
-                    forward=forward, max_rank=max_rank)
-    LAUNCHES["k2_split_block"] += 1
-    return out
+    return _k2_split("mpst_k2_split_launch", (), BT, Q, cutoff,
+                     forward=forward, max_rank=max_rank)
 
 
 def _k2_env(entry: str, extra: tuple, *args, **kw
@@ -1044,6 +1061,7 @@ def _k2_env(entry: str, extra: tuple, *args, **kw
                           workspace_floats=wsf, **kw)
 
 
+@counted_launch("k2_env")
 def k2_env_cuda(Qm, env, env_ls, phi, *, forward: bool,
                 rows: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1052,21 +1070,18 @@ def k2_env_cuda(Qm, env, env_ls, phi, *, forward: bool,
     factors staged in shared memory where they fit; operands and results as
     ``k2_env_plain``'s."""
     n = _env_rows(K2_ENV_ROWS if rows is None else rows)
-    out = _k2_env("mpst_k2_env_rows_launch", (n, 1), Qm, env, env_ls, phi,
-                  forward=forward)
-    LAUNCHES["k2_env"] += 1
-    return out
+    return _k2_env("mpst_k2_env_rows_launch", (n, 1), Qm, env, env_ls, phi,
+                   forward=forward)
 
 
+@counted_launch("k2_env_block")
 def k2_env_block_cuda(Qm, env, env_ls, phi, *, forward: bool
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2-env on one thread block, the reference ``k2_env_cuda`` is held
     against bit for bit (no route calls it); operands and results as
     ``k2_env_plain``'s."""
-    out = _k2_env("mpst_k2_env_launch", (), Qm, env, env_ls, phi,
-                  forward=forward)
-    LAUNCHES["k2_env_block"] += 1
-    return out
+    return _k2_env("mpst_k2_env_launch", (), Qm, env, env_ls, phi,
+                   forward=forward)
 
 
 # --------------------------------------------------------------------------
@@ -1111,7 +1126,7 @@ def _piece(name: str, t: torch.Tensor, calls: int = 1) -> Callable:
     counter, plain, cuda = table[name]
     if _device_of(t) == "cuda":
         return cuda
-    PLAIN_CALLS[counter] += calls
+    count(PLAIN_CALLS, counter, calls)
     return plain
 
 
@@ -1201,15 +1216,15 @@ def bond_step(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     tail = refresh and splits_tail(center_c.shape[1], split_tail)
     if refresh and (orth == "qr" or tail):
         if not cuda:
-            PLAIN_CALLS["k1"] += 1
-            PLAIN_CALLS["k2"] += 1
+            count(PLAIN_CALLS, "k1")
+            count(PLAIN_CALLS, "k2")
             if tail:
-                PLAIN_CALLS["k1_tail"] += power_iters
+                count(PLAIN_CALLS, "k1_tail", power_iters)
         return qr_bond_step(*args, plain=not cuda, orth=orth, split_tail=tail,
                             **kw)
     if cuda:
         return k12_cuda(*args, refresh=refresh, **kw)
-    PLAIN_CALLS["k12"] += 1
+    count(PLAIN_CALLS, "k12")
     return k12_plain(*args, refresh=refresh, **kw)
 
 
@@ -1323,5 +1338,5 @@ def bond_block_steps(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
             y1h, w, V0_blk, eta, cutoff)
     if _device_of(center_c) == "cuda":
         return k12m_cuda(*args, **kw)
-    PLAIN_CALLS["k12m"] += 1
+    count(PLAIN_CALLS, "k12m")
     return k12m_plain(*args, **kw)

@@ -48,7 +48,8 @@ Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c",
 ``bond_kernels.LAUNCHES`` / ``PLAIN_CALLS`` (the one-block K12mc, K1c,
 K1c-update, K1c-grad, K2c, K2c-split, K2c-env and K1c-tail under
 "k12mc_block", "k1c_block", "k1c_update_block", "k1c_grad_block",
-"k2c_block", "k2c_split_block", "k2c_env_block" and "k1c_tail_block").
+"k2c_block", "k2c_split_block", "k2c_env_block" and "k1c_tail_block"),
+through ``bond_kernels.counted_launch`` and ``bond_kernels.count``.
 Operand layouts are the real kernels': phil / phir are the conjugated
 encoded states, the center is class-major [C, chi, d, chi], environments
 [N, chi] with real log-scales [N], labels [N, C] and weights [N] real
@@ -197,6 +198,7 @@ def _k12mc_cluster(cluster, *args, **kw) -> Out5:
                   *args, **kw)
 
 
+@bk.counted_launch("k12c")
 def k12c_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
               eta, cutoff, *, forward: bool, refresh: bool = True,
               power_iters: int = 1, max_rank=None, loss: str = "KLD",
@@ -212,10 +214,10 @@ def k12c_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
         env_ls, None, phil[None], phir[None], y1h, w, V0[None], eta, cutoff,
         forward=forward, refresh=refresh, power_iters=power_iters,
         max_rank=max_rank)
-    bk.LAUNCHES["k12c"] += 1
     return center2, core[0], env2[0], ls2[0], Q[0]
 
 
+@bk.counted_launch("k12mc")
 def k12mc_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
                phir_blk, y1h, w, V0_blk, eta, cutoff, *, forward: bool,
                refresh: bool = True, power_iters: int = 1, max_rank=None,
@@ -223,14 +225,13 @@ def k12mc_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
     """K12mc: Bb consecutive complex bond steps as one launch of a
     thread-block cluster of ``K12MC_CLUSTER`` blocks."""
     _check_kld_tsgo(loss, bbopt)
-    out = _k12mc_cluster(K12MC_CLUSTER, A_blk, center_c, envx_blk, env0,
-                         env_ls0, None, phil_blk, phir_blk, y1h, w, V0_blk,
-                         eta, cutoff, forward=forward, refresh=refresh,
-                         power_iters=power_iters, max_rank=max_rank)
-    bk.LAUNCHES["k12mc"] += 1
-    return out
+    return _k12mc_cluster(K12MC_CLUSTER, A_blk, center_c, envx_blk, env0,
+                          env_ls0, None, phil_blk, phir_blk, y1h, w, V0_blk,
+                          eta, cutoff, forward=forward, refresh=refresh,
+                          power_iters=power_iters, max_rank=max_rank)
 
 
+@bk.counted_launch("k12mc_block")
 def k12mc_block_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
                      phir_blk, y1h, w, V0_blk, eta, cutoff, *,
                      forward: bool, refresh: bool = True,
@@ -238,12 +239,10 @@ def k12mc_block_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
     """K12mc on one thread block, the reference ``k12mc_cuda`` and
     ``k12c_cuda`` are held against bit for bit (no route calls it);
     operands and results as ``k12mc_plain``'s."""
-    out = _k12mc("mpst_k12mc_launch", (), A_blk, center_c, envx_blk, env0,
-                 env_ls0, None, phil_blk, phir_blk, y1h, w, V0_blk, eta,
-                 cutoff, forward=forward, refresh=refresh,
-                 power_iters=power_iters, max_rank=max_rank)
-    bk.LAUNCHES["k12mc_block"] += 1
-    return out
+    return _k12mc("mpst_k12mc_launch", (), A_blk, center_c, envx_blk, env0,
+                  env_ls0, None, phil_blk, phir_blk, y1h, w, V0_blk, eta,
+                  cutoff, forward=forward, refresh=refresh,
+                  power_iters=power_iters, max_rank=max_rank)
 
 
 def _k1c(entry, extra, A_or_B, center_c, le, re, phil, phir, y1h, w, V0,
@@ -257,6 +256,7 @@ def _k1c(entry, extra, A_or_B, center_c, le, re, phil, phir, y1h, w, V0,
                          workspace_floats=wsf, dtype=torch.complex64, **kw)
 
 
+@bk.counted_launch("k1c")
 def k1c_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
              forward: bool, emit_y: bool = True, power_iters: int = 1,
              orth: str = "qr", loss: str = "KLD", bbopt: str = "TSGO",
@@ -267,24 +267,21 @@ def k1c_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
     cluster the card cannot place raises RuntimeError."""
     _check_kld_tsgo(loss, bbopt)
     n = _cluster_size(K1C_CLUSTER if cluster is None else cluster)
-    out = _k1c("mpst_k1c_cluster_launch", (n,), A_or_B, center_c, le, re,
-               phil, phir, y1h, w, V0, eta, forward=forward, emit_y=emit_y,
-               power_iters=power_iters, orth=orth)
-    bk.LAUNCHES["k1c"] += 1
-    return out
+    return _k1c("mpst_k1c_cluster_launch", (n,), A_or_B, center_c, le, re,
+                phil, phir, y1h, w, V0, eta, forward=forward, emit_y=emit_y,
+                power_iters=power_iters, orth=orth)
 
 
+@bk.counted_launch("k1c_block")
 def k1c_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
                    forward: bool, emit_y: bool = True, power_iters: int = 1,
                    orth: str = "qr") -> Tuple[torch.Tensor, torch.Tensor]:
     """K1c on one thread block, the reference ``k1c_cuda`` is held against
     bit for bit (no route calls it); operands and results as
     ``k1c_plain``'s."""
-    out = _k1c("mpst_k1c_launch", (), A_or_B, center_c, le, re, phil, phir,
-               y1h, w, V0, eta, forward=forward, emit_y=emit_y,
-               power_iters=power_iters, orth=orth)
-    bk.LAUNCHES["k1c_block"] += 1
-    return out
+    return _k1c("mpst_k1c_launch", (), A_or_B, center_c, le, re, phil, phir,
+                y1h, w, V0, eta, forward=forward, emit_y=emit_y,
+                power_iters=power_iters, orth=orth)
 
 
 def _k2c(entry, extra, *args, **kw) -> Out4:
@@ -296,29 +293,28 @@ def _k2c(entry, extra, *args, **kw) -> Out4:
                          workspace_floats=wsf, dtype=torch.complex64, **kw)
 
 
+@bk.counted_launch("k2c")
 def k2c_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
              max_rank=None, cluster: Optional[int] = None) -> Out4:
     """K2c as one launch of a thread-block cluster of ``cluster`` blocks
     (default ``K2C_CLUSTER``); operands and results as ``k2c_plain``'s.  A
     cluster the card cannot place raises RuntimeError."""
     n = _cluster_size(K2C_CLUSTER if cluster is None else cluster)
-    out = _k2c("mpst_k2c_cluster_launch", (n,), BT, Q, env, env_ls, phi,
-               cutoff, forward=forward, max_rank=max_rank)
-    bk.LAUNCHES["k2c"] += 1
-    return out
+    return _k2c("mpst_k2c_cluster_launch", (n,), BT, Q, env, env_ls, phi,
+                cutoff, forward=forward, max_rank=max_rank)
 
 
+@bk.counted_launch("k2c_block")
 def k2c_block_cuda(BT, Q, env, env_ls, phi, cutoff, *, forward: bool,
                    max_rank=None) -> Out4:
     """K2c on one thread block, the reference ``k2c_cuda`` is held against
     bit for bit (no route calls it); operands and results as
     ``k2c_plain``'s."""
-    out = _k2c("mpst_k2c_launch", (), BT, Q, env, env_ls, phi, cutoff,
-               forward=forward, max_rank=max_rank)
-    bk.LAUNCHES["k2c_block"] += 1
-    return out
+    return _k2c("mpst_k2c_launch", (), BT, Q, env, env_ls, phi, cutoff,
+                forward=forward, max_rank=max_rank)
 
 
+@bk.counted_launch("k12cr")
 def k12cr_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
                eta, cutoff, *, forward: bool, refresh: bool = True,
                power_iters: int = 1, max_rank=None,
@@ -338,7 +334,6 @@ def k12cr_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
         envx[None], env, env_ls, None, phil[None], phir[None], y1h, w,
         V0[None], eta, cutoff, forward=forward, refresh=refresh,
         power_iters=power_iters, max_rank=max_rank)
-    bk.LAUNCHES["k12cr"] += 1
     return center2, core[0], env2[0], ls2[0], Q[0]
 
 
@@ -353,6 +348,7 @@ def _k1c_grad(entry, extra, A_or_B, center_c, le, re, phil, phir, y1h, w,
                           workspace_floats=wsf, dtype=torch.complex64)
 
 
+@bk.counted_launch("k1c_grad")
 def k1c_grad_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
                   forward: bool, loss: str = "KLD",
                   cluster: Optional[int] = None) -> torch.Tensor:
@@ -362,21 +358,18 @@ def k1c_grad_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, *,
     place raises RuntimeError."""
     _check_kld_tsgo(loss, "TSGO")
     n = _cluster_size(K1C_GRAD_CLUSTER if cluster is None else cluster)
-    G = _k1c_grad("mpst_k1c_grad_cluster_launch", (n,), A_or_B, center_c, le,
-                  re, phil, phir, y1h, w, forward=forward)
-    bk.LAUNCHES["k1c_grad"] += 1
-    return G
+    return _k1c_grad("mpst_k1c_grad_cluster_launch", (n,), A_or_B, center_c,
+                     le, re, phil, phir, y1h, w, forward=forward)
 
 
+@bk.counted_launch("k1c_grad_block")
 def k1c_grad_block_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls,
                         *, forward: bool) -> torch.Tensor:
     """K1c-grad on one thread block, the reference ``k1c_grad_cuda`` is
     held against bit for bit (no route calls it); operands and result as
     ``k1c_grad_plain``'s (``gls`` is not read)."""
-    G = _k1c_grad("mpst_k1c_grad_launch", (), A_or_B, center_c, le, re, phil,
-                  phir, y1h, w, forward=forward)
-    bk.LAUNCHES["k1c_grad_block"] += 1
-    return G
+    return _k1c_grad("mpst_k1c_grad_launch", (), A_or_B, center_c, le, re,
+                     phil, phir, y1h, w, forward=forward)
 
 
 def _k1c_update(entry, extra, A_or_B, center_c, G, V0, eta, **kw
@@ -389,6 +382,7 @@ def _k1c_update(entry, extra, A_or_B, center_c, G, V0, eta, **kw
                           workspace_floats=wsf, dtype=torch.complex64, **kw)
 
 
+@bk.counted_launch("k1c_update")
 def k1c_update_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
                     emit_y: bool = True, power_iters: int = 1,
                     orth: str = "qr", bbopt: str = "TSGO",
@@ -400,13 +394,12 @@ def k1c_update_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
     RuntimeError."""
     _check_kld_tsgo("KLD", bbopt)
     n = _cluster_size(K1C_UPDATE_CLUSTER if cluster is None else cluster)
-    out = _k1c_update("mpst_k1c_update_cluster_launch", (n,), A_or_B,
-                      center_c, G, V0, eta, forward=forward, emit_y=emit_y,
-                      power_iters=power_iters, orth=orth)
-    bk.LAUNCHES["k1c_update"] += 1
-    return out
+    return _k1c_update("mpst_k1c_update_cluster_launch", (n,), A_or_B,
+                       center_c, G, V0, eta, forward=forward, emit_y=emit_y,
+                       power_iters=power_iters, orth=orth)
 
 
+@bk.counted_launch("k1c_update_block")
 def k1c_update_block_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
                           emit_y: bool = True, power_iters: int = 1,
                           orth: str = "qr"
@@ -414,11 +407,9 @@ def k1c_update_block_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
     """K1c-update on one thread block, the reference ``k1c_update_cuda`` is
     held against bit for bit (no route calls it); operands and results as
     ``k1c_update_plain``'s."""
-    out = _k1c_update("mpst_k1c_update_launch", (), A_or_B, center_c, G, V0,
-                      eta, forward=forward, emit_y=emit_y,
-                      power_iters=power_iters, orth=orth)
-    bk.LAUNCHES["k1c_update_block"] += 1
-    return out
+    return _k1c_update("mpst_k1c_update_launch", (), A_or_B, center_c, G, V0,
+                       eta, forward=forward, emit_y=emit_y,
+                       power_iters=power_iters, orth=orth)
 
 
 def _k2c_split(entry, extra, *args, **kw
@@ -431,6 +422,7 @@ def _k2c_split(entry, extra, *args, **kw
                                **kw)
 
 
+@bk.counted_launch("k2c_split")
 def k2c_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None,
                    cluster: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -439,21 +431,18 @@ def k2c_split_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None,
     ``k2c_split_plain``'s: (center_c', core', Qm).  A cluster the card
     cannot place raises RuntimeError."""
     n = _cluster_size(K2C_SPLIT_CLUSTER if cluster is None else cluster)
-    out = _k2c_split("mpst_k2c_split_cluster_launch", (n,), BT, Q, cutoff,
-                     forward=forward, max_rank=max_rank)
-    bk.LAUNCHES["k2c_split"] += 1
-    return out
+    return _k2c_split("mpst_k2c_split_cluster_launch", (n,), BT, Q, cutoff,
+                      forward=forward, max_rank=max_rank)
 
 
+@bk.counted_launch("k2c_split_block")
 def k2c_split_block_cuda(BT, Q, cutoff, *, forward: bool, max_rank=None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2c-split on one thread block, the reference ``k2c_split_cuda`` is
     held against bit for bit (no route calls it); operands and results as
     ``k2c_split_plain``'s."""
-    out = _k2c_split("mpst_k2c_split_launch", (), BT, Q, cutoff,
-                     forward=forward, max_rank=max_rank)
-    bk.LAUNCHES["k2c_split_block"] += 1
-    return out
+    return _k2c_split("mpst_k2c_split_launch", (), BT, Q, cutoff,
+                      forward=forward, max_rank=max_rank)
 
 
 def _k2c_env(entry, extra, *args, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -466,6 +455,7 @@ def _k2c_env(entry, extra, *args, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
                              **kw)
 
 
+@bk.counted_launch("k2c_env")
 def k2c_env_cuda(Qm, env, env_ls, phi, *, forward: bool,
                  rows: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -473,21 +463,18 @@ def k2c_env_cuda(Qm, env, env_ls, phi, *, forward: bool,
     ``rows`` rows each (default ``K2C_ENV_ROWS``), staged as K2-env's;
     operands and results as ``k2c_env_plain``'s."""
     n = _env_rows(K2C_ENV_ROWS if rows is None else rows)
-    out = _k2c_env("mpst_k2c_env_rows_launch", (n, 1), Qm, env, env_ls, phi,
-                   forward=forward)
-    bk.LAUNCHES["k2c_env"] += 1
-    return out
+    return _k2c_env("mpst_k2c_env_rows_launch", (n, 1), Qm, env, env_ls, phi,
+                    forward=forward)
 
 
+@bk.counted_launch("k2c_env_block")
 def k2c_env_block_cuda(Qm, env, env_ls, phi, *, forward: bool
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2c-env on one thread block, the reference ``k2c_env_cuda`` is held
     against bit for bit (no route calls it); operands and results as
     ``k2c_env_plain``'s."""
-    out = _k2c_env("mpst_k2c_env_launch", (), Qm, env, env_ls, phi,
-                   forward=forward)
-    bk.LAUNCHES["k2c_env_block"] += 1
-    return out
+    return _k2c_env("mpst_k2c_env_launch", (), Qm, env, env_ls, phi,
+                    forward=forward)
 
 
 def _k1c_tail(entry, extra, *args, **kw) -> torch.Tensor:
@@ -499,6 +486,7 @@ def _k1c_tail(entry, extra, *args, **kw) -> torch.Tensor:
                               **kw)
 
 
+@bk.counted_launch("k1c_tail")
 def k1c_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
                   orth: str = "qr", blocks: Optional[int] = None
                   ) -> torch.Tensor:
@@ -507,21 +495,18 @@ def k1c_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
     ``k1c_tail_plain``'s (orth "ns" or "qr").  A grid the card cannot hold
     at once raises RuntimeError."""
     n = _grid_blocks(K1C_TAIL_BLOCKS if blocks is None else blocks)
-    Y = _k1c_tail("mpst_k1c_tail_grid_launch", (n,), BT, V0, forward=forward,
-                  power_iters=power_iters, orth=orth)
-    bk.LAUNCHES["k1c_tail"] += 1
-    return Y
+    return _k1c_tail("mpst_k1c_tail_grid_launch", (n,), BT, V0,
+                     forward=forward, power_iters=power_iters, orth=orth)
 
 
+@bk.counted_launch("k1c_tail_block")
 def k1c_tail_block_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
                         orth: str = "qr") -> torch.Tensor:
     """K1c-tail on one thread block, the reference ``k1c_tail_cuda`` is held
     against bit for bit (no route calls it); operands and result as
     ``k1c_tail_plain``'s."""
-    Y = _k1c_tail("mpst_k1c_tail_launch", (), BT, V0, forward=forward,
-                  power_iters=power_iters, orth=orth)
-    bk.LAUNCHES["k1c_tail_block"] += 1
-    return Y
+    return _k1c_tail("mpst_k1c_tail_launch", (), BT, V0, forward=forward,
+                     power_iters=power_iters, orth=orth)
 
 
 #: The complex pieces of ``bond_kernels.bond_step_dp``'s chain and the split
@@ -602,15 +587,15 @@ def bond_step_c(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
     tail = refresh and bk.splits_tail(center_c.shape[1], split_tail)
     if refresh and (orth == "qr" or tail):
         if not cuda:
-            bk.PLAIN_CALLS["k1c"] += 1
-            bk.PLAIN_CALLS["k2c"] += 1
+            bk.count(bk.PLAIN_CALLS, "k1c")
+            bk.count(bk.PLAIN_CALLS, "k2c")
             if tail:
-                bk.PLAIN_CALLS["k1c_tail"] += power_iters
+                bk.count(bk.PLAIN_CALLS, "k1c_tail", power_iters)
         return qr_bond_step_c(*args, plain=not cuda, orth=orth,
                               split_tail=tail, **kw)
     if cuda:
         return k12c_cuda(*args, refresh=refresh, **kw)
-    bk.PLAIN_CALLS["k12c"] += 1
+    bk.count(bk.PLAIN_CALLS, "k12c")
     return k12c_plain(*args, refresh=refresh, **kw)
 
 
@@ -657,7 +642,7 @@ def bond_step_c_ritz(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w,
               max_rank=max_rank, rounds=rounds)
     if bk._device_of(center_c) == "cuda":
         return k12cr_cuda(*args, **kw)
-    bk.PLAIN_CALLS["k12cr"] += 1
+    bk.count(bk.PLAIN_CALLS, "k12cr")
     return k12cr_plain(*args, **kw)
 
 
@@ -679,5 +664,5 @@ def bond_block_steps_c(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
             y1h, w, V0_blk, eta, cutoff)
     if bk._device_of(center_c) == "cuda":
         return k12mc_cuda(*args, **kw)
-    bk.PLAIN_CALLS["k12mc"] += 1
+    bk.count(bk.PLAIN_CALLS, "k12mc")
     return k12mc_plain(*args, **kw)

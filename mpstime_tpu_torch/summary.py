@@ -12,21 +12,24 @@ from .encodings import EncodedDataset, encode_dataset
 from .models.mps import (contract_batch_scaled, expand_label_index,
                          single_contract_batch_scaled)
 from .training.fit import TrainedMPS
+from .utils import profiling
 from .utils.preprocessing import transform_test_data
 
 
 def _encode_test(mps: TrainedMPS, X_test: np.ndarray) -> EncodedDataset:
-    opts = mps.opts.replace(verbosity=-10)
-    X_test = np.asarray(X_test, dtype=np.float64)
-    X_test_s, _ = transform_test_data(X_test, mps.norms, opts)
-    y = np.zeros(X_test.shape[0], dtype=np.int64)
-    return encode_dataset(X_test, X_test_s, y, opts, spec=mps.encoding_spec(),
-                          labels=np.unique(y),
-                          training_enc_args=mps.train_data.enc_args,
-                          dtype=mps.opts.resolved_dtype(),
-                          device=mps.mps.device)
+    with profiling.annotate("mps/classify/encode"):
+        opts = mps.opts.replace(verbosity=-10)
+        X_test = np.asarray(X_test, dtype=np.float64)
+        X_test_s, _ = transform_test_data(X_test, mps.norms, opts)
+        y = np.zeros(X_test.shape[0], dtype=np.int64)
+        return encode_dataset(X_test, X_test_s, y, opts,
+                              spec=mps.encoding_spec(), labels=np.unique(y),
+                              training_enc_args=mps.train_data.enc_args,
+                              dtype=mps.opts.resolved_dtype(),
+                              device=mps.mps.device)
 
 
+@profiling.traced("mps/classify")
 def classify(mps: TrainedMPS, X_test: np.ndarray) -> np.ndarray:
     """Predict class labels for the rows of X_test by maximum overlap
     (reference classify, summary.jl:116-177)."""
@@ -35,8 +38,9 @@ def classify(mps: TrainedMPS, X_test: np.ndarray) -> np.ndarray:
 
 def classify_encoded(mps: TrainedMPS, X_enc: torch.Tensor) -> np.ndarray:
     """Predict labels for already-encoded states [N, T, d]."""
-    yhat_s, _ = contract_batch_scaled(mps.mps, X_enc)
-    preds_idx = torch.argmax(yhat_s.abs() ** 2, dim=1).cpu().numpy()
+    with profiling.annotate("mps/classify/contract"):
+        yhat_s, _ = contract_batch_scaled(mps.mps, X_enc)
+        preds_idx = torch.argmax(yhat_s.abs() ** 2, dim=1).cpu().numpy()
     return mps.labels[preds_idx]
 
 

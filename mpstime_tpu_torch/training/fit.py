@@ -18,6 +18,7 @@ import torch
 from ..encodings import EncodedDataset, EncodingSpec, encode_dataset, get_encoding
 from ..models.mps import MPS, random_mps
 from ..options import MPSOptions, torch_dtype
+from ..utils import profiling
 from ..utils.preprocessing import (TransformNorms, transform_data,
                                    transform_train_data)
 from .stats import loss_acc_conf
@@ -107,6 +108,7 @@ def _pad_sample_axis(phis_c, y_onehot, class_weight, npad: int):
             torch.cat([class_weight, class_weight.new_zeros(npad)]))
 
 
+@profiling.traced("mps/fit")
 def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
             X_test: Optional[np.ndarray] = None,
             y_test: Optional[np.ndarray] = None,
@@ -190,12 +192,16 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     verb = opts.verbosity
 
     # ---- preprocess + encode ---------------------------------------------
-    X_train_s, X_test_s, norms, _ = transform_data(X_train, X_test, opts)
-    train_ds = encode_dataset(X_train, X_train_s, y_train, opts, spec=spec,
-                              labels=labels, dtype=dtype, device=device)
-    test_ds = encode_dataset(X_test, X_test_s, y_test, opts, spec=spec,
-                             labels=labels, training_enc_args=train_ds.enc_args,
-                             dtype=dtype, device=device)
+    with profiling.annotate("mps/fit/transform"):
+        X_train_s, X_test_s, norms, _ = transform_data(X_train, X_test, opts)
+    with profiling.annotate("mps/fit/encode"):
+        train_ds = encode_dataset(X_train, X_train_s, y_train, opts,
+                                  spec=spec, labels=labels, dtype=dtype,
+                                  device=device)
+        test_ds = encode_dataset(X_test, X_test_s, y_test, opts, spec=spec,
+                                 labels=labels,
+                                 training_enc_args=train_ds.enc_args,
+                                 dtype=dtype, device=device)
 
     if test_run:
         # basis-preview mode (reference fitMPS test_run,
@@ -213,41 +219,45 @@ def fit_mps(X_train: np.ndarray, y_train: Optional[np.ndarray] = None,
     if verb > -1:
         print(f"Generating initial weight MPS with bond dimension chi_init = "
               f"{opts.chi_init} using random state {opts.init_rng}.")
-    # padded trials (MPSOptions.pad_to): allocate at the caps (chi_cap,
-    # d_cap) with chi_max as a runtime rank cap, passed on every padded fit
-    # as the JAX package always traces it (fit.py:144-158)
-    pad = opts.pad_to
-    chi_pad = opts.chi_max if pad is None else pad[0]
-    max_rank = None if pad is None else opts.chi_max
-    mps = random_mps(opts.init_rng, T, opts.d, num_classes, opts.chi_init,
-                     chi_pad, dtype=dtype, device=device,
-                     pad_d=None if pad is None else pad[1])
+    with profiling.annotate("mps/fit/init"):
+        # padded trials (MPSOptions.pad_to): allocate at the caps
+        # (chi_cap, d_cap) with chi_max as a runtime rank cap, passed on
+        # every padded fit as the JAX package always traces it
+        # (fit.py:144-158)
+        pad = opts.pad_to
+        chi_pad = opts.chi_max if pad is None else pad[0]
+        max_rank = None if pad is None else opts.chi_max
+        mps = random_mps(opts.init_rng, T, opts.d, num_classes, opts.chi_init,
+                         chi_pad, dtype=dtype, device=device,
+                         pad_d=None if pad is None else pad[1])
 
-    # ---- training tensors -------------------------------------------------
-    phis_c = train_ds.X_enc.conj().transpose(0, 1).contiguous()   # [T, N, d]
-    y_idx = train_ds.y_idx
-    real_dt = torch_dtype(opts.real_dtype())
-    y_onehot = torch.nn.functional.one_hot(
-        torch.as_tensor(y_idx, device=device), num_classes).to(real_dt)
-    counts = train_ds.class_distribution.astype(np.float64)
-    w = (1.0 / counts[y_idx] if opts.train_classes_separately
-         else np.full(N, 1.0 / N))
-    class_weight = torch.as_tensor(w, device=device).to(real_dt)
-    if pad is not None or pad_samples_to:
-        # zero-weight copies up to pad_samples_to, else (padded trials) to a
-        # multiple of 8, as the JAX package's fit does (fit.py:173-180)
-        target = max(N, pad_samples_to) if pad_samples_to else N + (-N) % 8
-        phis_c, y_onehot, class_weight = _pad_sample_axis(
-            phis_c, y_onehot, class_weight, target - N)
-    cores, center = mps.cores, mps.center
-    if mesh is not None:
-        from ..parallel import replicate, shard_train_arrays
-        # pad from the current length (pad_samples_to may have grown it), so
-        # the shards are equal (fit.py:182-191)
-        phis_c, y_onehot, class_weight = shard_train_arrays(
-            mesh, *_pad_sample_axis(phis_c, y_onehot, class_weight,
-                                    -phis_c.shape[1] % len(mesh)))
-        cores, center = replicate(mesh, cores, center)
+        # ---- training tensors ---------------------------------------------
+        phis_c = train_ds.X_enc.conj().transpose(0, 1).contiguous()  # [T,N,d]
+        y_idx = train_ds.y_idx
+        real_dt = torch_dtype(opts.real_dtype())
+        y_onehot = torch.nn.functional.one_hot(
+            torch.as_tensor(y_idx, device=device), num_classes).to(real_dt)
+        counts = train_ds.class_distribution.astype(np.float64)
+        w = (1.0 / counts[y_idx] if opts.train_classes_separately
+             else np.full(N, 1.0 / N))
+        class_weight = torch.as_tensor(w, device=device).to(real_dt)
+        if pad is not None or pad_samples_to:
+            # zero-weight copies up to pad_samples_to, else (padded trials)
+            # to a multiple of 8, as the JAX package's fit does
+            # (fit.py:173-180)
+            target = (max(N, pad_samples_to) if pad_samples_to
+                      else N + (-N) % 8)
+            phis_c, y_onehot, class_weight = _pad_sample_axis(
+                phis_c, y_onehot, class_weight, target - N)
+        cores, center = mps.cores, mps.center
+        if mesh is not None:
+            from ..parallel import replicate, shard_train_arrays
+            # pad from the current length (pad_samples_to may have grown
+            # it), so the shards are equal (fit.py:182-191)
+            phis_c, y_onehot, class_weight = shard_train_arrays(
+                mesh, *_pad_sample_axis(phis_c, y_onehot, class_weight,
+                                        -phis_c.shape[1] % len(mesh)))
+            cores, center = replicate(mesh, cores, center)
 
     info: Dict[str, list] = {k: [] for k in
                              ("train_loss", "train_acc", "train_KL_div",

@@ -55,6 +55,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..options import torch_dtype
+from ..utils import profiling
 from ..ops.bond_kernels import (bond_block_steps, bond_step, bond_step_dp,
                                 splits_tail)
 from ..ops.bond_kernels_c import (bond_block_steps_c, bond_step_c,
@@ -401,7 +402,7 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
                 envx_ls=_flip(_rows(LE_ls, 0, T - 1)))
     if warm:
         xs_b["q"] = _flip(VB)
-    with torch.profiler.record_function("mps/backward_bond"):
+    with profiling.annotate_range("mps/backward_bond"):
         (center, _, _), ys_b = _half_sweep((center, e0, ls0), xs_b, BB,
                                            *steps(False))
     # new cores[1..T-1] (emitted for j = T-2..0 -> slots T-1..1)
@@ -420,7 +421,7 @@ def _sweep_core(cores, center, LE, LE_ls, VB, UF, phis_c, y_onehot,
         xs_f["q"] = UF
 
     # ---------------- forward half-sweep (center 0 -> T-1) -----------------
-    with torch.profiler.record_function("mps/forward_bond"):
+    with profiling.annotate_range("mps/forward_bond"):
         (center, _, _), ys_f = _half_sweep((center, e0, ls0), xs_f, BB,
                                            *steps(True))
     cores_out = _cat(ys_f["core"], _rows(cores_mid, T - 1, T))
@@ -457,11 +458,12 @@ def _init_state(cores, phis_c, svd_alg: str, mesh=None):
     subspace caches (per replica), else None."""
     T, chi, d, _ = _first(cores).shape
     on_shards = mesh.to_shards if mesh is not None else (lambda v: v)
-    LE, LE_ls = _m(init_left_env_state, on_shards(cores), phis_c)
-    VB = UF = None
-    if svd_alg in WARM_ALGS:
-        VB, UF = _m(lambda c: init_subspaces(T, chi, d, _np_dtype(c),
-                                             c.device), cores)
+    with profiling.annotate("mps/fit/init"):
+        LE, LE_ls = _m(init_left_env_state, on_shards(cores), phis_c)
+        VB = UF = None
+        if svd_alg in WARM_ALGS:
+            VB, UF = _m(lambda c: init_subspaces(T, chi, d, _np_dtype(c),
+                                                 c.device), cores)
     return LE, LE_ls, VB, UF
 
 
