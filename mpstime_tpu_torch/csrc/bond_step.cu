@@ -51,11 +51,17 @@
 // k12m_cluster_kernel is k12m_kernel's loop of bond steps under
 // ClusterTeam, whose products deal 32 x 64 (or 16 x 32) output tiles to the
 // blocks through shared memory and whose sums keep their 512 partials, so
-// it computes the one-block kernel's bits.  The one-block launcher,
-// mpst_k12m_launch, stays as that reference; no route of the package
-// launches it.  BT and its gradient (2 x C*chi*d*d*chi floats, 250 KB at
-// the main-path shape, more than a block's 227 KB of shared memory) live in
-// a global workspace that stays resident in L2.  Arithmetic is plain f32
+// it computes the one-block kernel's bits.  Each power step's tail after
+// its two products (the column norms, the revival, the fourteen
+// Newton-Schulz steps on a [P, chi] iterate) is too small for sixteen SMs
+// and was ~49 of those phases; it runs on block rank 0 alone, in its
+// dynamic shared memory between __syncthreads() (leader_tail, polar_in_block:
+// real bonds whose buffers fit), with one team barrier before and after.
+// The one-block launcher, mpst_k12m_launch, stays as that reference; no
+// route of the package launches it.  BT and its gradient (2 x
+// C*chi*d*d*chi floats, 250 KB at the main-path shape, more than a block's
+// 227 KB of shared memory) live in a global workspace that stays resident
+// in L2.  Arithmetic is plain f32
 // FMA (no TF32).  The sums use a fixed tree, so results are deterministic.
 // wgmma and TMA are left for later work.
 //
@@ -79,7 +85,7 @@
 // almost all batch products (BT = core center, T1 = L BT [C, N, P],
 // G = L^H U [C, P, P], each ~16 output tiles of 32 x 64), K1b's the bond
 // tensor, the step's sums and the power step's products, whose
-// Newton-Schulz chain stays a chain of cluster phases, K2-split's the
+// Newton-Schulz tail runs on the leader block as K12m's, K2-split's the
 // projection and the elementwise emission.  k1a_cluster_kernel,
 // k1b_cluster_kernel and k2_split_cluster_kernel are k1a_kernel's,
 // k1b_kernel's and k2_split_kernel's bodies under ClusterTeam, the same

@@ -282,7 +282,8 @@ struct BlockTeam {
 
 // Every block of a multi-block team, kMaxThreads threads each, separated
 // by Sync's barrier.  parts is the workspace's [kParts] floats, stage the
-// block's dynamic shared memory (gemm_tiles' tiles).  Nothing is shared
+// block's dynamic shared memory (gemm_tiles' tiles, team_update's buffers;
+// the leader's, leader_tail).  Nothing is shared
 // between the blocks but global memory read through L2, so the team's
 // products and sums do not depend on which barrier joins the blocks.
 template <class Sync>
@@ -333,6 +334,29 @@ __device__ inline cfloat ldcg(const cfloat* p) {
 
 // ---- products and sums ------------------------------------------------------
 
+// The elementwise steps of the power step's tail, one expression each, which
+// the team's phases and the leader block (leader_tail) share.
+// A column's norm from its sum of |y|^2.
+__device__ inline float col_norm(float s) { return fmaxf(sqrtf(s), kTiny); }
+
+// The revived column-normalised iterate Y / ||col|| + eps * Yprev.
+template <class T>
+__device__ inline T ns_revive(T y, float nrm, T yprev) {
+  return y / nrm + kNsRevive * yprev;
+}
+
+// The pre-scale 1 / (||X||_F (1 + 1e-3)) from the sum of |X|^2.
+__device__ inline float ns_prescale(float sum) {
+  const float grow = 1.f + 1e-3f;
+  return 1.f / sqrtf(fmaxf(sum * (grow * grow), kTiny));
+}
+
+// The quintic step's Mq = b G + c G^2.
+template <class T>
+__device__ inline T ns_mix(T g, T g2) {
+  return kNsB * g + kNsC * g2;
+}
+
 // A product output: alpha * acc + beta * src[o] (src may be out itself), the
 // one expression both gemm forms contract.
 template <class T>
@@ -341,11 +365,18 @@ __device__ inline T gemm_out(T acc, float alpha, float beta, const T* src,
   return (src != nullptr) ? alpha * acc + beta * src[o] : alpha * acc;
 }
 
+// The quintic's Mq[o] = b Gm[o] + c (Gm Gm)[o] formed in the epilogue of
+// Gm Gm (src = Gm): ns_mix of gemm_out's G2, as if G2 were stored first.
+template <class T>
+__device__ inline T mix_out(T acc, const T* src, long o) {
+  return ns_mix(src[o], gemm_out(acc, 1.f, 0.f, (const T*)nullptr, o));
+}
+
 // out[b, m, n] = alpha * sum_k A[b, m, k] * B[b, k, n] + beta * src[b, m, n]
 // (src shares out's strides and may be out itself), with A conjugated when
 // CA and B when CB.  One block: one output element per thread, n fastest,
 // so a warp reads B along n and broadcasts A.
-template <bool CA = false, bool CB = false, class T>
+template <bool CA = false, bool CB = false, bool MIX = false, class T>
 __device__ inline void gemm(BlockTeam, int batch, int M, int Nc, int Kd,
                             View<T> A, View<T> B, T* out, long ob, long orow,
                             long ocol, float alpha = 1.f, float beta = 0.f,
@@ -362,7 +393,10 @@ __device__ inline void gemm(BlockTeam, int batch, int M, int Nc, int Kd,
     for (int k = 0; k < Kd; ++k)
       acc = mac(cj<CA>(a[k * A.sc]), cj<CB>(bb[k * B.sr]), acc);
     const long o = b * ob + m * orow + n * ocol;
-    out[o] = gemm_out(acc, alpha, beta, src, o);
+    if constexpr (MIX)
+      out[o] = mix_out(acc, src, o);
+    else
+      out[o] = gemm_out(acc, alpha, beta, src, o);
   }
 }
 
@@ -385,7 +419,7 @@ __host__ __device__ inline long stage_smem_bytes() {
 // of the next chunk into registers while the block computes this one, all
 // its loads in flight at once.  Each output is still one chain over
 // k = 0..Kd-1 in order, with gemm's mac.  Needs blockDim.x == kMaxThreads.
-template <int TM, int TN, bool CA, bool CB, class S, class T>
+template <int TM, int TN, bool CA, bool CB, bool MIX, class S, class T>
 __device__ inline void gemm_tiles(const MultiTeam<S>& tm, int batch, int M,
                                   int Nc, int Kd, View<T> A, View<T> B,
                                   T* out, long ob, long orow, long ocol,
@@ -473,7 +507,10 @@ __device__ inline void gemm_tiles(const MultiTeam<S>& tm, int batch, int M,
         const int n = n0 + tx + 32 * j;
         if (m < M && n < Nc) {
           const long o = b * ob + m * orow + n * ocol;
-          out[o] = gemm_out(acc[i][j], alpha, beta, src, o);
+          if constexpr (MIX)
+            out[o] = mix_out(acc[i][j], src, o);
+          else
+            out[o] = gemm_out(acc[i][j], alpha, beta, src, o);
         }
       }
     }
@@ -483,18 +520,19 @@ __device__ inline void gemm_tiles(const MultiTeam<S>& tm, int batch, int M,
 // The multi-block gemm: 32 x 64 tiles (2 x 2 micro-tiles) when there are
 // at least as many of them as blocks, else 16 x 32 (1 x 1), which spreads a
 // small product over more blocks.  Both give every output the same bits.
-template <bool CA = false, bool CB = false, class S, class T>
+template <bool CA = false, bool CB = false, bool MIX = false, class S,
+          class T>
 __device__ inline void gemm(const MultiTeam<S>& tm, int batch, int M, int Nc,
                             int Kd, View<T> A, View<T> B, T* out, long ob,
                             long orow, long ocol, float alpha = 1.f,
                             float beta = 0.f, const T* src = nullptr) {
   const long tiles = (long)batch * ((M + 31) / 32) * ((Nc + 63) / 64);
   if (tiles >= tm.ctas)
-    gemm_tiles<2, 2, CA, CB>(tm, batch, M, Nc, Kd, A, B, out, ob, orow, ocol,
-                             alpha, beta, src);
+    gemm_tiles<2, 2, CA, CB, MIX>(tm, batch, M, Nc, Kd, A, B, out, ob, orow,
+                                  ocol, alpha, beta, src);
   else
-    gemm_tiles<1, 1, CA, CB>(tm, batch, M, Nc, Kd, A, B, out, ob, orow, ocol,
-                             alpha, beta, src);
+    gemm_tiles<1, 1, CA, CB, MIX>(tm, batch, M, Nc, Kd, A, B, out, ob, orow,
+                                  ocol, alpha, beta, src);
 }
 
 // Deterministic block-wide sum: v is partial threadIdx.x of blockDim.x ==
@@ -667,23 +705,79 @@ __device__ inline void k1_update(const Tm& tm, const K12Args<T>& a,
 
 // ---- warm power step with Newton-Schulz polar ------------------------------
 
-// X <- polar(X) by 8 quintic + 6 cubic Newton-Schulz steps; X is the
-// pre-scaled input in *x, *xn is scratch; returns the buffer holding the
-// result.
+// Whether an NS step's update fits team_update's buffers: Gm, Mq and the
+// block's rows of X, in the gemm tiles' shared memory.
+template <class T>
+__device__ inline bool team_update_fits(int P, int K, int ctas) {
+  const long rows = (P + ctas - 1) / ctas;
+  return (2L * K * K + rows * K) * (long)sizeof(T) <= stage_smem_bytes<T>();
+}
+
+// The update of an NS step on a multi-block team in one phase: every block
+// stages Gm (the last phase's) in its shared memory, forms Mq = b Gm + c
+// Gm Gm there itself (quintic), and computes its rows p = rank + ctas r of
+// X' = a X + X Mq (quintic) or 1.5 X - 0.5 X Gm (cubic) from them, so the
+// step takes two team phases, not three.  Each output is still one chain
+// over k in order with mac and mix_out's or gemm_out's epilogue, whichever
+// thread computes it.
+template <class S, class T>
+__device__ inline void team_update(const MultiTeam<S>& tm, const T* x, T* xn,
+                                   const T* gram, int P, int K,
+                                   bool quintic) {
+  T* g = static_cast<T*>(tm.stage);       // Gm [K, K]
+  T* mq = g + K * K;                      // Mq [K, K]
+  T* xr = mq + K * K;                     // this block's rows of X [rows, K]
+  const int rows = (P - tm.rank + tm.ctas - 1) / tm.ctas;
+  for (int e = threadIdx.x; e < K * K; e += blockDim.x) g[e] = ldcg(gram + e);
+  for (int e = threadIdx.x; e < rows * K; e += blockDim.x)
+    xr[e] = ldcg(x + (long)(tm.rank + tm.ctas * (e / K)) * K + e % K);
+  __syncthreads();
+  if (quintic) {
+    for (int e = threadIdx.x; e < K * K; e += blockDim.x) {
+      const int i = e / K, j = e % K;
+      T acc{};
+      for (int k = 0; k < K; ++k) acc = mac(g[i * K + k], g[k * K + j], acc);
+      mq[e] = mix_out(acc, g, e);
+    }
+    __syncthreads();
+  }
+  const T* m = quintic ? mq : g;
+  for (int e = threadIdx.x; e < rows * K; e += blockDim.x) {
+    const int r = e / K, n = e % K;
+    T acc{};
+    for (int k = 0; k < K; ++k) acc = mac(xr[r * K + k], m[k * K + n], acc);
+    const long o = (long)(tm.rank + tm.ctas * r) * K + n;
+    if (quintic)
+      xn[o] = gemm_out(acc, 1.f, kNsA, xr, e);
+    else
+      xn[o] = gemm_out(acc, -0.5f, 1.5f, xr, e);
+  }
+}
+
+// out <- polar(X) by 8 quintic + 6 cubic Newton-Schulz steps; X is the
+// pre-scaled input in *x, *xn is scratch, the last step writes out.
 template <class Tm, class T>
-__device__ inline T* ns_polar(const Tm& tm, T* x, T* xn, Work<T> w, int P,
-                              int K) {
+__device__ inline void ns_polar(const Tm& tm, T* x, T* xn, T* out, Work<T> w,
+                                int P, int K) {
   for (int it = 0; it < kNsQuintic + kNsCubic; ++it) {
     const bool quintic = it < kNsQuintic;
+    if (it == kNsQuintic + kNsCubic - 1) xn = out;
     // Gm = X^H X
     gemm<true>(tm, 1, K, K, P, vw(x, 0, 1, K), vw(x, 0, K, 1), w.Gm, 0, K, 1);
     tm.sync();
+    if constexpr (Tm::kCluster) {
+      if (team_update_fits<T>(P, K, tm.ctas)) {
+        team_update(tm, x, xn, w.Gm, P, K, quintic);
+        tm.sync();
+        T* t = x; x = xn; xn = t;
+        continue;
+      }
+    }
     if (quintic) {
-      gemm(tm, 1, K, K, K, vw(w.Gm, 0, K, 1), vw(w.Gm, 0, K, 1), w.G2, 0, K,
-           1);
-      tm.sync();
-      for (int e = tm.tid(); e < K * K; e += tm.size())
-        w.Mq[e] = kNsB * w.Gm[e] + kNsC * w.G2[e];
+      // Mq = b G + c G^2, in the epilogue of G^2
+      gemm<false, false, true>(tm, 1, K, K, K, vw(w.Gm, 0, K, 1),
+                               vw(w.Gm, 0, K, 1), w.Mq, 0, K, 1, 1.f, 0.f,
+                               w.Gm);
       tm.sync();
       // X' = a X + X (b G + c G^2)
       gemm(tm, 1, P, K, K, vw(x, 0, K, 1), vw(w.Mq, 0, K, 1), xn, 0, K, 1,
@@ -696,7 +790,264 @@ __device__ inline T* ns_polar(const Tm& tm, T* x, T* xn, Work<T> w, int P,
     tm.sync();
     T* t = x; x = xn; xn = t;
   }
-  return x;
+}
+
+// ---- the power step's tail on the leader block ---------------------------
+// Under a multi-block team each phase of the tail after the power step's two
+// products (the column norms, the revival and its sum, the pre-scale, the
+// fourteen Newton-Schulz steps: ~40 phases) ends in a team barrier, though
+// it works on one [P, K] iterate and [K, K] Gram matrices.  In real
+// arithmetic, where these fit in a block's dynamic shared memory
+// (polar_in_block), block rank 0 alone runs the whole tail there between
+// __syncthreads() and the team waits at one barrier.  Each output keeps the
+// team's arithmetic: one thread's chain over k = 0..Kd-1 in order with mac,
+// gemm_out's and mix_out's epilogues, the elementwise expressions above, and
+// the revival's kParts partials combined by block_sum's tree (the leader's
+// kMaxThreads == kParts threads hold one each, as the team's threads
+// t < kParts do).  So the kernels that take it compute the bits of the team
+// and of the one-block kernels.
+//
+// One SM does the work of sixteen here, so the products are built for its
+// shared-memory port, which delivers about 128 bytes a cycle: every operand
+// is stored with its chain index k contiguous (X [P, K] for X' = X M, its
+// transpose X^T [K, P] for Gm = X^T X, Mq transposed), each thread reads 16
+// bytes of a row a load into a register micro-tile, and rows are padded to
+// an odd number of 16-byte vectors, so that the lanes of a quarter-warp
+// reading eight rows hit distinct banks.  Complex bonds keep the team: there
+// a tail is four times the multiply-adds, and one SM took longer for them
+// (116-125 us a power step at chi 25) than the team's phases.
+
+// A row of n floats padded to an odd number of 16-byte vectors.
+__host__ __device__ inline int polar_ld(int n) {
+  return 4 * ((n + 3) / 4 | 1);
+}
+
+// The leader's buffers: X and X' [P, K], X^T and X'^T [K, P], Gm and Mq^T
+// [K, K], in padded rows of floats.  Real Gm = X^T X is symmetric bit for
+// bit (each output's chain of fmaf(X[p][m], X[p][n], acc) is its mirror's,
+// fmaf(a, b, c) == fmaf(b, a, c)), so it is its own transpose.
+__host__ __device__ inline long polar_smem_bytes(int chi, int d) {
+  const long P = (long)chi * d, lk = polar_ld(chi), lp = polar_ld(P);
+  return (2 * P * lk + 2L * chi * lp + 2L * chi * lk) * (long)sizeof(float);
+}
+
+// The leader's budget: one SM's tail beat the team's phases up to real
+// chi 40 at d 5 (150 KB of buffers) and lost from chi 44 (170 KB), where
+// its Gram products grow as chi^2 chi d on one SM.
+constexpr long kPolarSmem = 160L * 1024;
+
+// Whether a Newton-Schulz power step's tail runs on the leader block
+// (ops/bond_kernels.py's polar_path mirrors it).
+template <class T>
+__host__ __device__ inline bool polar_in_block(int chi, int d) {
+  return !IsComplex<T>::value && polar_smem_bytes(chi, d) <= kPolarSmem;
+}
+
+// The four floats at p (16-byte aligned) into v.
+__device__ __forceinline__ void lds16(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+// A thread's tile of a product's grid of tiles: its index (tm, tn) and
+// whether it has one.  A grid deals tile t to thread t mod blockDim.x.
+struct Tile {
+  int tm, tn;
+  bool live;
+};
+
+// Tile t of a gm x gn grid (t = tm gn + tn).
+__device__ inline Tile grid_tile(int t, int gm, int gn) {
+  return Tile{t / gn, t % gn, t < gm * gn};
+}
+
+// Tile t of the g (g + 1) / 2 tiles tm <= tn of a symmetric g x g grid
+// (t = tn (tn + 1) / 2 + tm).
+__device__ inline Tile tri_tile(int t, int g) {
+  int tn = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  while ((tn + 1) * (tn + 2) / 2 <= t) ++tn;
+  while (tn * (tn + 1) / 2 > t) --tn;
+  return Tile{t - tn * (tn + 1) / 2, tn, t < g * (g + 1) / 2};
+}
+
+// One block's product in shared memory: epi(m, n, acc) with acc = sum_k
+// a_m[k] b_n[k] over M x Nc outputs, a_m = A + m lda and b_n = B + n ldb
+// rows contiguous in k.  Thread t keeps a TM x TN register micro-tile, rows
+// tm + gm i and columns tn + gn j (gm, gn the tiles down and across; own the
+// thread's first tile, computed once by the caller), and reads its rows 16
+// bytes at a time; each output is one chain over k = 0..Kd-1 in order with
+// mac.  A tile past the edge repeats the last row or column: it computes
+// that output's bits again and stores them again, so the epilogue needs no
+// branch.  With SYM (a product symmetric bit for bit, M == Nc, TM == TN:
+// Gm = X^T X) only the tiles tm <= tn run, each output stored at (m, n) and
+// (n, m).
+template <int TM, int TN, bool SYM, class Epi>
+__device__ __forceinline__ void row_gemm(Tile own, int M, int Nc, int Kd,
+                                         const float* A, int lda,
+                                         const float* B, int ldb, Epi epi) {
+  static_assert(!SYM || TM == TN, "a symmetric grid has square tiles");
+  const int gm = (M + TM - 1) / TM, gn = (Nc + TN - 1) / TN;
+  const int kv = Kd - Kd % 4;
+  for (int t = threadIdx.x;; t += blockDim.x) {
+    const Tile tl = t == (int)threadIdx.x ? own
+                    : SYM                 ? tri_tile(t, gm)
+                                          : grid_tile(t, gm, gn);
+    if (!tl.live) break;
+    int mi[TM], nj[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) mi[i] = min(tl.tm + gm * i, M - 1);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) nj[j] = min(tl.tn + gn * j, Nc - 1);
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < kv; k += 4) {
+      float av[TM][4], bv[TN][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) lds16(A + mi[i] * lda + k, av[i]);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) lds16(B + nj[j] * ldb + k, bv[j]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = mac(av[i][u], bv[j][u], acc[i][j]);
+    }
+    for (int k = kv; k < Kd; ++k) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = mac(A[mi[i] * lda + k], B[nj[j] * ldb + k], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        epi(mi[i], nj[j], acc[i][j]);
+        if (SYM) epi(nj[j], mi[i], acc[i][j]);
+      }
+  }
+}
+
+// Micro-tiles of the leader's products, from their times on the card at
+// chi 25 (2 x 2 on the Gram products, 4 x 4 on X' of 2 x 2 to 5 x 5): a
+// product's time is about its threads' loaded bytes, (TM + TN) Kd 4 a
+// thread, over the port's 128 a cycle, while enough warps are left to issue
+// the multiply-adds.
+constexpr int kPolarG = 2, kPolarXm = 4, kPolarXn = 4;
+
+// The tail of one Newton-Schulz power step on the leader block: the new
+// iterate yb (the team's products) and yprev staged in its dynamic shared
+// memory (polar_smem_bytes), then the column norms, the revival and its
+// sum, the pre-scale and the polar (power_tail's and ns_polar's phases), the
+// result into ya.  Not inlined, so that its registers do not crowd the
+// kernels' own.
+__device__ __noinline__ inline void leader_tail(int P, int K, const float* yb,
+                                                const float* yprev, float* ya,
+                                                float* red) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int lk = polar_ld(K), lp = polar_ld(P);
+  float* x = reinterpret_cast<float*>(dyn_smem);   // [P, lk]
+  float* xn = x + P * lk;
+  float* xt = xn + P * lk;                         // [K, lp]
+  float* xnt = xt + K * lp;
+  float* gm = xnt + K * lp;                        // [K, lk]
+  float* mqt = gm + K * lk;
+  for (int e = threadIdx.x; e < P * K; e += blockDim.x) {
+    const int r = e / K, c = e % K;
+    const float v = ldcg(yb + e);
+    x[r * lk + c] = v;
+    xt[c * lp + r] = v;
+    xn[r * lk + c] = ldcg(yprev + e);
+  }
+  __syncthreads();
+  float* nrm = gm;
+  for (int j = threadIdx.x; j < K; j += blockDim.x) {
+    const float* col = xt + j * lp;                // column j of the iterate
+    float s = 0.f;
+    int r = 0;
+#pragma unroll 4
+    for (; r + 4 <= P; r += 4) {
+      float v[4];
+      lds16(col + r, v);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s = abs2_add(v[u], s);
+    }
+    for (; r < P; ++r) s = abs2_add(col[r], s);
+    nrm[j] = col_norm(s);
+  }
+  __syncthreads();
+  // partial t: the elements e = t (mod kParts) of the [P, K] iterate, in
+  // order
+  float part = 0.f;
+  for (int e = threadIdx.x; e < P * K; e += kParts) {
+    const int r = e / K, c = e % K;
+    const float v = ns_revive(x[r * lk + c], nrm[c], xn[r * lk + c]);
+    x[r * lk + c] = v;
+    part = abs2_add(v, part);
+  }
+  const float sc = ns_prescale(block_sum(BlockTeam{}, part, red));
+  for (int e = threadIdx.x; e < P * K; e += blockDim.x) {
+    const int r = e / K, c = e % K;
+    float v = x[r * lk + c];
+    v *= sc;
+    x[r * lk + c] = v;
+    xt[c * lp + r] = v;
+  }
+  __syncthreads();
+  // each thread's first tile of the Gram grids and of the update's grid
+  const int gg = (K + kPolarG - 1) / kPolarG;
+  const Tile gram = grid_tile(threadIdx.x, gg, gg);
+  const Tile gram_sym = tri_tile(threadIdx.x, gg);
+  const Tile upd = grid_tile(threadIdx.x, (P + kPolarXm - 1) / kPolarXm,
+                             (K + kPolarXn - 1) / kPolarXn);
+  for (int it = 0; it < kNsQuintic + kNsCubic; ++it) {
+    const float* xs = x;
+    float* xo = xn;
+    float* xot = xnt;
+    // Gm = X^T X
+    row_gemm<kPolarG, kPolarG, true>(
+        gram_sym, K, K, P, xt, lp, xt, lp, [=](int m, int n, float acc) {
+          gm[m * lk + n] = gemm_out(acc, 1.f, 0.f, (const float*)nullptr, 0);
+        });
+    __syncthreads();
+    if (it < kNsQuintic) {
+      // Mq = b Gm + c Gm Gm, stored transposed (row n of Gm is its column)
+      row_gemm<kPolarG, kPolarG, false>(
+          gram, K, K, K, gm, lk, gm, lk, [=](int m, int n, float acc) {
+            mqt[n * lk + m] = mix_out(acc, gm, m * lk + n);
+          });
+      __syncthreads();
+      // X' = a X + X Mq, and X'^T
+      row_gemm<kPolarXm, kPolarXn, false>(
+          upd, P, K, K, xs, lk, mqt, lk, [=](int m, int n, float acc) {
+            const long o = m * lk + n;
+            const float v = gemm_out(acc, 1.f, kNsA, xs, o);
+            xo[o] = v;
+            xot[n * lp + m] = v;
+          });
+    } else {
+      // X' = 1.5 X - 0.5 X Gm, and X'^T
+      row_gemm<kPolarXm, kPolarXn, false>(
+          upd, P, K, K, xs, lk, gm, lk, [=](int m, int n, float acc) {
+            const long o = m * lk + n;
+            const float v = gemm_out(acc, -0.5f, 1.5f, xs, o);
+            xo[o] = v;
+            xot[n * lp + m] = v;
+          });
+    }
+    __syncthreads();
+    float* t = x; x = xn; xn = t;
+    t = xt; xt = xnt; xnt = t;
+  }
+  for (int e = threadIdx.x; e < P * K; e += blockDim.x)
+    ya[e] = x[(e / K) * lk + e % K];
 }
 
 // X <- the QR-gauge orthonormal basis of span(X) [P, K] by kTriNewton damped
@@ -742,6 +1093,9 @@ __device__ inline void tri_newton(const Tm& tm, T* x, T* xn, T* E, T* Tmat,
 // With a.qr set, each step only normalises the columns (no revival, no
 // polar) and the returned iterate is orthonormalised by the caller's QR;
 // with a.tri set, each normalised step is orthonormalised by tri_newton.
+// Under a multi-block team a real Newton-Schulz step's tail after its two
+// products runs on the leader block where it fits (polar_in_block), the
+// rest of the team waiting at one barrier.
 template <class Tm, class T>
 __device__ inline const T* power_tail(const Tm& tm, const K12Args<T>& a,
                                       const T* v0, Work<T> w, float* red) {
@@ -772,10 +1126,18 @@ __device__ inline const T* power_tail(const Tm& tm, const K12Args<T>& a,
              c ? 1.f : 0.f, c ? w.Yb : nullptr);
     }
     tm.sync();
+    if constexpr (Tm::kCluster && !IsComplex<T>::value) {
+      if (!a.qr && !a.tri && polar_in_block<T>(a.chi, a.d)) {
+        if (tm.rank == 0) leader_tail(P, K, w.Yb, yprev, w.Ya, red);
+        tm.sync();
+        yprev = w.Ya;
+        continue;
+      }
+    }
     for (int j = tm.tid(); j < K; j += tm.size()) {
       float s = 0.f;
       for (int r = 0; r < P; ++r) s = abs2_add(w.Yb[r * K + j], s);
-      w.nrm[j] = fmaxf(sqrtf(s), kTiny);
+      w.nrm[j] = col_norm(s);
     }
     tm.sync();
     if (a.qr || a.tri) {
@@ -791,18 +1153,14 @@ __device__ inline const T* power_tail(const Tm& tm, const K12Args<T>& a,
     float part = 0.f;
     for (int e = tm.tid(); tm.holds_part() && e < P * K;
          e += tm.part_stride()) {
-      const T v = w.Yb[e] / w.nrm[e % K] + kNsRevive * yprev[e];
+      const T v = ns_revive(w.Yb[e], w.nrm[e % K], yprev[e]);
       w.Yb[e] = v;
       part = abs2_add(v, part);
     }
-    const float grow = 1.f + 1e-3f;
-    const float sc =
-        1.f / sqrtf(fmaxf(block_sum(tm, part, red) * (grow * grow), kTiny));
+    const float sc = ns_prescale(block_sum(tm, part, red));
     for (int e = tm.tid(); e < P * K; e += tm.size()) w.Yb[e] *= sc;
     tm.sync();
-    const T* y = ns_polar(tm, w.Yb, w.Yc, w, P, K);
-    for (int e = tm.tid(); e < P * K; e += tm.size()) w.Ya[e] = y[e];
-    tm.sync();
+    ns_polar(tm, w.Yb, w.Yc, w.Ya, w, P, K);
     yprev = w.Ya;
   }
   return yprev;
@@ -1676,6 +2034,16 @@ inline int grid_occupancy(Kernel kernel, long smem, int* n) {
   return (int)(e != cudaSuccess ? e : last);
 }
 
+// The dynamic shared memory of a kernel whose power steps may take the
+// leader's tail: the gemm tiles, or the leader's polar buffers where they
+// are larger and fit.
+template <class T>
+inline long bond_smem_bytes(int chi, int d) {
+  const long polar = polar_smem_bytes(chi, d);
+  const long stage = stage_smem_bytes<T>();
+  return polar_in_block<T>(chi, d) && polar > stage ? polar : stage;
+}
+
 // K12cr's dynamic shared memory: the gemm tiles, or the leader's rotation
 // buffers where they are larger and fit.
 template <class T>
@@ -1764,7 +2132,7 @@ inline int launch_k12m_cluster(
       center_out, core_out, env_out, ls_out, q_out, ws, Bb, C, chi, d, N,
       forward, refresh, q_iters, mse, gd, eta, cutoff, max_rank);
   return launch_cluster(k12m_cluster_kernel<T>, cluster,
-                        stage_smem_bytes<T>(), stream, a);
+                        bond_smem_bytes<T>(chi, d), stream, a);
 }
 
 // K12c: K12m's operands at Bb = 1 over one cluster of `cluster` blocks.
@@ -1781,7 +2149,7 @@ inline int launch_k12c(const void* lhs, const void* center0, const void* envx,
       lhs, center0, envx, env0, ls0, nullptr, phil, phir, y1h, w, v0,
       center_out, core_out, env_out, ls_out, q_out, ws, 1, C, chi, d, N,
       forward, refresh, q_iters, 0, 0, eta, cutoff, max_rank);
-  return launch_cluster(k12c_kernel<T>, cluster, stage_smem_bytes<T>(),
+  return launch_cluster(k12c_kernel<T>, cluster, bond_smem_bytes<T>(chi, d),
                         stream, a);
 }
 
@@ -1872,8 +2240,9 @@ inline int launch_k1_cluster(const void* lhs, const void* center0,
   const K12Args<T> a =
       k1_args<T>(lhs, center0, gls, phil, phir, y1h, w, v0, ws, C, chi, d,
                  N, forward, emit_y, q_iters, qr, mse, gd, eta);
-  return launch_cluster(k1_cluster_kernel<T>, cluster, stage_smem_bytes<T>(),
-                        stream, a, static_cast<const T*>(le),
+  return launch_cluster(k1_cluster_kernel<T>, cluster,
+                        bond_smem_bytes<T>(chi, d), stream, a,
+                        static_cast<const T*>(le),
                         static_cast<const T*>(re), static_cast<T*>(bt_out),
                         static_cast<T*>(y_out));
 }
@@ -2046,7 +2415,7 @@ inline int launch_k1b_cluster(const void* lhs, const void* center0,
   const K12Args<T> a = k1b_args<T>(lhs, center0, v0, ws, C, chi, d, forward,
                                    emit_y, q_iters, qr, gd, eta);
   return launch_cluster(k1b_cluster_kernel<T>, cluster,
-                        stage_smem_bytes<T>(), stream, a,
+                        bond_smem_bytes<T>(chi, d), stream, a,
                         static_cast<const T*>(g), static_cast<T*>(bt_out),
                         static_cast<T*>(y_out));
 }
@@ -2092,8 +2461,9 @@ inline int launch_k1_tail_grid(const void* bt, const void* v0, void* y_out,
                                void* stream) {
   const K12Args<T> a =
       k1_tail_args<T>(v0, ws, C, chi, d, forward, q_iters, qr);
-  return launch_grid(k1_tail_grid_kernel<T>, blocks, stage_smem_bytes<T>(),
-                     stream, a, static_cast<const T*>(bt),
+  return launch_grid(k1_tail_grid_kernel<T>, blocks,
+                     bond_smem_bytes<T>(chi, d), stream, a,
+                     static_cast<const T*>(bt),
                      static_cast<T*>(y_out));
 }
 

@@ -87,7 +87,12 @@
 // raised by the wrapper; nothing falls back to one block.  Still bounding
 // them: the dependent chain of phases (a cluster barrier and a tile staging
 // through L2 each) and the products' sequential K chains, kept for the
-// bits.
+// bits.  A Newton-Schulz step is two phases: Gm = X^H X, then every block
+// forms Mq from Gm in its own shared memory and updates its rows of X
+// (team_update), the last step writing Ya.  The real kernels' leader-block
+// tail (bond_step.cu) is not taken here: one SM took longer for the four
+// times as many multiply-adds (116-125 us a power step at chi 25) than
+// the team's phases.
 //
 // K1c and K1c-update run the same way (mpst_k1c_cluster_launch,
 // mpst_k1c_update_cluster_launch, with the wrappers' K1C_CLUSTER and

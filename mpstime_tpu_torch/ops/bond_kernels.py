@@ -41,12 +41,14 @@ the tensors it is given:
 plain versions, so a run can show which path it took (the one-block K12m,
 K1a, K1, K1b, K2, K2-split, K2-env and K1-tail under "k12m_block",
 "k1a_block", "k1_block", "k1b_block", "k2_block", "k2_split_block",
-"k2_env_block" and "k1_tail_block"); both are bumped under one lock
-(``count``), and each counted launch is the program span "mps/launch"
-under a profiler (``counted_launch``).  Operand layouts are
-the JAX kernels': the class-major center [C, chi, d, chi], environments
-[N, chi], conjugated features [N, d], subspace caches [chi*d, chi], and the
-bond tensor and its gradient [C, chi*d, d, chi].
+"k2_env_block" and "k1_tail_block"); ``POLAR_STEPS`` counts the
+Newton-Schulz power steps of the cluster and grid kernels by where their
+tail ran (``polar_path``: the leader block's shared memory or the whole
+team).  All are bumped under one lock (``count``), and each counted launch
+is the program span "mps/launch" under a profiler (``counted_launch``).
+Operand layouts are the JAX kernels': the class-major center [C, chi, d,
+chi], environments [N, chi], conjugated features [N, d], subspace caches
+[chi*d, chi], and the bond tensor and its gradient [C, chi*d, d, chi].
 """
 
 from __future__ import annotations
@@ -86,6 +88,13 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
      "k1_tail_block", "k1c_tail_block"), 0)
 #: Dispatches to each kernel's plain version since the last reset_counts().
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
+#: Newton-Schulz power steps of the cluster and grid kernels since the last
+#: reset_counts(), by where each step's tail after its two products ran:
+#: "block", the leader block's shared memory, or "team", the phases of the
+#: whole cluster or grid (``polar_path``).  The counted wrappers of K12,
+#: K12m, K12c, K12mc, K1, K1c, K1b, K1c-update, K1-tail and K1c-tail add
+#: ``power_iters`` for each refreshing bond they launch under orth "ns".
+POLAR_STEPS: Dict[str, int] = {"block": 0, "team": 0}
 
 #: Refresh bonds with chi >= SPLIT_TAIL_CHI take the split-tail route unless
 #: the caller passes ``split_tail=``; None: never by default.  The port's
@@ -116,6 +125,43 @@ def reset_counts() -> None:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
             PLAIN_CALLS[k] = 0
+        for k in POLAR_STEPS:
+            POLAR_STEPS[k] = 0
+
+
+#: The leader block's budget for a real Newton-Schulz tail (csrc/
+#: bond_step.cuh's kPolarSmem): its tail beat the team's phases up to real
+#: chi 40 at d 5 and lost from chi 44 on the card.
+POLAR_SMEM = 160 * 1024
+
+
+def polar_smem_bytes(chi: int, d: int) -> int:
+    """The leader block's buffers for a real Newton-Schulz step's tail at
+    bond width ``chi`` and site dimension ``d`` (csrc/bond_step.cuh's
+    polar_smem_bytes): X and X' [chi*d, chi], their transposes [chi, chi*d]
+    and Gm and Mq^T [chi, chi], float32 rows padded to an odd number of
+    16-byte vectors."""
+    def ld(n):
+        return 4 * ((n + 3) // 4 | 1)
+
+    P = chi * d
+    return (2 * P * ld(chi) + 2 * chi * ld(P) + 2 * chi * ld(chi)) * 4
+
+
+def polar_path(chi: int, d: int, is_complex: bool = False) -> str:
+    """Where the cluster and grid kernels run a Newton-Schulz step's tail:
+    "block" for a real bond whose leader buffers fit (``polar_smem_bytes``
+    at most ``POLAR_SMEM``), else "team" (complex bonds always)."""
+    return ("block" if not is_complex
+            and polar_smem_bytes(chi, d) <= POLAR_SMEM else "team")
+
+
+def count_polar(chi: int, d: int, steps: int,
+                is_complex: bool = False) -> None:
+    """Add ``steps`` Newton-Schulz power steps to POLAR_STEPS under the key
+    ``polar_path`` picks."""
+    if steps:
+        count(POLAR_STEPS, polar_path(chi, d, is_complex), steps)
 
 
 def counted_launch(kernel: str) -> Callable:
@@ -816,6 +862,7 @@ def k12_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0, eta,
         opp_ls, phil[None], phir[None], y1h, w, V0[None], eta, cutoff,
         forward=forward, refresh=refresh, power_iters=power_iters,
         max_rank=max_rank, loss=loss, bbopt=bbopt)
+    count_polar(A_or_B.shape[0], A_or_B.shape[1], refresh * power_iters)
     return center2, core[0], env2[0], ls2[0], Q[0]
 
 
@@ -826,11 +873,14 @@ def k12m_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk, phir_blk,
               bbopt: str = "TSGO") -> Out5:
     """K12m: Bb consecutive bond steps (KLD) as one launch of a
     thread-block cluster of ``K12M_CLUSTER`` blocks."""
-    return _k12m_cluster(
+    out = _k12m_cluster(
         K12M_CLUSTER, A_blk, center_c, envx_blk, env0, env_ls0, None,
         phil_blk, phir_blk, y1h, w, V0_blk, eta, cutoff, forward=forward,
         refresh=refresh, power_iters=power_iters, max_rank=max_rank,
         loss="KLD", bbopt=bbopt)
+    Bb, chi, d = A_blk.shape[:3]
+    count_polar(chi, d, Bb * refresh * power_iters)
+    return out
 
 
 @counted_launch("k12m_block")
@@ -869,9 +919,12 @@ def k1_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, gls, V0, eta, *,
     (default ``K1_CLUSTER``); operands and results as ``k1_plain``'s.  A
     cluster the card cannot place raises RuntimeError."""
     n = _cluster_size(K1_CLUSTER if cluster is None else cluster)
-    return _k1("mpst_k1_cluster_launch", (n,), A_or_B, center_c, le, re, phil,
-               phir, y1h, w, gls, V0, eta, forward=forward, emit_y=emit_y,
-               power_iters=power_iters, orth=orth, loss=loss, bbopt=bbopt)
+    out = _k1("mpst_k1_cluster_launch", (n,), A_or_B, center_c, le, re, phil,
+              phir, y1h, w, gls, V0, eta, forward=forward, emit_y=emit_y,
+              power_iters=power_iters, orth=orth, loss=loss, bbopt=bbopt)
+    count_polar(A_or_B.shape[0], A_or_B.shape[1],
+                emit_y * (orth == "ns") * power_iters)
+    return out
 
 
 @counted_launch("k1_block")
@@ -967,9 +1020,12 @@ def k1b_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
     (default ``K1B_CLUSTER``); operands and results as ``k1b_plain``'s.  A
     cluster the card cannot place raises RuntimeError."""
     n = _cluster_size(K1B_CLUSTER if cluster is None else cluster)
-    return _k1b("mpst_k1b_cluster_launch", (n,), A_or_B, center_c, G, V0, eta,
-                forward=forward, emit_y=emit_y, power_iters=power_iters,
-                orth=orth, bbopt=bbopt)
+    out = _k1b("mpst_k1b_cluster_launch", (n,), A_or_B, center_c, G, V0, eta,
+               forward=forward, emit_y=emit_y, power_iters=power_iters,
+               orth=orth, bbopt=bbopt)
+    count_polar(A_or_B.shape[0], A_or_B.shape[1],
+                emit_y * (orth == "ns") * power_iters)
+    return out
 
 
 @counted_launch("k1b_block")
@@ -1003,8 +1059,10 @@ def k1_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
     ``k1_tail_plain``'s.  A grid the card cannot hold at once raises
     RuntimeError."""
     n = _grid_blocks(K1_TAIL_BLOCKS if blocks is None else blocks)
-    return _k1_tail("mpst_k1_tail_grid_launch", (n,), BT, V0, forward=forward,
-                    power_iters=power_iters, orth=orth)
+    out = _k1_tail("mpst_k1_tail_grid_launch", (n,), BT, V0, forward=forward,
+                   power_iters=power_iters, orth=orth)
+    count_polar(BT.shape[3], BT.shape[2], (orth == "ns") * power_iters)
+    return out
 
 
 @counted_launch("k1_tail_block")

@@ -49,7 +49,8 @@ Launches and plain calls count under "k12c", "k12mc", "k1c", "k2c",
 K1c-update, K1c-grad, K2c, K2c-split, K2c-env and K1c-tail under
 "k12mc_block", "k1c_block", "k1c_update_block", "k1c_grad_block",
 "k2c_block", "k2c_split_block", "k2c_env_block" and "k1c_tail_block"),
-through ``bond_kernels.counted_launch`` and ``bond_kernels.count``.
+through ``bond_kernels.counted_launch`` and ``bond_kernels.count``, and
+their Newton-Schulz power steps in ``bond_kernels.POLAR_STEPS``.
 Operand layouts are the real kernels': phil / phir are the conjugated
 encoded states, the center is class-major [C, chi, d, chi], environments
 [N, chi] with real log-scales [N], labels [N, C] and weights [N] real
@@ -214,6 +215,8 @@ def k12c_cuda(A_or_B, center_c, le, re, env_ls, phil, phir, y1h, w, V0,
         env_ls, None, phil[None], phir[None], y1h, w, V0[None], eta, cutoff,
         forward=forward, refresh=refresh, power_iters=power_iters,
         max_rank=max_rank)
+    bk.count_polar(A_or_B.shape[0], A_or_B.shape[1], refresh * power_iters,
+                   is_complex=True)
     return center2, core[0], env2[0], ls2[0], Q[0]
 
 
@@ -225,10 +228,13 @@ def k12mc_cuda(A_blk, center_c, envx_blk, env0, env_ls0, phil_blk,
     """K12mc: Bb consecutive complex bond steps as one launch of a
     thread-block cluster of ``K12MC_CLUSTER`` blocks."""
     _check_kld_tsgo(loss, bbopt)
-    return _k12mc_cluster(K12MC_CLUSTER, A_blk, center_c, envx_blk, env0,
-                          env_ls0, None, phil_blk, phir_blk, y1h, w, V0_blk,
-                          eta, cutoff, forward=forward, refresh=refresh,
-                          power_iters=power_iters, max_rank=max_rank)
+    out = _k12mc_cluster(K12MC_CLUSTER, A_blk, center_c, envx_blk, env0,
+                         env_ls0, None, phil_blk, phir_blk, y1h, w, V0_blk,
+                         eta, cutoff, forward=forward, refresh=refresh,
+                         power_iters=power_iters, max_rank=max_rank)
+    Bb, chi, d = A_blk.shape[:3]
+    bk.count_polar(chi, d, Bb * refresh * power_iters, is_complex=True)
+    return out
 
 
 @bk.counted_launch("k12mc_block")
@@ -267,9 +273,12 @@ def k1c_cuda(A_or_B, center_c, le, re, phil, phir, y1h, w, V0, eta, *,
     cluster the card cannot place raises RuntimeError."""
     _check_kld_tsgo(loss, bbopt)
     n = _cluster_size(K1C_CLUSTER if cluster is None else cluster)
-    return _k1c("mpst_k1c_cluster_launch", (n,), A_or_B, center_c, le, re,
-                phil, phir, y1h, w, V0, eta, forward=forward, emit_y=emit_y,
-                power_iters=power_iters, orth=orth)
+    out = _k1c("mpst_k1c_cluster_launch", (n,), A_or_B, center_c, le, re,
+               phil, phir, y1h, w, V0, eta, forward=forward, emit_y=emit_y,
+               power_iters=power_iters, orth=orth)
+    bk.count_polar(A_or_B.shape[0], A_or_B.shape[1],
+                   emit_y * (orth == "ns") * power_iters, is_complex=True)
+    return out
 
 
 @bk.counted_launch("k1c_block")
@@ -394,9 +403,12 @@ def k1c_update_cuda(A_or_B, center_c, G, V0, eta, *, forward: bool,
     RuntimeError."""
     _check_kld_tsgo("KLD", bbopt)
     n = _cluster_size(K1C_UPDATE_CLUSTER if cluster is None else cluster)
-    return _k1c_update("mpst_k1c_update_cluster_launch", (n,), A_or_B,
-                       center_c, G, V0, eta, forward=forward, emit_y=emit_y,
-                       power_iters=power_iters, orth=orth)
+    out = _k1c_update("mpst_k1c_update_cluster_launch", (n,), A_or_B,
+                      center_c, G, V0, eta, forward=forward, emit_y=emit_y,
+                      power_iters=power_iters, orth=orth)
+    bk.count_polar(A_or_B.shape[0], A_or_B.shape[1],
+                   emit_y * (orth == "ns") * power_iters, is_complex=True)
+    return out
 
 
 @bk.counted_launch("k1c_update_block")
@@ -495,8 +507,11 @@ def k1c_tail_cuda(BT, V0, *, forward: bool, power_iters: int = 1,
     ``k1c_tail_plain``'s (orth "ns" or "qr").  A grid the card cannot hold
     at once raises RuntimeError."""
     n = _grid_blocks(K1C_TAIL_BLOCKS if blocks is None else blocks)
-    return _k1c_tail("mpst_k1c_tail_grid_launch", (n,), BT, V0,
-                     forward=forward, power_iters=power_iters, orth=orth)
+    out = _k1c_tail("mpst_k1c_tail_grid_launch", (n,), BT, V0,
+                    forward=forward, power_iters=power_iters, orth=orth)
+    bk.count_polar(BT.shape[3], BT.shape[2], (orth == "ns") * power_iters,
+                   is_complex=True)
+    return out
 
 
 @bk.counted_launch("k1c_tail_block")

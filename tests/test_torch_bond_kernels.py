@@ -412,3 +412,128 @@ def test_routes_on_the_card_reach_the_cluster_k12m(monkeypatch, route):
         ("mpst_k12m_cluster_launch", bk.K12M_CLUSTER)]
     assert {k: v for k, v in bk.LAUNCHES.items() if v} == {key: 1}
     assert sum(bk.PLAIN_CALLS.values()) == 0
+
+
+# ---- the leader block's Newton-Schulz tail: its shape rule and counter ------
+
+@pytest.mark.parametrize("chi,d,is_complex,path", [
+    (25, 5, False, "block"), (25, 5, True, "team"), (40, 5, False, "block"),
+    (44, 5, False, "team"), (64, 5, False, "team"), (64, 5, True, "team"),
+    (72, 5, False, "team"), (192, 5, False, "team"), (6, 3, True, "team"),
+    (192, 5, True, "team")])
+def test_polar_path_follows_the_leader_buffers(chi, d, is_complex, path):
+    """A real Newton-Schulz step's tail runs on the leader block where X,
+    X' [chi*d, chi], their transposes and Gm and Mq^T [chi, chi], float32
+    rows padded to an odd number of 16-byte vectors, fit in POLAR_SMEM
+    (csrc/bond_step.cuh's polar_in_block); a complex one, or one past that,
+    on the team."""
+    def ld(n):
+        return 4 * ((n + 3) // 4 | 1)
+
+    P = chi * d
+    nbytes = bk.polar_smem_bytes(chi, d)
+    assert nbytes == (2 * P * ld(chi) + 2 * chi * ld(P)
+                      + 2 * chi * ld(chi)) * 4
+    assert (nbytes <= bk.POLAR_SMEM and not is_complex) == (path == "block")
+    assert bk.polar_path(chi, d, is_complex) == path
+
+
+def test_polar_smem_bytes_at_the_cells_shape():
+    # chi 25, d 5: rows of 28 and 132 floats, 58.6 KB of the leader's
+    # 160 KB; chi 40: 146.3 KB, chi 44: 166.4 KB
+    assert bk.polar_smem_bytes(25, 5) == 60000
+    assert bk.polar_smem_bytes(40, 5) == 149760 <= bk.POLAR_SMEM == 163840
+    assert bk.polar_smem_bytes(44, 5) == 170368 > bk.POLAR_SMEM
+
+
+def test_reset_counts_clears_polar_steps():
+    bk.reset_counts()
+    bk.count_polar(25, 5, 3)
+    bk.count_polar(25, 5, 0)
+    bk.count_polar(25, 5, 2, is_complex=True)
+    assert bk.POLAR_STEPS == {"block": 3, "team": 2}
+    bk.reset_counts()
+    assert bk.POLAR_STEPS == {"block": 0, "team": 0}
+
+
+def _zero_operands(chi, d, dtype, Bb=1, C=2, N=4):
+    """Operands of every bond kernel wrapper at (chi, d), all zeros; labels,
+    weights and log-scales float32."""
+    P = chi * d
+
+    def z(*shape, real=False):
+        return torch.zeros(shape, dtype=torch.float32 if real else dtype)
+
+    return dict(A=z(Bb, chi, d, chi), center=z(C, chi, d, chi),
+                envx=z(Bb, N, chi), env0=z(N, chi), ls=z(N, real=True),
+                phil=z(Bb, N, d), phir=z(Bb, N, d), y1h=z(N, C, real=True),
+                w=z(N, real=True), V0=z(Bb, P, chi), G=z(C, P, d, chi))
+
+
+def _wrapper_call(key, x, flag, orth, q):
+    """Launch the counted wrapper ``key`` on _zero_operands ``x``: flag is
+    refresh (K12, K12m, K12c, K12mc) or emit_y (K1, K1c, K1b, K1c-update),
+    orth the power step's (K1 and the pieces)."""
+    single = (x["A"][0], x["center"], x["envx"][0], x["env0"], x["ls"],
+              x["phil"][0], x["phir"][0], x["y1h"], x["w"], x["V0"][0], 0.05,
+              1e-10)
+    block = (x["A"], x["center"], x["envx"], x["env0"], x["ls"], x["phil"],
+             x["phir"], x["y1h"], x["w"], x["V0"], 0.05, 1e-10)
+    k1 = (x["A"][0], x["center"], x["envx"][0], x["env0"], x["phil"][0],
+          x["phir"][0], x["y1h"], x["w"])
+    kw = dict(forward=False, power_iters=q)
+    if key in ("k12", "k12c"):
+        fn = bk.k12_cuda if key == "k12" else bkc.k12c_cuda
+        return fn(*single, refresh=flag, **kw)
+    if key in ("k12m", "k12mc"):
+        fn = bk.k12m_cuda if key == "k12m" else bkc.k12mc_cuda
+        return fn(*block, refresh=flag, **kw)
+    kw.update(orth=orth)
+    if key == "k1":
+        return bk.k1_cuda(*k1, None, x["V0"][0], 0.05, emit_y=flag, **kw)
+    if key == "k1c":
+        return bkc.k1c_cuda(*k1, x["V0"][0], 0.05, emit_y=flag, **kw)
+    if key in ("k1b", "k1c_update"):
+        fn = bk.k1b_cuda if key == "k1b" else bkc.k1c_update_cuda
+        return fn(x["A"][0], x["center"], x["G"], x["V0"][0], 0.05,
+                  emit_y=flag, **kw)
+    fn = bk.k1_tail_cuda if key == "k1_tail" else bkc.k1c_tail_cuda
+    return fn(x["G"], x["V0"][0], **kw)
+
+
+@pytest.mark.parametrize("key,chi,d,Bb,flag,orth,q,want", [
+    ("k12", 6, 3, 1, True, "ns", 3, {"block": 3}),
+    ("k12", 6, 3, 1, False, "ns", 3, {}),
+    ("k12", 72, 5, 1, True, "ns", 1, {"team": 1}),
+    ("k12m", 6, 3, 3, True, "ns", 3, {"block": 9}),
+    ("k12m", 6, 3, 3, False, "ns", 1, {}),
+    ("k12c", 25, 5, 1, True, "ns", 3, {"team": 3}),
+    ("k12c", 64, 5, 1, True, "ns", 3, {"team": 3}),
+    ("k12mc", 6, 3, 4, True, "ns", 2, {"team": 8}),
+    ("k1", 6, 3, 1, True, "ns", 2, {"block": 2}),
+    ("k1", 6, 3, 1, True, "qr", 2, {}),
+    ("k1c", 6, 3, 1, True, "ns", 3, {"team": 3}),
+    ("k1b", 25, 5, 1, True, "ns", 1, {"block": 1}),
+    ("k1b", 6, 3, 1, False, "ns", 1, {}),
+    ("k1b", 72, 5, 1, True, "ns", 2, {"team": 2}),
+    ("k1c_update", 6, 3, 1, True, "ns", 3, {"team": 3}),
+    ("k1c_update", 6, 3, 1, True, "qr", 3, {}),
+    ("k1_tail", 6, 3, 1, None, "ns", 1, {"block": 1}),
+    ("k1_tail", 192, 2, 1, None, "ns", 1, {"team": 1}),
+    ("k1c_tail", 6, 3, 1, None, "ns", 3, {"team": 3}),
+    ("k1c_tail", 6, 3, 1, None, "qr", 3, {})])
+def test_counted_wrappers_count_polar_steps(monkeypatch, key, chi, d, Bb,
+                                            flag, orth, q, want):
+    """Each counted cluster or grid launch adds power_iters Newton-Schulz
+    power steps a refreshing bond (refresh, or emit_y under orth "ns") to
+    POLAR_STEPS under polar_path's key; frozen bonds, passed-through
+    iterates and the qr route add none.  Nothing is launched."""
+    calls = _record_launches(monkeypatch)
+    is_complex = key in ("k12c", "k12mc", "k1c", "k1c_update", "k1c_tail")
+    x = _zero_operands(chi, d, torch.complex64 if is_complex
+                       else torch.float32, Bb=Bb)
+    bk.reset_counts()
+    _wrapper_call(key, x, flag, orth, q)
+    assert len(calls) == 1 and bk.LAUNCHES[key] == 1
+    assert bk.POLAR_STEPS == {"block": 0, "team": 0, **want}
+    bk.reset_counts()

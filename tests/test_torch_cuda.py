@@ -614,19 +614,39 @@ def _equal(got, ref):
         assert torch.equal(g, r), float((g - r).abs().max())
 
 
+def _polar_delta(bk, before, shape, steps, is_complex=False):
+    """POLAR_STEPS moved by ``steps`` Newton-Schulz power steps since
+    ``before``, all under the key the shape rule picks: "block" for a real
+    bond at chi 25, "team" for a complex one and past the leader's shared
+    memory (chi 72)."""
+    path = bk.polar_path(shape["chi"], shape["d"], is_complex)
+    assert path == ("block" if shape["chi"] == 25 and not is_complex
+                    else "team")
+    assert {k: bk.POLAR_STEPS[k] - before[k] for k in before} == {
+        "block": 0, "team": 0, path: steps}
+
+
+#: A complex bond past the leader's shared memory (RITZ_SHAPE at small N).
+PAST_C = dict(RITZ_SHAPE, N=16)
+
+
+@pytest.mark.parametrize("shape", [SHAPE, PAST_C], ids=["chi25", "chi64"])
 @pytest.mark.parametrize("forward", [False, True])
 @pytest.mark.parametrize("refresh,q,mr", [(True, 3, None), (True, 1, None),
                                           (False, 1, None), (True, 3, 17)])
-def test_k12c_cluster_equals_k12mc_at_one_block(bkc, forward, refresh, q,
-                                                mr):
+def test_k12c_cluster_equals_k12mc_at_one_block(bk, bkc, shape, forward,
+                                                refresh, q, mr):
     # K12c runs one bond over a cluster; the one-block K12mc at Bb = 1 is
-    # the one-block kernel over the same device functions: the same bits
-    x = _inputs_c(31, 1, **SHAPE)
+    # the one-block kernel over the same device functions: the same bits,
+    # with the power step's tail on the leader block (chi 25) or the team
+    x = _inputs_c(31, 1, **shape)
     kw = dict(forward=forward, refresh=refresh, power_iters=q, max_rank=mr)
+    before = dict(bk.POLAR_STEPS)
     got = bkc.k12c_cuda(*_single(x, forward), **kw)
     one = bkc.k12mc_block_cuda(*_block(x), **kw)
     torch.cuda.synchronize()
     _equal(got, (one[0],) + tuple(t[0] for t in one[1:]))
+    _polar_delta(bk, before, shape, refresh * q, is_complex=True)
 
 
 @pytest.mark.parametrize("shape", [RITZ_SHAPE, dict(C=2, chi=8, d=3, N=16)],
@@ -708,12 +728,15 @@ def test_k1c_update_cluster_equals_one_block(bk, bkc, forward, emit_y, q,
     kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth)
     n0 = bk.LAUNCHES["k1c_update"]
     b0 = bk.LAUNCHES["k1c_update_block"]
+    before = dict(bk.POLAR_STEPS)
     got = bkc.k1c_update_cuda(*args, **kw)
     one = bkc.k1c_update_block_cuda(*args, **kw)
     torch.cuda.synchronize()
     assert (bk.LAUNCHES["k1c_update"],
             bk.LAUNCHES["k1c_update_block"]) == (n0 + 1, b0 + 1)
     _equal(got, one)
+    _polar_delta(bk, before, SHAPE, emit_y * (orth == "ns") * q,
+                 is_complex=True)
 
 
 @pytest.mark.parametrize("key", ["k1c", "k1c_update"])
@@ -895,12 +918,14 @@ def test_k1_cluster_equals_one_block(bk, forward, emit_y, q, orth, key, loss,
     kw = dict(forward=forward, emit_y=emit_y, power_iters=q, orth=orth,
               bbopt=bbopt, **({"loss": loss} if loss else {}))
     n0, b0 = bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]
+    before = dict(bk.POLAR_STEPS)
     got = cuda(*args, **kw)
     one = block(*args, **kw)
     torch.cuda.synchronize()
     assert (bk.LAUNCHES[key], bk.LAUNCHES[f"{key}_block"]) == (n0 + 1,
                                                                b0 + 1)
     _equal(got, one)
+    _polar_delta(bk, before, SHAPE, emit_y * (orth == "ns") * q)
 
 
 @pytest.mark.parametrize("key", ["k1", "k1b"])
@@ -1200,20 +1225,27 @@ def _raw_block(x):
     return b[:5] + (None,) + b[5:]
 
 
+#: A real bond past the leader's shared memory.
+PAST = dict(C=2, chi=72, d=5, N=16)
+
+
+@pytest.mark.parametrize("shape", [SHAPE, PAST], ids=["chi25", "chi72"])
 @pytest.mark.parametrize("Bb", [1, 2, 4, 8])
 @pytest.mark.parametrize("forward", [False, True])
 @pytest.mark.parametrize("refresh,q,bbopt,mr", K12M_GRID)
-def test_k12m_cluster_equals_one_block(bk, Bb, forward, refresh, q, bbopt,
-                                       mr):
+def test_k12m_cluster_equals_one_block(bk, shape, Bb, forward, refresh, q,
+                                       bbopt, mr):
     # K12 (Bb = 1) and K12m run their bonds over a cluster;
     # k12m_block_cuda is the one-block kernel over the same device
     # functions: the same bits, the carried center, environment and
-    # log-scales included
-    x = _inputs(41 + Bb, Bb, **SHAPE)
+    # log-scales included, with each power step's tail on the leader block
+    # (chi 25) or the team (chi 72)
+    x = _inputs(41 + Bb, Bb, **shape)
     kw = dict(forward=forward, refresh=refresh, power_iters=q, max_rank=mr,
               bbopt=bbopt)
     key = "k12" if Bb == 1 else "k12m"
     n0, b0 = bk.LAUNCHES[key], bk.LAUNCHES["k12m_block"]
+    before = dict(bk.POLAR_STEPS)
     one = bk.k12m_block_cuda(*_block(x), **kw)
     if Bb == 1:
         got, one = bk.k12_cuda(*_single(x, forward), **kw), _first(one)
@@ -1222,6 +1254,7 @@ def test_k12m_cluster_equals_one_block(bk, Bb, forward, refresh, q, bbopt,
     torch.cuda.synchronize()
     assert (bk.LAUNCHES[key], bk.LAUNCHES["k12m_block"]) == (n0 + 1, b0 + 1)
     _equal(got, one)
+    _polar_delta(bk, before, shape, Bb * refresh * q)
 
 
 @pytest.mark.parametrize("forward", [False, True])
