@@ -45,7 +45,8 @@ K1a, K1, K1b, K2, K2-split, K2-env and K1-tail under "k12m_block",
 Newton-Schulz power steps of the cluster and grid kernels by where their
 tail ran (``polar_path``: the leader block's shared memory or the whole
 team).  All are bumped under one lock (``count``), and each counted launch
-is the program span "mps/launch" under a profiler (``counted_launch``).
+is the program span "mps/launch" under a profiler (``counted_launch``),
+holding a span "mps/polar" where it ran power steps (``count_polar``).
 Operand layouts are the JAX kernels': the class-major center [C, chi, d,
 chi], environments [N, chi], conjugated features [N, d], subspace caches
 [chi*d, chi], and the bond tensor and its gradient [C, chi*d, d, chi].
@@ -159,9 +160,13 @@ def polar_path(chi: int, d: int, is_complex: bool = False) -> str:
 def count_polar(chi: int, d: int, steps: int,
                 is_complex: bool = False) -> None:
     """Add ``steps`` Newton-Schulz power steps to POLAR_STEPS under the key
-    ``polar_path`` picks."""
+    ``polar_path`` picks; under a profiler also the program span
+    "mps/polar" (attributes ``path`` and ``steps``) inside the open
+    "mps/launch"."""
     if steps:
-        count(POLAR_STEPS, polar_path(chi, d, is_complex), steps)
+        path = polar_path(chi, d, is_complex)
+        with profiling.annotate("mps/polar", path=path, steps=steps):
+            count(POLAR_STEPS, path, steps)
 
 
 def counted_launch(kernel: str) -> Callable:

@@ -26,6 +26,10 @@ kernels and the program's spans, on one clock:
   ``mps/launch``              a counted CUDA launch wrapper of
                               ``ops/bond_kernels.py`` / ``bond_kernels_c.py``
                               from entry to return (attribute ``kernel``)
+  ``mps/polar``               inside a launch that ran Newton-Schulz power
+                              steps: where their tails ran (attributes
+                              ``path``, "block" or "team", and ``steps``;
+                              ``bond_kernels.count_polar``)
   ``mps/classify``            a whole ``classify`` call (a trace of its own)
   ``mps/classify/encode``     transform, encoding and cast of the test set
   ``mps/classify/contract``   the contraction, argmax and readback, ending

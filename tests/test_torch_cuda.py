@@ -618,7 +618,7 @@ def _polar_delta(bk, before, shape, steps, is_complex=False):
     """POLAR_STEPS moved by ``steps`` Newton-Schulz power steps since
     ``before``, all under the key the shape rule picks: "block" for a real
     bond at chi 25, "team" for a complex one and past the leader's shared
-    memory (chi 72)."""
+    memory (chi 72, and chi 40 at d 15)."""
     path = bk.polar_path(shape["chi"], shape["d"], is_complex)
     assert path == ("block" if shape["chi"] == 25 and not is_complex
                     else "team")
@@ -1227,9 +1227,14 @@ def _raw_block(x):
 
 #: A real bond past the leader's shared memory.
 PAST = dict(C=2, chi=72, d=5, N=16)
+#: The largest trial of the paper's ECG200 tuning box (d 15, chi_max 40):
+#: its leader buffers (418,560 bytes) pass POLAR_SMEM, so each power
+#: step's tail runs on the team.
+WIDE = dict(C=2, chi=40, d=15, N=100)
 
 
-@pytest.mark.parametrize("shape", [SHAPE, PAST], ids=["chi25", "chi72"])
+@pytest.mark.parametrize("shape", [SHAPE, PAST, WIDE],
+                         ids=["chi25", "chi72", "chi40d15"])
 @pytest.mark.parametrize("Bb", [1, 2, 4, 8])
 @pytest.mark.parametrize("forward", [False, True])
 @pytest.mark.parametrize("refresh,q,bbopt,mr", K12M_GRID)
@@ -1255,6 +1260,30 @@ def test_k12m_cluster_equals_one_block(bk, shape, Bb, forward, refresh, q,
     assert (bk.LAUNCHES[key], bk.LAUNCHES["k12m_block"]) == (n0 + 1, b0 + 1)
     _equal(got, one)
     _polar_delta(bk, before, shape, Bb * refresh * q)
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("block", [False, True], ids=["k12", "k12m"])
+def test_k12_and_k12m_match_plain_at_the_box_corner(bk, forward, block):
+    """K12 and a K12m block of 8 at d 15, chi 40, N 100 (P 600, every tail
+    on the team) against their plain versions."""
+    assert bk.polar_path(WIDE["chi"], WIDE["d"]) == "team"
+    Bb = 8 if block else 1
+    x = _inputs(61 + forward, Bb, **WIDE)
+    kw = dict(forward=forward, refresh=True, power_iters=1)
+    key = "k12m" if block else "k12"
+    n0 = bk.LAUNCHES[key]
+    before = dict(bk.POLAR_STEPS)
+    if block:
+        got = bk.bond_block_steps(*_block(x), **kw)
+        ref = bk.k12m_plain(*_block(x), **kw)
+    else:
+        got = bk.bond_step(*_single(x, forward), orth="ns", **kw)
+        ref = bk.k12_plain(*_single(x, forward), **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == n0 + 1
+    _close(got, ref)
+    _polar_delta(bk, before, WIDE, Bb)
 
 
 @pytest.mark.parametrize("forward", [False, True])

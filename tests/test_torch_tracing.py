@@ -207,3 +207,24 @@ def test_a_counted_launch_is_a_span_under_the_profiler():
     s, = profiling.spans()
     assert (s.name, s.attrs) == ("mps/launch", {"kernel": "k2c"})
     bk.reset_counts()
+
+
+def test_a_launch_that_runs_power_steps_holds_a_polar_span():
+    launch = bk.counted_launch("k12m")(
+        lambda chi, d, steps: bk.count_polar(chi, d, steps))
+    profiling.clear_spans()
+    bk.reset_counts()
+    _profiled(lambda: (launch(25, 5, 8), launch(40, 15, 8),
+                       launch(40, 15, 0)))
+    launch(40, 15, 3)                     # unprofiled: counted, no span
+    assert bk.POLAR_STEPS == {"block": 8, "team": 11}
+    spans = profiling.spans()
+    launches = {s.span_id: s for s in spans if s.name == "mps/launch"}
+    polar = [s for s in spans if s.name == "mps/polar"]
+    assert len(launches) == 3
+    assert [s.attrs for s in polar] == [{"path": "block", "steps": 8},
+                                        {"path": "team", "steps": 8}]
+    for s in polar:
+        parent = launches[s.parent_id]
+        assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+    bk.reset_counts()
